@@ -1,0 +1,140 @@
+"""`python -m trivy_tpu_torch fs --scanners secret [--secret-config F]
+[--format json] [--device cuda|cpu] <dir>`: a filesystem secret scan
+through `GpuSecretEngine`, printed as Trivy's JSON report (SchemaVersion 2,
+one `Results[]` entry of Class "secret" per file with findings).
+
+The walk keeps the reference secret analyzer's gates
+(`trivy_tpu/analyzer/secret.py`, pkg/fanal/analyzer/secret/secret.go:28-153):
+skip lists, the allow-path rules, the binary sniff, and `\\r` stripping.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from trivy_tpu_torch.device import DEFAULT_DEVICE
+from trivy_tpu_torch.rules.model import load_config
+
+SCHEMA_VERSION = 2
+
+# secret.go:28-42
+SKIP_FILES = {
+    "go.mod",
+    "go.sum",
+    "package-lock.json",
+    "yarn.lock",
+    "pnpm-lock.yaml",
+    "Pipfile.lock",
+    "Gemfile.lock",
+}
+SKIP_DIRS = {".git", "node_modules"}
+SKIP_EXTS = {
+    ".jpg", ".png", ".gif", ".doc", ".pdf", ".bin", ".svg", ".socket",
+    ".deb", ".rpm", ".zip", ".gz", ".gzip", ".tar", ".pyc",
+}
+
+# Bytes the reference's control-byte heuristic accepts as text.
+_TEXT_BYTES = bytes(
+    b
+    for b in range(256)
+    if not (
+        b < 7 or b == 11 or (13 < b < 27) or (27 < b < 0x20) or b == 0x7F
+    )
+)
+
+
+def is_binary(head: bytes) -> bool:
+    """utils.IsBinary control-byte heuristic over the first 300 bytes
+    (pkg/fanal/utils/utils.go:76-93)."""
+    return bool(head[:300].translate(None, _TEXT_BYTES))
+
+
+def _config_skip_paths(config_path: str) -> frozenset[str]:
+    """The secret config's basename and normalized relative path: the scan
+    skips the config file itself (secret.go:138)."""
+    if not config_path:
+        return frozenset()
+    norm = os.path.normpath(config_path).replace(os.sep, "/")
+    if norm.startswith("./"):
+        norm = norm[2:]
+    return frozenset({os.path.basename(config_path), norm})
+
+
+def collect(root: str, ruleset, config_path: str = "") -> list[tuple[str, bytes]]:
+    """(relative path, content) of every file the secret analyzer scans,
+    in walk order."""
+    cfg_skips = _config_skip_paths(config_path)
+    items = []
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames[:] = sorted(d for d in dirnames if d not in SKIP_DIRS)
+        for fname in sorted(filenames):
+            full = os.path.join(dirpath, fname)
+            if not os.path.isfile(full) or os.path.islink(full):
+                continue
+            rel = os.path.relpath(full, root).replace(os.sep, "/")
+            if os.path.getsize(full) < 10 or fname in SKIP_FILES:
+                continue
+            if rel in cfg_skips or os.path.splitext(fname)[1] in SKIP_EXTS:
+                continue
+            if ruleset.allow_path(rel):
+                continue
+            with open(full, "rb") as f:
+                content = f.read()
+            if is_binary(content):
+                continue
+            items.append((rel, content.replace(b"\r", b"")))
+    return items
+
+
+def _report(target: str, secrets) -> dict:
+    results = [
+        {
+            "Target": s.file_path,
+            "Class": "secret",
+            "Secrets": [f.to_json() for f in s.findings],
+        }
+        for s in sorted(secrets, key=lambda s: s.file_path)
+        if s.findings
+    ]
+    out: dict = {
+        "SchemaVersion": SCHEMA_VERSION,
+        "ArtifactName": target,
+        "ArtifactType": "filesystem",
+        "Metadata": {},
+    }
+    if results:
+        out["Results"] = results
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="trivy_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    fs = sub.add_parser("fs", help="scan a local directory for secrets")
+    fs.add_argument("--scanners", default="secret")
+    fs.add_argument("--secret-config", default="")
+    fs.add_argument("-f", "--format", default="json", choices=["json"])
+    fs.add_argument("--device", default=DEFAULT_DEVICE)
+    fs.add_argument("target")
+    args = parser.parse_args(argv)
+    scanners = {s.strip() for s in args.scanners.split(",") if s.strip()}
+    if scanners != {"secret"}:
+        parser.error("only --scanners secret is supported")
+
+    from trivy_tpu_torch.engine.device import GpuSecretEngine
+
+    engine = GpuSecretEngine(
+        config=load_config(args.secret_config), device=args.device
+    )
+    items = collect(args.target, engine.ruleset, args.secret_config)
+    secrets = engine.scan_batch(items)
+    json.dump(_report(args.target, secrets), sys.stdout, indent=2)
+    sys.stdout.write("\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,184 @@
+// Masked 4-gram sieve for Hopper (sm_90a): rows [T, L] uint8 -> per-row hit
+// words [T, Dw] int32 (uint32 bit patterns), bit d set when distinct
+// (mask, val) pair d matches at some position of the row.
+//
+// Replaces the two Pallas TPU kernels of trivy_tpu/ops/gram_sieve_pallas.py:
+//   * WRAP = true  -> `_sieve_bitplane` (pallas_call at :271, body
+//     `_make_bitplane_kernel` :132).  Positions p + k >= L read the row's own
+//     position p + k - L, as the TPU kernel's lane rotation does (`_lane_next`
+//     :117).  The wrapper hands it (mask, val) pairs already widened to whole
+//     bytes, which is what the bit-sliced byte tests compare.
+//   * WRAP = false -> `_sieve_window` (pallas_call at :311, body
+//     `_make_window_kernel` :204).  Positions past the row end read zero.
+// Both fold bytes 0x41..0x5A to lowercase and only those, before windowing.
+//
+// Design: one block per row, of up to 256 threads.  The block stages the
+// folded row (plus a 3-byte tail: the row head for WRAP, zeros otherwise) and
+// the gram constants in shared memory.  Each thread holds the 32-bit windows
+// of PPT positions in registers (PPT = 1..16, chosen so the block covers a
+// 4096-byte row in one pass and a short row without idle threads), tests every
+// pair against all of them, and sets one bit per pair in a register word; a
+// warp OR-reduce and a shared-memory atomicOr merge the words, and the block
+// writes its row's [Dw] words.
+//
+// Bound on an H100: the function reads T*L staged bytes and writes T*Dw*4,
+// about 0.04 ms at 3.35 TB/s for T = 32768, L = 4096.  This simple design
+// does T*L*D masked compares (an AND, a compare and an OR each), about
+// 2.6e10 compares for the builtin ruleset's D = 194..198, so it is
+// compute-bound by its per-pair loop, far above the bytes bound.  Sharing
+// (offset, byte) tests across pairs with __ballot_sync bit planes, and
+// staging rows with wide loads, is the way down, left to a later change.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxPosPerThread = 16;
+
+__device__ __forceinline__ uint8_t fold(uint8_t b) {
+  return (b >= 0x41 && b <= 0x5A) ? static_cast<uint8_t>(b + 32) : b;
+}
+
+template <bool WRAP, int PPT>
+__global__ void __launch_bounds__(kThreads)
+gram_sieve_kernel(const uint8_t* __restrict__ rows, int length,
+                  const uint32_t* __restrict__ masks,
+                  const uint32_t* __restrict__ vals, int n_pairs, int n_words,
+                  uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* s_mask = smem;
+  uint32_t* s_val = smem + n_pairs;
+  uint32_t* s_hit = smem + 2 * n_pairs;
+  uint8_t* s_row = reinterpret_cast<uint8_t*>(smem + 2 * n_pairs + n_words);
+  const int nthreads = blockDim.x;
+
+  const uint8_t* src = rows + static_cast<size_t>(blockIdx.x) * length;
+  for (int i = threadIdx.x; i < n_pairs; i += nthreads) {
+    s_mask[i] = masks[i];
+    s_val[i] = vals[i];
+  }
+  for (int i = threadIdx.x; i < n_words; i += nthreads) s_hit[i] = 0;
+  for (int i = threadIdx.x; i < length; i += nthreads) s_row[i] = fold(src[i]);
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    s_row[length + threadIdx.x] =
+        WRAP ? s_row[threadIdx.x % length] : static_cast<uint8_t>(0);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < length; base += nthreads * PPT) {
+    const int p0 = base + threadIdx.x;
+    const bool active = p0 < length;
+    uint32_t win[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      // Positions past the row repeat the thread's first window, which
+      // leaves the OR over positions unchanged.
+      const int p = p0 + k * nthreads;
+      if (!active) {
+        win[k] = 0;
+      } else if (p < length) {
+        win[k] = static_cast<uint32_t>(s_row[p]) |
+                 (static_cast<uint32_t>(s_row[p + 1]) << 8) |
+                 (static_cast<uint32_t>(s_row[p + 2]) << 16) |
+                 (static_cast<uint32_t>(s_row[p + 3]) << 24);
+      } else {
+        win[k] = win[0];
+      }
+    }
+    for (int w = 0; w < n_words; ++w) {
+      uint32_t word = 0;
+      const int first = 32 * w;
+      const int count = min(32, n_pairs - first);
+      for (int b = 0; b < count; ++b) {
+        const uint32_t m = s_mask[first + b];
+        const uint32_t v = s_val[first + b];
+        bool hit = false;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) hit |= (win[k] & m) == v;
+        word |= static_cast<uint32_t>(hit) << b;
+      }
+      if (!active) word = 0;
+      word = __reduce_or_sync(0xffffffffu, word);
+      if (lane == 0 && word) atomicOr(&s_hit[w], word);
+    }
+  }
+  __syncthreads();
+  uint32_t* dst = out + static_cast<size_t>(blockIdx.x) * n_words;
+  for (int i = threadIdx.x; i < n_words; i += nthreads) dst[i] = s_hit[i];
+}
+
+template <bool WRAP, int PPT>
+int launch_ppt(const void* rows, int n_rows, int length, const void* masks,
+               const void* vals, int n_pairs, int n_words, void* out,
+               cudaStream_t stream) {
+  // Enough whole warps to give each thread PPT positions of the row.
+  const int per_thread = (length + PPT - 1) / PPT;
+  const int threads = min(kThreads, max(32, (per_thread + 31) / 32 * 32));
+  const size_t smem = (2 * static_cast<size_t>(n_pairs) + n_words) * 4 +
+                      static_cast<size_t>(length) + 4;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gram_sieve_kernel<WRAP, PPT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  gram_sieve_kernel<WRAP, PPT><<<n_rows, threads, smem, stream>>>(
+      static_cast<const uint8_t*>(rows), length,
+      static_cast<const uint32_t*>(masks), static_cast<const uint32_t*>(vals),
+      n_pairs, n_words, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool WRAP>
+int launch(const void* rows, int n_rows, int length, const void* masks,
+           const void* vals, int n_pairs, int n_words, void* out,
+           void* stream_ptr) {
+  if (n_rows == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  // Fewest positions per thread that cover the row with one block pass.
+  int ppt = 1;
+  while (ppt < kMaxPosPerThread && ppt * kThreads < length) ppt *= 2;
+  switch (ppt) {
+    case 1:
+      return launch_ppt<WRAP, 1>(rows, n_rows, length, masks, vals, n_pairs,
+                                 n_words, out, stream);
+    case 2:
+      return launch_ppt<WRAP, 2>(rows, n_rows, length, masks, vals, n_pairs,
+                                 n_words, out, stream);
+    case 4:
+      return launch_ppt<WRAP, 4>(rows, n_rows, length, masks, vals, n_pairs,
+                                 n_words, out, stream);
+    case 8:
+      return launch_ppt<WRAP, 8>(rows, n_rows, length, masks, vals, n_pairs,
+                                 n_words, out, stream);
+    default:
+      return launch_ppt<WRAP, 16>(rows, n_rows, length, masks, vals, n_pairs,
+                                  n_words, out, stream);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bitplane-sieve twin (row-tail wrap).  Returns the cudaError_t of the launch.
+int gram_sieve_bitplane(const void* rows, int n_rows, int length,
+                        const void* masks, const void* vals, int n_pairs,
+                        int n_words, void* out, void* stream) {
+  return launch<true>(rows, n_rows, length, masks, vals, n_pairs, n_words, out,
+                      stream);
+}
+
+// Window-sieve twin (zero-filled row tail).
+int gram_sieve_window(const void* rows, int n_rows, int length,
+                      const void* masks, const void* vals, int n_pairs,
+                      int n_words, void* out, void* stream) {
+  return launch<false>(rows, n_rows, length, masks, vals, n_pairs, n_words,
+                       out, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,336 @@
+"""The GPU secret engine: device sieve -> on-device candidates -> exact confirm.
+
+The port of `trivy_tpu/engine/device.py` `TpuSecretEngine` on its staged
+fused path (`kernel="pallas", fused=True, megakernel=False`):
+
+  1. the host dedupes blobs by content digest and packs them densely into
+     overlapping rows (`scanner/packing.py`);
+  2. for each row-bucket chunk, the link codec encodes the rows, they go
+     host-to-device, unpack on the device, and the gram sieve kernel runs
+     (`ops/gram_sieve.py`); hit words stay on the device;
+  3. the device derives the [files, rules] candidate matrix from the hit
+     words (`GpuSecretEngine.derive`), and only that matrix comes back,
+     compacted (`engine/link.py`);
+  4. the oracle confirms each candidate (file, rule) pair byte-exactly, so
+     findings equal the reference engine's by construction.
+
+Later slices bring the chunk pipeline and residency, the megakernel, the
+native DFA claim-killer (with no verifier the reference keeps every
+candidate, so findings are the same), faults and the observability hooks.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from trivy_tpu_torch.compiled import CompiledRules
+from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from trivy_tpu_torch.engine import link as link_mod
+from trivy_tpu_torch.engine.oracle import OracleScanner
+from trivy_tpu_torch.ftypes import Secret
+from trivy_tpu_torch.ops.gram_sieve import GramSieve
+from trivy_tpu_torch.rules.model import RuleSet, SecretConfig, build_ruleset
+from trivy_tpu_torch.scanner.packing import (
+    DEFAULT_TILE_LEN,
+    DenseBatch,
+    dedupe_blobs,
+    pack_dense,
+)
+
+# Row-batch shapes: every sieve call uses one of these row counts, and
+# larger scans are chunked into top-bucket batches.  Kept from the reference
+# for shape parity; retune only from a measurement on the card.
+TILE_BUCKETS_PALLAS = (4096, 8192, 16384, 32768)
+
+GRAM_OVERLAP = 3  # gram window (4) - 1
+
+
+@dataclass
+class SieveStats:
+    files: int = 0
+    bytes: int = 0
+    tiles: int = 0
+    candidate_pairs: int = 0
+    confirmed_findings: int = 0
+    # Wall-clock per phase (seconds), accumulated across scan_batch calls.
+    pack_s: float = 0.0
+    sieve_s: float = 0.0
+    candidate_s: float = 0.0
+    confirm_s: float = 0.0
+    device_dispatches: int = 0
+    dedupe_saved_bytes: int = 0
+    # Link accounting: padded chunk bytes before and after the codec, the
+    # host encode time, and the full vs actually fetched D2H bytes.
+    bytes_on_link_raw: int = 0
+    bytes_on_link_coded: int = 0
+    encode_s: float = 0.0
+    d2h_bytes_raw: int = 0
+    d2h_bytes: int = 0
+
+    def phases(self) -> dict:
+        out = {
+            "pack_s": round(self.pack_s, 4),
+            "sieve_s": round(self.sieve_s, 4),
+            "candidate_s": round(self.candidate_s, 4),
+            "confirm_s": round(self.confirm_s, 4),
+        }
+        if self.dedupe_saved_bytes:
+            out["dedupe_saved_bytes"] = self.dedupe_saved_bytes
+        if self.bytes_on_link_raw:
+            out["bytes_on_link_raw"] = self.bytes_on_link_raw
+            out["bytes_on_link_coded"] = self.bytes_on_link_coded
+            out["codec_ratio"] = round(
+                self.bytes_on_link_coded / self.bytes_on_link_raw, 4
+            )
+        if self.encode_s:
+            out["encode_s"] = round(self.encode_s, 4)
+        if self.d2h_bytes_raw:
+            out["d2h_bytes_raw"] = self.d2h_bytes_raw
+            out["d2h_bytes"] = self.d2h_bytes
+            out["d2h_ratio"] = round(self.d2h_bytes / self.d2h_bytes_raw, 4)
+        return out
+
+
+class GpuSecretEngine:
+    """Drop-in engine with the oracle's Scan semantics, on a CUDA card (or
+    on the CPU when `device="cpu"`, through the kernels' plain versions).
+
+    `compiled` takes a `CompiledRules` or the dict of arrays that
+    `CompiledRules.from_numpy` reads; it must be compiled from `ruleset`."""
+
+    def __init__(
+        self,
+        ruleset: RuleSet | None = None,
+        config: SecretConfig | None = None,
+        tile_len: int = DEFAULT_TILE_LEN,
+        max_batch_tiles: int | None = None,
+        compiled: CompiledRules | dict | None = None,
+        device: str | torch.device = DEFAULT_DEVICE,
+    ):
+        self.device = resolve_device(device)
+        self.ruleset = ruleset if ruleset is not None else build_ruleset(config)
+        self.oracle = OracleScanner(self.ruleset)
+        if compiled is None:
+            compiled = CompiledRules.build(self.ruleset)
+        elif isinstance(compiled, dict):
+            compiled = CompiledRules.from_numpy(compiled)
+        self.compiled = compiled
+        self.tile_len = tile_len
+        self.overlap = GRAM_OVERLAP
+        self.max_batch_tiles = (
+            max_batch_tiles if max_batch_tiles is not None
+            else TILE_BUCKETS_PALLAS[-1]
+        )
+        self.stats = SieveStats()
+
+        mode = link_mod.codec_mode()
+        self._d2h_compact = mode != "off"
+        self._link = None
+        if mode != "off":
+            self._link = link_mod.select_codec(
+                link_mod.derive_alphabet(compiled), mode, compiled
+            )
+        if self._link is not None:
+            cmasks, cvals = self._link.encode_grams(compiled.masks, compiled.vals)
+        else:
+            cmasks, cvals = compiled.masks, compiled.vals
+        self.sieve = GramSieve(cmasks, cvals, device=self.device)
+
+        def dev(a, dtype=torch.float32) -> torch.Tensor:
+            return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
+
+        expand = self.sieve.gram_expand
+        if not len(expand):
+            expand = np.arange(self.sieve.num_distinct)
+        self._expand = dev(expand, torch.int64)
+        self._wmember = dev(compiled.wmember)
+        self._pmember = dev(compiled.pmember)
+        self._pwindows = dev(compiled.pwindows)
+        self._nogram = dev(~compiled.probe_has_gram, torch.bool)
+        self._gate_member = dev(compiled.gate_member)
+        self._gate_any = dev(compiled.gate_any, torch.bool)
+        self._conj_member = dev(compiled.conj_member)
+        self._conj_any = dev(compiled.conj_any, torch.bool)
+
+    # ------------------------------------------------------------------
+
+    def _buckets(self) -> list[int]:
+        """Row batch shapes: TILE_BUCKETS_PALLAS capped by max_batch_tiles."""
+        caps = [b for b in TILE_BUCKETS_PALLAS if b <= self.max_batch_tiles]
+        if not caps or caps[-1] != self.max_batch_tiles:
+            caps.append(self.max_batch_tiles)
+        return caps
+
+    @staticmethod
+    def _pad_chunk(rows: np.ndarray, off: int, max_rows: int) -> np.ndarray:
+        part = rows[off : off + max_rows]
+        if len(part) < max_rows:
+            part = np.concatenate(
+                [part, np.zeros((max_rows - len(part), part.shape[1]), np.uint8)]
+            )
+        return np.ascontiguousarray(part)
+
+    def _dispatch(self, part: np.ndarray) -> torch.Tensor:
+        """Encode one padded chunk, stage it, unpack and sieve it on the
+        device; the hit words stay there."""
+        buf = part
+        if self._link is not None:
+            t0 = time.perf_counter()
+            buf = self._link.encode_rows(part)
+            self.stats.encode_s += time.perf_counter() - t0
+        self.stats.device_dispatches += 1
+        self.stats.bytes_on_link_raw += part.nbytes
+        self.stats.bytes_on_link_coded += buf.nbytes
+        dev = torch.from_numpy(buf).to(self.device)
+        if self._link is not None:
+            dev = self._link.unpack(dev, self.tile_len)
+        return self.sieve(dev)
+
+    def _sieve_rows(self, rows: np.ndarray) -> torch.Tensor:
+        """Hit words [Tpad, Dw] on the device, Tpad the bucket-padded row
+        count (one bucket, or whole top-bucket chunks)."""
+        buckets = self._buckets()
+        total = len(rows)
+        fit = next((b for b in buckets if total <= b), None)
+        if fit is not None:
+            return self._dispatch(self._pad_chunk(rows, 0, fit))
+        max_rows = buckets[-1]
+        return torch.cat([
+            self._dispatch(self._pad_chunk(rows, off, max_rows))
+            for off in range(0, total, max_rows)
+        ])
+
+    def derive(
+        self, hits: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+        valid: torch.Tensor,
+    ) -> torch.Tensor:
+        """Candidate lanes on the device, the twin of the reference's
+        `_derive_fn.derive`: hit words [T, Dw] int32 and per-file row ranges
+        lo/hi [Fp] int32 (hi INCLUSIVE; hi < lo marks padding) and valid
+        [Fp] bool -> [Fp, R] uint8.
+
+        The membership contractions are float32 matrix products of 0/1
+        operands, run with TF32 held off: every partial sum is an integer
+        count far below 2^24, so each product is exact and the thresholds
+        equal the reference's int8 x int8 -> int32 ones."""
+        t = hits.shape[0]
+        shifts = torch.arange(32, dtype=torch.int32, device=hits.device)
+        bits = ((hits[:, :, None] >> shifts) & 1).reshape(t, -1)[:, self._expand]
+        csz = torch.cat([
+            torch.zeros((1, bits.shape[1]), dtype=torch.int32, device=hits.device),
+            torch.cumsum(bits, dim=0, dtype=torch.int32),
+        ])
+        lo_c = lo.clamp(0, t).long()
+        hi_c = (hi + 1).clamp(0, t).long()
+        gh = ((csz[hi_c] - csz[lo_c]) > 0) & valid[:, None]
+        r, k = self.compiled.num_rules, self.compiled.num_conjuncts
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            win = (gh.float() @ self._wmember) > 0
+            ph = ((win.float() @ self._pmember) >= self._pwindows) | self._nogram
+            gate_ok = ~self._gate_any | ((ph.float() @ self._gate_member) > 0)
+            conj_hit = (ph.float() @ self._conj_member).reshape(len(ph), r, k) > 0
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        conj_ok = (~self._conj_any | conj_hit).all(dim=-1)
+        return (gate_ok & conj_ok).to(torch.uint8)
+
+    def _fetch(self, out: torch.Tensor) -> np.ndarray:
+        """D2H of the candidate matrix, compacted unless the codec is off;
+        the raw/actual byte pair lands in stats."""
+        if self._d2h_compact:
+            arr, raw_b, got_b = link_mod.fetch_rows_compact(out)
+        else:
+            arr = out.cpu().numpy()
+            raw_b = got_b = arr.nbytes
+        self.stats.d2h_bytes_raw += raw_b
+        self.stats.d2h_bytes += got_b
+        return arr
+
+    def _derive_candidates(self, batch: DenseBatch, hits: torch.Tensor) -> np.ndarray:
+        """[F, R] bool candidates; the file count pads to a power of two
+        (at least 8), padded files get hi = -1 < lo = 0."""
+        f = batch.num_files
+        if f == 0:
+            return np.zeros((0, self.compiled.num_rules), dtype=bool)
+        fp = max(8, 1 << (f - 1).bit_length())
+        lo = np.zeros(fp, np.int32)
+        hi = np.full(fp, -1, np.int32)
+        lo[:f] = batch.file_row_lo
+        hi[:f] = batch.file_row_hi
+        valid = hi >= lo
+        out = self.derive(
+            hits,
+            torch.from_numpy(lo).to(self.device),
+            torch.from_numpy(hi).to(self.device),
+            torch.from_numpy(valid).to(self.device),
+        )
+        return self._fetch(out)[:f].astype(bool)
+
+    def _candidates(self, contents: list[bytes]) -> np.ndarray:
+        """[F, R] bool candidate matrix for a content batch."""
+        t0 = time.perf_counter()
+        batch = pack_dense(contents, self.tile_len, self.overlap)
+        self.stats.pack_s += time.perf_counter() - t0
+        self.stats.tiles += len(batch.rows)
+        t0 = time.perf_counter()
+        hits = self._sieve_rows(batch.rows)
+        self.stats.sieve_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cand = self._derive_candidates(batch, hits)
+        self.stats.candidate_s += time.perf_counter() - t0
+        return cand
+
+    def scan_batch(self, items: list[tuple[str, bytes]]) -> list[Secret]:
+        """Scan (path, content) blobs; returns per-file Secret results."""
+        if not items:
+            return []
+        self.stats.files += len(items)
+        self.stats.bytes += sum(len(c) for _, c in items)
+
+        # Content-digest dedupe: sieve and derive run over distinct blobs,
+        # candidates fan back out to every alias; the confirm stays per
+        # (path, content) because path gating is per file.
+        contents = [c for _, c in items]
+        dd = None
+        if len(items) > 1:
+            t0 = time.perf_counter()
+            dd = dedupe_blobs(contents)
+            self.stats.pack_s += time.perf_counter() - t0
+            if dd.any_duplicates():
+                self.stats.dedupe_saved_bytes += dd.saved_bytes
+                contents = [contents[int(i)] for i in dd.unique_index]
+            else:
+                dd = None
+
+        cand = self._candidates(contents)
+        if dd is not None:
+            cand = cand[dd.inverse]
+
+        t0 = time.perf_counter()
+        results: list[Secret] = []
+        for fi, (path, content) in enumerate(items):
+            idxs = np.flatnonzero(cand[fi])
+            if len(idxs) == 0:
+                # The reference's allow-path result shape (scanner.go:375-380
+                # returns Secret{FilePath} for allowed paths) without
+                # running the oracle.
+                if self.oracle.allow_path(path):
+                    results.append(Secret(file_path=path))
+                else:
+                    results.append(Secret())
+                continue
+            self.stats.candidate_pairs += len(idxs)
+            res = self.oracle.scan(path, content, rule_indices=idxs.tolist())
+            self.stats.confirmed_findings += len(res.findings)
+            results.append(res)
+        self.stats.confirm_s += time.perf_counter() - t0
+        return results
+
+    def scan(self, file_path: str, content: bytes) -> Secret:
+        return self.scan_batch([(file_path, content)])[0]

@@ -1,0 +1,285 @@
+"""Link codec: bit-packed H2D transcoding + compacted D2H fetches.
+
+The port of `trivy_tpu/engine/link.py`, in two halves.
+
+**Numpy half** (a copy): the sieve only distinguishes bytes that appear as
+kept value bytes in some gram, so the host maps each raw byte to a small
+class id (0 = "cannot match") and packs 2 symbols per byte (4-bit codec) or
+4 symbols in 3 bytes (6-bit codec); gram constants are rewritten into the
+same class space.  When the alphabet exceeds 15 classes the 4-bit codec
+merges values, which can only ADD sieve hits (the exact confirm rejects
+them).  Class ids stay <= 63 < 'A', so the kernels' case fold is a no-op on
+coded symbols.
+
+**Torch half**: `LinkCodec.unpack` (the twin of `make_unpack`) decodes on
+the device ahead of the sieve, and `fetch_rows_compact` fetches only the
+nonzero rows of a device result (a row bitmap first, then a gather of a
+power-of-two padded index), with the reference's `(raw_bytes,
+fetched_bytes)` accounting.  Both are plain tensor code, as the reference's
+are XLA programs and not Pallas kernels.
+
+`TRIVY_TPU_LINK_CODEC` (off | auto | 4 | 6, default auto) selects the mode,
+the same variable the JAX package reads.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from trivy_tpu_torch.engine.grams import fold_byte
+from trivy_tpu_torch.engine.probes import _FREQ
+
+# D2H compaction thresholds: tiny results fit one fetch anyway, and dense
+# results (bitmap says > this fraction of rows hit) pay for the extra
+# round-trip without saving bytes.
+MIN_COMPACT_ROWS = 64
+COMPACT_MAX_FRAC = 0.25
+
+# 4-bit codec: 15 non-other classes (ids 1..15); 6-bit: 63 (ids 1..63).
+_CLASS_CAP = {4: 15, 6: 63}
+# auto takes the merged 4-bit codec only when every gram keeps at least this
+# much selectivity (bits) in class space.
+MIN_MERGED_GRAM_BITS = 8.0
+
+
+def codec_mode() -> str:
+    """TRIVY_TPU_LINK_CODEC: off | auto | 4 | 6 (default auto)."""
+    v = os.environ.get("TRIVY_TPU_LINK_CODEC", "auto").strip().lower()
+    if v in ("off", "0", "raw", "none"):
+        return "off"
+    if v in ("4", "6"):
+        return v
+    return "auto"
+
+
+@dataclass
+class LinkAlphabet:
+    """Every kept value byte of every compiled gram, plus the canonical
+    exact class map (id = 1 + rank in sorted value order, else 0)."""
+
+    values: np.ndarray  # sorted distinct folded value bytes, uint8
+    class_map: np.ndarray  # [256] uint8
+
+    @property
+    def size(self) -> int:
+        return int(len(self.values))
+
+
+def canonical_class_map(values: np.ndarray) -> np.ndarray:
+    """[256] uint8: raw byte -> 1 + rank of its folded value, else 0."""
+    cm = np.zeros(256, dtype=np.uint8)
+    rank = {int(v): i + 1 for i, v in enumerate(values)}
+    for b in range(256):
+        cm[b] = rank.get(fold_byte(b), 0)
+    return cm
+
+
+def derive_alphabet(gset) -> LinkAlphabet:
+    """Collect the kept value bytes of every gram (`gset.masks/vals`)."""
+    masks = np.asarray(gset.masks, dtype=np.uint32)
+    vals = np.asarray(gset.vals, dtype=np.uint32)
+    if len(masks) == 0:
+        empty = np.zeros(0, dtype=np.uint8)
+        return LinkAlphabet(values=empty, class_map=np.zeros(256, np.uint8))
+    shifts = np.uint32(8) * np.arange(4, dtype=np.uint32)
+    mb = (masks[:, None] >> shifts) & np.uint32(0xFF)
+    vb = (vals[:, None] >> shifts) & np.uint32(0xFF)
+    values = np.unique(vb[mb == 0xFF]).astype(np.uint8)
+    return LinkAlphabet(values=values, class_map=canonical_class_map(values))
+
+
+def _merge_values(values: np.ndarray, n_classes: int) -> dict[int, int]:
+    """Frequency-balanced merge of `values` into classes 1..n_classes
+    (longest-processing-time assignment by corpus frequency)."""
+    totals = [0.0] * n_classes
+    assign: dict[int, int] = {}
+    for v in sorted(values.tolist(), key=lambda b: -float(_FREQ[b])):
+        c = min(range(n_classes), key=lambda i: totals[i])
+        totals[c] += float(_FREQ[v])
+        assign[int(v)] = c + 1
+    return assign
+
+
+def _min_gram_bits(gset, assign: dict[int, int]) -> float:
+    """Worst-case per-gram selectivity (bits) under a class assignment."""
+    cls_prob: dict[int, float] = {}
+    for v, c in assign.items():
+        cls_prob[c] = cls_prob.get(c, 0.0) + float(_FREQ[v])
+    masks = np.asarray(gset.masks, dtype=np.uint32)
+    vals = np.asarray(gset.vals, dtype=np.uint32)
+    worst = float("inf")
+    for m, v in zip(masks, vals):
+        bits = 0.0
+        for k in range(4):
+            if (int(m) >> (8 * k)) & 0xFF:
+                b = (int(v) >> (8 * k)) & 0xFF
+                bits += -math.log2(max(cls_prob[assign[b]], 1e-12))
+        worst = min(worst, bits)
+    return worst
+
+
+@dataclass
+class LinkCodec:
+    """One selected transcoding: a [256] class map and a symbol width."""
+
+    sym_bits: int  # 4 or 6
+    class_map: np.ndarray  # [256] uint8
+    num_classes: int  # non-other classes in use
+    exact: bool
+
+    def coded_len(self, length: int) -> int:
+        if self.sym_bits == 4:
+            return -(-length // 2)
+        return -(-length // 4) * 3
+
+    def encode_rows(self, rows: np.ndarray) -> np.ndarray:
+        """[T, L] uint8 raw rows -> [T, coded_len(L)] uint8 packed ids."""
+        t, length = rows.shape
+        p = self.class_map[rows]
+        if self.sym_bits == 4:
+            if length % 2:
+                p = np.concatenate(
+                    [p, np.zeros((t, 1), dtype=np.uint8)], axis=1
+                )
+            q = p.reshape(t, -1, 2)
+            return np.ascontiguousarray(q[..., 0] | (q[..., 1] << 4))
+        pad = (-length) % 4
+        if pad:
+            p = np.concatenate(
+                [p, np.zeros((t, pad), dtype=np.uint8)], axis=1
+            )
+        q = p.reshape(t, -1, 4)
+        s0, s1, s2, s3 = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+        b0 = s0 | ((s1 & 0x3) << 6)
+        b1 = (s1 >> 2) | ((s2 & 0xF) << 4)
+        b2 = (s2 >> 4) | (s3 << 2)
+        return np.ascontiguousarray(
+            np.stack([b0, b1, b2], axis=-1).reshape(t, -1)
+        )
+
+    def unpack(self, coded: torch.Tensor, out_len: int) -> torch.Tensor:
+        """Packed [T, coded_len(out_len)] uint8 -> class-id rows
+        [T, out_len] uint8, on `coded`'s device (shifts and masks only)."""
+        t = coded.shape[0]
+        if self.sym_bits == 4:
+            full = torch.stack([coded & 0x0F, coded >> 4], dim=-1)
+            return full.reshape(t, -1)[:, :out_len]
+        b = coded.reshape(t, -1, 3)
+        b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+        s0 = b0 & 0x3F
+        s1 = (b0 >> 6) | ((b1 & 0x0F) << 2)
+        s2 = (b1 >> 4) | ((b2 & 0x03) << 4)
+        s3 = b2 >> 2
+        full = torch.stack([s0, s1, s2, s3], dim=-1)
+        return full.reshape(t, -1)[:, :out_len]
+
+    def encode_grams(
+        self, masks: np.ndarray, vals: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Gram constants in class space: each kept value byte becomes its
+        class id; masks are unchanged."""
+        masks = np.asarray(masks, dtype=np.uint32)
+        vals = np.asarray(vals, dtype=np.uint32)
+        shifts = np.uint32(8) * np.arange(4, dtype=np.uint32)
+        mb = (masks[:, None] >> shifts) & np.uint32(0xFF)
+        vb = ((vals[:, None] >> shifts) & np.uint32(0xFF)).astype(np.uint8)
+        cb = np.where(mb == 0xFF, self.class_map[vb], 0).astype(np.uint32)
+        cvals = (cb << shifts[None, :]).sum(axis=1, dtype=np.uint32)
+        return masks.copy(), cvals
+
+
+def select_codec(alphabet: LinkAlphabet, mode: str, gset=None) -> LinkCodec | None:
+    """Pick a codec for this alphabet, or None (raw rows).
+
+    `auto`: exact 4-bit when the alphabet fits 15 classes; else a merged
+    4-bit codec when every gram keeps MIN_MERGED_GRAM_BITS of class-space
+    selectivity (needs `gset`); else exact 6-bit when it fits 63; else raw.
+    Forced `4`/`6` use that width, merging if needed."""
+    if mode == "off" or alphabet.size == 0:
+        return None
+
+    def exact(bits: int) -> LinkCodec:
+        return LinkCodec(
+            sym_bits=bits,
+            class_map=alphabet.class_map.copy(),
+            num_classes=alphabet.size,
+            exact=True,
+        )
+
+    def merged(bits: int) -> LinkCodec:
+        cap = _CLASS_CAP[bits]
+        assign = _merge_values(alphabet.values, cap)
+        cm = np.zeros(256, dtype=np.uint8)
+        inv = {i + 1: v for i, v in enumerate(alphabet.values.tolist())}
+        for b in range(256):
+            c = int(alphabet.class_map[b])
+            if c:
+                cm[b] = assign[int(inv[c])]
+        return LinkCodec(
+            sym_bits=bits, class_map=cm, num_classes=cap, exact=False
+        )
+
+    if mode == "4":
+        return exact(4) if alphabet.size <= _CLASS_CAP[4] else merged(4)
+    if mode == "6":
+        return exact(6) if alphabet.size <= _CLASS_CAP[6] else merged(6)
+    if alphabet.size <= _CLASS_CAP[4]:
+        return exact(4)
+    if gset is not None and len(gset.masks):
+        assign = _merge_values(alphabet.values, _CLASS_CAP[4])
+        if _min_gram_bits(gset, assign) >= MIN_MERGED_GRAM_BITS:
+            return merged(4)
+    if alphabet.size <= _CLASS_CAP[6]:
+        return exact(6)
+    return None
+
+
+_PACK_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def _row_flags(out: torch.Tensor) -> torch.Tensor:
+    """[ceil(T/8)] uint8 nonzero-row bitmap, MSB-first (np.packbits)."""
+    t = out.shape[0]
+    nz = (out.reshape(t, -1) != 0).any(dim=1).to(torch.int32)
+    pad = (-t) % 8
+    if pad:
+        nz = torch.cat([nz, nz.new_zeros(pad)])
+    w = torch.tensor(_PACK_WEIGHTS, dtype=torch.int32, device=out.device)
+    return (nz.reshape(-1, 8) * w).sum(dim=1).to(torch.uint8)
+
+
+def fetch_rows_compact(out: torch.Tensor) -> tuple[np.ndarray, int, int]:
+    """Fetch a device tensor whose leading axis is rows, compacting to the
+    nonzero rows: (host array, raw_bytes, fetched_bytes).
+
+    raw_bytes is what a plain full fetch moves; fetched_bytes counts
+    everything that crossed the link (bitmap D2H + index H2D + gathered
+    rows D2H, or the full fetch when the result is small or dense)."""
+    shape = tuple(out.shape)
+    t = shape[0]
+    row_bytes = int(np.prod(shape[1:], dtype=np.int64)) * out.element_size()
+    raw = t * row_bytes
+    if t < MIN_COMPACT_ROWS:
+        return out.cpu().numpy(), raw, raw
+    flags = _row_flags(out).cpu().numpy()
+    got = flags.nbytes
+    nz = np.flatnonzero(np.unpackbits(flags)[:t])
+    k = len(nz)
+    host_dtype = out[:0].cpu().numpy().dtype
+    if k == 0:
+        return np.zeros(shape, dtype=host_dtype), raw, got
+    if k > t * COMPACT_MAX_FRAC:
+        return out.cpu().numpy(), raw, raw + got
+    kpad = 1 << (k - 1).bit_length()
+    idx = np.zeros(kpad, dtype=np.int32)
+    idx[:k] = nz
+    rows = out.index_select(0, torch.from_numpy(idx).to(out.device)).cpu().numpy()
+    got += idx.nbytes + rows.nbytes
+    full = np.zeros(shape, dtype=host_dtype)
+    full[nz] = rows[:k]
+    return full, raw, got

@@ -1,0 +1,277 @@
+"""The masked 4-gram sieve: rows [T, L] uint8 -> hit words [T, Dw].
+
+The port of `trivy_tpu/ops/gram_sieve_pallas.py`.  Two kernels, one
+contract: bit d of a row's words is set when distinct (mask, val) pair d
+matches some case-folded 4-byte window of the row.  Words are `torch.int32`
+tensors holding the uint32 bit patterns (torch lacks most uint32 ops);
+reinterpret with `.numpy().view(np.uint32)` at the host boundary.
+
+* **bitplane** (`gram_sieve_bitplane`, the twin of `_sieve_bitplane`): the
+  window at position p reads positions p..p+3 modulo L, as the TPU kernel's
+  lane rotation does, so the last 3 positions of a row may add false hits
+  and never lose one.  It tests whole bytes: every byte a mask keeps
+  compares equal to the value byte (`byte_test_constants`).
+* **window** (`gram_sieve_window`, the twin of `_sieve_window`): positions
+  past the row end read zero, and the test is `(w & mask) == val`.
+
+Each wrapper launches the hand-written CUDA kernel of `csrc/gram_sieve.cu`
+for a CUDA tensor, and counts the launch in `LAUNCHES`; for a CPU tensor it
+runs the plain PyTorch version beside it.  The two row-tail rules differ on
+purpose: each matches its own reference kernel bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
+DEFAULT_BLOCK_ROWS = 64
+WINDOW_BLOCK_ROWS = 128
+
+# Kernel launches since the process started (or the caller last zeroed
+# them): how a run shows that its path went through the CUDA kernels.
+LAUNCHES: dict[str, int] = {"bitplane": 0, "window": 0}
+
+
+def dedupe_grams(
+    masks: np.ndarray, vals: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Collapse (mask, val) pairs to distinct pairs in mask-major order.
+
+    Returns (dmasks, dvals, expand) with expand[g] = distinct index of the
+    caller's gram g, so `dist[:, expand]` recovers per-gram attribution."""
+    if not len(masks):
+        return masks, vals, np.zeros(0, dtype=np.int32)
+    keys = (masks.astype(np.uint64) << np.uint64(32)) | vals.astype(np.uint64)
+    dkeys, inverse = np.unique(keys, return_inverse=True)
+    dmasks = (dkeys >> np.uint64(32)).astype(np.uint32)
+    dvals = (dkeys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return dmasks, dvals, inverse.astype(np.int32)
+
+
+def _byte_tests(masks, vals):
+    """Distinct (offset k, byte v) equality tests + per-gram test lists."""
+    tests: dict[tuple[int, int], int] = {}
+    gram_tests: list[list[tuple[int, int]]] = []
+    for m, v in zip(masks, vals):
+        lst = []
+        for k in range(4):
+            if (int(m) >> (8 * k)) & 0xFF:
+                b = (int(v) >> (8 * k)) & 0xFF
+                lst.append((k, b))
+                tests.setdefault((k, b), len(tests))
+        gram_tests.append(lst)
+    return tests, gram_tests
+
+
+def byte_test_constants(
+    masks: np.ndarray, vals: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """(mask, val) pairs rewritten as the bitplane kernel reads them: each
+    byte a mask touches at all is compared whole against the value byte."""
+    _, gram_tests = _byte_tests(masks, vals)
+    bmasks = np.zeros(len(masks), dtype=np.uint32)
+    bvals = np.zeros(len(masks), dtype=np.uint32)
+    for g, lst in enumerate(gram_tests):
+        for k, b in lst:
+            bmasks[g] |= np.uint32(0xFF << (8 * k))
+            bvals[g] |= np.uint32(b << (8 * k))
+    return bmasks, bvals
+
+
+def as_int32_bits(a: np.ndarray) -> np.ndarray:
+    """uint32 values -> int32 array with the same bit patterns."""
+    return np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU tensors, tests, and the on-card comparison)
+# ---------------------------------------------------------------------------
+
+
+def _sieve_plain(
+    rows: torch.Tensor, masks: torch.Tensor, vals: torch.Tensor,
+    n_words: int, wrap: bool,
+) -> torch.Tensor:
+    t, length = rows.shape
+    f = rows.to(torch.int64)
+    f = torch.where((f >= 65) & (f <= 90), f + 32, f)
+
+    def shifted(k: int) -> torch.Tensor:
+        if wrap:
+            return torch.roll(f, -k, dims=1)
+        tail = torch.zeros((t, min(k, length)), dtype=f.dtype, device=f.device)
+        return torch.cat([f[:, k:], tail], dim=1)
+
+    w = f | (shifted(1) << 8) | (shifted(2) << 16) | (shifted(3) << 24)
+    m = masks.to(torch.int64) & 0xFFFFFFFF
+    v = vals.to(torch.int64) & 0xFFFFFFFF
+    hit = torch.zeros((t, n_words * 32), dtype=torch.int64, device=rows.device)
+    # One pass per distinct mask: look every masked window up among that
+    # mask's sorted values, and mark the value found in its row.
+    for mask in torch.unique(m).tolist():
+        sel = torch.nonzero(m == mask).flatten()
+        uvals, inverse = torch.unique(v[sel], return_inverse=True)
+        wm = w & mask
+        pos = torch.searchsorted(uvals, wm).clamp_(max=len(uvals) - 1)
+        found = uvals[pos] == wm
+        seen = torch.zeros((t, len(uvals) + 1), dtype=torch.int64, device=rows.device)
+        seen.scatter_(1, torch.where(found, pos, len(uvals)), 1)
+        hit[:, sel] = seen[:, inverse]
+    shifts = torch.arange(32, dtype=torch.int64, device=rows.device)
+    words = (hit.reshape(t, n_words, 32) << shifts).sum(dim=-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def gram_sieve_bitplane_plain(
+    rows: torch.Tensor, masks: torch.Tensor, vals: torch.Tensor, n_words: int
+) -> torch.Tensor:
+    """Plain K1: wrapped windows against whole-byte (mask, val) pairs
+    (int32 bit patterns, see `byte_test_constants`)."""
+    return _sieve_plain(rows, masks, vals, n_words, wrap=True)
+
+
+def gram_sieve_window_plain(
+    rows: torch.Tensor, masks: torch.Tensor, vals: torch.Tensor, n_words: int
+) -> torch.Tensor:
+    """Plain K2: zero-filled windows, `(w & mask) == val`."""
+    return _sieve_plain(rows, masks, vals, n_words, wrap=False)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _kernel_fn(kind: str):
+    from trivy_tpu_torch.ops import _build
+
+    fn = getattr(_build.load("gram_sieve"), f"gram_sieve_{kind}")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, i, p, p, i, i, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(rows, masks, vals, n_words) -> None:
+    if rows.dtype != torch.uint8 or rows.dim() != 2:
+        raise ValueError(f"rows must be a 2-D uint8 tensor, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    for name, c in (("masks", masks), ("vals", vals)):
+        if c.dtype != torch.int32 or c.dim() != 1 or c.device != rows.device:
+            raise ValueError(f"{name} must be a 1-D int32 tensor on "
+                             f"{rows.device}")
+    if len(masks) != len(vals):
+        raise ValueError("masks and vals differ in length")
+    if n_words < max(1, -(-len(masks) // 32)):
+        raise ValueError(f"n_words={n_words} too small for {len(masks)} pairs")
+
+
+def _sieve(kind: str, rows, masks, vals, n_words) -> torch.Tensor:
+    _check(rows, masks, vals, n_words)
+    if rows.device.type == "cpu":
+        return _sieve_plain(rows, masks, vals, n_words, wrap=kind == "bitplane")
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    rows = rows.contiguous()
+    masks = masks.contiguous()
+    vals = vals.contiguous()
+    t, length = rows.shape
+    out = torch.empty((t, n_words), dtype=torch.int32, device=rows.device)
+    fn = _kernel_fn(kind)
+    with torch.cuda.device(rows.device):
+        err = fn(
+            rows.data_ptr(), t, length, masks.data_ptr(), vals.data_ptr(),
+            len(masks), n_words, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gram_sieve_{kind} launch failed: cudaError {err}")
+    LAUNCHES[kind] += 1
+    return out
+
+
+def gram_sieve_bitplane(
+    rows: torch.Tensor, masks: torch.Tensor, vals: torch.Tensor, n_words: int
+) -> torch.Tensor:
+    """K1 on `rows`' device: the CUDA kernel on a card, the plain version
+    on the CPU.  `masks`/`vals` are whole-byte pairs as int32 bits."""
+    return _sieve("bitplane", rows, masks, vals, n_words)
+
+
+def gram_sieve_window(
+    rows: torch.Tensor, masks: torch.Tensor, vals: torch.Tensor, n_words: int
+) -> torch.Tensor:
+    """K2 on `rows`' device: the CUDA kernel on a card, the plain version
+    on the CPU."""
+    return _sieve("window", rows, masks, vals, n_words)
+
+
+class GramSieve:
+    """Callable sieve: rows [T, L] uint8 -> hit words [T, Dw] int32.
+
+    `PallasGramSieve`'s contract: output bits are over DISTINCT (mask, val)
+    pairs in mask-major order, `num_distinct` bits across `n_words` words;
+    `gram_expand` maps each caller gram to its distinct bit and
+    `expand_bool` applies it.  Rows pad to a multiple of `block_rows`; the
+    bitplane kernel serves rows of at least 256 bytes, the window kernel
+    narrower ones (and `impl="window"`).
+    """
+
+    def __init__(
+        self,
+        masks: np.ndarray,
+        vals: np.ndarray,
+        block_rows: int | None = None,
+        impl: str = "bitplane",
+        device: str | torch.device = DEFAULT_DEVICE,
+    ):
+        if impl not in ("bitplane", "window"):
+            raise ValueError(f"unknown sieve impl: {impl}")
+        self.device = resolve_device(device)
+        dmasks, dvals, self.gram_expand = dedupe_grams(
+            np.asarray(masks, dtype=np.uint32), np.asarray(vals, dtype=np.uint32)
+        )
+        self.num_distinct = len(dmasks)
+        self.n_words = max(1, -(-self.num_distinct // 32))
+        self.impl = impl
+        if block_rows is None:
+            block_rows = (
+                DEFAULT_BLOCK_ROWS if impl == "bitplane" else WINDOW_BLOCK_ROWS
+            )
+        self.block_rows = block_rows
+        bmasks, bvals = byte_test_constants(dmasks, dvals)
+
+        def dev(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(as_int32_bits(a).copy()).to(self.device)
+
+        self._window_consts = (dev(dmasks), dev(dvals))
+        self._bitplane_consts = (dev(bmasks), dev(bvals))
+
+    def expand_bool(self, dist_bool: np.ndarray) -> np.ndarray:
+        """[F, num_distinct] bool -> [F, G] bool in the caller's gram order."""
+        if not len(self.gram_expand):
+            return dist_bool
+        return dist_bool[:, self.gram_expand]
+
+    def __call__(self, rows: torch.Tensor) -> torch.Tensor:
+        if rows.device != self.device:
+            raise ValueError(f"rows on {rows.device}, sieve on {self.device}")
+        t, length = rows.shape
+        if length & (length - 1):
+            raise ValueError(f"row length {length} not a power of 2")
+        pad = (-t) % self.block_rows
+        if pad:
+            rows = torch.cat(
+                [rows, torch.zeros((pad, length), dtype=torch.uint8,
+                                   device=rows.device)]
+            )
+        if self.impl == "bitplane" and length >= 256:
+            out = gram_sieve_bitplane(rows, *self._bitplane_consts, self.n_words)
+        else:
+            out = gram_sieve_window(rows, *self._window_consts, self.n_words)
+        return out[:t] if pad else out
