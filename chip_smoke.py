@@ -15,7 +15,21 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             must equal the port's `OracleScanner` on every flagged file plus
             2,000 sampled ones;
 4. window   the same engine at `tile_len=128`, where rows run through K2,
-            over the first 2,000 files, checked the same way.
+            over the first 2,000 files, checked the same way;
+5. mega     on seeded rows with planted secrets, in raw bytes and in class
+            space, at the serve shape (4,096 rows of 4,096 bytes, 2,048
+            file lanes): drive the 4-way split of the rows on one card
+            (`make_sharded_megakernel`: K4 once per shard, then the
+            epilogue; counts zeroed before, read after) and hold its mask
+            to K3's; hold K3, K4 on every shard at its base and the
+            epilogue on the summed shard counts bit-identical to their
+            plain PyTorch versions, and time each at that shape;
+6. serve    the same corpus as 10 batches of 2,000 files through
+            `GpuSecretEngine(device="cuda", tile_len=4096)`, twice: with
+            the megakernel (K3 must launch once per batch, K1 never) and
+            through `scan_batch_staged_sieve`; findings must be equal on
+            every file and equal the oracle on every flagged file plus
+            2,000 sampled ones.
 
 Then one JSON line describing each kernel (launches come from the path runs;
 times from CUDA events in this run), the card's name and power limit, and
@@ -33,12 +47,17 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core rate (data sheet)
 SEED = 7
 N_FILES = 20_000
 N_SAMPLED = 2_000
 WINDOW_FILES = 2_000
 WINDOW_SAMPLED = 500
 MAIN_ROWS = 32768  # the top row bucket, which the main-path corpus reaches
+SERVE_BATCH = 2_000  # files per serve batch: inside the megakernel's envelope
+SERVE_ROWS = 4096  # the row bucket a serve batch lands in
+MEGA_FP = 2048  # file lanes of a serve batch (2,000 files padded)
+SPLIT = 4  # row shards of the split megakernel
 REPS = 20
 DEVICE = "cuda"
 PLANTED = (
@@ -168,7 +187,8 @@ def path_phase(np, torch, gs, corpus, tile_len: int, kind: str, n_sampled: int,
     from trivy_tpu_torch.engine.oracle import OracleScanner
 
     # warm-up on a throwaway engine: CUDA libraries load outside the timing
-    GpuSecretEngine(device=DEVICE, tile_len=tile_len).scan_batch(corpus[:20])
+    GpuSecretEngine(device=DEVICE, tile_len=tile_len).scan_batch_staged_sieve(
+        corpus[:20])
     engine = GpuSecretEngine(device=DEVICE, tile_len=tile_len)
     for k in gs.LAUNCHES:
         gs.LAUNCHES[k] = 0
@@ -194,6 +214,214 @@ def path_phase(np, torch, gs, corpus, tile_len: int, kind: str, n_sampled: int,
     return launches[kind]
 
 
+def file_ranges(np, t: int, n_files: int, fp: int, seed: int):
+    """lo/hi [1, fp] int32 and valid [fp, 1] int8: `n_files` files in row
+    order covering all `t` rows (neighbours may share a row, as packed files
+    do), one of them empty, the other lanes padding (hi = -1)."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(np.arange(1, t), size=n_files - 1, replace=False))
+    starts = np.concatenate([[0], cuts])
+    ends = np.concatenate([cuts, [t]]) - 1
+    share = rng.random(n_files) < 0.5
+    lo = np.zeros((1, fp), np.int32)
+    hi = np.full((1, fp), -1, np.int32)
+    lo[0, :n_files] = np.maximum(starts - share, 0)
+    hi[0, :n_files] = ends
+    hi[0, n_files // 2] = lo[0, n_files // 2] - 1  # an empty file
+    return lo, hi, (hi >= lo).astype(np.int8).reshape(fp, 1)
+
+
+def mega_phase(np, torch, gs, mk, compiled, codec) -> tuple[dict, dict]:
+    """K3, K4 and the epilogue against their plain versions, in raw bytes and
+    class space: K3 at the serve shape, K4 on every shard of the 4-way split
+    at that shard's base, the epilogue on the shards' summed counts.  The
+    split itself (`make_sharded_megakernel`, counts zeroed just before and
+    read just after) must equal K3's mask.  Returns the report, with times at
+    the shapes the path launches in class space (the serve path's codec),
+    and the split's launches in class space."""
+    names = ("mega", "mega_acc", "mega_epilogue")
+    report = {name: {"max_abs_err": 0} for name in names}
+    lo, hi, valid = file_ranges(np, SERVE_ROWS, SERVE_BATCH, MEGA_FP, SEED)
+    per = SERVE_ROWS // SPLIT
+    split_launches = {}
+    for space in ("raw", "class"):
+        rows = seeded_rows(np, SERVE_ROWS, 4096, seed=SEED + 1)
+        masks, vals, sym_bits, coded = compiled.masks, compiled.vals, None, rows
+        if space == "class":
+            masks, vals = codec.encode_grams(masks, vals)
+            sym_bits, coded = codec.sym_bits, codec.encode_rows(rows)
+        mega = mk.MegaGramSieve(
+            masks, vals, wmember=compiled.wmember, pmember=compiled.pmember,
+            pwindows=compiled.pwindows, probe_has_gram=compiled.probe_has_gram,
+            gate_member=compiled.gate_member, gate_any=compiled.gate_any,
+            conj_member=compiled.conj_member, conj_any=compiled.conj_any,
+            num_conjuncts=compiled.num_conjuncts, row_len=4096,
+            sym_bits=sym_bits, device=DEVICE,
+        )
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                for a in (coded, lo, hi, valid)]
+
+        # the split path, counts zeroed just before and read just after
+        for k in gs.LAUNCHES:
+            gs.LAUNCHES[k] = 0
+        split = mk.make_sharded_megakernel([DEVICE] * SPLIT, mega)(*args)
+        torch.cuda.synchronize()
+        launches = dict(gs.LAUNCHES)
+        want_launches = {"mega": 0, "mega_acc": SPLIT, "mega_epilogue": 1}
+        if {k: launches[k] for k in want_launches} != want_launches:
+            fail("mega", f"split launches {launches}, expected {want_launches}")
+        if space == "class":
+            split_launches = launches
+
+        # each kernel on the inputs the path gives it: K3 on every row, K4 on
+        # each shard at its base, the epilogue on the summed shard counts
+        shards = [(args[0][i * per : (i + 1) * per],
+                   torch.full((1, 1), i * per, dtype=torch.int32, device=DEVICE))
+                  for i in range(SPLIT)]
+        t, cc = coded.shape
+        d, fp = mega.num_distinct, MEGA_FP
+        calls = [("mega", f"in=[{t}, {cc}]", lambda: mega(*args),
+                  lambda: mk.megakernel_plain(mega, *args))]
+        for i, (shard, base) in enumerate(shards):
+            calls.append((
+                "mega_acc", f"in=[{per}, {cc}] shard={i} base={i * per}",
+                lambda s=shard, b=base: mega.acc(s, args[1], args[2], b),
+                lambda s=shard, b=base: mk.megakernel_acc_plain(mega, s, args[1],
+                                                                args[2], b),
+            ))
+        results = {}
+        for name, label, kernel, plain in calls:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            results.setdefault(name, []).append((label, got, want))
+        summed = torch.stack([got for _, got, _ in results["mega_acc"]]).sum(
+            dim=0, dtype=torch.int32)
+        epilogue = (lambda: mega.epilogue(summed, args[3]),
+                    lambda: mega.epilogue_plain(summed, args[3]))
+        results["mega_epilogue"] = [(f"in=[{fp}, {d}]", epilogue[0](), epilogue[1]())]
+        torch.cuda.synchronize()
+
+        # Least work: each input byte read once, each output byte written
+        # once; and the contractions the TPU kernel runs on its int8 MXU
+        # (row-file membership x row hits, then the derive chain), at the
+        # card's dense int8 rate.
+        consts = mega._consts(args[0].device)
+        nb = {k: int(v.numel() * v.element_size()) for k, v in consts.items()}
+        sieve_bytes = nb["bmasks"] + nb["bvals"]
+        derive_bytes = sum(nb.values()) - sieve_bytes
+        range_bytes = lo.nbytes + hi.nbytes
+        w, p = mega._dw.shape[1], mega._pm.shape[1]
+        r, k = mega.num_rules, mega._k
+        derive_ops = 2 * fp * (d * w + w * p + p * r + p * r * k)
+        out_bytes = fp * mega.mask_bytes
+        timed = {  # name: (kernel, plain, shape, bytes, int8 ops)
+            "mega": (*calls[0][2:], [t, cc],
+                     coded.nbytes + range_bytes + valid.nbytes + sieve_bytes
+                     + derive_bytes + out_bytes,
+                     2 * t * fp * d + derive_ops),
+            # shard 1: a shard of the split at a base other than 0
+            "mega_acc": (*calls[2][2:], [per, cc],
+                         per * cc + range_bytes + 4 + sieve_bytes + fp * d * 4,
+                         2 * per * fp * d),
+            "mega_epilogue": (*epilogue, [fp, d],
+                              fp * d * 4 + valid.nbytes + derive_bytes + out_bytes,
+                              derive_ops),
+        }
+        for name in names:
+            rec = report[name]
+            for label, got, want in results[name]:
+                err = int((got.long() - want.long()).abs().max().item())
+                equal = torch.equal(got, want)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                print(f"mega: {name} {space} {label} Fp={fp} D={d} equal={equal} "
+                      f"max_abs_err={err} nonzero={int((want != 0).sum())}",
+                      flush=True)
+                if err or not equal:
+                    fail("mega", f"{name} {space} {label} disagrees with its "
+                         "plain version")
+            if not any(want.any() for _, _, want in results[name]):
+                fail("mega", f"{name} {space}: nothing fired")
+            if space == "class":
+                kernel, plain, shape, nbytes, ops = timed[name]
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = ops / INT8_OPS_PER_S * 1e3
+                rec.update(
+                    ms=event_ms(torch, kernel, REPS),
+                    plain_ms=event_ms(torch, plain, 3),
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    shape=shape,
+                )
+                print(f"mega: {name} {space} timed shape={shape} ms={rec['ms']:.4f} "
+                      f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.5f} "
+                      f"({rec['bound_by']}; bytes {bytes_ms:.5f}, int8 ops "
+                      f"{ops_ms:.5f})", flush=True)
+        split_ok = torch.equal(split, results["mega"][0][1])
+        sum_ok = torch.equal(results["mega_epilogue"][0][2], results["mega"][0][2])
+        print(f"mega: split={SPLIT} {space} equal_to_K3={split_ok} "
+              f"summed_shards_equal_K3_plain={sum_ok} launches={launches}", flush=True)
+        if not split_ok:
+            fail("mega", f"the {SPLIT}-way split differs from K3 in {space}")
+        if not sum_ok:
+            fail("mega", f"the summed shard counts give another mask in {space}")
+    return report, split_launches
+
+
+def serve_phase(np, torch, gs, corpus) -> dict:
+    """The corpus as batches of SERVE_BATCH files, through the megakernel and
+    through the staged path; returns each way's launches."""
+    from trivy_tpu_torch.engine.device import GpuSecretEngine
+    from trivy_tpu_torch.engine.oracle import OracleScanner
+    from trivy_tpu_torch.ftypes import secret_to_json
+
+    batches = [corpus[i : i + SERVE_BATCH] for i in range(0, len(corpus), SERVE_BATCH)]
+    warm = GpuSecretEngine(device=DEVICE, tile_len=4096)
+    warm.scan_batch(corpus[:20])
+    warm.scan_batch_staged_sieve(corpus[:20])
+    nbytes = sum(len(c) for b in batches for _, c in b)
+    runs = {}
+    for way in ("mega", "staged"):
+        engine = GpuSecretEngine(device=DEVICE, tile_len=4096)
+        if not engine.megakernel_active:
+            fail("serve", "the megakernel is off on a CUDA device")
+        scan = engine.scan_batch_staged_sieve if way == "staged" else engine.scan_batch
+        for k in gs.LAUNCHES:
+            gs.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        results = [r for b in batches for r in scan(b)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(gs.LAUNCHES)
+        files = sum(len(b) for b in batches)
+        print(f"serve: {way} batches={len(batches)} files={files} "
+              f"MB={nbytes / 1e6:.3f} rows={engine.stats.tiles} "
+              f"findings={sum(len(r.findings) for r in results)} seconds={dt:.4f} "
+              f"files_per_s={files / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
+              f"launches={launches} phases={json.dumps(engine.stats.phases())}",
+              flush=True)
+        runs[way] = (results, launches)
+    n = len(batches)
+    expect = {
+        "mega": {"mega": n, "bitplane": 0, "mega_acc": 0},
+        "staged": {"mega": 0, "mega_acc": 0},
+    }
+    for way, want in expect.items():
+        got = {k: runs[way][1][k] for k in want}
+        if got != want:
+            fail("serve", f"{way} launches {got}, expected {want}")
+    if runs["staged"][1]["bitplane"] < n:
+        fail("serve", f"staged launches {runs['staged'][1]}")
+    docs = {way: json.dumps([secret_to_json(r) for r in res], sort_keys=True)
+            for way, (res, _) in runs.items()}
+    if len(set(docs.values())) != 1:
+        fail("serve", "findings differ between the megakernel and staged runs")
+    flat = [item for b in batches for item in b]
+    checked = check_against_oracle(np, OracleScanner(), flat, runs["mega"][0],
+                                   N_SAMPLED, "serve")
+    print(f"serve: equal_findings=True checked_against_oracle={checked}", flush=True)
+    return {way: launches for way, (_, launches) in runs.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -210,6 +438,7 @@ def main() -> int:
         from trivy_tpu_torch.engine import link
         from trivy_tpu_torch.ops import _build
         from trivy_tpu_torch.ops import gram_sieve as gs
+        from trivy_tpu_torch.ops import megakernel as mk
         from trivy_tpu_torch.rules.model import build_ruleset
     except ImportError as exc:
         fail("setup", f"run from the repository root: {exc}")
@@ -232,27 +461,44 @@ def main() -> int:
         "window": path_phase(np, torch, gs, corpus[:WINDOW_FILES], 128, "window",
                              WINDOW_SAMPLED, "window"),
     }
+    mega_report, split = mega_phase(np, torch, gs, mk, compiled, codec)
+    report.update(mega_report)
+    serve = serve_phase(np, torch, gs, corpus)
+    launches["mega"] = serve["mega"]["mega"]
+    launches["mega_acc"] = split["mega_acc"]
+    launches["mega_epilogue"] = split["mega_epilogue"]
 
     replaces = {
         "bitplane": "trivy_tpu/ops/gram_sieve_pallas.py:271",
         "window": "trivy_tpu/ops/gram_sieve_pallas.py:311",
+        "mega": "trivy_tpu/ops/megakernel.py:435",
+        "mega_acc": "trivy_tpu/ops/megakernel.py:483",
+        # derive_counts_to_mask: K3's last grid step, and the reference
+        # split's epilogue after its psum
+        "mega_epilogue": "trivy_tpu/ops/megakernel.py:74",
     }
+    names = {"bitplane": "gram_sieve_bitplane", "window": "gram_sieve_window",
+             "mega": "megakernel_mask", "mega_acc": "megakernel_acc",
+             "mega_epilogue": "megakernel_epilogue"}
+    sources = {"bitplane": "gram_sieve.cu", "window": "gram_sieve.cu",
+               "mega": "megakernel.cu", "mega_acc": "megakernel.cu",
+               "mega_epilogue": "megakernel.cu"}
     kernels = [
         {
-            "name": f"gram_sieve_{kind}",
+            "name": names[kind],
             "route": "cuda",
-            "source": "trivy_tpu_torch/csrc/gram_sieve.cu",
+            "source": f"trivy_tpu_torch/csrc/{sources[kind]}",
             "replaces": replaces[kind],
             "launches": launches[kind],
             "max_abs_err": report[kind]["max_abs_err"],
             "ms": report[kind]["ms"],
             "plain_ms": report[kind]["plain_ms"],
             "bound_ms": report[kind]["bound_ms"],
-            "bound_by": "bytes",
+            "bound_by": report[kind].get("bound_by", "bytes"),
             "library_ms": None,
             "shape": report[kind]["shape"],
         }
-        for kind in ("bitplane", "window")
+        for kind in ("bitplane", "window", "mega", "mega_acc", "mega_epilogue")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

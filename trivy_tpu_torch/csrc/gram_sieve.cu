@@ -14,12 +14,8 @@
 //
 // Design: one block per row, of up to 256 threads.  The block stages the
 // folded row (plus a 3-byte tail: the row head for WRAP, zeros otherwise) and
-// the gram constants in shared memory.  Each thread holds the 32-bit windows
-// of PPT positions in registers (PPT = 1..16, chosen so the block covers a
-// 4096-byte row in one pass and a short row without idle threads), tests every
-// pair against all of them, and sets one bit per pair in a register word; a
-// warp OR-reduce and a shared-memory atomicOr merge the words, and the block
-// writes its row's [Dw] words.
+// the gram constants in shared memory, runs the compare loop of
+// sieve_row.cuh, and writes its row's [Dw] words.
 //
 // Bound on an H100: the function reads T*L staged bytes and writes T*Dw*4,
 // about 0.04 ms at 3.35 TB/s for T = 32768, L = 4096.  This simple design
@@ -32,17 +28,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sieve_row.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxPosPerThread = 16;
-
-__device__ __forceinline__ uint8_t fold(uint8_t b) {
-  return (b >= 0x41 && b <= 0x5A) ? static_cast<uint8_t>(b + 32) : b;
-}
+using sieve_row::fold;
 
 template <bool WRAP, int PPT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(sieve_row::kThreads)
 gram_sieve_kernel(const uint8_t* __restrict__ rows, int length,
                   const uint32_t* __restrict__ masks,
                   const uint32_t* __restrict__ vals, int n_pairs, int n_words,
@@ -68,44 +61,8 @@ gram_sieve_kernel(const uint8_t* __restrict__ rows, int length,
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  for (int base = 0; base < length; base += nthreads * PPT) {
-    const int p0 = base + threadIdx.x;
-    const bool active = p0 < length;
-    uint32_t win[PPT];
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      // Positions past the row repeat the thread's first window, which
-      // leaves the OR over positions unchanged.
-      const int p = p0 + k * nthreads;
-      if (!active) {
-        win[k] = 0;
-      } else if (p < length) {
-        win[k] = static_cast<uint32_t>(s_row[p]) |
-                 (static_cast<uint32_t>(s_row[p + 1]) << 8) |
-                 (static_cast<uint32_t>(s_row[p + 2]) << 16) |
-                 (static_cast<uint32_t>(s_row[p + 3]) << 24);
-      } else {
-        win[k] = win[0];
-      }
-    }
-    for (int w = 0; w < n_words; ++w) {
-      uint32_t word = 0;
-      const int first = 32 * w;
-      const int count = min(32, n_pairs - first);
-      for (int b = 0; b < count; ++b) {
-        const uint32_t m = s_mask[first + b];
-        const uint32_t v = s_val[first + b];
-        bool hit = false;
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) hit |= (win[k] & m) == v;
-        word |= static_cast<uint32_t>(hit) << b;
-      }
-      if (!active) word = 0;
-      word = __reduce_or_sync(0xffffffffu, word);
-      if (lane == 0 && word) atomicOr(&s_hit[w], word);
-    }
-  }
+  sieve_row::sieve_row<PPT>(s_row, length, s_mask, s_val, n_pairs, n_words,
+                            s_hit);
   __syncthreads();
   uint32_t* dst = out + static_cast<size_t>(blockIdx.x) * n_words;
   for (int i = threadIdx.x; i < n_words; i += nthreads) dst[i] = s_hit[i];
@@ -115,9 +72,7 @@ template <bool WRAP, int PPT>
 int launch_ppt(const void* rows, int n_rows, int length, const void* masks,
                const void* vals, int n_pairs, int n_words, void* out,
                cudaStream_t stream) {
-  // Enough whole warps to give each thread PPT positions of the row.
-  const int per_thread = (length + PPT - 1) / PPT;
-  const int threads = min(kThreads, max(32, (per_thread + 31) / 32 * 32));
+  const int threads = sieve_row::sieve_threads(length, PPT);
   const size_t smem = (2 * static_cast<size_t>(n_pairs) + n_words) * 4 +
                       static_cast<size_t>(length) + 4;
   if (smem > 48 * 1024) {
@@ -139,10 +94,7 @@ int launch(const void* rows, int n_rows, int length, const void* masks,
            void* stream_ptr) {
   if (n_rows == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  // Fewest positions per thread that cover the row with one block pass.
-  int ppt = 1;
-  while (ppt < kMaxPosPerThread && ppt * kThreads < length) ppt *= 2;
-  switch (ppt) {
+  switch (sieve_row::sieve_ppt(length)) {
     case 1:
       return launch_ppt<WRAP, 1>(rows, n_rows, length, masks, vals, n_pairs,
                                  n_words, out, stream);

@@ -1,7 +1,12 @@
 """The GPU secret engine: device sieve -> on-device candidates -> exact confirm.
 
-The port of `trivy_tpu/engine/device.py` `TpuSecretEngine` on its staged
-fused path (`kernel="pallas", fused=True, megakernel=False`):
+The port of `trivy_tpu/engine/device.py` `TpuSecretEngine` with
+`kernel="pallas", fused=True`.  A batch inside the single-call envelope (one
+row bucket, at most `MEGA_MAX_FILES` files) runs the **megakernel path**,
+the reference's default on its accelerator: encode, H2D, one megakernel call
+(`ops/megakernel.py`: unpack, sieve, per-file counts, derive, packed verdict
+bits) and the fetch of the packed mask.  Any other batch, or every batch with
+`megakernel=False`, runs the **staged fused path**:
 
   1. the host dedupes blobs by content digest and packs them densely into
      overlapping rows (`scanner/packing.py`);
@@ -14,13 +19,14 @@ fused path (`kernel="pallas", fused=True, megakernel=False`):
   4. the oracle confirms each candidate (file, rule) pair byte-exactly, so
      findings equal the reference engine's by construction.
 
-Later slices bring the chunk pipeline and residency, the megakernel, the
+Later slices bring the chunk pipeline and residency, the
 native DFA claim-killer (with no verifier the reference keeps every
 candidate, so findings are the same), faults and the observability hooks.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -33,6 +39,7 @@ from trivy_tpu_torch.engine import link as link_mod
 from trivy_tpu_torch.engine.oracle import OracleScanner
 from trivy_tpu_torch.ftypes import Secret
 from trivy_tpu_torch.ops.gram_sieve import GramSieve
+from trivy_tpu_torch.ops.megakernel import MEGA_MAX_FILES, MegaGramSieve
 from trivy_tpu_torch.rules.model import RuleSet, SecretConfig, build_ruleset
 from trivy_tpu_torch.scanner.packing import (
     DEFAULT_TILE_LEN,
@@ -100,7 +107,12 @@ class GpuSecretEngine:
     on the CPU when `device="cpu"`, through the kernels' plain versions).
 
     `compiled` takes a `CompiledRules` or the dict of arrays that
-    `CompiledRules.from_numpy` reads; it must be compiled from `ruleset`."""
+    `CompiledRules.from_numpy` reads; it must be compiled from `ruleset`.
+
+    `megakernel` switches the megakernel path: the argument when given, else
+    `TRIVY_TPU_MEGAKERNEL` ("0" off, anything else on), else on for a CUDA
+    device and off on the CPU, as the reference's is on only on its
+    accelerator.  It needs `tile_len` a power of two >= 256 and some gram."""
 
     def __init__(
         self,
@@ -110,6 +122,7 @@ class GpuSecretEngine:
         max_batch_tiles: int | None = None,
         compiled: CompiledRules | dict | None = None,
         device: str | torch.device = DEFAULT_DEVICE,
+        megakernel: bool | None = None,
     ):
         self.device = resolve_device(device)
         self.ruleset = ruleset if ruleset is not None else build_ruleset(config)
@@ -156,6 +169,38 @@ class GpuSecretEngine:
         self._conj_member = dev(compiled.conj_member)
         self._conj_any = dev(compiled.conj_any, torch.bool)
 
+        env = os.environ.get("TRIVY_TPU_MEGAKERNEL", "")
+        if megakernel is not None:
+            want_mega = bool(megakernel)
+        elif env:
+            want_mega = env != "0"
+        else:
+            want_mega = self.device.type == "cuda"
+        self._mega: MegaGramSieve | None = None
+        self._mega_on = False
+        if (
+            want_mega
+            and len(compiled.masks) > 0
+            and tile_len >= 256
+            and tile_len & (tile_len - 1) == 0
+        ):
+            self._mega = MegaGramSieve(
+                cmasks, cvals,
+                wmember=compiled.wmember,
+                pmember=compiled.pmember,
+                pwindows=compiled.pwindows,
+                probe_has_gram=compiled.probe_has_gram,
+                gate_member=compiled.gate_member,
+                gate_any=compiled.gate_any,
+                conj_member=compiled.conj_member,
+                conj_any=compiled.conj_any,
+                num_conjuncts=compiled.num_conjuncts,
+                row_len=tile_len,
+                sym_bits=self._link.sym_bits if self._link is not None else None,
+                device=self.device,
+            )
+            self._mega_on = True
+
     # ------------------------------------------------------------------
 
     def _buckets(self) -> list[int]:
@@ -174,9 +219,9 @@ class GpuSecretEngine:
             )
         return np.ascontiguousarray(part)
 
-    def _dispatch(self, part: np.ndarray) -> torch.Tensor:
-        """Encode one padded chunk, stage it, unpack and sieve it on the
-        device; the hit words stay there."""
+    def _stage(self, part: np.ndarray) -> torch.Tensor:
+        """Encode one padded chunk with the link codec and stage it on the
+        device, with the reference's dispatch and link accounting."""
         buf = part
         if self._link is not None:
             t0 = time.perf_counter()
@@ -185,7 +230,12 @@ class GpuSecretEngine:
         self.stats.device_dispatches += 1
         self.stats.bytes_on_link_raw += part.nbytes
         self.stats.bytes_on_link_coded += buf.nbytes
-        dev = torch.from_numpy(buf).to(self.device)
+        return torch.from_numpy(buf).to(self.device)
+
+    def _dispatch(self, part: np.ndarray) -> torch.Tensor:
+        """Stage one padded chunk, unpack and sieve it on the device; the
+        hit words stay there."""
+        dev = self._stage(part)
         if self._link is not None:
             dev = self._link.unpack(dev, self.tile_len)
         return self.sieve(dev)
@@ -272,12 +322,62 @@ class GpuSecretEngine:
         )
         return self._fetch(out)[:f].astype(bool)
 
+    @property
+    def megakernel_active(self) -> bool:
+        """True when the megakernel is built and switched on."""
+        return self._mega is not None and self._mega_on
+
+    def _mega_candidates(self, batch: DenseBatch) -> np.ndarray | None:
+        """One megakernel call from packed bytes to verdict bits: stage the
+        coded rows, run K3, fetch the packed mask.  Returns the [F, R] bool
+        candidate matrix, or None when the batch is outside the single-call
+        envelope (no single row bucket fits, or more than MEGA_MAX_FILES
+        files), and the staged path then scans it, byte-identically."""
+        f = batch.num_files
+        r = self.compiled.num_rules
+        if f == 0:
+            return np.zeros((0, r), dtype=bool)
+        total = len(batch.rows)
+        fit = next((b for b in self._buckets() if total <= b), None)
+        if fit is None or f > MEGA_MAX_FILES:
+            return None
+        fp = max(8, 1 << (f - 1).bit_length())
+        lo = np.zeros((1, fp), np.int32)
+        hi = np.full((1, fp), -1, np.int32)  # padding: hi < lo -> invalid
+        lo[0, :f] = batch.file_row_lo
+        hi[0, :f] = batch.file_row_hi
+        valid = (hi >= lo).astype(np.int8).reshape(fp, 1)
+
+        t0 = time.perf_counter()
+        dev = self._stage(self._pad_chunk(batch.rows, 0, fit))
+        mask = self._mega(
+            dev,
+            torch.from_numpy(lo).to(self.device),
+            torch.from_numpy(hi).to(self.device),
+            torch.from_numpy(valid).to(self.device),
+        )
+        self.stats.sieve_s += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        # raw bytes: what the staged path's [Fp, R] uint8 candidate fetch
+        # would have moved for the same batch.
+        lanes, raw_b, got_b = link_mod.fetch_mask_packed(mask, fp * r)
+        self.stats.d2h_bytes_raw += raw_b
+        self.stats.d2h_bytes += got_b
+        cand = lanes.reshape(fp, self._mega.mask_bytes * 8)[:f, :r]
+        self.stats.candidate_s += time.perf_counter() - t0
+        return cand
+
     def _candidates(self, contents: list[bytes]) -> np.ndarray:
         """[F, R] bool candidate matrix for a content batch."""
         t0 = time.perf_counter()
         batch = pack_dense(contents, self.tile_len, self.overlap)
         self.stats.pack_s += time.perf_counter() - t0
         self.stats.tiles += len(batch.rows)
+        if self.megakernel_active:
+            cand = self._mega_candidates(batch)
+            if cand is not None:
+                return cand
         t0 = time.perf_counter()
         hits = self._sieve_rows(batch.rows)
         self.stats.sieve_s += time.perf_counter() - t0
@@ -285,6 +385,16 @@ class GpuSecretEngine:
         cand = self._derive_candidates(batch, hits)
         self.stats.candidate_s += time.perf_counter() - t0
         return cand
+
+    def scan_batch_staged_sieve(self, items: list[tuple[str, bytes]]) -> list[Secret]:
+        """scan_batch with the megakernel held off for this call (the serve
+        scheduler's step-down rung): the staged path scans the batch."""
+        prev = self._mega_on
+        self._mega_on = False
+        try:
+            return self.scan_batch(items)
+        finally:
+            self._mega_on = prev
 
     def scan_batch(self, items: list[tuple[str, bytes]]) -> list[Secret]:
         """Scan (path, content) blobs; returns per-file Secret results."""

@@ -15,8 +15,9 @@ coded symbols.
 the device ahead of the sieve, and `fetch_rows_compact` fetches only the
 nonzero rows of a device result (a row bitmap first, then a gather of a
 power-of-two padded index), with the reference's `(raw_bytes,
-fetched_bytes)` accounting.  Both are plain tensor code, as the reference's
-are XLA programs and not Pallas kernels.
+fetched_bytes)` accounting; `fetch_mask_packed` fetches the megakernel's
+packed verdict mask.  All are plain tensor code, as the reference's are XLA
+programs and not Pallas kernels.
 
 `TRIVY_TPU_LINK_CODEC` (off | auto | 4 | 6, default auto) selects the mode,
 the same variable the JAX package reads.
@@ -165,18 +166,7 @@ class LinkCodec:
     def unpack(self, coded: torch.Tensor, out_len: int) -> torch.Tensor:
         """Packed [T, coded_len(out_len)] uint8 -> class-id rows
         [T, out_len] uint8, on `coded`'s device (shifts and masks only)."""
-        t = coded.shape[0]
-        if self.sym_bits == 4:
-            full = torch.stack([coded & 0x0F, coded >> 4], dim=-1)
-            return full.reshape(t, -1)[:, :out_len]
-        b = coded.reshape(t, -1, 3)
-        b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-        s0 = b0 & 0x3F
-        s1 = (b0 >> 6) | ((b1 & 0x0F) << 2)
-        s2 = (b1 >> 4) | ((b2 & 0x03) << 4)
-        s3 = b2 >> 2
-        full = torch.stack([s0, s1, s2, s3], dim=-1)
-        return full.reshape(t, -1)[:, :out_len]
+        return unpack_symbols(coded, self.sym_bits, out_len)
 
     def encode_grams(
         self, masks: np.ndarray, vals: np.ndarray
@@ -191,6 +181,28 @@ class LinkCodec:
         cb = np.where(mb == 0xFF, self.class_map[vb], 0).astype(np.uint32)
         cvals = (cb << shifts[None, :]).sum(axis=1, dtype=np.uint32)
         return masks.copy(), cvals
+
+
+def unpack_symbols(
+    coded: torch.Tensor, sym_bits: int | None, out_len: int
+) -> torch.Tensor:
+    """Codec bytes [T, Cc] uint8 -> symbol rows [T, out_len] uint8: 4-bit
+    symbol 2i is the low nibble of byte i and 2i+1 the high one; 6-bit takes
+    3 bytes to 4 symbols; `sym_bits=None` is raw bytes, returned as they are."""
+    t = coded.shape[0]
+    if sym_bits is None:
+        return coded
+    if sym_bits == 4:
+        full = torch.stack([coded & 0x0F, coded >> 4], dim=-1)
+        return full.reshape(t, -1)[:, :out_len]
+    b = coded.reshape(t, -1, 3)
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    s0 = b0 & 0x3F
+    s1 = (b0 >> 6) | ((b1 & 0x0F) << 2)
+    s2 = (b1 >> 4) | ((b2 & 0x03) << 4)
+    s3 = b2 >> 2
+    full = torch.stack([s0, s1, s2, s3], dim=-1)
+    return full.reshape(t, -1)[:, :out_len]
 
 
 def select_codec(alphabet: LinkAlphabet, mode: str, gset=None) -> LinkCodec | None:
@@ -283,3 +295,14 @@ def fetch_rows_compact(out: torch.Tensor) -> tuple[np.ndarray, int, int]:
     full = np.zeros(shape, dtype=host_dtype)
     full[nz] = rows[:k]
     return full, raw, got
+
+
+def fetch_mask_packed(out: torch.Tensor, raw_bytes: int) -> tuple[np.ndarray, int, int]:
+    """Fetch the megakernel's packed verdict mask [Fp, mask_bytes] uint8, its
+    only D2H.  Returns (flat bool lane mask, raw_bytes, fetched_bytes):
+    `raw_bytes` is what the staged path's [Fp, R] uint8 candidate fetch
+    would have moved for the same batch (the caller computes it), so the
+    fetch accounting stays comparable across paths.  No bitmap round-trip:
+    the mask is already one bit per lane."""
+    packed = out.cpu().numpy()
+    return np.unpackbits(packed).astype(bool), int(raw_bytes), packed.nbytes

@@ -3,7 +3,8 @@
 Each source compiles with `nvcc` into a shared library with a plain C
 interface under `trivy_tpu_torch/_build/` (listed in `.gitignore`), at first
 use, and loads through `ctypes`.  The library's file name carries a digest of
-the source and the flags, so an edited source never loads a stale build.
+the source, every header in `csrc/` (`*.cuh`, which sources share) and the
+flags, so an edited source or header never loads a stale build.
 Nothing here runs at import time; a missing `nvcc` or a failed build raises.
 """
 
@@ -39,11 +40,12 @@ def nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.blake2b(
-        src + " ".join(NVCC_FLAGS).encode(), digest_size=8
-    ).hexdigest()
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.blake2b(digest_size=8)
+    h.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
 
 
 def _start_build(name: str) -> tuple[Path, Path, subprocess.Popen | None]:

@@ -32,9 +32,12 @@ from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 DEFAULT_BLOCK_ROWS = 64
 WINDOW_BLOCK_ROWS = 128
 
-# Kernel launches since the process started (or the caller last zeroed
-# them): how a run shows that its path went through the CUDA kernels.
-LAUNCHES: dict[str, int] = {"bitplane": 0, "window": 0}
+# Kernel launches of the port since the process started (or the caller last
+# zeroed them): how a run shows that its path went through the CUDA kernels.
+# The megakernel's wrappers (`ops/megakernel.py`) count here too.
+LAUNCHES: dict[str, int] = {
+    "bitplane": 0, "window": 0, "mega": 0, "mega_acc": 0, "mega_epilogue": 0,
+}
 
 
 def dedupe_grams(
