@@ -5,10 +5,13 @@ Run from the repository root: `python3 chip_smoke.py`.  It needs a CUDA card
 and `nvcc`; without a card, or outside the repository, it exits non-zero and
 prints no result.  Phases, one line each (any failure exits non-zero):
 
-1. build    compile every kernel source under trivy_tpu_torch/csrc/;
+1. build    compile every kernel source under trivy_tpu_torch/csrc/, and
+            print each kernel's registers, static shared memory and spills
+            as `nvcc -Xptxas -v` reports them;
 2. kernels  hold K1 (bitplane sieve) and K2 (window sieve) bit-identical to
             their plain PyTorch versions on seeded rows with planted secrets,
-            in raw bytes and in the link codec's class space, and time both;
+            in raw bytes and in the link codec's class space, and time both
+            (K1 in raw bytes too, where its table lookups can conflict);
 3. main     `GpuSecretEngine(device="cuda", tile_len=4096)` with the builtin
             ruleset and the `auto` codec over a 20,000-file, ~100 MB corpus
             (bench_corpus.make_kernel_corpus): K1 must launch, and findings
@@ -23,7 +26,13 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             epilogue; counts zeroed before, read after) and hold its mask
             to K3's; hold K3, K4 on every shard at its base and the
             epilogue on the summed shard counts bit-identical to their
-            plain PyTorch versions, and time each at that shape;
+            plain PyTorch versions, and time each at that shape; time the
+            count stage (K4 on all rows) beside K1 on the same rows
+            unpacked and beside itself with twice the file lanes (the
+            extra ones padding, to time the file listing); and time K3
+            on the inputs of one real serve batch (the engine's own coded
+            rows and file ranges, padding rows included) beside the
+            all-rows case;
 6. serve    the same corpus as 10 batches of 2,000 files through
             `GpuSecretEngine(device="cuda", tile_len=4096)`, twice: with
             the megakernel (K3 must launch once per batch, K1 never) and
@@ -32,7 +41,9 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             2,000 sampled ones.
 
 Then one JSON line describing each kernel (launches come from the path runs;
-times from CUDA events in this run), the card's name and power limit, and
+times from CUDA events in this run, each beside the device time of the
+kernels alone from `torch.profiler`, which leaves out the host's launch
+work), the card's name and power limit, and
 the result line `{"ok": true, "device": {...}}`.  Nothing here imports JAX or
 the JAX package.
 """
@@ -84,6 +95,16 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def demangle(name: str) -> str:
+    """A kernel's C++ name, through the CUDA toolkit's cu++filt when present."""
+    tool = "/usr/local/cuda/bin/cu++filt"
+    if not os.path.exists(tool):
+        return name
+    proc = subprocess.run([tool, name], capture_output=True, text=True, timeout=60)
+    out = proc.stdout.strip() if proc.returncode == 0 else ""
+    return out.replace("(anonymous namespace)::", "").replace(" ", "") or name
+
+
 def seeded_rows(np, t: int, length: int, seed: int):
     rng = np.random.default_rng(seed)
     rows = rng.integers(0, 256, size=(t, length), dtype=np.uint8)
@@ -131,11 +152,12 @@ def kernel_phase(np, torch, gs, compiled, codec) -> dict:
             masks, vals = codec.encode_grams(masks, vals)
             rows = codec.class_map[rows]
         sieve = gs.GramSieve(masks, vals, impl=kind, device=DEVICE)
+        # the pairs for the plain version, and their table for the kernel
         consts = sieve._bitplane_consts if kind == "bitplane" else sieve._window_consts
         dev = torch.from_numpy(rows).to(DEVICE)
         kernel, plain = kernels[kind]
-        got = kernel(dev, *consts, sieve.n_words)
-        want = plain(dev, *consts, sieve.n_words)
+        got = kernel(dev, consts, sieve.n_words)
+        want = plain(dev, consts.masks, consts.vals, sieve.n_words)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max().item())
         line = (f"kernels: {kind} T={t} L={length} {space} D={sieve.num_distinct} "
@@ -143,20 +165,52 @@ def kernel_phase(np, torch, gs, compiled, codec) -> dict:
                 f"hit_words={int((want != 0).sum())}")
         rec = report.setdefault(kind, {"max_abs_err": 0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if t == MAIN_ROWS and kind == "bitplane" and space == "raw":
+            raw_ms = device_ms(torch, lambda: kernel(dev, consts, sieve.n_words), REPS)
+            line += f" device_ms={fmt_ms(raw_ms)} (raw bytes)"
         if t == MAIN_ROWS and space == "class":
-            ms = event_ms(torch, lambda: kernel(dev, *consts, sieve.n_words), REPS)
-            plain_ms = event_ms(torch, lambda: plain(dev, *consts, sieve.n_words), 3)
+            ms = event_ms(torch, lambda: kernel(dev, consts, sieve.n_words), REPS)
+            dev_ms = device_ms(torch, lambda: kernel(dev, consts, sieve.n_words), REPS)
+            plain_ms = event_ms(
+                torch, lambda: plain(dev, consts.masks, consts.vals, sieve.n_words), 3)
             # Least bytes: each row byte read once, each hit word written once.
             nbytes = t * length + t * sieve.n_words * 4 + 2 * 4 * sieve.num_distinct
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, shape=[t, length])
-            line += f" ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f}"
+            rec.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       shape=[t, length])
+            line += (f" ms={ms:.4f} device_ms={fmt_ms(dev_ms)} plain_ms={plain_ms:.4f} "
+                     f"bound_ms={bound_ms:.5f}")
         print(line, flush=True)
         if err or not torch.equal(got, want):
             fail("kernels", f"{kind} T={t} L={length} {space} disagrees with plain")
         if not want.any():
             fail("kernels", f"{kind} T={t} L={length} {space}: no gram fired")
     return report
+
+
+KERNEL_NAMES = ("gram_sieve_kernel", "mega_count_kernel", "mega_epilogue_kernel")
+
+
+def device_ms(torch, fn, reps: int):
+    """Device time per call of the port's kernels that `fn` launches, from
+    the profiler's CUDA activity over `reps` calls (other kernels, such as
+    the zero fill of a count buffer, left out); None when the profiler sees
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+                if any(k in e.key for k in KERNEL_NAMES))
+    return total / reps / 1e3 if total else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def check_against_oracle(np, oracle, corpus, results, n_sampled: int, phase: str) -> int:
@@ -231,14 +285,57 @@ def file_ranges(np, t: int, n_files: int, fp: int, seed: int):
     return lo, hi, (hi >= lo).astype(np.int8).reshape(fp, 1)
 
 
-def mega_phase(np, torch, gs, mk, compiled, codec) -> tuple[dict, dict]:
+class _Recorder:
+    """Stands in for an engine's MegaGramSieve and keeps the last K3 call's
+    arguments."""
+
+    def __init__(self, mega):
+        self.mega, self.args = mega, None
+
+    def __call__(self, *args):
+        self.args = args
+        return self.mega(*args)
+
+    def __getattr__(self, name):
+        return getattr(self.mega, name)
+
+
+def serve_batch_k3(np, torch, mk, corpus, all_rows_ms: float) -> float:
+    """K3 on the inputs of one real serve batch: the engine's coded rows and
+    file ranges for the first SERVE_BATCH files.  Checks it against its
+    plain version and returns its time."""
+    from trivy_tpu_torch.engine.device import GpuSecretEngine
+
+    engine = GpuSecretEngine(device=DEVICE, tile_len=4096)
+    engine._mega = rec = _Recorder(engine._mega)
+    engine.scan_batch(corpus[:SERVE_BATCH])
+    if rec.args is None:
+        fail("mega", "the serve batch did not run the megakernel")
+    coded, lo, hi, valid = rec.args
+    got, want = rec.mega(*rec.args), mk.megakernel_plain(rec.mega, *rec.args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("mega", "K3 on the serve batch disagrees with its plain version")
+    ms = event_ms(torch, lambda: rec.mega(*rec.args), REPS)
+    dev_ms = device_ms(torch, lambda: rec.mega(*rec.args), REPS)
+    files = int((valid > 0).sum())
+    real = int((hi.long() + 1).max()) if files else 0
+    print(f"mega: K3 serve batch in=[{coded.shape[0]}, {coded.shape[1]}] "
+          f"files={files} Fp={lo.shape[1]} rows_in_files={real} ms={ms:.4f} "
+          f"device_ms={fmt_ms(dev_ms)} (all rows in files: {all_rows_ms:.4f})",
+          flush=True)
+    return ms
+
+
+def mega_phase(np, torch, gs, mk, compiled, codec, corpus) -> tuple[dict, dict]:
     """K3, K4 and the epilogue against their plain versions, in raw bytes and
     class space: K3 at the serve shape, K4 on every shard of the 4-way split
     at that shard's base, the epilogue on the shards' summed counts.  The
     split itself (`make_sharded_megakernel`, counts zeroed just before and
     read just after) must equal K3's mask.  Returns the report, with times at
     the shapes the path launches in class space (the serve path's codec),
-    and the split's launches in class space."""
+    and the split's launches in class space, with K3's time on one real
+    serve batch."""
     names = ("mega", "mega_acc", "mega_epilogue")
     report = {name: {"max_abs_err": 0} for name in names}
     lo, hi, valid = file_ranges(np, SERVE_ROWS, SERVE_BATCH, MEGA_FP, SEED)
@@ -347,15 +444,53 @@ def mega_phase(np, torch, gs, mk, compiled, codec) -> tuple[dict, dict]:
                 ops_ms = ops / INT8_OPS_PER_S * 1e3
                 rec.update(
                     ms=event_ms(torch, kernel, REPS),
+                    device_ms=device_ms(torch, kernel, REPS),
                     plain_ms=event_ms(torch, plain, 3),
                     bound_ms=max(bytes_ms, ops_ms),
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                     shape=shape,
                 )
                 print(f"mega: {name} {space} timed shape={shape} ms={rec['ms']:.4f} "
-                      f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.5f} "
+                      f"device_ms={fmt_ms(rec['device_ms'])} plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.5f} "
                       f"({rec['bound_by']}; bytes {bytes_ms:.5f}, int8 ops "
                       f"{ops_ms:.5f})", flush=True)
+        if space == "class":
+            # The count stage beside K1 on the same rows unpacked: 1 - K1/K4
+            # estimates the share of the file listing, the adds and the
+            # in-kernel unpack together (no strict bound: K4 sieves packed
+            # rows through a smaller table).  The listing alone: the same
+            # files with as many padding lanes again, so the listing scans
+            # twice the ranges and nothing else changes.
+            sieve = gs.GramSieve(masks, vals, device=DEVICE)
+            rows_dev = torch.from_numpy(codec.class_map[rows]).to(DEVICE)
+            zero = torch.zeros((1, 1), dtype=torch.int32, device=DEVICE)
+            pad = torch.full((1, fp), -1, dtype=torch.int32, device=DEVICE)
+            lo2, hi2 = (torch.cat([x, y], dim=1).contiguous()
+                        for x, y in ((args[1], pad + 1), (args[2], pad)))
+            def count():
+                return mega.acc(args[0], args[1], args[2], zero)
+
+            def count_padded():
+                return mega.acc(args[0], lo2, hi2, zero)
+
+            if not torch.equal(count_padded()[:fp], count()):
+                fail("mega", "padding lanes changed the counts")
+            count_ms, k1_ms = event_ms(torch, count, REPS), event_ms(
+                torch, lambda: sieve(rows_dev), REPS)
+            count_dev, k1_dev, padded_dev = (
+                device_ms(torch, fn, REPS)
+                for fn in (count, lambda: sieve(rows_dev), count_padded))
+            upper = (f"{1 - k1_dev / count_dev:.1%}" if count_dev and k1_dev
+                     else "not measured")
+            listing = (f"{padded_dev / count_dev - 1:.1%}" if count_dev and padded_dev
+                       else "not measured")
+            print(f"mega: count stage (K4, all {t} rows, every row in a file, "
+                  f"Fp={fp}) ms={count_ms:.4f} device_ms={fmt_ms(count_dev)}; K1 "
+                  f"on the same rows ms={k1_ms:.4f} device_ms={fmt_ms(k1_dev)}; "
+                  f"listing + adds + unpack ~{upper} (1 - K1/K4, an "
+                  f"estimate); K4 at Fp={2 * fp} with {fp} padding lanes "
+                  f"device_ms={fmt_ms(padded_dev)}: listing {fp} ranges ~{listing} "
+                  f"of the count stage", flush=True)
         split_ok = torch.equal(split, results["mega"][0][1])
         sum_ok = torch.equal(results["mega_epilogue"][0][2], results["mega"][0][2])
         print(f"mega: split={SPLIT} {space} equal_to_K3={split_ok} "
@@ -364,6 +499,8 @@ def mega_phase(np, torch, gs, mk, compiled, codec) -> tuple[dict, dict]:
             fail("mega", f"the {SPLIT}-way split differs from K3 in {space}")
         if not sum_ok:
             fail("mega", f"the summed shard counts give another mask in {space}")
+    report["mega"]["serve_batch_ms"] = serve_batch_k3(np, torch, mk, corpus,
+                                                      report["mega"]["ms"])
     return report, split_launches
 
 
@@ -445,10 +582,19 @@ def main() -> int:
     os.environ["TRIVY_TPU_LINK_CODEC"] = "auto"
     card = card_line()
     print(f"card: {card}", flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(f"card: max SM clock {clocks.stdout.strip() or 'not read'}", flush=True)
 
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} seconds={time.perf_counter() - t0:.2f}", flush=True)
+    for name in sorted(libs):
+        for r in _build.resources(name):
+            print(f"build: {name}.cu {demangle(r['kernel'])} registers={r['registers']} "
+                  f"static_smem_bytes={r['smem_bytes']} spill_bytes={r['spill_bytes']}",
+                  flush=True)
 
     compiled = CompiledRules.build(build_ruleset(None))
     codec = link.select_codec(link.derive_alphabet(compiled), "auto", compiled)
@@ -461,7 +607,7 @@ def main() -> int:
         "window": path_phase(np, torch, gs, corpus[:WINDOW_FILES], 128, "window",
                              WINDOW_SAMPLED, "window"),
     }
-    mega_report, split = mega_phase(np, torch, gs, mk, compiled, codec)
+    mega_report, split = mega_phase(np, torch, gs, mk, compiled, codec, corpus)
     report.update(mega_report)
     serve = serve_phase(np, torch, gs, corpus)
     launches["mega"] = serve["mega"]["mega"]
@@ -492,11 +638,14 @@ def main() -> int:
             "launches": launches[kind],
             "max_abs_err": report[kind]["max_abs_err"],
             "ms": report[kind]["ms"],
+            "device_ms": report[kind]["device_ms"],
             "plain_ms": report[kind]["plain_ms"],
             "bound_ms": report[kind]["bound_ms"],
             "bound_by": report[kind].get("bound_by", "bytes"),
             "library_ms": None,
             "shape": report[kind]["shape"],
+            **({"serve_batch_ms": report[kind]["serve_batch_ms"]}
+               if "serve_batch_ms" in report[kind] else {}),
         }
         for kind in ("bitplane", "window", "mega", "mega_acc", "mega_epilogue")
     ]

@@ -1,5 +1,10 @@
 """The CUDA kernels of `trivy_tpu_torch/csrc/` on an NVIDIA card: the gram
-sieves K1/K2 (`gram_sieve.cu`) and the megakernel K3/K4 (`megakernel.cu`).
+sieves K1/K2 (`gram_sieve.cu`) and the megakernel K3/K4 (`megakernel.cu`),
+including the shapes the table core, its persistent grid and the file
+listing can get wrong: more than 256 pairs, A-Z and high bytes at the row
+tail, short and odd rows, more rows than the grid holds, many files on one
+row, a run of rows with more files than a block lists, and a batch of
+padding rows.
 
 These tests need a card and `nvcc`; without a card they skip.  On a machine
 with one: `python -m pytest -m cuda tests/test_torch_cuda.py` (no JAX needed).
@@ -73,9 +78,13 @@ def test_kernel_equals_plain(card, compiled, impl, t, length, space):
 
 def test_wrapper_rejects_mixed_devices(card, compiled):
     rows = torch.zeros((64, 256), dtype=torch.uint8, device=card)
-    consts = torch.zeros(4, dtype=torch.int32)
+    zeros = np.zeros(4, np.uint32)
+    consts = gs.sieve_consts(zeros, zeros, 1, "cpu")
     with pytest.raises(ValueError):
-        gs.gram_sieve_bitplane(rows, consts, consts, 1)
+        gs.gram_sieve_bitplane(rows, consts, 1)
+    on_card = gs.sieve_consts(zeros, zeros, 1, card)
+    with pytest.raises(ValueError, match="table"):
+        gs.gram_sieve_bitplane(rows, on_card._replace(table=consts.table), 1)
 
 
 @pytest.mark.parametrize("mode", ["off", "auto"])
@@ -207,3 +216,183 @@ def test_engine_megakernel_on_card_equals_cpu(card, mode, monkeypatch):
     assert got == findings_fingerprint(cpu, items)
     assert got == findings_fingerprint(GpuSecretEngine(device="cpu", tile_len=512), items)
     assert gpu.stats.d2h_bytes == cpu.stats.d2h_bytes
+
+
+# -- shapes the table core can get wrong --------------------------------------
+
+
+def _custom_pairs(rows: np.ndarray, n: int, seed: int):
+    """n (mask, val) pairs, more than half cut from `rows` (so they fire),
+    with whole and partial byte masks."""
+    rng = np.random.default_rng(seed)
+    t, length = rows.shape
+    k = n * 2 // 3
+    at = rng.integers(0, length - 4, size=k)
+    grams = rows[rng.integers(0, t, size=k)[:, None], at[:, None] + np.arange(4)]
+    cut = grams.astype(np.uint32) @ (1 << (8 * np.arange(4, dtype=np.uint32)))
+    masks = rng.choice(np.array([0xFFFFFFFF, 0x00FFFFFF, 0xFFFF00FF, 0xDFDFDFDF],
+                                np.uint32), size=n)
+    vals = np.concatenate([cut, rng.integers(0, 1 << 32, n - k, dtype=np.uint32)])
+    return masks, (vals & masks).astype(np.uint32)
+
+
+def _tail_rows(t: int, length: int, seed: int) -> np.ndarray:
+    """Raw rows with bytes >= 0x80 throughout and A-Z at the row tail."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256, size=(t, length), dtype=np.uint8)
+    rows[:, -3:] = rng.integers(ord("A"), ord("Z") + 1, size=(t, 3))
+    rows[:, :4] = np.frombuffer(b"GHP_", np.uint8)
+    return rows
+
+
+def _both_sieves(card, rows: np.ndarray, masks, vals):
+    """K1 and K2 on the card against their plain versions, through the
+    bare wrappers (any row length)."""
+    sieve = gs.GramSieve(masks, vals, device=card)
+    dev = torch.from_numpy(rows).to(card)
+    for kind, consts in (("bitplane", sieve._bitplane_consts),
+                         ("window", sieve._window_consts)):
+        kernel = getattr(gs, f"gram_sieve_{kind}")
+        plain = getattr(gs, f"gram_sieve_{kind}_plain")
+        got = kernel(dev, consts, sieve.n_words)
+        want = plain(dev, consts.masks, consts.vals, sieve.n_words)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kind
+        assert want.any(), kind
+    return sieve
+
+
+@pytest.mark.parametrize("t,length", [(64, 4096), (37, 256), (20011, 512)])
+def test_more_than_256_pairs(card, t, length):
+    rows = _tail_rows(t, length, seed=t)
+    masks, vals = _custom_pairs(rows[:8], 600, seed=length)
+    sieve = _both_sieves(card, rows, masks, vals)
+    assert sieve.num_distinct > 256 and sieve.n_words > 8
+
+
+@pytest.mark.parametrize("t,length", [(41, 4096), (64, 256), (9973, 256),
+                                      (20011, 512), (5, 100), (3, 7)])
+def test_raw_tail_short_and_odd_rows(card, compiled, t, length):
+    """A-Z and high bytes at the tail; L = 256; T not a multiple of the
+    persistent grid (more rows than its warps); rows of 100 and 7 bytes
+    (byte loads)."""
+    _both_sieves(card, _tail_rows(t, length, seed=length), compiled.masks,
+                 compiled.vals)
+
+
+def test_unaligned_rows_take_byte_loads(card, compiled):
+    flat = torch.from_numpy(_tail_rows(1, 64 * 512 + 1, seed=2).reshape(-1))
+    rows = flat.to(card)[1:].view(64, 512)
+    assert rows.is_contiguous() and rows.data_ptr() % 16
+    sieve = gs.GramSieve(compiled.masks, compiled.vals, device=card)
+    consts = sieve._bitplane_consts
+    got = gs.gram_sieve_bitplane(rows, consts, sieve.n_words)
+    want = gs.gram_sieve_bitplane_plain(rows, consts.masks, consts.vals,
+                                        sieve.n_words)
+    assert torch.equal(got, want) and want.any()
+
+
+def _custom_mega(rows: np.ndarray, length: int, device):
+    """A MegaGramSieve over 600 raw pairs (D > 256) with seeded 0/1 derive
+    constants."""
+    masks, vals = _custom_pairs(rows[:8], 600, seed=5)
+    rng = np.random.default_rng(6)
+    g, w, p, r, k = len(masks), 40, 30, 20, 2
+    return mk.MegaGramSieve(
+        masks, vals, wmember=rng.random((g, w)) < 0.05,
+        pmember=rng.random((w, p)) < 0.1, pwindows=rng.integers(0, 3, p),
+        probe_has_gram=rng.random(p) < 0.9, gate_member=rng.random((p, r)) < 0.2,
+        gate_any=rng.random(r) < 0.7, conj_member=rng.random((p, r * k)) < 0.2,
+        conj_any=rng.random((r, k)) < 0.5, num_conjuncts=k, row_len=length,
+        device=device,
+    )
+
+
+def _mega_check(mega, card, coded, lo, hi, valid, base_row: int = 0):
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).to(card)
+           for a in (coded, lo, hi, valid)]
+    base = torch.full((1, 1), base_row, dtype=torch.int32, device=card)
+    mask, acc = mega(*dev), mega.acc(dev[0], dev[1], dev[2], base)
+    torch.cuda.synchronize()
+    want_acc = mk.megakernel_acc_plain(mega, dev[0], dev[1], dev[2], base)
+    assert torch.equal(mask, mk.megakernel_plain(mega, *dev))
+    assert torch.equal(acc, want_acc)
+    assert torch.equal(mega.epilogue(want_acc, dev[3]),
+                       mega.epilogue_plain(want_acc, dev[3]))
+    return mask, acc
+
+
+def test_megakernel_more_than_256_pairs(card):
+    rows = _tail_rows(300, 256, seed=4)
+    mega = _custom_mega(rows, 256, card)
+    assert mega.num_distinct > 256
+    lo, hi, valid = _intervals(300, 64, seed=3)
+    mask, acc = _mega_check(mega, card, rows, lo, hi, valid)
+    assert mask.any() and acc[:, 256:].any()
+
+
+@pytest.mark.parametrize("space", ["raw", "4", "6"])
+def test_megakernel_many_files_on_one_row(card, compiled, space):
+    """100 files on row 6, which holds a planted secret (more files than a
+    warp keeps listed), others spanning it, and the rest of the lanes
+    padding."""
+    codec, mega = _mega(compiled, space, 256, card)
+    rows = _rows(64, 256, seed=9)
+    coded = codec.encode_rows(rows) if codec else rows
+    fp = 128
+    lo = np.zeros((1, fp), np.int32)
+    hi = np.full((1, fp), -1, np.int32)
+    lo[0, :100], hi[0, :100] = 6, 6
+    lo[0, 100:110], hi[0, 100:110] = 0, 63
+    valid = (hi >= lo).astype(np.int8).reshape(fp, 1)
+    mask, acc = _mega_check(mega, card, coded, lo, hi, valid)
+    assert acc[:100].any() and (acc[:100] == acc[0]).all()
+    assert not acc[110:].any() and not mask[110:].any()
+
+
+@pytest.mark.parametrize("space", ["raw", "4"])
+def test_megakernel_run_of_more_files_than_listed(card, compiled, space):
+    """1,100 files meet rows 0-9, so the first run of 8 rows has more
+    files than a block lists (its rows scan every range) and the second
+    some of them; later rows hold a file each, a few files span all."""
+    codec, mega = _mega(compiled, space, 256, card)
+    rows = _rows(64, 256, seed=11)
+    coded = codec.encode_rows(rows) if codec else rows
+    fp = 2048
+    lo = np.zeros((1, fp), np.int32)
+    hi = np.full((1, fp), -1, np.int32)
+    many = np.arange(1100)
+    lo[0, :1100] = many % 8
+    hi[0, :1100] = lo[0, :1100] + many % 3
+    lo[0, 1100:1156] = hi[0, 1100:1156] = np.arange(8, 64)
+    lo[0, 1156:1160], hi[0, 1156:1160] = 0, 63
+    valid = (hi >= lo).astype(np.int8).reshape(fp, 1)
+    mask, acc = _mega_check(mega, card, coded, lo, hi, valid)
+    assert acc[:1100].any() and acc[1100:1160].any() and mask.any()
+    assert not acc[1160:].any()
+
+
+@pytest.mark.parametrize("space", ["raw", "4"])
+def test_megakernel_all_padding_rows(card, compiled, space):
+    codec, mega = _mega(compiled, space, 4096, card)
+    rows = _rows(257, 4096, seed=1)
+    coded = codec.encode_rows(rows) if codec else rows
+    lo = np.zeros((1, 16), np.int32)
+    hi = np.full((1, 16), -1, np.int32)
+    valid = np.zeros((16, 1), np.int8)
+    mask, acc = _mega_check(mega, card, coded, lo, hi, valid)
+    assert not mask.any() and not acc.any()
+    # the same rows past the files' ranges, as a shard's base puts them
+    lo[0, :8], hi[0, :8] = 0, 1000
+    valid[:8] = 1
+    _, acc = _mega_check(mega, card, coded, lo, hi, valid, base_row=5000)
+    assert not acc.any()
+
+
+def test_megakernel_rows_beyond_the_grid(card, compiled):
+    """More rows than the persistent grid's warps, T odd."""
+    codec, mega = _mega(compiled, "4", 512, card)
+    rows = _rows(20011, 512, seed=7)
+    lo, hi, valid = _intervals(20011, 2048, seed=8)
+    mask, acc = _mega_check(mega, card, codec.encode_rows(rows), lo, hi, valid)
+    assert mask.any() and acc.any()

@@ -170,13 +170,20 @@ def test_class_space_constants_match_reference_codec(port_compiled, ref_gset):
 
 def test_wrappers_check_their_inputs():
     rows = torch.zeros((4, 256), dtype=torch.uint8)
-    m = torch.zeros(3, dtype=torch.int32)
+    zeros = np.zeros(3, np.uint32)
+    consts = gs.sieve_consts(zeros, zeros, 1, "cpu")
+    m, _, tab = consts
+    # mask 0 accepts every window: all three pairs hit every row
+    assert (gs.gram_sieve_window(rows, consts, 1) == 7).all()
     with pytest.raises(ValueError):
-        gs.gram_sieve_window(rows.to(torch.int32), m, m, 1)
+        gs.gram_sieve_window(rows.to(torch.int32), consts, 1)
     with pytest.raises(ValueError):
-        gs.gram_sieve_window(rows, m.to(torch.int64), m, 1)
+        gs.gram_sieve_window(rows, consts._replace(masks=m.to(torch.int64)), 1)
     with pytest.raises(ValueError):
-        gs.gram_sieve_window(rows, m, m, 0)
+        gs.gram_sieve_window(rows, consts, 0)
+    for bad in (tab[..., :16], tab.to(torch.int64), tab.repeat(2, 1, 1, 1)):
+        with pytest.raises(ValueError, match="table"):
+            gs.gram_sieve_bitplane(rows, consts._replace(table=bad), 1)
     sieve = gs.GramSieve(np.ones(3, np.uint32), np.ones(3, np.uint32), device="cpu")
     with pytest.raises(ValueError):
         sieve(torch.zeros((4, 300), dtype=torch.uint8))

@@ -6,24 +6,28 @@
 //   * WRAP = true  -> `_sieve_bitplane` (pallas_call at :271, body
 //     `_make_bitplane_kernel` :132).  Positions p + k >= L read the row's own
 //     position p + k - L, as the TPU kernel's lane rotation does (`_lane_next`
-//     :117).  The wrapper hands it (mask, val) pairs already widened to whole
-//     bytes, which is what the bit-sliced byte tests compare.
+//     :117).  Its table holds the whole-byte pairs the bit-sliced byte tests
+//     compare (`byte_test_constants`).
 //   * WRAP = false -> `_sieve_window` (pallas_call at :311, body
 //     `_make_window_kernel` :204).  Positions past the row end read zero.
-// Both fold bytes 0x41..0x5A to lowercase and only those, before windowing.
+// Both fold bytes 0x41..0x5A to lowercase; the fold is baked into the table
+// (256 symbols, since a row may hold any byte), so the kernel folds nothing.
 //
-// Design: one block per row, of up to 256 threads.  The block stages the
-// folded row (plus a 3-byte tail: the row head for WRAP, zeros otherwise) and
-// the gram constants in shared memory, runs the compare loop of
-// sieve_row.cuh, and writes its row's [Dw] words.
+// Design: the table core of sieve_row.cuh.  Persistent blocks of 8 warps
+// stage the table slice once and walk the rows; a group of lanes (32 for
+// rows of 512 bytes or more, fewer for short rows, several rows a warp)
+// sieves one row, 16 positions a lane per step, and ORs the lanes' words
+// with shuffles.  Row r goes to block r mod grid first, so rows spread over
+// the SMs evenly whatever T is.  Rows whose length is a multiple of 16 and
+// that start 16-byte aligned load 16 bytes a lane; any other row takes byte
+// loads (same result).
 //
-// Bound on an H100: the function reads T*L staged bytes and writes T*Dw*4,
-// about 0.04 ms at 3.35 TB/s for T = 32768, L = 4096.  This simple design
-// does T*L*D masked compares (an AND, a compare and an OR each), about
-// 2.6e10 compares for the builtin ruleset's D = 194..198, so it is
-// compute-bound by its per-pair loop, far above the bytes bound.  Sharing
-// (offset, byte) tests across pairs with __ballot_sync bit planes, and
-// staging rows with wide loads, is the way down, left to a later change.
+// Bound on an H100: the function reads T*L bytes and writes T*Dw*4, about
+// 0.04 ms at 3.35 TB/s for T = 32768, L = 4096.  The kernel is bound by its
+// shared-memory lookups instead: 4 x 8 LDS.32 per position at the builtin
+// ruleset's Dw = 7 (padded to 8), one wavefront each, about one clock per
+// position per SM, ~0.5 ms at that shape in class space (no bank conflicts
+// there); raw bytes can conflict.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,105 +36,131 @@
 
 namespace {
 
-using sieve_row::fold;
+using sieve_row::kChunk;
+using sieve_row::kSliceWords;
+using sieve_row::kSyms;
+using sieve_row::kWarps;
 
-template <bool WRAP, int PPT>
-__global__ void __launch_bounds__(sieve_row::kThreads)
-gram_sieve_kernel(const uint8_t* __restrict__ rows, int length,
-                  const uint32_t* __restrict__ masks,
-                  const uint32_t* __restrict__ vals, int n_pairs, int n_words,
-                  uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* s_mask = smem;
-  uint32_t* s_val = smem + n_pairs;
-  uint32_t* s_hit = smem + 2 * n_pairs;
-  uint8_t* s_row = reinterpret_cast<uint8_t*>(smem + 2 * n_pairs + n_words);
-  const int nthreads = blockDim.x;
+constexpr int kSymbols = 256;
 
-  const uint8_t* src = rows + static_cast<size_t>(blockIdx.x) * length;
-  for (int i = threadIdx.x; i < n_pairs; i += nthreads) {
-    s_mask[i] = masks[i];
-    s_val[i] = vals[i];
+template <bool WRAP, bool VEC>
+__global__ void __launch_bounds__(sieve_row::kThreads, sieve_row::kMinBlocks)
+gram_sieve_kernel(const uint8_t* __restrict__ rows, int n_rows, int length,
+                  const uint32_t* __restrict__ table, int n_slices,
+                  int n_words, int group, uint32_t* __restrict__ out) {
+  extern __shared__ uint4 smem4[];
+  uint32_t* s_tab = reinterpret_cast<uint32_t*>(smem4);
+  constexpr int kTab = sieve_row::table_words<kSymbols>();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = lane & (group - 1);
+  const int rows_per_warp = 32 / group;
+  const int n_chunks = (length + kChunk - 1) / kChunk;
+  const int n_groups = (n_rows + rows_per_warp - 1) / rows_per_warp;
+
+  for (int sl = 0; sl < n_slices; ++sl) {
+    __syncthreads();  // every lookup of the previous slice is done
+    sieve_row::stage_table(s_tab, table + static_cast<size_t>(sl) * kTab, kTab);
+    __syncthreads();
+    for (int g = blockIdx.x + gridDim.x * warp; g < n_groups;
+         g += gridDim.x * kWarps) {
+      const int row = g * rows_per_warp + lane / group;
+      const bool active = row < n_rows;
+      const uint8_t* src = rows + static_cast<size_t>(row) * length;
+      uint32_t acc[kSliceWords];
+#pragma unroll
+      for (int w = 0; w < kSliceWords; ++w) acc[w] = 0;
+      for (int c0 = 0; c0 < n_chunks; c0 += group) {
+        const int c = c0 + sub;
+        if (active && c < n_chunks) {
+          uint32_t sym[kSyms];
+          if constexpr (VEC) {
+            sieve_row::fetch_chunk<8, WRAP>(src, length, c, sym);
+            sieve_row::sieve_chunk<kSymbols>(s_tab, sym, kChunk, acc);
+          } else {
+            sieve_row::fetch_chunk_bytes<WRAP>(src, length, c, sym);
+            sieve_row::sieve_chunk<kSymbols>(
+                s_tab, sym, min(kChunk, length - c * kChunk), acc);
+          }
+        }
+      }
+      for (int o = group / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int w = 0; w < kSliceWords; ++w) {
+          acc[w] |= __shfl_xor_sync(sieve_row::kFull, acc[w], o);
+        }
+      }
+      if (active) {
+        uint32_t* dst = out + static_cast<size_t>(row) * n_words;
+#pragma unroll
+        for (int w = 0; w < kSliceWords; ++w) {
+          const int wi = sl * kSliceWords + w;
+          if ((w & (group - 1)) == sub && wi < n_words) dst[wi] = acc[w];
+        }
+      }
+    }
   }
-  for (int i = threadIdx.x; i < n_words; i += nthreads) s_hit[i] = 0;
-  for (int i = threadIdx.x; i < length; i += nthreads) s_row[i] = fold(src[i]);
-  __syncthreads();
-  if (threadIdx.x < 3) {
-    s_row[length + threadIdx.x] =
-        WRAP ? s_row[threadIdx.x % length] : static_cast<uint8_t>(0);
-  }
-  __syncthreads();
-
-  sieve_row::sieve_row<PPT>(s_row, length, s_mask, s_val, n_pairs, n_words,
-                            s_hit);
-  __syncthreads();
-  uint32_t* dst = out + static_cast<size_t>(blockIdx.x) * n_words;
-  for (int i = threadIdx.x; i < n_words; i += nthreads) dst[i] = s_hit[i];
 }
 
-template <bool WRAP, int PPT>
-int launch_ppt(const void* rows, int n_rows, int length, const void* masks,
-               const void* vals, int n_pairs, int n_words, void* out,
-               cudaStream_t stream) {
-  const int threads = sieve_row::sieve_threads(length, PPT);
-  const size_t smem = (2 * static_cast<size_t>(n_pairs) + n_words) * 4 +
-                      static_cast<size_t>(length) + 4;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gram_sieve_kernel<WRAP, PPT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  gram_sieve_kernel<WRAP, PPT><<<n_rows, threads, smem, stream>>>(
-      static_cast<const uint8_t*>(rows), length,
-      static_cast<const uint32_t*>(masks), static_cast<const uint32_t*>(vals),
-      n_pairs, n_words, static_cast<uint32_t*>(out));
+// Lanes that sieve one row: enough for its 16-position chunks, at most 32.
+int lanes_per_row(int length) {
+  const int chunks = (length + kChunk - 1) / kChunk;
+  int group = 1;
+  while (group < 32 && group < chunks) group *= 2;
+  return group;
+}
+
+template <bool WRAP, bool VEC>
+int launch_kernel(const void* rows, int n_rows, int length, const void* table,
+                  int n_words, void* out, cudaStream_t stream) {
+  auto kernel = gram_sieve_kernel<WRAP, VEC>;
+  const int group = lanes_per_row(length);
+  const int rows_per_warp = 32 / group;
+  const int n_groups = (n_rows + rows_per_warp - 1) / rows_per_warp;
+  const size_t smem = sieve_row::table_words<kSymbols>() * 4;
+  cudaError_t err;
+  const int blocks = sieve_row::persistent_blocks(
+      kernel, smem, (n_groups + kWarps - 1) / kWarps, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, sieve_row::kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(rows), n_rows, length,
+      static_cast<const uint32_t*>(table),
+      (n_words + kSliceWords - 1) / kSliceWords, n_words,
+      group, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool WRAP>
-int launch(const void* rows, int n_rows, int length, const void* masks,
-           const void* vals, int n_pairs, int n_words, void* out,
-           void* stream_ptr) {
-  if (n_rows == 0) return static_cast<int>(cudaSuccess);
+int launch(const void* rows, int n_rows, int length, const void* table,
+           int n_words, void* out, void* stream_ptr) {
+  if (n_rows == 0 || length == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  switch (sieve_row::sieve_ppt(length)) {
-    case 1:
-      return launch_ppt<WRAP, 1>(rows, n_rows, length, masks, vals, n_pairs,
-                                 n_words, out, stream);
-    case 2:
-      return launch_ppt<WRAP, 2>(rows, n_rows, length, masks, vals, n_pairs,
-                                 n_words, out, stream);
-    case 4:
-      return launch_ppt<WRAP, 4>(rows, n_rows, length, masks, vals, n_pairs,
-                                 n_words, out, stream);
-    case 8:
-      return launch_ppt<WRAP, 8>(rows, n_rows, length, masks, vals, n_pairs,
-                                 n_words, out, stream);
-    default:
-      return launch_ppt<WRAP, 16>(rows, n_rows, length, masks, vals, n_pairs,
-                                  n_words, out, stream);
-  }
+  const bool vec = length % kChunk == 0 &&
+                   reinterpret_cast<uintptr_t>(rows) % 16 == 0;
+  return vec ? launch_kernel<WRAP, true>(rows, n_rows, length, table, n_words,
+                                         out, stream)
+             : launch_kernel<WRAP, false>(rows, n_rows, length, table,
+                                          n_words, out, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bitplane-sieve twin (row-tail wrap).  Returns the cudaError_t of the launch.
+// Bitplane-sieve twin (row-tail wrap).  `table` is the pair-set table
+// [ceil(n_words / 8), 4, 8, 256] uint32 of the whole-byte pairs.  Returns
+// the cudaError_t of the launch.
 int gram_sieve_bitplane(const void* rows, int n_rows, int length,
-                        const void* masks, const void* vals, int n_pairs,
-                        int n_words, void* out, void* stream) {
-  return launch<true>(rows, n_rows, length, masks, vals, n_pairs, n_words, out,
-                      stream);
+                        const void* table, int n_words, void* out,
+                        void* stream) {
+  return launch<true>(rows, n_rows, length, table, n_words, out, stream);
 }
 
-// Window-sieve twin (zero-filled row tail).
+// Window-sieve twin (zero-filled row tail), over the pairs as they are.
 int gram_sieve_window(const void* rows, int n_rows, int length,
-                      const void* masks, const void* vals, int n_pairs,
-                      int n_words, void* out, void* stream) {
-  return launch<false>(rows, n_rows, length, masks, vals, n_pairs, n_words,
-                       out, stream);
+                      const void* table, int n_words, void* out,
+                      void* stream) {
+  return launch<false>(rows, n_rows, length, table, n_words, out, stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ Each source compiles with `nvcc` into a shared library with a plain C
 interface under `trivy_tpu_torch/_build/` (listed in `.gitignore`), at first
 use, and loads through `ctypes`.  The library's file name carries a digest of
 the source, every header in `csrc/` (`*.cuh`, which sources share) and the
-flags, so an edited source or header never loads a stale build.
+flags, so an edited source or header never loads a stale build.  What
+`ptxas -v` says of each kernel (registers, shared memory, spills) is kept
+beside the library and read back by `resources`.
 Nothing here runs at import time; a missing `nvcc` or a failed build raises.
 """
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,10 +25,12 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: dict[tuple[str, str], object] = {}
+_ARG_KINDS = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 
 
 def nvcc() -> str:
@@ -71,8 +76,39 @@ def _finish_build(
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    _log_path(lib).write_text(out)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def resources(name: str) -> list[dict]:
+    """Per kernel of the built `csrc/<name>.cu`, what `ptxas -v` reported:
+    {"kernel" (mangled name), "registers", "smem_bytes" (static; the
+    kernels' tables are dynamic shared memory, sized at launch),
+    "spill_bytes" (stores + loads)}.  Builds the source when needed."""
+    text = _log_path(build_all([name])[name]).read_text()
+    out: list[dict] = []
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            out.append({"kernel": m.group(1), "registers": 0, "smem_bytes": 0,
+                        "spill_bytes": 0})
+        elif out and (m := _SPILLS.search(line)):
+            out[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif out and (m := _USED.search(line)):
+            out[-1]["registers"] = int(m.group(1))
+            if sm := _SMEM.search(line):
+                out[-1]["smem_bytes"] = int(sm.group(1))
+    return out
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
@@ -91,3 +127,16 @@ def load(name: str) -> ctypes.CDLL:
         path = build_all([name])[name]
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def function(name: str, symbol: str, signature: str):
+    """The C function `symbol` of `csrc/<name>.cu`, returning int, its
+    arguments typed once from `signature` (one letter each: p = pointer,
+    i = int)."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [_ARG_KINDS[c] for c in signature]
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[(name, symbol)] = fn
+    return fn

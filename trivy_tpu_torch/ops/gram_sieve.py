@@ -18,11 +18,16 @@ Each wrapper launches the hand-written CUDA kernel of `csrc/gram_sieve.cu`
 for a CUDA tensor, and counts the launch in `LAUNCHES`; for a CPU tensor it
 runs the plain PyTorch version beside it.  The two row-tail rules differ on
 purpose: each matches its own reference kernel bit for bit.
+
+The kernels read the pairs as a pair-set table (`sieve_table`) and the
+plain versions read the (mask, val) pairs themselves; `sieve_consts` builds
+both at once as one `SieveConsts`, which `GramSieve` keeps on its device and
+hands to the wrappers whole.
 """
 
 from __future__ import annotations
 
-import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +36,9 @@ from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
 DEFAULT_BLOCK_ROWS = 64
 WINDOW_BLOCK_ROWS = 128
+# Words of pair bits the table kernels keep per pass (`kSliceWords` in
+# csrc/sieve_row.cuh): 256 pairs; a ruleset of more runs one pass per slice.
+SLICE_WORDS = 8
 
 # Kernel launches of the port since the process started (or the caller last
 # zeroed them): how a run shows that its path went through the CUDA kernels.
@@ -86,9 +94,66 @@ def byte_test_constants(
     return bmasks, bvals
 
 
+def table_slices(n_words: int) -> int:
+    """Table slices (passes of the kernels) for `n_words` words of pairs."""
+    return -(-n_words // SLICE_WORDS)
+
+
+def sieve_table(
+    masks: np.ndarray, vals: np.ndarray, n_words: int, symbols: int = 256
+) -> np.ndarray:
+    """The pair-set table the CUDA kernels read, [n_slices, 4, 8, symbols]
+    uint32 with n_slices = `table_slices(n_words)`: bit b of word
+    [i, k, w, s] is set iff pair d = 32 (8 i + w) + b accepts symbol s at
+    offset k, `(fold(s) & mask_k) == val_k` over the bytes k of its mask
+    and value (a mask byte of 0 accepts every symbol).  The test separates
+    byte by byte, so the AND over the four offsets equals `(window & mask)
+    == val` on the folded window.  Bits d >= len(masks) are 0.  `symbols`
+    covers every value a row can hold: 256 for bytes, 16 or 64 for class ids
+    (which the fold leaves alone)."""
+    sw, n_slices = SLICE_WORDS, table_slices(n_words)
+    masks = np.asarray(masks, dtype=np.uint32)
+    vals = np.asarray(vals, dtype=np.uint32)
+    if n_words * 32 < len(masks):
+        raise ValueError(f"n_words={n_words} too small for {len(masks)} pairs")
+    s = np.arange(symbols, dtype=np.uint32)
+    folded = np.where((s >= 0x41) & (s <= 0x5A), s + 32, s)
+    bits = np.zeros((4, symbols, n_slices * sw * 32), dtype=bool)
+    for k in range(4):
+        mk = (masks >> np.uint32(8 * k)) & np.uint32(0xFF)
+        vk = (vals >> np.uint32(8 * k)) & np.uint32(0xFF)
+        bits[k, :, : len(masks)] = (folded[:, None] & mk[None, :]) == vk[None, :]
+    words = np.packbits(bits, axis=-1, bitorder="little").view("<u4")
+    words = words.reshape(4, symbols, n_slices, sw).transpose(2, 0, 3, 1)
+    return np.ascontiguousarray(words, dtype=np.uint32)
+
+
 def as_int32_bits(a: np.ndarray) -> np.ndarray:
     """uint32 values -> int32 array with the same bit patterns."""
     return np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)
+
+
+class SieveConsts(NamedTuple):
+    """One set of sieve pairs in both forms, int32 bit patterns on one
+    device: `masks`/`vals` [D] for the plain versions and their
+    `sieve_table` for the kernels.  Build it with `sieve_consts`, so the
+    table always comes from these pairs."""
+
+    masks: torch.Tensor
+    vals: torch.Tensor
+    table: torch.Tensor
+
+
+def sieve_consts(
+    masks: np.ndarray, vals: np.ndarray, n_words: int,
+    device: str | torch.device,
+) -> SieveConsts:
+    """(mask, val) pairs as uint32 -> their `SieveConsts` on `device`."""
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(as_int32_bits(a).copy()).to(device)
+
+    return SieveConsts(dev(masks), dev(vals),
+                       dev(sieve_table(masks, vals, n_words)))
 
 
 # ---------------------------------------------------------------------------
@@ -153,14 +218,11 @@ def gram_sieve_window_plain(
 def _kernel_fn(kind: str):
     from trivy_tpu_torch.ops import _build
 
-    fn = getattr(_build.load("gram_sieve"), f"gram_sieve_{kind}")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, i, p, p, i, i, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function("gram_sieve", f"gram_sieve_{kind}", "piipipp")
 
 
-def _check(rows, masks, vals, n_words) -> None:
+def _check(rows, consts: SieveConsts, n_words: int) -> None:
+    masks, vals, table = consts
     if rows.dtype != torch.uint8 or rows.dim() != 2:
         raise ValueError(f"rows must be a 2-D uint8 tensor, got {rows.dtype} "
                          f"{tuple(rows.shape)}")
@@ -172,25 +234,32 @@ def _check(rows, masks, vals, n_words) -> None:
         raise ValueError("masks and vals differ in length")
     if n_words < max(1, -(-len(masks) // 32)):
         raise ValueError(f"n_words={n_words} too small for {len(masks)} pairs")
+    # what sieve_table(..., n_words) gives
+    shape = (table_slices(n_words), 4, SLICE_WORDS, 256)
+    if (table.dtype != torch.int32 or tuple(table.shape) != shape
+            or table.device != rows.device or not table.is_contiguous()):
+        raise ValueError(
+            f"table must be a contiguous int32 tensor of shape {shape} on "
+            f"{rows.device}, got {table.dtype} {tuple(table.shape)} on "
+            f"{table.device}"
+        )
 
 
-def _sieve(kind: str, rows, masks, vals, n_words) -> torch.Tensor:
-    _check(rows, masks, vals, n_words)
+def _sieve(kind: str, rows, consts: SieveConsts, n_words: int) -> torch.Tensor:
+    _check(rows, consts, n_words)
     if rows.device.type == "cpu":
-        return _sieve_plain(rows, masks, vals, n_words, wrap=kind == "bitplane")
+        return _sieve_plain(rows, consts.masks, consts.vals, n_words,
+                            wrap=kind == "bitplane")
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
     rows = rows.contiguous()
-    masks = masks.contiguous()
-    vals = vals.contiguous()
     t, length = rows.shape
     out = torch.empty((t, n_words), dtype=torch.int32, device=rows.device)
     fn = _kernel_fn(kind)
     with torch.cuda.device(rows.device):
         err = fn(
-            rows.data_ptr(), t, length, masks.data_ptr(), vals.data_ptr(),
-            len(masks), n_words, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            rows.data_ptr(), t, length, consts.table.data_ptr(), n_words,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gram_sieve_{kind} launch failed: cudaError {err}")
@@ -199,19 +268,20 @@ def _sieve(kind: str, rows, masks, vals, n_words) -> torch.Tensor:
 
 
 def gram_sieve_bitplane(
-    rows: torch.Tensor, masks: torch.Tensor, vals: torch.Tensor, n_words: int
+    rows: torch.Tensor, consts: SieveConsts, n_words: int
 ) -> torch.Tensor:
-    """K1 on `rows`' device: the CUDA kernel on a card, the plain version
-    on the CPU.  `masks`/`vals` are whole-byte pairs as int32 bits."""
-    return _sieve("bitplane", rows, masks, vals, n_words)
+    """K1 on `rows`' device: the CUDA kernel on a card (which reads
+    `consts.table`), the plain version on the CPU (which reads
+    `consts.masks`/`vals`, whole-byte pairs, see `byte_test_constants`)."""
+    return _sieve("bitplane", rows, consts, n_words)
 
 
 def gram_sieve_window(
-    rows: torch.Tensor, masks: torch.Tensor, vals: torch.Tensor, n_words: int
+    rows: torch.Tensor, consts: SieveConsts, n_words: int
 ) -> torch.Tensor:
-    """K2 on `rows`' device: the CUDA kernel on a card, the plain version
-    on the CPU."""
-    return _sieve("window", rows, masks, vals, n_words)
+    """K2 on `rows`' device: the CUDA kernel on a card (`consts.table`),
+    the plain version on the CPU (`consts.masks`/`vals`)."""
+    return _sieve("window", rows, consts, n_words)
 
 
 class GramSieve:
@@ -248,12 +318,10 @@ class GramSieve:
             )
         self.block_rows = block_rows
         bmasks, bvals = byte_test_constants(dmasks, dvals)
-
-        def dev(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(as_int32_bits(a).copy()).to(self.device)
-
-        self._window_consts = (dev(dmasks), dev(dvals))
-        self._bitplane_consts = (dev(bmasks), dev(bvals))
+        self._window_consts = sieve_consts(dmasks, dvals, self.n_words,
+                                           self.device)
+        self._bitplane_consts = sieve_consts(bmasks, bvals, self.n_words,
+                                             self.device)
 
     def expand_bool(self, dist_bool: np.ndarray) -> np.ndarray:
         """[F, num_distinct] bool -> [F, G] bool in the caller's gram order."""
@@ -274,7 +342,7 @@ class GramSieve:
                                    device=rows.device)]
             )
         if self.impl == "bitplane" and length >= 256:
-            out = gram_sieve_bitplane(rows, *self._bitplane_consts, self.n_words)
+            out = gram_sieve_bitplane(rows, self._bitplane_consts, self.n_words)
         else:
-            out = gram_sieve_window(rows, *self._window_consts, self.n_words)
+            out = gram_sieve_window(rows, self._window_consts, self.n_words)
         return out[:t] if pad else out

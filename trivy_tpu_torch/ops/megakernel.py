@@ -26,14 +26,16 @@ tensors and counts the launch in `gram_sieve.LAUNCHES` ("mega", "mega_acc",
 "mega_epilogue"); for CPU tensors it runs the plain PyTorch version beside it
 (`megakernel_plain`, `megakernel_acc_plain`, `derive_counts_to_mask_plain`,
 `pack_mask_bits_plain`).  Everything is integer arithmetic: counts are exact
-sums (int32 atomics on the card, int64 in the plain version), and every
-derive product is an int8 x int8 term summed exactly, so both equal the TPU
-kernel's int8 MXU arithmetic bit for bit.
+sums (int32 atomics on the card, int64 in the plain version).  The plain
+derive sums every int8 x int8 product exactly; the kernel reads the 0/1
+derive constants packed as bit rows (`pack_derive_bits`) and takes each
+product sum as the popcount of an AND, which is the same integer, so both
+equal the TPU kernel's int8 MXU arithmetic bit for bit.  The kernels read
+the pairs as a pair-set table (`gram_sieve.sieve_table`).
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 
 import numpy as np
@@ -48,6 +50,7 @@ from trivy_tpu_torch.ops.gram_sieve import (
     byte_test_constants,
     dedupe_grams,
     gram_sieve_bitplane_plain,
+    sieve_table,
 )
 
 # Files per single-call batch, kept from the reference so that both engines
@@ -60,20 +63,16 @@ MEGA_MAX_FILES = 2048
 
 # (name in csrc/megakernel.cu, ctypes argument kinds): p = pointer, i = int.
 _SIGNATURES = {
-    "mega_count": "piiiipppippipp",
+    "mega_count": "piiiipppipipp",
     "mega_epilogue": "ppiipipipppippipipp",
-    "mega_mask": "piiiipppippippipipppippipipp",
+    "mega_mask": "piiiipppipippipipppippipipp",
 }
 
 
 def _kernel_fn(name: str):
     from trivy_tpu_torch.ops import _build
 
-    fn = getattr(_build.load("megakernel"), name)
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
-    fn.argtypes = [kinds[c] for c in _SIGNATURES[name]]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function("megakernel", name, _SIGNATURES[name])
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +111,25 @@ def derive_counts_to_mask_plain(acc, valid_col, dw, pm, pw, ng, gm, ga, cm, ca,
     for kk in range(k):
         conj_ok &= (ca[kk : kk + 1] == 0) | (cj[:, kk::k] > 0)
     return gate_ok & conj_ok & valid
+
+
+def pack_bit_rows(a: np.ndarray) -> np.ndarray:
+    """0/1 matrix [M, N] -> its columns as bit rows [N, ceil(M/32)] uint32:
+    bit i % 32 of word [j, i // 32] is a[i, j]."""
+    m, n = a.shape
+    words = max(1, -(-m // 32))
+    bits = np.zeros((n, words * 32), dtype=bool)
+    bits[:, :m] = np.asarray(a).T != 0
+    return np.packbits(bits, axis=1, bitorder="little").view("<u4").astype(np.uint32)
+
+
+def pack_derive_bits(dw, pm, gm, cm) -> dict[str, np.ndarray]:
+    """The 0/1 derive constants as the epilogue kernel reads them: dw [D, W]
+    -> [W][ceil(D/32)], pm [W, P] -> [P][ceil(W/32)], gm [P, R] ->
+    [R][ceil(P/32)], cm [P, R*K] -> [R*K][ceil(P/32)] (row r*K + k is
+    conjunct k of rule r)."""
+    return {"dwb": pack_bit_rows(dw), "pmb": pack_bit_rows(pm),
+            "gmb": pack_bit_rows(gm), "cmb": pack_bit_rows(cm)}
 
 
 _PACK_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
@@ -240,6 +258,12 @@ class MegaGramSieve:
         self._k = k
         self.num_rules = r
         self.mask_bytes = -(-r // 8)
+        # The epilogue kernel takes each int8 dot as the popcount of an AND,
+        # which is exact only for 0/1 membership matrices.
+        for name, a in (("wmember", self._dw), ("pmember", self._pm),
+                        ("gate_member", self._gm), ("conj_member", self._cm)):
+            if not np.isin(a, (0, 1)).all():
+                raise ValueError(f"{name} must hold only 0 and 1")
 
         h = hashlib.blake2b(digest_size=8)
         h.update(b"mega1")
@@ -253,8 +277,14 @@ class MegaGramSieve:
             h.update(np.ascontiguousarray(arr).tobytes())
         self.kernel_id = h.hexdigest()
 
-        # The kernels read whole-byte pairs, as K1 does.
+        # The kernels read whole-byte pairs, as K1 does, as a pair-set table
+        # over the symbols the unpack yields, and the derive constants as
+        # bit rows.
         self._bmasks, self._bvals = byte_test_constants(dmasks, dvals)
+        self.table_symbols = 256 if sym_bits is None else 1 << sym_bits
+        self._table = sieve_table(self._bmasks, self._bvals, self.n_words,
+                                  self.table_symbols)
+        self._bits = pack_derive_bits(self._dw, self._pm, self._gm, self._cm)
         self._dev: dict[torch.device, dict[str, torch.Tensor]] = {}
         self._consts(self.device)
 
@@ -267,15 +297,27 @@ class MegaGramSieve:
             self._dev[device] = {
                 "bmasks": t(as_int32_bits(self._bmasks)),
                 "bvals": t(as_int32_bits(self._bvals)),
+                "table": t(as_int32_bits(self._table)),
                 "dw": t(self._dw), "pm": t(self._pm), "pw": t(self._pw),
                 "ng": t(self._ng), "gm": t(self._gm), "ga": t(self._ga),
                 "cm": t(self._cm), "ca": t(self._ca),
+                **{n: t(as_int32_bits(a)) for n, a in self._bits.items()},
             }
         return self._dev[device]
 
     def _derive_consts(self, device: torch.device) -> list[torch.Tensor]:
         c = self._consts(device)
         return [c[n] for n in ("dw", "pm", "pw", "ng", "gm", "ga", "cm", "ca")]
+
+    def _epilogue_args(self, device: torch.device) -> list[int]:
+        """The epilogue's constant arguments after (acc, valid, fp, d)."""
+        c = self._consts(device)
+        return [
+            c["dwb"].data_ptr(), self._dw.shape[1], c["pmb"].data_ptr(),
+            self._pm.shape[1], c["pw"].data_ptr(), c["ng"].data_ptr(),
+            c["gmb"].data_ptr(), self.num_rules, c["ga"].data_ptr(),
+            c["cmb"].data_ptr(), self._k, c["ca"].data_ptr(), self.mask_bytes,
+        ]
 
     # -- input checks --------------------------------------------------------
 
@@ -298,6 +340,9 @@ class MegaGramSieve:
         if coded.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {coded.device}")
         self._want("coded", coded, torch.uint8, tuple(coded.shape), coded.device)
+        if coded.device.type == "cuda" and coded.data_ptr() % 16:
+            # the kernel loads 16 symbols a lane with aligned vector loads
+            raise ValueError("coded rows must start 16-byte aligned")
         if lo.dim() != 2:
             raise ValueError(f"lo must be [1, Fp], got {tuple(lo.shape)}")
         fp = lo.shape[1]
@@ -313,22 +358,18 @@ class MegaGramSieve:
         self._want("valid", valid, torch.int8, (fp, 1), coded.device)
         if coded.device.type == "cpu":
             return megakernel_plain(self, coded, lo, hi, valid)
-        c = self._consts(coded.device)
+        table = self._consts(coded.device)["table"]
         acc = torch.zeros((fp, self.num_distinct), dtype=torch.int32,
                           device=coded.device)
         out = torch.empty((fp, self.mask_bytes), dtype=torch.uint8,
                           device=coded.device)
-        dw, pm, pw, ng, gm, ga, cm, ca = self._derive_consts(coded.device)
         with torch.cuda.device(coded.device):
             err = _kernel_fn("mega_mask")(
                 coded.data_ptr(), coded.shape[0], self.coded_cols, self.row_len,
                 self.sym_bits or 0, lo.data_ptr(), hi.data_ptr(),
-                valid.data_ptr(), fp, c["bmasks"].data_ptr(),
-                c["bvals"].data_ptr(), self.num_distinct, acc.data_ptr(),
-                dw.data_ptr(), dw.shape[1], pm.data_ptr(), pm.shape[1],
-                pw.data_ptr(), ng.data_ptr(), gm.data_ptr(), self.num_rules,
-                ga.data_ptr(), cm.data_ptr(), self._k, ca.data_ptr(),
-                self.mask_bytes, out.data_ptr(),
+                valid.data_ptr(), fp, table.data_ptr(), self.num_distinct,
+                acc.data_ptr(),
+                *self._epilogue_args(coded.device), out.data_ptr(),
                 torch.cuda.current_stream().cuda_stream,
             )
         if err != 0:
@@ -343,7 +384,7 @@ class MegaGramSieve:
         self._want("base", base, torch.int32, (1, 1), coded.device)
         if coded.device.type == "cpu":
             return megakernel_acc_plain(self, coded, lo, hi, base)
-        c = self._consts(coded.device)
+        table = self._consts(coded.device)["table"]
         # zeros, not empty: the kernel adds into it
         acc = torch.zeros((fp, self.num_distinct), dtype=torch.int32,
                           device=coded.device)
@@ -351,8 +392,8 @@ class MegaGramSieve:
             err = _kernel_fn("mega_count")(
                 coded.data_ptr(), coded.shape[0], self.coded_cols, self.row_len,
                 self.sym_bits or 0, lo.data_ptr(), hi.data_ptr(),
-                base.data_ptr(), fp, c["bmasks"].data_ptr(),
-                c["bvals"].data_ptr(), self.num_distinct, acc.data_ptr(),
+                base.data_ptr(), fp, table.data_ptr(), self.num_distinct,
+                acc.data_ptr(),
                 torch.cuda.current_stream().cuda_stream,
             )
         if err != 0:
@@ -379,14 +420,10 @@ class MegaGramSieve:
             return self.epilogue_plain(acc, valid)
         out = torch.empty((fp, self.mask_bytes), dtype=torch.uint8,
                           device=acc.device)
-        dw, pm, pw, ng, gm, ga, cm, ca = self._derive_consts(acc.device)
         with torch.cuda.device(acc.device):
             err = _kernel_fn("mega_epilogue")(
                 acc.data_ptr(), valid.data_ptr(), fp, self.num_distinct,
-                dw.data_ptr(), dw.shape[1], pm.data_ptr(), pm.shape[1],
-                pw.data_ptr(), ng.data_ptr(), gm.data_ptr(), self.num_rules,
-                ga.data_ptr(), cm.data_ptr(), self._k, ca.data_ptr(),
-                self.mask_bytes, out.data_ptr(),
+                *self._epilogue_args(acc.device), out.data_ptr(),
                 torch.cuda.current_stream().cuda_stream,
             )
         if err != 0:
