@@ -13,12 +13,20 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             in raw bytes and in the link codec's class space, and time both
             (K1 in raw bytes too, where its table lookups can conflict);
 3. main     `GpuSecretEngine(device="cuda", tile_len=4096)` with the builtin
-            ruleset and the `auto` codec over a 20,000-file, ~100 MB corpus
-            (bench_corpus.make_kernel_corpus): K1 must launch, and findings
-            must equal the port's `OracleScanner` on every flagged file plus
-            2,000 sampled ones;
+            ruleset and the `auto` codec over BASELINE config #3's
+            80,000-file, ~396 MB corpus (bench_corpus.make_kernel_corpus)
+            at the default pipeline depth: ~97k rows, so at least 3
+            top-bucket chunks through the chunk pipeline; K1 and the
+            dispatch count must both equal the chunk count, the
+            claim-killer must run (`verify_s` > 0), the pipeline must have
+            overlapped work (`h2d_overlap_s` > 0), and findings must equal
+            the port's `OracleScanner` on every flagged file plus 2,000
+            sampled ones; then a `memwatch` line: the CUDA allocator's
+            bytes in use and peak, and the resident row store's ledgered
+            bytes;
 4. window   the same engine at `tile_len=128`, where rows run through K2,
-            over the first 2,000 files, checked the same way;
+            over the first 2,000 files of a 20,000-file corpus, checked the
+            same way;
 5. mega     on seeded rows with planted secrets, in raw bytes and in class
             space, at the serve shape (4,096 rows of 4,096 bytes, 2,048
             file lanes): drive the 4-way split of the rows on one card
@@ -33,12 +41,20 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             on the inputs of one real serve batch (the engine's own coded
             rows and file ranges, padding rows included) beside the
             all-rows case;
-6. serve    the same corpus as 10 batches of 2,000 files through
+6. serve    the 20,000-file corpus as 10 batches of 2,000 files through
             `GpuSecretEngine(device="cuda", tile_len=4096)`, twice: with
             the megakernel (K3 must launch once per batch, K1 never) and
             through `scan_batch_staged_sieve`; findings must be equal on
             every file and equal the oracle on every flagged file plus
-            2,000 sampled ones.
+            2,000 sampled ones.  Each way then rescans its first batch,
+            which must come from the resident row store: one resident hit,
+            no K3 (or K1) launch, the same findings;
+7. spans    one serve batch scanned with tracing on: the total seconds of
+            each engine span (chunk.encode, chunk.h2d, sieve.megakernel,
+            chunk.fetch, verify, confirm) and each fenced device phase, and
+            the same batch scanned untraced under `torch.profiler`: the
+            device's busy time (kernels, copies and fills, each counted
+            once) against the wall time, and its largest activities.
 
 Then one JSON line describing each kernel (launches come from the path runs;
 times from CUDA events in this run, each beside the device time of the
@@ -60,7 +76,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core rate (data sheet)
 SEED = 7
-N_FILES = 20_000
+MAIN_FILES = 80_000  # BASELINE config #3
+N_FILES = 20_000  # the window, mega and serve corpus
 N_SAMPLED = 2_000
 WINDOW_FILES = 2_000
 WINDOW_SAMPLED = 500
@@ -234,9 +251,11 @@ def check_against_oracle(np, oracle, corpus, results, n_sampled: int, phase: str
 
 
 def path_phase(np, torch, gs, corpus, tile_len: int, kind: str, n_sampled: int,
-               phase: str) -> int:
+               phase: str):
     """Drive `GpuSecretEngine` once over `corpus`, counts zeroed before and read
-    after; returns the launches of `kind` in that run."""
+    after; returns the launches of `kind` in that run and the engine.  The run
+    must go through the chunk pipeline, one launch and one dispatch a chunk,
+    with the claim-killer run and some work overlapped."""
     from trivy_tpu_torch.engine.device import GpuSecretEngine
     from trivy_tpu_torch.engine.oracle import OracleScanner
 
@@ -244,6 +263,9 @@ def path_phase(np, torch, gs, corpus, tile_len: int, kind: str, n_sampled: int,
     GpuSecretEngine(device=DEVICE, tile_len=tile_len).scan_batch_staged_sieve(
         corpus[:20])
     engine = GpuSecretEngine(device=DEVICE, tile_len=tile_len)
+    engine.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the memwatch line's peak is this run's
     for k in gs.LAUNCHES:
         gs.LAUNCHES[k] = 0
     t0 = time.perf_counter()
@@ -251,21 +273,48 @@ def path_phase(np, torch, gs, corpus, tile_len: int, kind: str, n_sampled: int,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(gs.LAUNCHES)
+    st = engine.stats
     if len(results) != len(corpus):
         fail(phase, f"{len(results)} results for {len(corpus)} files")
-    if launches[kind] <= 0:
-        fail(phase, f"the {kind} kernel was never launched: {launches}")
+    chunks = -(-st.tiles // MAIN_ROWS)
+    if not launches[kind] == st.device_dispatches == chunks >= 3:
+        fail(phase, f"{chunks} chunks of {st.tiles} rows, {st.device_dispatches} "
+             f"dispatches, launches {launches}: expected one {kind} launch a chunk")
+    if not (st.verify_s > 0 and st.h2d_overlap_s > 0):
+        fail(phase, f"verify_s={st.verify_s} h2d_overlap_s={st.h2d_overlap_s}: the "
+             "claim-killer did not run or the pipeline overlapped nothing")
     nbytes = sum(len(c) for _, c in corpus)
     checked = check_against_oracle(np, OracleScanner(engine.ruleset), corpus, results,
                                    n_sampled, phase)
     findings = sum(len(r.findings) for r in results)
     print(f"{phase}: tile_len={tile_len} files={len(corpus)} MB={nbytes / 1e6:.3f} "
-          f"rows={engine.stats.tiles} findings={findings} checked={checked} "
+          f"rows={st.tiles} chunks={chunks} depth={st.pipeline_depth} "
+          f"findings={findings} checked={checked} "
           f"seconds={dt:.4f} files_per_s={len(corpus) / dt:.1f} "
-          f"MB_per_s={nbytes / 1e6 / dt:.3f} launches={launches} "
+          f"MB_per_s={nbytes / 1e6 / dt:.3f} candidate_pairs={st.candidate_pairs} "
+          f"verify_s={st.verify_s:.4f} resident_hits={st.resident_hits} "
+          f"h2d_overlap_s={st.h2d_overlap_s:.4f} launches={launches} "
           f"codec={engine._link.sym_bits if engine._link else 'off'} "
-          f"phases={json.dumps(engine.stats.phases())}", flush=True)
-    return launches[kind]
+          f"phases={json.dumps(st.phases())}", flush=True)
+    return launches[kind], engine
+
+
+def memwatch_line(memwatch, engine) -> None:
+    """The CUDA allocator's bytes in use and peak (the memwatch provider) and
+    the resident row store's ledgered bytes, while `engine` holds its rows."""
+    tag = str(engine.device)
+    raw = memwatch.raw_stats().get(tag)
+    if not raw:
+        fail("memwatch", f"the CUDA provider reported nothing for {tag}")
+    ledger = memwatch.snapshot()["devices"].get(tag, {}).get("attributed", {})
+    resident = ledger.get("resident-rows", 0)
+    store = engine._row_store
+    if resident != store.nbytes() or resident <= 0:
+        fail("memwatch", f"resident-rows ledger {resident} B, store {store.nbytes()} B")
+    print(f"memwatch: device={tag} bytes_in_use={raw['bytes_in_use']} "
+          f"peak_bytes_in_use={raw['peak_bytes_in_use']} bytes_limit={raw['bytes_limit']} "
+          f"resident_rows_bytes={resident} resident_entries={len(store)} "
+          f"ledger={json.dumps(ledger, sort_keys=True)}", flush=True)
 
 
 def file_ranges(np, t: int, n_files: int, fp: int, seed: int):
@@ -534,9 +583,29 @@ def serve_phase(np, torch, gs, corpus) -> dict:
               f"MB={nbytes / 1e6:.3f} rows={engine.stats.tiles} "
               f"findings={sum(len(r.findings) for r in results)} seconds={dt:.4f} "
               f"files_per_s={files / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
+              f"candidate_pairs={engine.stats.candidate_pairs} "
+              f"verify_s={engine.stats.verify_s:.4f} "
               f"launches={launches} phases={json.dumps(engine.stats.phases())}",
               flush=True)
         runs[way] = (results, launches)
+        # the first batch again: served from the resident row store
+        kernel = "mega" if way == "mega" else "bitplane"
+        hits, before = engine.stats.resident_hits, gs.LAUNCHES[kernel]
+        t0 = time.perf_counter()
+        again = scan(batches[0])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        hit = engine.stats.resident_hits - hits
+        extra = gs.LAUNCHES[kernel] - before
+        same = (json.dumps([secret_to_json(r) for r in again], sort_keys=True)
+                == json.dumps([secret_to_json(r) for r in results[:len(batches[0])]],
+                              sort_keys=True))
+        print(f"serve: {way} rescan of batch 0 files={len(batches[0])} seconds={dt:.4f} "
+              f"resident_hits={hit} {kernel}_launches={extra} equal_findings={same}",
+              flush=True)
+        if hit != 1 or extra != 0 or not same:
+            fail("serve", f"{way} rescan: {hit} resident hits, {extra} {kernel} "
+                 f"launches, equal findings {same}")
     n = len(batches)
     expect = {
         "mega": {"mega": n, "bitplane": 0, "mega_acc": 0},
@@ -559,6 +628,69 @@ def serve_phase(np, torch, gs, corpus) -> dict:
     return {way: launches for way, (_, launches) in runs.items()}
 
 
+def spans_phase(torch, corpus) -> None:
+    """One serve batch scanned with tracing on: the total seconds of each
+    engine span and each fenced device phase; then the same batch scanned
+    untraced under `torch.profiler`: the device's busy time (kernels,
+    copies and fills, summed) against the scan's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from trivy_tpu_torch.engine.device import GpuSecretEngine
+    from trivy_tpu_torch.obs import metrics, trace
+
+    batch = corpus[SERVE_BATCH : 2 * SERVE_BATCH]
+    engines = [GpuSecretEngine(device=DEVICE, tile_len=4096, resident_chunks=0)
+               for _ in range(2)]
+    for engine in engines:
+        engine.warmup()
+        engine.scan_batch(corpus[:20])
+    torch.cuda.synchronize()
+    trace.clear()
+    metrics.drain_device_phases()
+    trace.enable()
+    try:
+        t0 = time.perf_counter()
+        engines[0].scan_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trace.disable()
+    totals: dict[str, float] = {}
+    for sp in trace.snapshot():
+        totals[sp.name] = totals.get(sp.name, 0.0) + sp.dur
+    phases: dict[str, float] = {}
+    for kernel, _dev, sec in metrics.drain_device_phases():
+        phases[kernel] = phases.get(kernel, 0.0) + sec
+    stages = ("chunk.encode", "chunk.h2d", "sieve.megakernel", "chunk.fetch", "verify",
+              "confirm")
+    missing = [name for name in stages if name not in totals]
+    if missing:
+        fail("spans", f"the traced scan opened no {missing} span")
+    in_spans = sum(totals[name] for name in stages)
+    print(f"spans: traced serve batch files={len(batch)} seconds={wall:.4f} "
+          f"spans_s={json.dumps({k: round(totals[k], 6) for k in stages})} "
+          f"outside_spans_s={wall - in_spans:.4f} (dedupe, pack) "
+          f"device_phase_s={json.dumps({k: round(v, 6) for k, v in sorted(phases.items())})}",
+          flush=True)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engines[1].scan_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # self device time: each kernel, copy and fill once, never again
+    # through the host op that issued it
+    rows = sorted(((e.key, getattr(e, "self_device_time_total", 0))
+                   for e in prof.key_averages()), key=lambda kv: -kv[1])
+    rows = [(name, us) for name, us in rows if us > 0]
+    busy = sum(us for _, us in rows) / 1e6
+    share = f"{1 - busy / wall:.4%}" if busy else "not measured"
+    top = {name[:60]: round(us / 1e3, 4) for name, us in rows[:8]}
+    print(f"spans: untraced serve batch under torch.profiler seconds={wall:.4f} "
+          f"device_busy_s={busy:.6f} device_idle_share={share} "
+          f"device_ms_by_activity={json.dumps(top)}", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -573,6 +705,8 @@ def main() -> int:
         import bench_corpus
         from trivy_tpu_torch.compiled import CompiledRules
         from trivy_tpu_torch.engine import link
+        from trivy_tpu_torch.native import load_native
+        from trivy_tpu_torch.obs import memwatch
         from trivy_tpu_torch.ops import _build
         from trivy_tpu_torch.ops import gram_sieve as gs
         from trivy_tpu_torch.ops import megakernel as mk
@@ -590,6 +724,10 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} seconds={time.perf_counter() - t0:.2f}", flush=True)
+    t0 = time.perf_counter()
+    native = load_native()  # the claim-killer; raises when g++ fails
+    print(f"build: claim-killer {os.path.basename(native._name)} (g++) "
+          f"seconds={time.perf_counter() - t0:.2f}", flush=True)
     for name in sorted(libs):
         for r in _build.resources(name):
             print(f"build: {name}.cu {demangle(r['kernel'])} registers={r['registers']} "
@@ -600,16 +738,22 @@ def main() -> int:
     codec = link.select_codec(link.derive_alphabet(compiled), "auto", compiled)
     report = kernel_phase(np, torch, gs, compiled, codec)
 
+    memwatch.enable()
+    main_corpus = bench_corpus.make_kernel_corpus(n_files=MAIN_FILES, seed=SEED)
+    k1_launches, engine = path_phase(np, torch, gs, main_corpus, 4096, "bitplane",
+                                     N_SAMPLED, "main")
+    memwatch_line(memwatch, engine)
+    del engine, main_corpus
     corpus = bench_corpus.make_kernel_corpus(n_files=N_FILES, seed=SEED)
     launches = {
-        "bitplane": path_phase(np, torch, gs, corpus, 4096, "bitplane", N_SAMPLED,
-                               "main"),
+        "bitplane": k1_launches,
         "window": path_phase(np, torch, gs, corpus[:WINDOW_FILES], 128, "window",
-                             WINDOW_SAMPLED, "window"),
+                             WINDOW_SAMPLED, "window")[0],
     }
     mega_report, split = mega_phase(np, torch, gs, mk, compiled, codec, corpus)
     report.update(mega_report)
     serve = serve_phase(np, torch, gs, corpus)
+    spans_phase(torch, corpus)
     launches["mega"] = serve["mega"]["mega"]
     launches["mega_acc"] = split["mega_acc"]
     launches["mega_epilogue"] = split["mega_epilogue"]

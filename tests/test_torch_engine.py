@@ -160,9 +160,16 @@ import io, json, sys, contextlib
 import torch
 import trivy_tpu_torch
 from trivy_tpu_torch import __main__ as cli
+from trivy_tpu_torch import faults, lockcheck, native
+from trivy_tpu_torch.engine import nfa, pipeline, redfa
+from trivy_tpu_torch.native import loader
+from trivy_tpu_torch.obs import memwatch, metrics, trace
 from trivy_tpu_torch.engine.device import GpuSecretEngine
 from trivy_tpu_torch.ftypes import findings_fingerprint
-fp = findings_fingerprint(GpuSecretEngine(device="cpu", tile_len=512))
+native.load_native()
+engine = GpuSecretEngine(device="cpu", tile_len=512)
+fp = findings_fingerprint(engine)
+verified = engine.stats.verify_s > 0
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     cli.main(["fs", "--scanners", "secret", "--device", "cpu", sys.argv[1]])
@@ -175,7 +182,8 @@ if not torch.cuda.is_available():
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "trivy_tpu"))
 print(json.dumps({"bad": bad, "fp": len(fp), "cli": json.loads(buf.getvalue()),
-                  "cuda": torch.cuda.is_available(), "raised": raised}))
+                  "cuda": torch.cuda.is_available(), "raised": raised,
+                  "verified": verified}))
 """
 
 
@@ -199,9 +207,10 @@ def _fixture_tree(root) -> None:
 
 
 def test_port_imports_no_jax_and_no_reference(tmp_path):
-    """In a fresh interpreter the port scans and runs its CLI without loading
-    jax or any trivy_tpu module, and its default device raises without a
-    card."""
+    """In a fresh interpreter the port, every module of it imported (the
+    claim-killer's native library built and loaded), scans with its
+    claim-killer and runs its CLI without loading jax or any trivy_tpu
+    module, and its default device raises without a card."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -212,6 +221,7 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     assert out["fp"] > 0 and out["cli"]["SchemaVersion"] == 2
+    assert out["verified"]
     if not out["cuda"]:
         assert out["raised"] and "cuda" in out["raised"]
 

@@ -5,7 +5,9 @@
 Per case the port's findings equal the golden SecretFinding structs; per
 config its fingerprint equals the JAX package's staged fused engine
 (`TpuSecretEngine(kernel="pallas", fused=True, megakernel=False)`, Pallas in
-interpret mode) and its `OracleScanner`.  Tolerance: exact.
+interpret mode) and its `OracleScanner`, and the candidate pairs its
+claim-killer leaves for the confirm equal the reference's.  Tolerance:
+exact.
 """
 
 import json
@@ -71,6 +73,10 @@ def test_port_matches_reference_engine_and_oracle_per_config(config):
     ref_rules = ref_build_ruleset(ref_load_config(os.path.join(PAR, "configs", config)))
     ref = TpuSecretEngine(ruleset=ref_rules, kernel="pallas", fused=True,
                           megakernel=False, tile_len=TILE, max_batch_tiles=MAX_ROWS)
-    got = fingerprint(_port_engine(config).scan_batch(items))
+    port = _port_engine(config)
+    pairs = port.stats.candidate_pairs
+    got = fingerprint(port.scan_batch(items))
     assert got == fingerprint(ref.scan_batch(items))
     assert got == oracle_fingerprint(items, ref_rules)
+    # both engines run the claim-killer: the oracle sees the same pairs
+    assert port.stats.candidate_pairs - pairs == ref.stats.candidate_pairs

@@ -25,6 +25,8 @@ the same variable the JAX package reads.
 
 from __future__ import annotations
 
+import hashlib
+
 import math
 import os
 from dataclasses import dataclass
@@ -132,6 +134,12 @@ class LinkCodec:
     class_map: np.ndarray  # [256] uint8
     num_classes: int  # non-other classes in use
     exact: bool
+
+    def __post_init__(self) -> None:
+        # keys resident rows: coded rows of another codec never alias
+        self.codec_id = hashlib.blake2b(
+            bytes([self.sym_bits]) + self.class_map.tobytes(), digest_size=4
+        ).hexdigest()
 
     def coded_len(self, length: int) -> int:
         if self.sym_bits == 4:
