@@ -54,9 +54,39 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             chunk.fetch, verify, confirm) and each fenced device phase, and
             the same batch scanned untraced under `torch.profiler`: the
             device's busy time (kernels, copies and fills, each counted
-            once) against the wall time, and its largest activities.
+            once) against the wall time, and its largest activities;
+8. auto     right after `main`, the same 80,000 files through
+            `make_secret_engine()` (the hybrid engine, `trivy fs`'s default):
+            seconds beside `main`'s all-device time, findings equal to it;
+9. nfa      the device NFA verify kernels against their plain versions,
+            bit for bit: K5 (`nfa_stream`) on the builtin ruleset's real
+            rule stacks at every width the engine launches (rb 4, 8, 16,
+            32) and the 512, 4,096 and 16,384 tiers, 128 groups x 64
+            lanes, and on a random 5-rule stack (bit 63 in use),
+            separator-only rows among them; K5v (`nfa_fused_verdict`) on a
+            lane table with padded entries; K6 (`nfa_padded`) at the 512
+            and 32,768 buckets with 128 groups; each timed at the main
+            path's full dispatch shape beside the bytes it must move;
+10. hybrid  bench.py's hit-dense corpus (20,000 files, seed 13) plus
+            NUL-bracketed and ~50 KB jumbo files: through
+            `make_secret_engine()` on the card (the gate's decision and its
+            measured link terms printed), then through
+            `GpuHybridSecretEngine` with verify dfa, device and fused:
+            seconds, files/s, phases, `device_pairs`, `stream_stats` and
+            launches each; device and fused must verify lanes on the card
+            and launch K5 (and K5v when fused) and K6, no sieve kernel may
+            launch; findings equal across all four runs and to the oracle
+            on every flagged file plus 2,000 sampled; `scan_batch_host` and
+            `scan_batch_device_legacy` on 2,000 files equal the fused run;
+            the three backends then scan again in the reverse order.  Every
+            K5, K5v and K6 call of the default scan (of the fused one when
+            the default is not fused) is kept with its inputs and held to
+            the plain version afterwards, at the engine's own shapes and
+            stack width.  A scan past STALL_S seconds dumps the stacks of
+            all threads to stderr.
 
 Then one JSON line describing each kernel (launches come from the path runs;
+the NFA kernels' from the default hybrid scan when it verified fused;
 times from CUDA events in this run, each beside the device time of the
 kernels alone from `torch.profiler`, which leaves out the host's launch
 work), the card's name and power limit, and
@@ -66,6 +96,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import statistics
@@ -86,6 +117,12 @@ SERVE_BATCH = 2_000  # files per serve batch: inside the megakernel's envelope
 SERVE_ROWS = 4096  # the row bucket a serve batch lands in
 MEGA_FP = 2048  # file lanes of a serve batch (2,000 files padded)
 SPLIT = 4  # row shards of the split megakernel
+NFA_ROWS = 8192  # 128 groups x 64 lanes: one full max-group stream dispatch
+NFA_GROUPS = 128
+HITDENSE_FILES = 20_000  # bench.py's HITDENSE_FILES
+EXTRA_FILES = 8  # NUL-bracketed and jumbo files added to the hit-dense corpus
+LEGACY_BATCH = 2_000
+STALL_S = 6.0  # a hybrid scan this long dumps its threads' stacks (they take < 2 s on an H100)
 REPS = 20
 DEVICE = "cuda"
 PLANTED = (
@@ -205,7 +242,8 @@ def kernel_phase(np, torch, gs, compiled, codec) -> dict:
     return report
 
 
-KERNEL_NAMES = ("gram_sieve_kernel", "mega_count_kernel", "mega_epilogue_kernel")
+KERNEL_NAMES = ("gram_sieve_kernel", "mega_count_kernel", "mega_epilogue_kernel",
+                "nfa_stream_kernel", "nfa_fused_verdict_kernel", "nfa_padded_kernel")
 
 
 def device_ms(torch, fn, reps: int):
@@ -295,8 +333,18 @@ def path_phase(np, torch, gs, corpus, tile_len: int, kind: str, n_sampled: int,
           f"verify_s={st.verify_s:.4f} resident_hits={st.resident_hits} "
           f"h2d_overlap_s={st.h2d_overlap_s:.4f} launches={launches} "
           f"codec={engine._link.sym_bits if engine._link else 'off'} "
-          f"phases={json.dumps(st.phases())}", flush=True)
-    return launches[kind], engine
+          f"phases={json.dumps(st.phases())} mega_gate={gate_line(getattr(engine, 'mega_gate', None))}",
+          flush=True)
+    return launches[kind], engine, results, dt
+
+
+def gate_line(rec) -> str:
+    """A gate log record's decision and measured terms, as JSON."""
+    if not rec:
+        return "none"
+    keep = ("requested", "backend", "reason", "profile", "margin", "link", "thresholds",
+            "exec_mb_per_sec")
+    return json.dumps({k: rec[k] for k in keep if k in rec}, sort_keys=True)
 
 
 def memwatch_line(memwatch, engine) -> None:
@@ -691,6 +739,364 @@ def spans_phase(torch, corpus) -> None:
           f"device_ms_by_activity={json.dumps(top)}", flush=True)
 
 
+def stream_rows(np, n: int, length: int, seed: int):
+    """[n, length] stream rows as the verifier packs them: printable spans
+    of 60-1,500 bytes, each followed by one 0x00 separator, planted secrets
+    in every third row, and every 16th row separators only."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(32, 127, size=(n, length), dtype=np.uint8)
+    for i in range(n):
+        cuts = np.cumsum(rng.integers(60, 1500, size=length // 60 + 1))
+        rows[i, cuts[cuts < length]] = 0
+        if i % 3 == 0:
+            sec = PLANTED[i % len(PLANTED)]
+            p = int(rng.integers(0, length - len(sec)))
+            rows[i, p : p + len(sec)] = np.frombuffer(sec, np.uint8)
+    rows[::16] = 0
+    return rows
+
+
+def random_nfa_stack(np, rb: int, seed: int):
+    """rb sparse random automata over 64 positions, bit 63 final ("zz"
+    reaches it); byte 0x00 dead, as in the engine's stacks."""
+    rng = np.random.default_rng(seed)
+    follow = (rng.random((rb, 64, 64)) < 0.03).astype(np.float32)
+    accept_b = (rng.random((rb, 256, 64)) < 0.1).astype(np.float32)
+    first = (rng.random((rb, 64)) < 0.05).astype(np.float32)
+    last = (rng.random((rb, 64)) < 0.05).astype(np.float32)
+    first[:, 62] = last[:, 63] = 1.0
+    last[first > 0] = 0.0
+    follow[:, 62, 63] = 1.0
+    accept_b[:, ord("z"), 62:] = 1.0
+    accept_b[:, 0] = 0.0
+    return follow, accept_b, first, last
+
+
+def nfa_phase(np, torch, nv, verifier) -> dict:
+    """K5, K5v and K6 against their plain versions, bit for bit: K5 on the
+    builtin ruleset's real rule stacks at every width the engine launches
+    (rb 4, 8, 16, 32: `RULE_STACK_BUCKETS`) and every stream tier, 128
+    groups x 64 lanes, and on a random 5-rule stack; K5v on the lane table
+    of the 4,096-tier flags, padded lanes included; K6 at the 512 and
+    32,768 buckets with 128 groups.  Times each kernel at the full dispatch
+    shape of the main path (4,096 tier, 8,192 rows, rb 32; K6 at the jumbo
+    bucket).  The plain versions read the 0/1 arrays the words were packed
+    from."""
+    report = {}
+    eligible = np.flatnonzero(verifier.has_nfa)
+
+    def on_card(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE) for a in arrays]
+
+    def real_stack(rb):
+        parts = [verifier._rule_byte_tensors(int(r)) for r in eligible[:rb]]
+        return [np.stack([p[i] for p in parts]) for i in range(4)]
+
+    def timed(name, kernel, plain, shape, nbytes, plain_reps=1):
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rec = report[name]
+        rec.update(ms=event_ms(torch, kernel, REPS), device_ms=device_ms(torch, kernel, REPS),
+                   plain_ms=event_ms(torch, plain, plain_reps), bound_ms=bound_ms,
+                   bound_by="bytes", shape=shape)
+        print(f"nfa: {name} timed shape={shape} ms={rec['ms']:.4f} "
+              f"device_ms={fmt_ms(rec['device_ms'])} plain_ms={rec['plain_ms']:.4f} "
+              f"bound_ms={bound_ms:.5f} (bytes {nbytes} at 3.35 TB/s)", flush=True)
+
+    timed_args = None
+    cases = [("real", rb, length) for length in (512, 4096, 16384) for rb in (4, 8, 16, 32)]
+    for kind, rb, length in cases + [("random", 5, 512)]:
+        arrays = real_stack(rb) if kind == "real" else random_nfa_stack(np, rb, seed=SEED)
+        stack = nv.nfa_stack(*arrays, device=DEVICE)
+        rows = torch.from_numpy(stream_rows(np, NFA_ROWS, length, SEED + length)).to(DEVICE)
+        got = nv.nfa_stream(rows, stack)
+        floats = on_card(arrays)
+        want = nv.nfa_stream_plain(rows, *floats)
+        nfa_record(torch, report, "nfa_stream", got, want,
+                   f"{kind} rb={rb} L={length} rows={NFA_ROWS}", int((want != 0).sum()))
+        if not want.any() or want[:, ::16].any():
+            fail("nfa", f"{kind} rb={rb} L={length}: no flag, or a flag on a separator row")
+        if (kind, rb, length) == ("real", 32, 4096):
+            timed_args = (rows, stack, floats, want)
+    rows, stack, floats, flags = timed_args
+    n, length = rows.shape
+    p, lo = flags.shape[0], length // 32
+    timed("nfa_stream", lambda: nv.nfa_stream(rows, stack),
+          lambda: nv.nfa_stream_plain(rows, *floats), [n, length, 32],
+          n * length + stack.nbytes + p * n * lo)
+
+    # K5v: one lane per (row, slot) claim, 3/4 of a power-of-two table real
+    rng = np.random.default_rng(SEED)
+    n_lanes, npad = 6144, 8192
+    table = np.zeros((4, npad), np.int32)
+    table[0, :n_lanes] = rng.integers(0, n, n_lanes)
+    table[1, :n_lanes] = rng.integers(0, 32, n_lanes)
+    b0 = rng.integers(0, lo, n_lanes)
+    table[2, :n_lanes] = b0
+    table[3, :n_lanes] = np.minimum(b0 + rng.integers(1, 40, n_lanes), lo)
+    lanes = torch.from_numpy(table).to(DEVICE)
+    got = nv.nfa_fused_verdict(flags, *lanes)
+    want = nv.nfa_fused_verdict_plain(flags, *lanes)
+    keep = np.unpackbits(want.cpu().numpy())
+    nfa_record(torch, report, "nfa_fused", got, want,
+               f"flags={list(flags.shape)} lanes={n_lanes} padded to {npad}", int(keep.sum()))
+    if not keep.any() or keep[n_lanes:].any():
+        fail("nfa", "K5v kept nothing, or kept a padded lane")
+    # K5v reads the lane table, and of the flags only the bytes inside
+    # some real lane's [b0, b1) of its (slot byte, row)
+    needed = np.zeros(tuple(flags.shape), bool)
+    for r, sl, a, b in zip(*table[:, :n_lanes]):
+        needed[sl // 8, r, a:b] = True
+    timed("nfa_fused", lambda: nv.nfa_fused_verdict(flags, *lanes),
+          lambda: nv.nfa_fused_verdict_plain(flags, *lanes), [npad, p, n, lo],
+          int(needed.sum()) + table.nbytes + npad // 8, plain_reps=3)
+
+    # K6 on the resident words, each group one of the real rules
+    tables = nv.nfa_tables(verifier.follow, verifier.accept, verifier.first,
+                           verifier.last, device=DEVICE)
+    table_floats = on_card((verifier.follow, verifier.accept, verifier.first, verifier.last))
+    gids = eligible[np.arange(NFA_GROUPS) % len(eligible)].astype(np.int32)
+    for length in (512, 32768):
+        data = stream_rows(np, NFA_GROUPS * 64, length, SEED + 3 * length).reshape(
+            NFA_GROUPS, 64, length)
+        data[:, ::3, length // 3 :] = 0  # windows shorter than their bucket
+        classes = np.stack([verifier.luts[r][d] for r, d in zip(gids, data)])
+        cls = torch.from_numpy(classes).to(DEVICE)
+        gd = torch.from_numpy(gids).to(DEVICE)
+        got = nv.nfa_padded(cls, gd, tables)
+        want = nv.nfa_padded_plain(cls, gd, *table_floats)
+        nfa_record(torch, report, "nfa_padded", got, want, f"G={NFA_GROUPS} Bg=64 L={length}",
+                   int(want.sum()))
+        if not want.any() or want.all():
+            fail("nfa", f"K6 at L={length}: all lanes alike")
+    # K6 reads the class ids, the group ids and the words of those rules
+    timed("nfa_padded", lambda: nv.nfa_padded(cls, gd, tables),
+          lambda: nv.nfa_padded_plain(cls, gd, *table_floats), [NFA_GROUPS, 64, 32768],
+          cls.numel() + gd.numel() * 4 + len(np.unique(gids)) * nv.PADDED_WORDS * 8
+          + NFA_GROUPS * 64)
+    return report
+
+
+def nfa_record(torch, report, name, got, want, label, nonzero) -> None:
+    """Hold one kernel output to its plain version's: the max abs error
+    goes into the kernel's report entry, and any difference fails."""
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max().item())
+    equal = torch.equal(got, want)
+    rec = report.setdefault(name, {"max_abs_err": 0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    print(f"nfa: {name} {label} equal={equal} max_abs_err={err} "
+          f"nonzero={nonzero}", flush=True)
+    if err or not equal:
+        fail("nfa", f"{name} {label} disagrees with its plain version")
+
+
+def capture_dispatches(nd, store: list):
+    """Wrap the verifier's kernel calls (imported by name into
+    `engine.nfa_device`) so that each call's inputs and output are kept in
+    `store`; launches still count in the wrappers alone.  Returns the
+    originals, for `restore_dispatches`."""
+    originals = {k: getattr(nd, k) for k in ("nfa_stream", "nfa_fused_verdict", "nfa_padded")}
+
+    def keep(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            store.append((name, args, out))
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(nd, name, keep(name, fn))
+    return originals
+
+
+def restore_dispatches(nd, originals) -> None:
+    for name, fn in originals.items():
+        setattr(nd, name, fn)
+
+
+def dispatch_check(np, torch, nv, store: list, report: dict) -> None:
+    """Hold every K5, K5v and K6 dispatch of one engine scan, at the shapes
+    and stack widths the engine gave it, to the plain version on the same
+    inputs (the plain K5 reads the dispatch's words unpacked; both scan
+    modes define the same flags)."""
+    names = {"nfa_stream": "nfa_stream", "nfa_fused_verdict": "nfa_fused",
+             "nfa_padded": "nfa_padded"}
+    for i, (name, args, out) in enumerate(store):
+        if name == "nfa_stream":
+            rows, words = args[0], args[1]
+            want = nv.nfa_stream_plain(rows, *nv.unpack_words(words))
+            label = f"rows={list(rows.shape)} rb={words.shape[0]}"
+        elif name == "nfa_fused_verdict":
+            want = nv.nfa_fused_verdict_plain(*args)
+            label = f"flags={list(args[0].shape)} lanes={len(args[1])}"
+        else:
+            want = nv.nfa_padded_plain(args[0], args[1], *nv.unpack_words(args[2]))
+            label = f"classes={list(args[0].shape)}"
+        nfa_record(torch, report, names[name], out, want, f"engine dispatch {i} {label}",
+                   int((want != 0).sum()))
+
+
+def hitdense_corpus(np, bench_corpus):
+    """`bench_corpus.make_hitdense_corpus(20_000, seed=13)` (bench.py's
+    verify-bound corpus) plus NUL-bracketed and ~50 KB jumbo files, shaped
+    like tests/test_fused_verify.py's, so the padded path (K6) runs."""
+    corpus = bench_corpus.make_hitdense_corpus(HITDENSE_FILES, seed=13)
+    rng = np.random.default_rng(SEED)
+    alnum = np.frombuffer(b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789",
+                          np.uint8)
+
+    def pick(k: int) -> bytes:
+        return rng.choice(alnum, k).tobytes()
+
+    for i in range(EXTRA_FILES):
+        sec = b"ghp_" + pick(36)
+        corpus.append((f"extra/nul{i}.bin", b"\x00" * 200 + sec + b"\x00" * 50))
+        corpus.append((f"extra/big{i}.txt", pick(40000) + b"\nt " + sec + b"\n" + pick(9000)))
+    return corpus
+
+
+def hybrid_run(np, torch, gs, engine, corpus, label: str, store: list | None = None):
+    """One scan of `corpus` with fresh stats, counts zeroed just before and
+    read just after; prints the run's line and returns (results, seconds,
+    launches).  With `store`, every verify kernel call of the scan is kept
+    there (`capture_dispatches`).  A scan that runs past STALL_S dumps every
+    thread's stack to stderr, so that a stall shows where it sat."""
+    from trivy_tpu_torch.engine import nfa_device
+
+    engine.stats = type(engine.stats)()
+    originals = capture_dispatches(nfa_device, store) if store is not None else {}
+    for k in gs.LAUNCHES:
+        gs.LAUNCHES[k] = 0
+    faulthandler.dump_traceback_later(STALL_S, file=sys.stderr)
+    t0 = time.perf_counter()
+    try:
+        results = engine.scan_batch(corpus)
+        torch.cuda.synchronize()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        restore_dispatches(nfa_device, originals)
+    dt = time.perf_counter() - t0
+    launches = dict(gs.LAUNCHES)
+    st = engine.stats
+    nbytes = sum(len(c) for _, c in corpus)
+    nfa = engine._nfa_verifier
+    print(f"hybrid: {label} verify={engine.verify} files={len(corpus)} "
+          f"MB={nbytes / 1e6:.3f} findings={sum(len(r.findings) for r in results)} "
+          f"seconds={dt:.4f} files_per_s={len(corpus) / dt:.1f} "
+          f"MB_per_s={nbytes / 1e6 / dt:.3f} candidate_pairs={st.candidate_pairs} "
+          f"device_pairs={st.device_pairs} phases={json.dumps(st.phases())} "
+          f"stream_stats={json.dumps(nfa.stream_stats if nfa else {})} "
+          f"launches={json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    return results, dt, launches
+
+
+def hybrid_phase(np, torch, gs, bench_corpus) -> dict:
+    """The scan `trivy fs` users get by default: the hit-dense corpus
+    through `make_secret_engine()` on the card (the gate's decision and
+    measured terms printed), then through `GpuHybridSecretEngine` with each
+    verify backend.  Findings must be equal across all of them and equal the
+    oracle; the degraded rungs must equal the fused result on a batch.  The
+    three backends then scan again in the reverse order, and the fastest
+    is the one with the least of its two times.  Returns the runs'
+    launches and the backend `auto` chose."""
+    from trivy_tpu_torch.engine.hybrid import GpuHybridSecretEngine, make_secret_engine
+    from trivy_tpu_torch.engine.oracle import OracleScanner
+    from trivy_tpu_torch.ftypes import secret_to_json
+
+    corpus = hitdense_corpus(np, bench_corpus)
+    warm = GpuHybridSecretEngine(device=DEVICE, verify="fused")
+    warm.warmup()
+    warm.scan_batch(corpus[:200] + corpus[-4:])  # kernels loaded, first calls done
+    auto = make_secret_engine(device=DEVICE)
+    if not isinstance(auto, GpuHybridSecretEngine):
+        fail("hybrid", f"make_secret_engine() built {type(auto).__name__}")
+    print(f"hybrid: gate {gate_line(auto.gate_decision)}", flush=True)
+    auto.warmup()
+    results, seconds, launches = {}, {}, {}
+    # the verify kernels' calls of the run whose launches are reported: the
+    # default scan's when it verifies fused, else the explicit fused scan's
+    store: list = []
+    results["auto"], seconds["auto"], launches["auto"] = hybrid_run(
+        np, torch, gs, auto, corpus, "make_secret_engine()",
+        store if auto.verify == "fused" else None)
+    engines = {}
+    for mode in ("dfa", "device", "fused"):
+        engines[mode] = eng = GpuHybridSecretEngine(device=DEVICE, verify=mode)
+        eng.warmup()
+        results[mode], seconds[mode], launches[mode] = hybrid_run(
+            np, torch, gs, eng, corpus, "GpuHybridSecretEngine",
+            store if mode == "fused" and auto.verify != "fused" else None)
+        if mode != "dfa" and eng.stats.device_pairs == 0:
+            fail("hybrid", f"verify={mode}: no lane verified on the device")
+    need = {"device": ("nfa_stream", "nfa_padded"),
+            "fused": ("nfa_stream", "nfa_fused", "nfa_padded")}
+    for mode, kernels in need.items():
+        if not all(launches[mode][k] for k in kernels):
+            fail("hybrid", f"verify={mode} launches {launches[mode]}: expected {kernels}")
+    if any(launches[m][k] for m in launches for k in ("bitplane", "window", "mega",
+                                                       "mega_acc", "mega_epilogue")):
+        fail("hybrid", "the hybrid launched a sieve kernel: its sieve is the host's")
+    docs = {m: json.dumps([secret_to_json(r) for r in res], sort_keys=True)
+            for m, res in results.items()}
+    if len(set(docs.values())) != 1:
+        fail("hybrid", f"findings differ between backends {sorted(docs)}")
+    checked = check_against_oracle(np, OracleScanner(), corpus, results["fused"],
+                                   N_SAMPLED, "hybrid")
+    batch = corpus[-LEGACY_BATCH:]
+    want = json.dumps([secret_to_json(r) for r in results["fused"][-LEGACY_BATCH:]],
+                      sort_keys=True)
+    fused = engines["fused"]
+    rungs = {"scan_batch_host": fused.scan_batch_host(batch),
+             "scan_batch_device_legacy": fused.scan_batch_device_legacy(batch)}
+    torch.cuda.synchronize()
+    for name, res in rungs.items():
+        if json.dumps([secret_to_json(r) for r in res], sort_keys=True) != want:
+            fail("hybrid", f"{name} differs from the fused result")
+    if not fused._nfa_verifier.fused:
+        fail("hybrid", "scan_batch_device_legacy left the verifier unfused")
+    # A second round in the reverse order, so that each backend is timed
+    # twice in turns with the others; the faster of its two runs counts.
+    again = {}
+    for mode in ("fused", "device", "dfa"):
+        res, again[mode], _ = hybrid_run(np, torch, gs, engines[mode], corpus,
+                                         "GpuHybridSecretEngine, round 2")
+        if json.dumps([secret_to_json(r) for r in res], sort_keys=True) != docs[mode]:
+            fail("hybrid", f"verify={mode}: round 2 findings differ")
+    best = {m: min(seconds[m], again[m]) for m in again}
+    fastest = min(best, key=best.get)
+    print(f"hybrid: equal_findings=True checked_against_oracle={checked} "
+          f"rungs_equal_fused=True (batch of {len(batch)}) "
+          f"seconds={json.dumps({m: round(v, 4) for m, v in seconds.items()})} "
+          f"round2_seconds={json.dumps({m: round(v, 4) for m, v in again.items()})} "
+          f"auto_chose={auto.verify} fastest={fastest}", flush=True)
+    return {"launches": launches, "auto": auto.verify, "dispatches": store}
+
+
+def auto_phase(np, torch, corpus, main_results, main_seconds: float) -> None:
+    """The kernel corpus (BASELINE config #3, `main`'s) through
+    `make_secret_engine()`: the reference's default path on that tree,
+    beside `main`'s all-device time; findings must equal `main`'s."""
+    from trivy_tpu_torch.engine.hybrid import make_secret_engine
+    from trivy_tpu_torch.ftypes import secret_to_json
+
+    engine = make_secret_engine(device=DEVICE)
+    engine.warmup()
+    t0 = time.perf_counter()
+    results = engine.scan_batch(corpus)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nbytes = sum(len(c) for _, c in corpus)
+    same = (json.dumps([secret_to_json(r) for r in results], sort_keys=True)
+            == json.dumps([secret_to_json(r) for r in main_results], sort_keys=True))
+    print(f"auto: kernel corpus files={len(corpus)} MB={nbytes / 1e6:.3f} "
+          f"engine={type(engine).__name__} verify={engine.verify} seconds={dt:.4f} "
+          f"files_per_s={len(corpus) / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
+          f"device_pairs={engine.stats.device_pairs} phases={json.dumps(engine.stats.phases())} "
+          f"main_all_device_seconds={main_seconds:.4f} equal_to_main={same}", flush=True)
+    if not same:
+        fail("auto", "findings differ from the all-device engine's")
+
+
 def main() -> int:
     try:
         import torch
@@ -705,11 +1111,13 @@ def main() -> int:
         import bench_corpus
         from trivy_tpu_torch.compiled import CompiledRules
         from trivy_tpu_torch.engine import link
+        from trivy_tpu_torch.engine.nfa_device import GpuNfaVerifier
         from trivy_tpu_torch.native import load_native
         from trivy_tpu_torch.obs import memwatch
         from trivy_tpu_torch.ops import _build
         from trivy_tpu_torch.ops import gram_sieve as gs
         from trivy_tpu_torch.ops import megakernel as mk
+        from trivy_tpu_torch.ops import nfa_verify as nv
         from trivy_tpu_torch.rules.model import build_ruleset
     except ImportError as exc:
         fail("setup", f"run from the repository root: {exc}")
@@ -725,8 +1133,8 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {sorted(libs)} seconds={time.perf_counter() - t0:.2f}", flush=True)
     t0 = time.perf_counter()
-    native = load_native()  # the claim-killer; raises when g++ fails
-    print(f"build: claim-killer {os.path.basename(native._name)} (g++) "
+    native = load_native()  # claim-killer + host pre-sieve; raises when g++ fails
+    print(f"build: claim-killer and host pre-sieve {os.path.basename(native._name)} (g++) "
           f"seconds={time.perf_counter() - t0:.2f}", flush=True)
     for name in sorted(libs):
         for r in _build.resources(name):
@@ -740,10 +1148,12 @@ def main() -> int:
 
     memwatch.enable()
     main_corpus = bench_corpus.make_kernel_corpus(n_files=MAIN_FILES, seed=SEED)
-    k1_launches, engine = path_phase(np, torch, gs, main_corpus, 4096, "bitplane",
-                                     N_SAMPLED, "main")
+    k1_launches, engine, main_results, main_seconds = path_phase(
+        np, torch, gs, main_corpus, 4096, "bitplane", N_SAMPLED, "main")
     memwatch_line(memwatch, engine)
-    del engine, main_corpus
+    del engine
+    auto_phase(np, torch, main_corpus, main_results, main_seconds)
+    del main_corpus, main_results
     corpus = bench_corpus.make_kernel_corpus(n_files=N_FILES, seed=SEED)
     launches = {
         "bitplane": k1_launches,
@@ -758,6 +1168,20 @@ def main() -> int:
     launches["mega_acc"] = split["mega_acc"]
     launches["mega_epilogue"] = split["mega_epilogue"]
 
+    verifier = GpuNfaVerifier(build_ruleset(None).rules, device=DEVICE)
+    report.update(nfa_phase(np, torch, nv, verifier))
+    hybrid = hybrid_phase(np, torch, gs, bench_corpus)
+    # the NFA kernels' launches in the default scan's run when it verified
+    # fused (the gate's pick on a wide link), else in the fused run's
+    run = "auto" if hybrid["auto"] == "fused" else "fused"
+    print(f"hybrid: kernel launches and dispatches read from the {run} run", flush=True)
+    for kind in ("nfa_stream", "nfa_fused", "nfa_padded"):
+        launches[kind] = hybrid["launches"][run][kind]
+    dispatch_check(np, torch, nv, hybrid["dispatches"], report)
+    if len(hybrid["dispatches"]) != sum(launches[k] for k in
+                                         ("nfa_stream", "nfa_fused", "nfa_padded")):
+        fail("hybrid", "the kept dispatches are not the run's launches")
+
     replaces = {
         "bitplane": "trivy_tpu/ops/gram_sieve_pallas.py:271",
         "window": "trivy_tpu/ops/gram_sieve_pallas.py:311",
@@ -766,13 +1190,19 @@ def main() -> int:
         # derive_counts_to_mask: K3's last grid step, and the reference
         # split's epilogue after its psum
         "mega_epilogue": "trivy_tpu/ops/megakernel.py:74",
+        # XLA programs (no pallas_call), hot as plain loops: hand kernels
+        "nfa_stream": "trivy_tpu/engine/nfa_device.py:393",
+        "nfa_fused": "trivy_tpu/engine/nfa_device.py:572",
+        "nfa_padded": "trivy_tpu/engine/nfa_device.py:325",
     }
     names = {"bitplane": "gram_sieve_bitplane", "window": "gram_sieve_window",
              "mega": "megakernel_mask", "mega_acc": "megakernel_acc",
-             "mega_epilogue": "megakernel_epilogue"}
+             "mega_epilogue": "megakernel_epilogue", "nfa_stream": "nfa_stream",
+             "nfa_fused": "nfa_fused_verdict", "nfa_padded": "nfa_padded"}
     sources = {"bitplane": "gram_sieve.cu", "window": "gram_sieve.cu",
                "mega": "megakernel.cu", "mega_acc": "megakernel.cu",
-               "mega_epilogue": "megakernel.cu"}
+               "mega_epilogue": "megakernel.cu", "nfa_stream": "nfa_verify.cu",
+               "nfa_fused": "nfa_verify.cu", "nfa_padded": "nfa_verify.cu"}
     kernels = [
         {
             "name": names[kind],
@@ -791,7 +1221,8 @@ def main() -> int:
             **({"serve_batch_ms": report[kind]["serve_batch_ms"]}
                if "serve_batch_ms" in report[kind] else {}),
         }
-        for kind in ("bitplane", "window", "mega", "mega_acc", "mega_epilogue")
+        for kind in ("bitplane", "window", "mega", "mega_acc", "mega_epilogue",
+                     "nfa_stream", "nfa_fused", "nfa_padded")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

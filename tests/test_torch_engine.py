@@ -160,25 +160,30 @@ import io, json, sys, contextlib
 import torch
 import trivy_tpu_torch
 from trivy_tpu_torch import __main__ as cli
-from trivy_tpu_torch import faults, lockcheck, native
-from trivy_tpu_torch.engine import nfa, pipeline, redfa
+from trivy_tpu_torch import deadline, faults, lockcheck, native
+from trivy_tpu_torch.engine import hybrid, nfa, nfa_device, pipeline, redfa
 from trivy_tpu_torch.native import loader
-from trivy_tpu_torch.obs import memwatch, metrics, trace
+from trivy_tpu_torch.obs import gatelog, memwatch, metrics, trace
+from trivy_tpu_torch.ops import nfa_verify
 from trivy_tpu_torch.engine.device import GpuSecretEngine
 from trivy_tpu_torch.ftypes import findings_fingerprint
 native.load_native()
 engine = GpuSecretEngine(device="cpu", tile_len=512)
 fp = findings_fingerprint(engine)
 verified = engine.stats.verify_s > 0
+fused = hybrid.GpuHybridSecretEngine(device="cpu", verify="fused")
+verified = verified and findings_fingerprint(fused) == fp and fused.stats.device_pairs > 0
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     cli.main(["fs", "--scanners", "secret", "--device", "cpu", sys.argv[1]])
-raised = None
+raised = []
 if not torch.cuda.is_available():
-    try:
-        GpuSecretEngine()
-    except RuntimeError as exc:
-        raised = str(exc)
+    for make in (GpuSecretEngine, hybrid.make_secret_engine):
+        try:
+            make()
+            raised.append("did not raise")
+        except RuntimeError as exc:
+            raised.append(str(exc))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "trivy_tpu"))
 print(json.dumps({"bad": bad, "fp": len(fp), "cli": json.loads(buf.getvalue()),
@@ -208,9 +213,10 @@ def _fixture_tree(root) -> None:
 
 def test_port_imports_no_jax_and_no_reference(tmp_path):
     """In a fresh interpreter the port, every module of it imported (the
-    claim-killer's native library built and loaded), scans with its
-    claim-killer and runs its CLI without loading jax or any trivy_tpu
-    module, and its default device raises without a card."""
+    native library built and loaded), scans with its claim-killer and with
+    the hybrid engine's device verify on the CPU and runs its CLI without
+    loading jax or any trivy_tpu module, and its default device raises
+    without a card (the device engine and `make_secret_engine`)."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -223,7 +229,7 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     assert out["fp"] > 0 and out["cli"]["SchemaVersion"] == 2
     assert out["verified"]
     if not out["cuda"]:
-        assert out["raised"] and "cuda" in out["raised"]
+        assert len(out["raised"]) == 2 and all("cuda" in r for r in out["raised"])
 
 
 def _secret_rows(report: dict) -> set:

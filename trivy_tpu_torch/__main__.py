@@ -1,7 +1,11 @@
 """`python -m trivy_tpu_torch fs --scanners secret [--secret-config F]
-[--format json] [--device cuda|cpu] <dir>`: a filesystem secret scan
-through `GpuSecretEngine`, printed as Trivy's JSON report (SchemaVersion 2,
-one `Results[]` entry of Class "secret" per file with findings).
+[--format json] [--secret-backend auto|hybrid|tpu|cpu] [--device cuda|cpu]
+<dir>`: a filesystem secret scan through the engine that
+`engine/hybrid.py` `make_secret_engine` builds for the backend (default
+`auto`: the hybrid engine, as `trivy_tpu`'s CLI), printed as Trivy's JSON
+report (SchemaVersion 2, one `Results[]` entry of Class "secret" per file
+with findings).  Like the reference, the backend's default comes from
+`TRIVY_TPU_SECRET_BACKEND`; `native` and `server` are not ported yet.
 
 The walk keeps the reference secret analyzer's gates
 (`trivy_tpu/analyzer/secret.py`, pkg/fanal/analyzer/secret/secret.go:28-153):
@@ -19,6 +23,11 @@ from trivy_tpu_torch.device import DEFAULT_DEVICE
 from trivy_tpu_torch.rules.model import load_config
 
 SCHEMA_VERSION = 2
+
+# The reference CLI's backends (trivy_tpu/cli.py), and the ROADMAP item
+# each one that the port lacks waits for.
+SECRET_BACKENDS = ("auto", "hybrid", "tpu", "cpu", "native", "server")
+NOT_PORTED = {"native": "A7 rest", "server": "A13"}
 
 # secret.go:28-42
 SKIP_FILES = {
@@ -110,6 +119,12 @@ def _report(target: str, secrets) -> dict:
     return out
 
 
+def _env_default(name: str, default):
+    """TRIVY_TPU_<NAME> when set, else `default` (the reference's
+    `_env_default` without its config file)."""
+    return os.environ.get(f"TRIVY_TPU_{name.upper().replace('-', '_')}", default)
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="trivy_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -117,19 +132,25 @@ def main(argv: list[str] | None = None) -> int:
     fs.add_argument("--scanners", default="secret")
     fs.add_argument("--secret-config", default="")
     fs.add_argument("-f", "--format", default="json", choices=["json"])
+    fs.add_argument("--secret-backend", choices=SECRET_BACKENDS,
+                    default=_env_default("secret-backend", "auto"))
     fs.add_argument("--device", default=DEFAULT_DEVICE)
     fs.add_argument("target")
     args = parser.parse_args(argv)
     scanners = {s.strip() for s in args.scanners.split(",") if s.strip()}
     if scanners != {"secret"}:
         parser.error("only --scanners secret is supported")
+    if args.secret_backend in NOT_PORTED:
+        parser.error(f"--secret-backend {args.secret_backend} is not ported yet "
+                     f"(ROADMAP {NOT_PORTED[args.secret_backend]})")
 
-    from trivy_tpu_torch.engine.device import GpuSecretEngine
+    from trivy_tpu_torch.engine.hybrid import make_secret_engine
+    from trivy_tpu_torch.rules.model import build_ruleset
 
-    engine = GpuSecretEngine(
-        config=load_config(args.secret_config), device=args.device
-    )
-    items = collect(args.target, engine.ruleset, args.secret_config)
+    ruleset = build_ruleset(load_config(args.secret_config))
+    engine = make_secret_engine(ruleset=ruleset, backend=args.secret_backend,
+                                device=args.device)
+    items = collect(args.target, ruleset, args.secret_config)
     secrets = engine.scan_batch(items)
     json.dump(_report(args.target, secrets), sys.stdout, indent=2)
     sys.stdout.write("\n")

@@ -17,8 +17,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from trivy_tpu_torch.engine.grams import build_gram_set
-from trivy_tpu_torch.engine.probes import MAX_CONJUNCTS, build_probe_set
+from trivy_tpu_torch.engine.grams import GramSet, build_gram_set
+from trivy_tpu_torch.engine.probes import MAX_CONJUNCTS, ProbeSet, build_probe_set
 from trivy_tpu_torch.rules.model import RuleSet
 
 # Reference attribute name (TpuSecretEngine / its GramSet) -> field.
@@ -76,7 +76,12 @@ class CompiledRules:
         (the counterpart of `TpuSecretEngine.__init__` and its
         `_build_member_matrices`)."""
         pset = build_probe_set(ruleset.rules)
-        gset = build_gram_set(pset)
+        return cls.from_sets(pset, build_gram_set(pset))
+
+    @classmethod
+    def from_sets(cls, pset: ProbeSet, gset: GramSet) -> "CompiledRules":
+        """From a compiled probe set and its gram set (the hybrid engine
+        keeps both for its host pre-sieve tables)."""
         _gate, gate_any, _conj, conj_any = pset.gate_masks()
         p, r = len(pset.probes), len(pset.plans)
         gate_member = np.zeros((p, r), dtype=np.float32)

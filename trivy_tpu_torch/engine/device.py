@@ -32,8 +32,8 @@ Every stage sits inside the reference's spans (`obs/trace.py`: chunk.encode,
 chunk.h2d, chunk.exec, sieve.megakernel, chunk.fetch, verify, confirm),
 fenced device phases (`obs/metrics.py` `device_phase`) and fault seams
 (`faults.py`: device.put, device.exec, device.fetch).  Left out for later
-slices: the forced-sync timing decomposition, mesh staging, the measured
-megakernel gate, the executable cache and scan programs.
+slices: the forced-sync timing decomposition, mesh staging, the
+executable cache and scan programs.
 """
 
 from __future__ import annotations
@@ -90,6 +90,7 @@ class SieveStats:
     bytes: int = 0
     tiles: int = 0
     candidate_pairs: int = 0
+    device_pairs: int = 0  # candidate lanes verified on the device NFA (hybrid)
     confirmed_findings: int = 0
     # Wall-clock per phase (seconds), accumulated across scan_batch calls:
     # host pack, sieve (encode, H2D and kernel launches), candidate derive
@@ -102,9 +103,12 @@ class SieveStats:
     device_dispatches: int = 0
     # Chunk-pipeline accounting (engine/pipeline.py): finish-stage wall
     # that ran while later chunks were staged or executing, content-digest
-    # dedupe savings, resident row-store hits, and the depth the run used.
+    # dedupe savings and seconds (a part of pack_s here, of verify_s in
+    # the hybrid's device pass), resident row-store hits, and the depth
+    # the run used.
     h2d_overlap_s: float = 0.0
     dedupe_saved_bytes: int = 0
+    dedupe_s: float = 0.0
     resident_hits: int = 0
     pipeline_depth: int = 0
     # Link accounting: padded chunk bytes before and after the codec, the
@@ -129,6 +133,8 @@ class SieveStats:
             out["h2d_overlap_s"] = round(self.h2d_overlap_s, 4)
         if self.dedupe_saved_bytes:
             out["dedupe_saved_bytes"] = self.dedupe_saved_bytes
+        if self.dedupe_s:
+            out["dedupe_s"] = round(self.dedupe_s, 4)
         if self.resident_hits:
             out["resident_hits"] = self.resident_hits
         if self.bytes_on_link_raw:
@@ -157,6 +163,9 @@ class GpuSecretEngine:
     `TRIVY_TPU_MEGAKERNEL` ("0" off, anything else on), else on for a CUDA
     device and off on the CPU, as the reference's is on only on its
     accelerator.  It needs `tile_len` a power of two >= 256 and some gram.
+    In auto mode (neither given), `warmup()` then prices the reference's
+    megakernel gate (`_price_mega_gate`, engine/hybrid.py `gate_terms`
+    profile "mega") and keeps the megakernel only when it clears the bar.
 
     `pipeline_depth` bounds the chunks in flight (default `default_depth()`,
     `TRIVY_TPU_PIPELINE_DEPTH`), `dedupe` scans each distinct blob once, and
@@ -232,6 +241,9 @@ class GpuSecretEngine:
         self._conj_any = dev(compiled.conj_any, torch.bool)
 
         env = os.environ.get("TRIVY_TPU_MEGAKERNEL", "")
+        # Auto mode only: warmup() prices the megakernel gate; an explicit
+        # choice (argument or environment) is never second-guessed.
+        self._mega_auto = megakernel is None and not env
         if megakernel is not None:
             want_mega = bool(megakernel)
         elif env:
@@ -289,12 +301,56 @@ class GpuSecretEngine:
     def warmup(self) -> None:
         """Build the claim-killer (native library and DFA tables, ~0.6 s
         of host time for the builtin ruleset) and, on a card, load the
-        kernel libraries the engine launches, ahead of timed scanning."""
+        kernel libraries the engine launches, ahead of timed scanning.  In
+        auto mode, price the megakernel gate from a measured dispatch."""
         self._host_verifier()
         if self.device.type == "cuda":
             _build.load("gram_sieve")
             if self._mega is not None:
                 _build.load("megakernel")
+        if self._mega is not None and self._mega_on and self._mega_auto:
+            self._price_mega_gate(self._mega_exec_mb_s())
+
+    def _mega_exec_mb_s(self) -> float:
+        """Raw MB/s of one warm K3 call at the smallest row bucket and the
+        minimum file pad (8 lanes, all padding): the reference's gate
+        pricing shape."""
+        rows = self._buckets()[0]
+        cols = self._link.coded_len(self.tile_len) if self._link is not None else self.tile_len
+        args = (
+            torch.zeros((rows, cols), dtype=torch.uint8, device=self.device),
+            torch.zeros((1, 8), dtype=torch.int32, device=self.device),
+            torch.full((1, 8), -1, dtype=torch.int32, device=self.device),
+            torch.zeros((8, 1), dtype=torch.int8, device=self.device),
+        )
+        self._mega(*args)  # warm
+        self._sync()
+        t0 = time.perf_counter()
+        self._mega(*args)
+        self._sync()
+        dt = max(time.perf_counter() - t0, 1e-9)
+        return rows * self.tile_len / dt / 1e6
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _price_mega_gate(self, exec_mb_s: float) -> None:
+        """The reference's `_price_mega_gate`: the megakernel stays on only
+        when the fused link model at one card clears the bar and the
+        measured exec rate clears `MEGA_GATE_EXEC_MB_S`; the decision goes
+        to the gate log."""
+        from trivy_tpu_torch.engine.hybrid import gate_terms, record_gate
+
+        terms = gate_terms(
+            h2d_ratio=self._link.ratio if self._link is not None else 1.0,
+            d2h_ratio=link_mod.FUSED_MASK_D2H_RATIO,
+            profile="mega", devices=1, exec_mb_s=exec_mb_s, device=self.device,
+        )
+        self._mega_on = bool(terms["wide"])
+        rec = record_gate("auto", "fused", "mega-wide" if self._mega_on else "mega-narrow",
+                          terms)
+        self.mega_gate = {**rec, "exec_mb_per_sec": exec_mb_s}
 
     def _encode_chunk(self, part: np.ndarray) -> tuple[np.ndarray, int]:
         """(staged buffer, raw padded bytes): the link codec transcodes the
@@ -635,7 +691,9 @@ class GpuSecretEngine:
         if self.dedupe and len(items) > 1:
             t0 = time.perf_counter()
             dd = dedupe_blobs(contents)
-            self.stats.pack_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.stats.dedupe_s += dt
+            self.stats.pack_s += dt
             if dd.any_duplicates():
                 self.stats.dedupe_saved_bytes += dd.saved_bytes
                 scan_items = [items[int(i)] for i in dd.unique_index]

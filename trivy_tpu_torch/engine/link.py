@@ -15,9 +15,15 @@ coded symbols.
 the device ahead of the sieve, and `fetch_rows_compact` fetches only the
 nonzero rows of a device result (a row bitmap first, then a gather of a
 power-of-two padded index), with the reference's `(raw_bytes,
-fetched_bytes)` accounting; `fetch_mask_packed` fetches the megakernel's
-packed verdict mask.  All are plain tensor code, as the reference's are XLA
-programs and not Pallas kernels.
+fetched_bytes)` accounting; `fetch_mask_packed` fetches a packed verdict
+mask (the megakernel's, or the fused verify's keep bits), and
+`fetch_stream_packed` the verify stream's flag map, compacted by lane.  All
+are plain tensor code, as the reference's are XLA programs and not Pallas
+kernels.
+
+**Link economics**: `effective_link_rate` and the ratios it is priced with,
+the cost model of the hybrid engine's verify gate and the megakernel gate
+(`engine/hybrid.py` `gate_terms`), copied with the reference's constants.
 
 `TRIVY_TPU_LINK_CODEC` (off | auto | 4 | 6, default auto) selects the mode,
 the same variable the JAX package reads.
@@ -43,6 +49,17 @@ from trivy_tpu_torch.engine.probes import _FREQ
 MIN_COMPACT_ROWS = 64
 COMPACT_MAX_FRAC = 0.25
 
+# Effective-rate model for the hybrid verify gate (engine/hybrid.py), the
+# reference's constants: D2H_SHARE is d2h bytes as a fraction of h2d bytes
+# on the device verify stream, STREAM_D2H_RATIO the post-compaction d2h
+# fraction on sparse-hit corpora, FUSED_MASK_D2H_RATIO the fused path's one
+# keep bit per lane against the flag map, and FUSED_REUPLOAD_RATIO the
+# fused walk's marginal h2d (rows stay resident, only lane tables ship).
+D2H_SHARE = 0.5
+STREAM_D2H_RATIO = 0.15
+FUSED_MASK_D2H_RATIO = 0.01
+FUSED_REUPLOAD_RATIO = 0.0
+
 # 4-bit codec: 15 non-other classes (ids 1..15); 6-bit: 63 (ids 1..63).
 _CLASS_CAP = {4: 15, 6: 63}
 # auto takes the merged 4-bit codec only when every gram keeps at least this
@@ -58,6 +75,12 @@ def codec_mode() -> str:
     if v in ("4", "6"):
         return v
     return "auto"
+
+
+def d2h_compaction_enabled() -> bool:
+    """D2H compaction engages in every codec mode but `off` (it is lossless
+    and needs no alphabet)."""
+    return codec_mode() != "off"
 
 
 @dataclass
@@ -145,6 +168,11 @@ class LinkCodec:
         if self.sym_bits == 4:
             return -(-length // 2)
         return -(-length // 4) * 3
+
+    @property
+    def ratio(self) -> float:
+        """Coded bytes per raw byte (asymptotic)."""
+        return 0.5 if self.sym_bits == 4 else 0.75
 
     def encode_rows(self, rows: np.ndarray) -> np.ndarray:
         """[T, L] uint8 raw rows -> [T, coded_len(L)] uint8 packed ids."""
@@ -314,3 +342,38 @@ def fetch_mask_packed(out: torch.Tensor, raw_bytes: int) -> tuple[np.ndarray, in
     the mask is already one bit per lane."""
     packed = out.cpu().numpy()
     return np.unpackbits(packed).astype(bool), int(raw_bytes), packed.nbytes
+
+
+def fetch_stream_packed(out: torch.Tensor) -> tuple[np.ndarray, int, int]:
+    """Compacted fetch of the verify stream's packed flag map [P, rows, Lo]
+    uint8 (`ops/nfa_verify.py` layout): the lanes (rows) are the sparse
+    axis, so the device lays it out lane-major [rows, P * Lo], only the
+    nonzero lanes cross the link, and the host lays them back.  Returns
+    (packed host array [P, rows, Lo], raw_bytes, fetched_bytes); the byte
+    counts equal the reference's for the same flags (its [P, Lo, G, Bg] map
+    compacts over the same G * Bg lanes)."""
+    p, rows, lo = (int(d) for d in out.shape)
+    lanes2d, raw, got = fetch_rows_compact(out.permute(1, 0, 2).reshape(rows, p * lo))
+    packed = np.ascontiguousarray(lanes2d.reshape(rows, p, lo).transpose(1, 0, 2))
+    return packed, raw, got
+
+
+def effective_link_rate(
+    mb_s: float,
+    h2d_ratio: float = 1.0,
+    d2h_ratio: float = 1.0,
+    reupload_ratio: float = 1.0,
+) -> float:
+    """Post-codec effective link rate: the rate at which raw payload bytes
+    are serviced when h2d bytes shrink by `h2d_ratio` and d2h bytes by
+    `d2h_ratio`, with 1 unit of h2d per D2H_SHARE units of d2h sharing one
+    link:
+
+        effective = mb_s * (1 + D2H_SHARE)
+                / (reupload_ratio * h2d_ratio + D2H_SHARE * d2h_ratio)
+
+    All ratios 1.0 give `mb_s`.  `reupload_ratio` scales the h2d term for
+    paths that reuse device-resident bytes; the denominator floor keeps a
+    fully resident, fully compacted path finite."""
+    denom = reupload_ratio * h2d_ratio + D2H_SHARE * d2h_ratio
+    return mb_s * (1.0 + D2H_SHARE) / max(denom, 1e-9)

@@ -1,0 +1,588 @@
+"""Device NFA verification of candidate (file, rule) lanes: `GpuNfaVerifier`.
+
+The port of `trivy_tpu/engine/nfa_device.py` `NfaVerifier`, the verify
+stage of the hybrid engine (engine/hybrid.py) on the card.  Each rule's
+64-position Glushkov search automaton (the compilation engine/redfa.py uses
+for its NFA-64 walk) becomes 0/1 tensors and, for the kernels, 64-bit words
+(`ops/nfa_verify.py`).  The lane contract, constants and host logic are the
+reference's, unchanged in meaning:
+
+* a lane is a candidate (file, rule, first_hint, last_hint) quad; it walks
+  the window [first - bound, last + bound + 8] (`prefix_bound`, shared with
+  the host claim-killer so both clip alike), or the whole file for an
+  untrimmable rule;
+* **stream** (the production shape): lanes group by file, each file's span
+  (the union of its lanes' windows) packs once into fixed rows of raw bytes
+  (`STREAM_TIERS` 512 / 4,096 / 16,384, one 0x00 separator between spans),
+  and every distinct candidate rule (the 32 most claimed, `RULE_STACK_
+  BUCKETS`) runs over the same rows in one dispatch of K5
+  (`ops.nfa_verify.nfa_stream`), a full max-group block of rows at a time
+  during assembly, with at most `default_depth()` fetches outstanding.  The
+  legacy mode fetches the flag map (compacted, `link.fetch_stream_packed`)
+  and maps it to lanes on the host; the **fused** mode ships a per-tier
+  lane table with the rows, resolves verdicts on the device (K5v,
+  `nfa_fused_verdict`) and fetches one keep bit per lane;
+* **padded**: spans holding a NUL byte or longer than 16,384, and lanes of
+  rules beyond the stack, pack as class ids into [G, Bg, L] buckets
+  (`LEN_BUCKETS`) and run K6 (`nfa_padded`) against the resident per-rule
+  tensors.
+
+The verdict is block-granular (a flag anywhere in a 32-byte block that
+overlaps the lane's window keeps it): an over-approximation that the exact
+confirm settles.  Rows and lane tables are fresh host arrays per dispatch,
+copied with a synchronous H2D copy, so no host buffer is reused while a DMA
+reads it.  The reference's mesh placement waits for the multi-GPU plane.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from trivy_tpu_torch import faults
+from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from trivy_tpu_torch.engine import link as link_mod
+from trivy_tpu_torch.engine.pipeline import default_depth
+from trivy_tpu_torch.engine.redfa import compile_search_nfa64, compute_prefix_bounds
+from trivy_tpu_torch.obs import memwatch
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import trace as obs_trace
+from trivy_tpu_torch.ops.nfa_verify import (
+    STREAM_BLOCK,
+    nfa_fused_verdict,
+    nfa_padded,
+    nfa_stack,
+    nfa_stream,
+    nfa_tables,
+)
+
+MAX_LEN = 1 << 15  # lanes whose walk window exceeds this verify on the host
+LEN_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, MAX_LEN)
+GROUP_BUCKETS = (8, 16, 32, 64, 128)
+LANES_PER_GROUP = 64
+_NO_TRIM = np.iinfo(np.int32).max
+
+STREAM_TIERS = (512, 4096, 16384)  # row lengths; spans take the smallest fit
+RULE_STACK_BUCKETS = (4, 8, 16, 32)  # per-dispatch rule counts
+STREAM_GROUP_BUCKETS = (1, 2, 4) + GROUP_BUCKETS
+
+# Fused mode's block walk: "assoc" (per-block affine summaries combined by
+# an associative scan) or "seq"; "auto" takes assoc when the dispatch's
+# summaries fit this budget.  On the card both launch K5 (the mode is
+# recorded); on the CPU each runs its own plain version.
+FUSED_ASSOC_BUDGET_BYTES = 64 << 20
+
+
+def fused_scan_mode() -> str:
+    """TRIVY_TPU_FUSED_SCAN: auto (default) | assoc | seq."""
+    mode = os.environ.get("TRIVY_TPU_FUSED_SCAN", "auto").strip().lower()
+    return mode if mode in ("auto", "assoc", "seq") else "auto"
+
+
+def _bits(word: int, m: int) -> np.ndarray:
+    """Bits 0..m-1 of `word` as a [64] float32 0/1 vector."""
+    out = np.zeros(64, np.float32)
+    for q in range(m):
+        if word >> q & 1:
+            out[q] = 1.0
+    return out
+
+
+class GpuNfaVerifier:
+    """Keep-mask for candidate lanes on a CUDA card (or the CPU, through
+    the kernels' plain versions, when `device="cpu"`)."""
+
+    def __init__(self, rules, trimmable=None, prefix_bounds=None, fused=False,
+                 rule_stack=None, sieve_kernel_id="",
+                 device: str | torch.device = DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        self.num_rules = len(rules)
+        # Mutable: scan_batch_device_legacy flips it off for one retry.
+        self.fused = bool(fused)
+        self.sieve_kernel_id = str(sieve_kernel_id)
+        self.prefix_bound = np.asarray(
+            prefix_bounds if prefix_bounds is not None
+            else compute_prefix_bounds(rules, trimmable),
+            dtype=np.int64,
+        )
+        nfas = [compile_search_nfa64(r) for r in rules]
+        # The dense accept tensor holds 64 classes; rules needing more stay
+        # with the host verifier.
+        nfas = [n if (n is not None and n.num_classes <= 64) else None for n in nfas]
+        self.has_nfa = np.array([n is not None for n in nfas], dtype=bool)
+        self._nfas = nfas
+        self._byte_tensor_cache: dict[int, tuple] = {}
+        r = self.num_rules
+        self.follow = np.zeros((r, 64, 64), dtype=np.float32)
+        self.accept = np.zeros((r, 64, 64), dtype=np.float32)  # [R, C, S]
+        self.first = np.zeros((r, 64), dtype=np.float32)
+        self.last = np.zeros((r, 64), dtype=np.float32)
+        self.luts = np.zeros((r, 256), dtype=np.uint8)
+        for i, nfa in enumerate(nfas):
+            if nfa is None:
+                continue
+            m = len(nfa.follow)
+            for p in range(m):
+                self.follow[i, p] = _bits(int(nfa.follow[p]), m)
+            for c in range(nfa.num_classes):
+                self.accept[i, c] = _bits(int(nfa.classmask[c]), m)
+            self.first[i] = _bits(int(nfa.first), m)
+            self.last[i] = _bits(int(nfa.last), m)
+            self.luts[i] = nfa.byte_class
+        self._tables = None
+        self._padded_s = 0.0
+        self.stream_stats: dict = {}
+        if rule_stack is not None:
+            self._seed_rule_stack(rule_stack)
+
+    def _seed_rule_stack(self, stack) -> None:
+        """Seed the per-rule byte-tensor cache from `build_rule_stack`'s
+        `vstack_*` arrays (the reference's registry artifact arrays, or the
+        port's own); a stack whose rule count differs is ignored."""
+        try:
+            has = np.asarray(stack["vstack_has"]).astype(bool)
+            fol = np.asarray(stack["vstack_follow"], dtype=np.float32)
+            acc = np.asarray(stack["vstack_accept_b"], dtype=np.float32)
+            fst = np.asarray(stack["vstack_first"], dtype=np.float32)
+            lst = np.asarray(stack["vstack_last"], dtype=np.float32)
+        except (KeyError, TypeError):
+            return
+        if len(has) != self.num_rules:
+            return
+        for r in range(self.num_rules):
+            if has[r] and self._nfas[r] is not None:
+                self._byte_tensor_cache[r] = (fol[r], acc[r], fst[r], lst[r])
+
+    def _device_tables(self) -> torch.Tensor:
+        """The padded path's resident per-rule words (`nfa_tables`), built
+        once and ledgered in memwatch as "nfa-tensors" for the verifier's
+        life."""
+        if self._tables is None:
+            self._tables = nfa_tables(self.follow, self.accept, self.first,
+                                      self.last, self.device)
+            memwatch.track("nfa-tensors", self._tables.nbytes,
+                           device=str(self.device), owner=self)
+        return self._tables
+
+    def warmup(self) -> None:
+        """Ship the resident tensors and, on a card, load the kernels."""
+        self._device_tables()
+        if self.device.type == "cuda":
+            from trivy_tpu_torch.ops import _build
+
+            _build.load("nfa_verify")
+
+    # ------------------------------------------------------------------
+
+    def _windows(self, pairs: np.ndarray, lens: np.ndarray):
+        """Per-lane walk windows [start, stop) over pairs [N, 4] (file, rule,
+        first_hint, last_hint): the claim-killer's clip."""
+        flen = lens[pairs[:, 0]]
+        bound = self.prefix_bound[pairs[:, 1]]
+        trim = bound != _NO_TRIM
+        start = np.where(trim, np.maximum(pairs[:, 2].astype(np.int64) - bound, 0), 0)
+        stop = np.where(
+            trim, np.minimum(pairs[:, 3].astype(np.int64) + bound + 8, flen), flen
+        )
+        return start, np.maximum(stop, start)
+
+    def device_eligible(self, pairs: np.ndarray, lens: np.ndarray):
+        """bool[N]: the lane's rule has a 64-position automaton and its
+        clipped window fits MAX_LEN."""
+        if not len(pairs):
+            return np.zeros(0, dtype=bool)
+        start, stop = self._windows(pairs, lens)
+        return self.has_nfa[pairs[:, 1]] & (stop - start <= MAX_LEN)
+
+    def verify_lanes(
+        self, contents: list[bytes], pairs: np.ndarray, lens: np.ndarray
+    ) -> np.ndarray:
+        """bool[N] keep-mask for device-eligible lanes; contents[i] is the
+        whole file of pairs[:, 0] == i, and a lane ships only its window."""
+        n = len(pairs)
+        keep = np.zeros(n, dtype=bool)
+        if n == 0:
+            return keep
+        start, stop = self._windows(pairs, lens)
+        stream = self.has_nfa[pairs[:, 1]] & (stop - start <= STREAM_TIERS[-1])
+        s_idx = np.flatnonzero(stream)
+        self._padded_s = 0.0
+        if len(s_idx):
+            self._verify_stream(contents, pairs, start, stop, s_idx, keep)
+        rest = np.flatnonzero(~stream)
+        if len(rest):
+            self._verify_padded(contents, pairs, start, stop, rest, keep)
+        if len(s_idx):
+            # the padded path's seconds (overflow and non-stream lanes),
+            # beside the stream's own parts
+            self.stream_stats["padded_s"] = self._padded_s
+        return keep
+
+    def _rule_byte_tensors(self, r: int):
+        """(follow [64, 64], accept_b [256, 64], first [64], last [64])
+        float32 for rule r: raw-byte accept (class map folded in), byte 0
+        forced dead; cached per rule."""
+        cached = self._byte_tensor_cache.get(r)
+        if cached is not None:
+            return cached
+        nfa = self._nfas[r]
+        m = len(nfa.follow)
+        follow = np.stack([_bits(int(nfa.follow[p]), m) if p < m
+                           else np.zeros(64, np.float32) for p in range(64)])
+        byte_masks = nfa.classmask[nfa.byte_class]  # [256] uint64
+        accept_b = np.zeros((256, 64), np.float32)
+        for q in range(m):
+            accept_b[:, q] = ((byte_masks >> np.uint64(q)) & np.uint64(1)).astype(np.float32)
+        accept_b[0, :] = 0.0  # 0x00 = the universal dead separator
+        out = (follow, accept_b, _bits(int(nfa.first), m), _bits(int(nfa.last), m))
+        self._byte_tensor_cache[r] = out
+        return out
+
+    def _verify_stream(self, contents, pairs, start, stop, s_idx, keep) -> None:
+        """Ledger the call's stacked rule words ("verify-stream") for
+        exactly the call, even when a dispatch raises."""
+        mw: list = []
+        try:
+            self._verify_stream_impl(contents, pairs, start, stop, s_idx, keep, mw)
+        finally:
+            for h in mw:
+                h.release()
+
+    def _verify_stream_impl(self, contents, pairs, start, stop, s_idx, keep, mw) -> None:
+        """Multi-rule stream dispatch (the reference's `_verify_stream_impl`):
+        pair (f, r) survives iff rule r's flag is set in a 32-byte block
+        overlapping the pair's window inside the file's span."""
+        depth = default_depth()
+        tiers = STREAM_TIERS
+        fused = bool(self.fused)
+        scan_mode = fused_scan_mode() if fused else "seq"
+        st = self.stream_stats = {
+            "lanes": int(len(s_idx)), "span_bytes": 0,
+            "rows": [0] * len(tiers),
+            "rules": 0, "dispatches": 0, "overflow_lanes": 0,
+            "assemble_s": 0.0, "dispatch_s": 0.0, "fetch_map_s": 0.0,
+            "pipeline_depth": depth, "h2d_overlap_s": 0.0,
+            "fetch_bytes_raw": 0, "fetch_bytes": 0,
+            "backend": "fused" if fused else "stream",
+            "sieve_kernel": self.sieve_kernel_id,
+            "scan_mode": scan_mode,
+        }
+        compact_fetch = link_mod.d2h_compaction_enabled()
+        # assemble_s is timed directly: the clock pauses while a flush
+        # (dispatch + bounded fetch) runs and resumes after it.
+        asm_mark = time.perf_counter()
+        overflow: list[int] = []  # lanes for the padded path
+
+        # distinct rules on the stream, most-claimed first; rules beyond the
+        # largest stack go to the padded path
+        rvals, rcounts = np.unique(pairs[s_idx, 1], return_counts=True)
+        if len(rvals) > RULE_STACK_BUCKETS[-1]:
+            keep_rules = rvals[np.argsort(-rcounts)[: RULE_STACK_BUCKETS[-1]]]
+        else:
+            keep_rules = rvals
+        rule_slot = {int(r): i for i, r in enumerate(np.sort(keep_rules))}
+        st["rules"] = len(rule_slot)
+
+        order = s_idx[np.argsort(pairs[s_idx, 0], kind="stable")]
+        rows_buf: list[list[np.ndarray]] = [[] for _ in tiers]
+        flushed = [0] * len(tiers)
+        flush_rows = STREAM_GROUP_BUCKETS[-1] * LANES_PER_GROUP
+        stack = None
+        in_flight: deque = deque()
+        fetched: list[tuple] = []
+
+        def _build_stack():
+            nonlocal stack
+            rb = next((b for b in RULE_STACK_BUCKETS if len(rule_slot) <= b),
+                      RULE_STACK_BUCKETS[-1])
+            fol = np.zeros((rb, 64, 64), np.float32)
+            acc = np.zeros((rb, 256, 64), np.float32)
+            fst = np.zeros((rb, 64), np.float32)
+            lst = np.zeros((rb, 64), np.float32)
+            for r, slot in rule_slot.items():
+                fol[slot], acc[slot], fst[slot], lst[slot] = self._rule_byte_tensors(r)
+            stack = nfa_stack(fol, acc, fst, lst, self.device)
+            mw.append(memwatch.track("verify-stream", stack.nbytes,
+                                     device=str(self.device)))
+
+        def _fetch_one():
+            ent = in_flight.popleft()
+            tf = time.perf_counter()
+            if ent[0] == "fused":
+                # the d2h is the packed keep-mask; verdicts apply at once
+                _, lane_ids, out, raw_b = ent
+                with obs_trace.span("verify.fetch", lanes=len(lane_ids)):
+                    faults.fire("nfa.fetch")
+                    mask, raw_b, got_b = link_mod.fetch_mask_packed(out, raw_b)
+                keep[lane_ids[mask[: len(lane_ids)]]] = True
+            else:
+                _, tier_, lo_, hi_, out = ent
+                with obs_trace.span("verify.fetch", rows=hi_ - lo_):
+                    faults.fire("nfa.fetch")
+                    if compact_fetch:
+                        packed, raw_b, got_b = link_mod.fetch_stream_packed(out)
+                    else:
+                        packed = out.cpu().numpy()
+                        raw_b = got_b = packed.nbytes
+                fetched.append((tier_, lo_, hi_, packed))
+            st["fetch_bytes_raw"] += raw_b
+            st["fetch_bytes"] += got_b
+            dtf = time.perf_counter() - tf
+            st["fetch_map_s"] += dtf
+            if in_flight:  # later dispatches ran while we waited
+                st["h2d_overlap_s"] += dtf
+
+        def _to_device(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a).to(self.device)
+
+        def _flush_range(tier, row_lo, row_hi):
+            """Dispatch rows [row_lo, row_hi) of `tier` in group-bucket
+            chunks, fetching the oldest results once `depth` are in flight;
+            fused mode attaches each chunk's lane table."""
+            nonlocal asm_mark
+            st["assemble_s"] += time.perf_counter() - asm_mark
+            td = time.perf_counter()
+            with obs_trace.span("verify.dispatch", tier=tier, rows=row_hi - row_lo):
+                if stack is None:
+                    _build_stack()
+                length = tiers[tier]
+                lo_blocks = length // STREAM_BLOCK
+                gi = row_lo
+                while gi < row_hi:
+                    remaining = -(-(row_hi - gi) // LANES_PER_GROUP)
+                    gcap = next((g for g in STREAM_GROUP_BUCKETS if remaining <= g),
+                                STREAM_GROUP_BUCKETS[-1])
+                    lo = gi
+                    hi = min(lo + gcap * LANES_PER_GROUP, row_hi)
+                    gi = hi
+                    rows_arr = np.zeros((gcap * LANES_PER_GROUP, length), dtype=np.uint8)
+                    rows_arr[: hi - lo] = rows_buf[tier][lo:hi]
+                    if fused:
+                        # this chunk's lanes: rows append in order, so a
+                        # monotone cursor per tier suffices
+                        fb = fl_buf[tier]
+                        p = fl_ptr[tier]
+                        q = p
+                        while q < len(fb[1]) and fb[1][q] < hi:
+                            q += 1
+                        fl_ptr[tier] = q
+                        if q == p:
+                            continue  # rows carried no lanes
+                        n_l = q - p
+                        npad = max(8, 1 << (n_l - 1).bit_length())
+                        table = np.zeros((4, npad), np.int32)
+                        table[0, :n_l] = np.asarray(fb[1][p:q], np.int32) - lo
+                        table[1, :n_l] = fb[2][p:q]
+                        table[2, :n_l] = fb[3][p:q]
+                        table[3, :n_l] = fb[4][p:q]
+                        lane_ids = np.asarray(fb[0][p:q], np.int64)
+                        est = lo_blocks * gcap * LANES_PER_GROUP * 64 * 64 * 4
+                        assoc = scan_mode == "assoc" or (
+                            scan_mode == "auto" and est <= FUSED_ASSOC_BUDGET_BYTES
+                        )
+                        faults.fire("nfa.dispatch")
+                        rows_dev = _to_device(rows_arr)
+                        lanes_dev = _to_device(table)
+                        ph = obs_metrics.device_phase("verify.fused")
+                        flags = nfa_stream(rows_dev, stack, assoc=assoc)
+                        out = nfa_fused_verdict(flags, *lanes_dev)
+                        ph.done(out)
+                        # what the legacy flag-map fetch would have moved
+                        raw_b = flags.shape[0] * lo_blocks * gcap * LANES_PER_GROUP
+                        in_flight.append(("fused", lane_ids, out, raw_b))
+                    else:
+                        faults.fire("nfa.dispatch")
+                        rows_dev = _to_device(rows_arr)
+                        ph = obs_metrics.device_phase("verify-stream")
+                        out = nfa_stream(rows_dev, stack)
+                        ph.done(out)
+                        in_flight.append(("stream", tier, lo, hi, out))
+                    st["dispatches"] += 1
+                    while len(in_flight) > depth:
+                        _fetch_one()
+            st["dispatch_s"] += time.perf_counter() - td
+            asm_mark = time.perf_counter()
+
+        # flat per-lane placement (legacy mode): lane id, tier, row, slot,
+        # first/last 32-block of its window; fused mode keeps per-tier lane
+        # tables (lane, row, slot, b0, b1), consumed chunk by chunk
+        lv: tuple[list, ...] = ([], [], [], [], [], [])
+        fl_buf: list[tuple[list, list, list, list, list]] = [
+            ([], [], [], [], []) for _ in tiers
+        ]
+        fl_ptr = [0] * len(tiers)
+        open_row = [(-1, ln + 1) for ln in tiers]
+        pos = 0
+        while pos < len(order):
+            end = pos
+            f0 = pairs[order[pos], 0]
+            while end < len(order) and pairs[order[end], 0] == f0:
+                end += 1
+            lanes_f = [int(li) for li in order[pos:end] if int(pairs[li, 1]) in rule_slot]
+            overflow.extend(int(li) for li in order[pos:end]
+                            if int(pairs[li, 1]) not in rule_slot)
+            pos = end
+            if not lanes_f:
+                continue
+            content = np.frombuffer(contents[int(pairs[lanes_f[0], 0])], dtype=np.uint8)
+            s = int(min(start[li] for li in lanes_f))
+            e = int(max(stop[li] for li in lanes_f))
+            span = content[s:e]
+            tier = next((t for t, ln in enumerate(tiers) if len(span) <= ln), -1)
+            if tier < 0 or (span == 0).any():
+                # oversize, or holds the dead separator byte: padded path
+                overflow.extend(lanes_f)
+                continue
+            length = tiers[tier]
+            cur, cpos = open_row[tier]
+            if cur < 0 or cpos + len(span) > length:
+                rows_buf[tier].append(np.zeros(length, np.uint8))
+                cur, cpos = len(rows_buf[tier]) - 1, 0
+            rows_buf[tier][cur][cpos : cpos + len(span)] = span
+            for li in lanes_f:
+                rs0 = cpos + int(start[li]) - s
+                rs1 = cpos + int(stop[li]) - s
+                cols = (cur, rule_slot[int(pairs[li, 1])], rs0 // STREAM_BLOCK,
+                        -(-rs1 // STREAM_BLOCK))
+                if fused:
+                    for col, v in zip(fl_buf[tier], (li, *cols)):
+                        col.append(v)
+                else:
+                    for col, v in zip(lv, (li, tier, *cols)):
+                        col.append(v)
+            # one 0x00 separator byte between spans
+            open_row[tier] = (cur, cpos + len(span) + 1)
+            st["span_bytes"] += len(span)
+            # rows before `cur` are closed: dispatch each full max-group
+            # block of them now, while assembly goes on
+            if cur - flushed[tier] >= flush_rows:
+                _flush_range(tier, flushed[tier], flushed[tier] + flush_rows)
+                flushed[tier] += flush_rows
+        st["rows"] = [len(b) for b in rows_buf]
+        st["overflow_lanes"] = len(overflow)
+        st["assemble_s"] += time.perf_counter() - asm_mark
+        asm_mark = time.perf_counter()
+
+        if not any(rows_buf) and not overflow:
+            return
+        if not any(rows_buf):
+            self._verify_padded(contents, pairs, start, stop,
+                                np.asarray(overflow, dtype=np.int64), keep)
+            return
+        for tier in range(len(tiers)):
+            if flushed[tier] < len(rows_buf[tier]):
+                _flush_range(tier, flushed[tier], len(rows_buf[tier]))
+
+        # overflow lanes run on the padded path while the stream dispatches
+        # above are still in flight
+        if overflow:
+            self._verify_padded(contents, pairs, start, stop,
+                                np.asarray(overflow, dtype=np.int64), keep)
+        while in_flight:
+            _fetch_one()
+
+        t0 = time.perf_counter()
+        la_lane, la_tier, la_row, la_slot, la_b0, la_b1 = (
+            np.asarray(c, dtype=np.int64) for c in lv
+        )
+        for tier, row_lo, row_hi, packed in fetched:
+            # packed: [ceil(R/8), rows, Lo] uint8
+            m = (la_tier == tier) & (la_row >= row_lo) & (la_row < row_hi)
+            if not m.any():
+                continue
+            rows_rel = la_row[m] - row_lo
+            mslot, mlane, mb0, mb1 = la_slot[m], la_lane[m], la_b0[m], la_b1[m]
+            cs = np.zeros((packed.shape[1], packed.shape[2] + 1), dtype=np.uint16)
+            for slot in np.unique(mslot):
+                sm = mslot == slot
+                bits = (packed[slot // 8] >> (slot % 8)) & 1
+                np.cumsum(bits, axis=1, dtype=np.uint16, out=cs[:, 1:])
+                rr = rows_rel[sm]
+                hit = cs[rr, mb1[sm]] > cs[rr, mb0[sm]]
+                keep[mlane[sm][hit]] = True
+        st["fetch_map_s"] += time.perf_counter() - t0
+
+    def _verify_padded(self, contents, pairs, start, stop, lane_idx, keep) -> None:
+        """Bucket-padded dispatch for jumbo windows, NUL-bearing spans and
+        overflow rules: lanes sort by (window bucket, rule), pack as class
+        ids into [G, LANES_PER_GROUP] groups per length bucket, one K6
+        launch per (bucket, group chunk); launches queue first, verdicts
+        are fetched after."""
+        t0 = time.perf_counter()
+        wlen = stop - start
+        bucket = np.searchsorted(np.array(LEN_BUCKETS), wlen, side="left")
+        order = lane_idx[np.lexsort((pairs[lane_idx, 1], bucket[lane_idx]))]
+        tables = self._device_tables()
+        in_flight: list[tuple[list[np.ndarray], torch.Tensor]] = []
+        pos = 0
+        while pos < len(order):
+            bk = bucket[order[pos]]
+            end = pos
+            while end < len(order) and bucket[order[end]] == bk:
+                end += 1
+            lanes = order[pos:end]
+            pos = end
+            length = LEN_BUCKETS[bk]
+            # split the bucket's lanes into per-rule groups of Bg
+            groups: list[np.ndarray] = []
+            gstart = 0
+            rules = pairs[lanes, 1]
+            for i in range(1, len(lanes) + 1):
+                if i == len(lanes) or rules[i] != rules[gstart]:
+                    for off in range(gstart, i, LANES_PER_GROUP):
+                        groups.append(lanes[off : min(off + LANES_PER_GROUP, i)])
+                    gstart = i
+            gi = 0
+            while gi < len(groups):
+                gcap = next((g for g in GROUP_BUCKETS if len(groups) - gi <= g),
+                            GROUP_BUCKETS[-1])
+                chunk = groups[gi : gi + gcap]
+                gi += gcap
+                classes = np.zeros((gcap, LANES_PER_GROUP, length), dtype=np.uint8)
+                gids = np.zeros(gcap, dtype=np.int32)
+                for g, lane_arr in enumerate(chunk):
+                    r = int(pairs[lane_arr[0], 1])
+                    gids[g] = r
+                    lut = self.luts[r]
+                    for b, li in enumerate(lane_arr):
+                        data = np.frombuffer(
+                            contents[int(pairs[li, 0])], dtype=np.uint8
+                        )[start[li] : stop[li]]
+                        classes[g, b, : len(data)] = lut[data]
+                out = nfa_padded(torch.from_numpy(classes).to(self.device),
+                                 torch.from_numpy(gids).to(self.device), tables)
+                in_flight.append((chunk, out))
+        for chunk, out in in_flight:
+            matched = out.cpu().numpy()
+            for g, lane_arr in enumerate(chunk):
+                keep[lane_arr] = matched[g, : len(lane_arr)]
+        self._padded_s += time.perf_counter() - t0
+
+
+def build_rule_stack(verifier: GpuNfaVerifier) -> dict[str, np.ndarray]:
+    """Stacked uint8 per-rule byte tensors (the reference registry's
+    `vstack_*` arrays, equal to `trivy_tpu`'s `build_rule_stack`): every
+    stream-eligible rule's raw-byte automaton, so a verifier can be seeded
+    with `rule_stack=` instead of building them rule by rule."""
+    r = verifier.num_rules
+    out = {
+        "vstack_has": np.zeros(r, np.uint8),
+        "vstack_follow": np.zeros((r, 64, 64), np.uint8),
+        "vstack_accept_b": np.zeros((r, 256, 64), np.uint8),
+        "vstack_first": np.zeros((r, 64), np.uint8),
+        "vstack_last": np.zeros((r, 64), np.uint8),
+    }
+    for i in range(r):
+        if verifier._nfas[i] is None:
+            continue
+        fol, acc, fst, lst = verifier._rule_byte_tensors(i)
+        out["vstack_has"][i] = 1
+        out["vstack_follow"][i] = fol.astype(np.uint8)
+        out["vstack_accept_b"][i] = acc.astype(np.uint8)
+        out["vstack_first"][i] = fst.astype(np.uint8)
+        out["vstack_last"][i] = lst.astype(np.uint8)
+    return out

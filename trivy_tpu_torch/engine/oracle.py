@@ -173,6 +173,10 @@ class OracleScanner:
         findings.sort(key=SecretFinding.sort_key)
         return Secret(file_path=file_path, findings=findings)
 
+    def scan_batch(self, items: list[tuple[str, bytes]]) -> list[Secret]:
+        """`scan` over (path, content) blobs: the engines' batch interface."""
+        return [self.scan(path, content) for path, content in items]
+
 
 def to_finding(rule: Rule, loc: Location, content: bytes) -> SecretFinding:
     """scanner.go:464-477."""

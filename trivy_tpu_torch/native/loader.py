@@ -1,12 +1,14 @@
-"""Native library build + ctypes bindings: the DFA claim-killer.
+"""Native library build + ctypes bindings: the DFA claim-killer and the
+hybrid engine's host pre-sieve.
 
-A port of `trivy_tpu/native/loader.py` reduced to what the engine runs:
-`dfa_verify.cpp` (this directory) builds with `g++` into a shared library
-under `trivy_tpu_torch/_build/` (listed in `.gitignore`), keyed by a digest
-of the source, the flags and the host CPU's feature flags (`-march=native`
-code must not load on another CPU that shares the directory), so an edited
-source never loads a stale build, and loads through ctypes.  Only
-`dfa_verify_pairs` and `dfa_verify_pairs_files` are bound.
+A port of `trivy_tpu/native/loader.py` reduced to what the engines run:
+`dfa_verify.cpp` and `gram_scan.cpp` (this directory) build with `g++` into
+one shared library under `trivy_tpu_torch/_build/` (listed in
+`.gitignore`), keyed by a digest of the sources, the flags and the host
+CPU's feature flags (`-march=native` code must not load on another CPU that
+shares the directory), so an edited source never loads a stale build, and
+loads through ctypes.  Bound:
+`dfa_verify_pairs`, `dfa_verify_pairs_files` and `gram_sieve_scan_files`.
 
 Unlike the reference, a failed build raises with the compiler's output
 instead of returning None: the reference's None makes its engine skip the
@@ -27,7 +29,7 @@ from trivy_tpu_torch import lockcheck
 
 NATIVE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = NATIVE_DIR.parent / "_build"
-SOURCES = ("dfa_verify.cpp",)
+SOURCES = ("dfa_verify.cpp", "gram_scan.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _lock = lockcheck.make_lock("native.loader")
@@ -88,14 +90,14 @@ def build() -> Path:
         errors.append(f"$ {' '.join(attempt)}\n{proc.stderr}")
     tmp.unlink(missing_ok=True)
     raise RuntimeError(
-        "the native claim-killer (trivy_tpu_torch/native/dfa_verify.cpp) "
-        "did not build:\n" + "\n".join(errors)
+        "the native library (trivy_tpu_torch/native/dfa_verify.cpp, "
+        "gram_scan.cpp) did not build:\n" + "\n".join(errors)
     )
 
 
 def load_native() -> ctypes.CDLL:
-    """The loaded claim-killer library, built on first use (raises when it
-    does not build)."""
+    """The loaded native library, built on first use (raises when it does
+    not build)."""
     global _lib
     if _lib is not None:
         return _lib
@@ -115,5 +117,20 @@ def load_native() -> ctypes.CDLL:
             ctypes.c_void_p,                                    # out_verified
         ]
         lib.dfa_verify_pairs_files.restype = None
+        lib.gram_sieve_scan_files.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,  # ptrs, lens, F
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,  # grams
+            ctypes.c_void_p, ctypes.c_int32,                   # gram_window, W
+            ctypes.c_void_p,                                   # window_probe
+            ctypes.c_void_p, ctypes.c_int32,                   # probe_n_windows, P
+            ctypes.c_void_p, ctypes.c_void_p,                  # gate CSR
+            ctypes.c_void_p, ctypes.c_void_p,                  # conj CSR ptrs
+            ctypes.c_void_p, ctypes.c_int32,                   # conj_probes, R
+            ctypes.c_void_p, ctypes.c_void_p,                  # cls_blob, cls_start
+            ctypes.c_void_p, ctypes.c_void_p,                  # cls_len, cls_align
+            ctypes.c_void_p,                                   # out_starts
+            ctypes.c_void_p, ctypes.c_int64,                   # out_pairs, cap
+        ]
+        lib.gram_sieve_scan_files.restype = ctypes.c_int64
         _lib = lib
     return _lib

@@ -1,10 +1,11 @@
 """Observability substrate of the port: span tracing (obs/trace.py), the
 counter/gauge/histogram registry with fenced per-kernel device phases
-(obs/metrics.py), and the device-memory ledger (obs/memwatch.py: raw CUDA
-allocator stats + per-component attributed bytes).
+(obs/metrics.py), the device-memory ledger (obs/memwatch.py: raw CUDA
+allocator stats + per-component attributed bytes), and the gate decision
+log (obs/gatelog.py).
 
-Copied from `trivy_tpu/obs/`, reduced to the three modules the engine and
-its chunk pipeline use.  The engine wraps every stage in a span
+Copied from `trivy_tpu/obs/`, reduced to the four modules the engines and
+their chunk pipeline use.  The engine wraps every stage in a span
 (`chunk.encode`, `chunk.h2d`, `chunk.exec`, `sieve.megakernel`,
 `chunk.fetch`, `verify`, `confirm`) and each device section in a
 `device_phase`, fenced on a CUDA event.
@@ -14,6 +15,6 @@ tracing was enabled (`TRIVY_TPU_TRACE=1` or `trace.enable()`), so the
 scan path pays one predicate per call site.
 """
 
-from trivy_tpu_torch.obs import memwatch, metrics, trace
+from trivy_tpu_torch.obs import gatelog, memwatch, metrics, trace
 
-__all__ = ["memwatch", "metrics", "trace"]
+__all__ = ["gatelog", "memwatch", "metrics", "trace"]

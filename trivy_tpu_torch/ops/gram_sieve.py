@@ -42,9 +42,11 @@ SLICE_WORDS = 8
 
 # Kernel launches of the port since the process started (or the caller last
 # zeroed them): how a run shows that its path went through the CUDA kernels.
-# The megakernel's wrappers (`ops/megakernel.py`) count here too.
+# The megakernel's wrappers (`ops/megakernel.py`) and the NFA verify's
+# (`ops/nfa_verify.py`) count here too.
 LAUNCHES: dict[str, int] = {
     "bitplane": 0, "window": 0, "mega": 0, "mega_acc": 0, "mega_epilogue": 0,
+    "nfa_stream": 0, "nfa_fused": 0, "nfa_padded": 0,
 }
 
 

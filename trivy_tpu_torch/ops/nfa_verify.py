@@ -1,0 +1,387 @@
+"""Device NFA verify: bit-parallel search automata over candidate bytes.
+
+The port of the device programs of `trivy_tpu/engine/nfa_device.py`.  Each
+rule's 64-position Glushkov search automaton steps one byte at a time,
+
+    S' = (reach(S) | first) & accept[byte],    hit = (S' & last) != 0,
+
+with reach(S) the OR of `follow[p]` over the set bits p of S.  The reference
+writes the same step as float matrix products of 0/1 tensors,
+`S' = min(min(S @ F + first, 1) * cmask, 1)` and `S' . last > 0`, which are
+exact on 0/1 values (sums stay below 65), so both forms give the same bits.
+Three functions, each a hand-written CUDA kernel of `csrc/nfa_verify.cu` for
+CUDA tensors and a plain PyTorch version beside it for CPU tensors:
+
+* **K5**, `nfa_stream` (the twin of `NfaVerifier._stream_multi_impl`,
+  :393, with `_pack_rule_flags`, :436): rows [N, L] uint8 of raw bytes, L a
+  multiple of 32, and the words of a stack of rb <= 32 rules -> flags
+  [ceil(rb/8), N, L/32] uint8.  Bit k of byte [p, n, j] (LSB-first) is set
+  when a match of rule slot 8p + k ends in positions [32j, 32j + 32) of row
+  n.  State starts empty at each row and carries across its blocks; byte
+  0x00 is dead in every rule (`accept_b[:, 0] = 0`), so the one-byte
+  separators between spans reset matching.  The reference lays rows out
+  [L/32, 32, G, Bg] for its scan's leading axis and returns [P, Lo, G, Bg];
+  the port keeps rows [G * Bg, L] and returns the transposed [P, G * Bg, Lo]
+  that every consumer of the flags reads anyway.  `nfa_stream_assoc_plain`
+  is the plain twin of `_stream_assoc_impl` (:452): the same flags from
+  per-block affine summaries combined by an associative scan.  On the card
+  both scan modes launch K5 (one thread walks a 16 KB row in microseconds;
+  the summaries exist to shorten the TPU scan's serial depth).
+* **K5v**, `nfa_fused_verdict` (the verdict half of `_run_fused`, :572):
+  flags and a lane table row/slot/b0/b1 [N] int32 (N a power of two >= 8;
+  padded lanes all 0) -> keep [N/8] uint8, np.packbits order (MSB-first):
+  lane i keeps when its slot's flag is set in some block of [b0, b1) of its
+  row.
+* **K6**, `nfa_padded` (the twin of `_run`, :325): class ids [G, Bg, L]
+  uint8 (lane-contiguous; the reference's [L, G, Bg] transposed), group
+  rule ids [G] int32 and the resident per-rule words ->
+  matched [G, Bg] bool: some match of rule gids[g] ends anywhere in lane
+  (g, b).  The lane walks its whole bucket length, zero padding included,
+  as the reference's does.
+
+Each rule travels as 64-bit words (`pack_bits64`: bit q of word p is the
+0/1 tensor's [p, q]), the one form on any device: `nfa_stack` and
+`nfa_tables` build them, the kernels read them, and on the CPU the wrappers
+unpack them (`unpack_words`) into the 0/1 float tensors the plain versions
+read, so the two cannot drift.  torch has no unsigned 64-bit arithmetic on
+CUDA: the words travel as int64 and the kernels reinterpret them.  Each
+launch counts in `gram_sieve.LAUNCHES` ("nfa_stream", "nfa_fused",
+"nfa_padded").
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from trivy_tpu_torch.ops.gram_sieve import LAUNCHES
+
+STREAM_BLOCK = 32  # positions OR-compressed into one flag
+MAX_STACK = 32  # rule slots one K5 launch serves (one warp lane a slot)
+STREAM_WORDS = 64 + 256 + 2  # follow[64], accept_b[256], first, last
+PADDED_WORDS = 64 + 64 + 2  # follow[64], classmask[64], first, last
+_PACK_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def pack_bits64(bits: np.ndarray) -> np.ndarray:
+    """[..., 64] 0/1 -> [...] int64 words, bit q = bits[..., q] (uint64 bit
+    patterns in int64)."""
+    b = (np.asarray(bits) != 0).astype(np.uint64)
+    words = (b << np.arange(64, dtype=np.uint64)).sum(axis=-1, dtype=np.uint64)
+    return np.ascontiguousarray(words).view(np.int64)
+
+
+def _words(follow, accept, first, last) -> np.ndarray:
+    """The four 0/1 arrays of R rules -> their words [R, 64 + accept rows +
+    2] int64: follow rows, accept rows, first, last."""
+    return np.concatenate([
+        pack_bits64(follow), pack_bits64(accept),
+        pack_bits64(first)[:, None], pack_bits64(last)[:, None],
+    ], axis=1)
+
+
+def nfa_stack(follow, accept_b, first, last, device) -> torch.Tensor:
+    """0/1 arrays of a rule stack (follow [rb, 64, 64], accept_b [rb, 256,
+    64], first and last [rb, 64]) -> the words K5 reads, [rb, STREAM_WORDS]
+    int64 on `device`."""
+    return torch.from_numpy(_words(follow, accept_b, first, last)).to(device)
+
+
+def nfa_tables(follow, accept, first, last, device) -> torch.Tensor:
+    """0/1 arrays of every rule (follow [R, 64, 64], class-indexed accept
+    [R, 64, 64], first and last [R, 64]) -> the words K6 reads, [R,
+    PADDED_WORDS] int64 on `device`."""
+    return torch.from_numpy(_words(follow, accept, first, last)).to(device)
+
+
+def unpack_words(words: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Words [R, 64 + A + 2] -> the 0/1 float32 tensors the plain versions
+    read, on the words' device: follow [R, 64, 64], accept [R, A, 64],
+    first [R, 64], last [R, 64] (the inverse of `nfa_stack`/`nfa_tables`)."""
+    shifts = torch.arange(64, dtype=torch.int64, device=words.device)
+    bits = ((words[..., None] >> shifts) & 1).to(torch.float32)
+    return bits[:, :64], bits[:, 64:-2], bits[:, -2], bits[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU tensors, tests, and the on-card comparison)
+# ---------------------------------------------------------------------------
+
+
+def _pack_slots(flags: torch.Tensor) -> torch.Tensor:
+    """[rb, ...] 0/1 -> [ceil(rb/8), ...] uint8, slot 8p + k in bit k."""
+    rb = flags.shape[0]
+    rp = -(-rb // 8)
+    pad = flags.new_zeros((rp * 8 - rb,) + tuple(flags.shape[1:]))
+    grouped = torch.cat([flags, pad]).reshape((rp, 8) + tuple(flags.shape[1:]))
+    w = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32,
+                     device=flags.device).reshape((1, 8) + (1,) * (flags.dim() - 1))
+    return (grouped.to(torch.int32) * w).sum(dim=1).to(torch.uint8)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """float32 products in full precision on a card while the block runs
+    (the 0/1 step is exact either way; the comparison should not depend on
+    the setting)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def nfa_stream_plain(
+    rows: torch.Tensor, follow: torch.Tensor, accept_b: torch.Tensor,
+    first: torch.Tensor, last: torch.Tensor,
+) -> torch.Tensor:
+    """Plain K5: the reference's float step, vectorised over rule slots and
+    rows, one Python step a byte (its outer clamp is dropped: the masked
+    state is 0/1 already); a block's states then meet `last` in one
+    product.  Flags depend on a row's bytes alone, so each distinct row
+    (the padding rows are one) is stepped once."""
+    rows, inverse = torch.unique(rows, dim=0, return_inverse=True)
+    n, length = rows.shape
+    rb, lo = follow.shape[0], length // STREAM_BLOCK
+    dev = rows.device
+    state = torch.zeros((rb, n, 64), dtype=torch.float32, device=dev)
+    block = torch.empty((rb, n, STREAM_BLOCK, 64), dtype=torch.float32, device=dev)
+    hits = torch.zeros((rb, n, lo), dtype=torch.bool, device=dev)
+    fst = first[:, None, :].expand(rb, n, 64)
+    with _no_tf32():
+        for j in range(lo):
+            for i in range(STREAM_BLOCK):
+                cmask = accept_b[:, rows[:, j * STREAM_BLOCK + i].long(), :]  # [rb, n, 64]
+                state = torch.baddbmm(fst, state, follow).clamp_(max=1.0).mul_(cmask)
+                block[:, :, i] = state
+            ends = torch.bmm(block.view(rb, n * STREAM_BLOCK, 64), last[:, :, None])
+            hits[:, :, j] = (ends.view(rb, n, STREAM_BLOCK) > 0).any(-1)
+    return _pack_slots(hits)[:, inverse]
+
+
+def nfa_stream_assoc_plain(
+    rows: torch.Tensor, follow: torch.Tensor, accept_b: torch.Tensor,
+    first: torch.Tensor, last: torch.Tensor,
+) -> torch.Tensor:
+    """Plain twin of `_stream_assoc_impl`: each 32-byte block folds into an
+    affine summary (transfer matrix M [64, 64], offset v [64]) plus hit
+    detectors a [64] and b, the summaries combine across the row's blocks
+    by an inclusive associative scan (log-depth doubling), and block j
+    flags when (entering state . a_j) + b_j > 0.  A summary depends on its
+    block's bytes alone, so each distinct block (zero padding is one) is
+    folded once; holds [rb, L/32, rows, 64, 64] floats at once."""
+    rows, inverse = torch.unique(rows, dim=0, return_inverse=True)
+    n, length = rows.shape
+    rb, lo = follow.shape[0], length // STREAM_BLOCK
+    dev = rows.device
+    blocks, binv = torch.unique(rows.reshape(n * lo, STREAM_BLOCK), dim=0,
+                                return_inverse=True)
+    nb = len(blocks)
+    blocks = blocks.long().t()  # [32, distinct blocks]
+    # one batched product a step: M rows (block, p) x follow [64, 64]
+    m = torch.eye(64, device=dev).expand(rb, nb, 64, 64).reshape(rb, -1, 64).clone()
+    v = torch.zeros((rb, nb, 64), device=dev)
+    av = torch.zeros((rb, nb * 64, 1), device=dev)
+    bv = torch.zeros((rb, nb), device=dev)
+    fs, ls = first[:, None, :], last[:, :, None]
+    with _no_tf32():
+        for i in range(STREAM_BLOCK):
+            cmask = accept_b[:, blocks[i], :]  # [rb, nb, 64]
+            m = torch.clamp(torch.bmm(m, follow).reshape(rb, nb, 64, 64)
+                            * cmask[:, :, None, :], max=1.0).reshape(rb, -1, 64)
+            v = torch.clamp((torch.bmm(v, follow) + fs) * cmask, max=1.0)
+            av = torch.clamp(av + torch.bmm(m, ls), max=1.0)
+            bv = torch.clamp(bv + torch.bmm(v, ls)[..., 0], max=1.0)
+        # distinct blocks back to [rb, Lo, N, ...] (row-major blocks)
+        order = binv.reshape(n, lo).t().reshape(-1)
+        m = m.reshape(rb, nb, 64, 64)[:, order]
+        v = v[:, order]
+        av = av.reshape(rb, nb, 64)[:, order]
+        bv = bv[:, order]
+        m = m.reshape(rb, lo, n, 64, 64)
+        v = v.reshape(rb, lo, n, 64)
+        # inclusive scan over blocks: x_j <- x_{j-d} o x_j (earlier first)
+        d = 1
+        while d < lo:
+            m_new = torch.clamp(m[:, :-d] @ m[:, d:], max=1.0)
+            v_new = torch.clamp((v[:, :-d, :, None, :] @ m[:, d:])[..., 0, :] + v[:, d:],
+                                max=1.0)
+            m = torch.cat([m[:, :d], m_new], dim=1)
+            v = torch.cat([v[:, :d], v_new], dim=1)
+            d *= 2
+        enter = torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], dim=1)
+        det_a = av.reshape(rb, lo, n, 64)
+        hit = (enter * det_a).sum(-1) + bv.reshape(rb, lo, n) > 0  # [rb, Lo, N]
+    return _pack_slots(hit.permute(0, 2, 1))[:, inverse]
+
+
+def nfa_fused_verdict_plain(
+    flags: torch.Tensor, lane_row: torch.Tensor, lane_slot: torch.Tensor,
+    lane_b0: torch.Tensor, lane_b1: torch.Tensor,
+) -> torch.Tensor:
+    """Plain K5v: the reference's cumulative block-sum gather."""
+    bits = (flags[lane_slot.long() // 8, lane_row.long()].to(torch.int32)
+            >> (lane_slot.long() % 8)[:, None].to(torch.int32)) & 1  # [N, Lo]
+    csz = torch.nn.functional.pad(torch.cumsum(bits, dim=1), (1, 0))  # [N, Lo+1]
+    ar = torch.arange(len(lane_row), device=flags.device)
+    keep = csz[ar, lane_b1.long()] > csz[ar, lane_b0.long()]
+    w = torch.tensor(_PACK_WEIGHTS, dtype=torch.int32, device=flags.device)
+    return (keep.to(torch.int32).reshape(-1, 8) * w).sum(dim=1).to(torch.uint8)
+
+
+def nfa_padded_plain(
+    classes: torch.Tensor, gids: torch.Tensor, follow: torch.Tensor,
+    accept: torch.Tensor, first: torch.Tensor, last: torch.Tensor,
+) -> torch.Tensor:
+    """Plain K6: the reference's float step over each lane's class ids, one
+    Python step a position, a chunk of states meeting `last` in one
+    product.  A verdict depends on the lane's rule and ids alone, so each
+    distinct (rule, lane) is stepped once, with its rule's tensors
+    gathered once."""
+    g, bg, length = classes.shape
+    lanes = torch.cat([gids.to(torch.int16)[:, None].expand(g, bg).reshape(-1, 1),
+                       classes.reshape(-1, length).to(torch.int16)], dim=1)
+    lanes, inverse = torch.unique(lanes, dim=0, return_inverse=True)
+    rule, idx = lanes[:, 0].long(), lanes[:, 1:].long()
+    n, dev = len(lanes), classes.device
+    f, a = follow[rule], accept[rule]  # [n, 64, 64], [n, C, 64]
+    fst, lst = first[rule][:, None, :], last[rule][:, :, None]
+    state = torch.zeros((n, 1, 64), dtype=torch.float32, device=dev)
+    chunk = torch.empty((n, STREAM_BLOCK, 64), dtype=torch.float32, device=dev)
+    matched = torch.zeros(n, dtype=torch.bool, device=dev)
+    ar = torch.arange(n, device=dev)
+    with _no_tf32():
+        for t0 in range(0, length, STREAM_BLOCK):
+            steps = min(STREAM_BLOCK, length - t0)
+            for i in range(steps):
+                cmask = a[ar, idx[:, t0 + i]][:, None, :]  # [n, 1, 64]
+                state = torch.baddbmm(fst, state, f).clamp_(max=1.0).mul_(cmask)
+                chunk[:, i] = state[:, 0]
+            matched |= (torch.bmm(chunk[:, :steps], lst)[..., 0] > 0).any(-1)
+    return matched[inverse].reshape(g, bg)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _kernel_fn(symbol: str, signature: str):
+    from trivy_tpu_torch.ops import _build
+
+    return _build.function("nfa_verify", symbol, signature)
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, and 16-byte aligned for the kernels' vector loads."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_device(name: str, t: torch.Tensor, *others: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    for o in others:
+        if o.device != t.device:
+            raise ValueError(f"{name}: operands on {o.device} and {t.device}")
+
+
+def nfa_stream(rows: torch.Tensor, words: torch.Tensor, assoc: bool = False) -> torch.Tensor:
+    """K5 on `rows`' device over a stack's words (`nfa_stack`): the CUDA
+    kernel on a card; on the CPU the plain version (`assoc` picks the
+    associative-scan one) over the unpacked words."""
+    if rows.dtype != torch.uint8 or rows.dim() != 2 or rows.shape[1] % STREAM_BLOCK:
+        raise ValueError(f"rows must be [N, L] uint8 with L a multiple of "
+                         f"{STREAM_BLOCK}, got {rows.dtype} {tuple(rows.shape)}")
+    rb = words.shape[0]
+    if not 1 <= rb <= MAX_STACK or tuple(words.shape) != (rb, STREAM_WORDS) \
+            or words.dtype != torch.int64:
+        raise ValueError(f"rule stack words must be [rb <= {MAX_STACK}, "
+                         f"{STREAM_WORDS}] int64, got {words.dtype} {tuple(words.shape)}")
+    _check_device("nfa_stream", rows, words)
+    if rows.device.type == "cpu":
+        plain = nfa_stream_assoc_plain if assoc else nfa_stream_plain
+        return plain(rows, *unpack_words(words))
+    rows = _aligned(rows)
+    n, length = rows.shape
+    out = torch.empty((-(-rb // 8), n, length // STREAM_BLOCK), dtype=torch.uint8,
+                      device=rows.device)
+    words = words.contiguous()
+    with torch.cuda.device(rows.device):
+        err = _kernel_fn("nfa_stream", "piipipp")(
+            rows.data_ptr(), n, length, words.data_ptr(), rb, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _launched("nfa_stream", err)
+    return out
+
+
+def nfa_fused_verdict(
+    flags: torch.Tensor, lane_row: torch.Tensor, lane_slot: torch.Tensor,
+    lane_b0: torch.Tensor, lane_b1: torch.Tensor,
+) -> torch.Tensor:
+    """K5v on `flags`' device.  The lane table must index inside `flags`
+    (row < N, slot < 8 ceil(rb/8), 0 <= b0, b1 <= Lo), as the engine's
+    does; the kernel reads nothing outside `flags` for a lane that does
+    not, and keeps nothing for it."""
+    if flags.dtype != torch.uint8 or flags.dim() != 3:
+        raise ValueError(f"flags must be [P, N, Lo] uint8, got {flags.dtype} "
+                         f"{tuple(flags.shape)}")
+    lanes = (lane_row, lane_slot, lane_b0, lane_b1)
+    n = len(lane_row)
+    if n % 8 or any(t.dtype != torch.int32 or t.shape != (n,) for t in lanes):
+        raise ValueError("lane tables must be four [N] int32 tensors, N a multiple of 8")
+    _check_device("nfa_fused_verdict", flags, *lanes)
+    if flags.device.type == "cpu":
+        return nfa_fused_verdict_plain(flags, *lanes)
+    flags = flags.contiguous()
+    lanes = [t.contiguous() for t in lanes]
+    out = torch.empty(n // 8, dtype=torch.uint8, device=flags.device)
+    with torch.cuda.device(flags.device):
+        err = _kernel_fn("nfa_fused_verdict", "piiippppipp")(
+            flags.data_ptr(), flags.shape[0], flags.shape[1], flags.shape[2],
+            *(t.data_ptr() for t in lanes), n, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _launched("nfa_fused", err)
+    return out
+
+
+def nfa_padded(classes: torch.Tensor, gids: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """K6 on `classes`' device over every rule's words (`nfa_tables`): the
+    CUDA kernel on a card, the plain version over the unpacked words on the
+    CPU.  Class ids must be below 64 and group ids below R, as the engine's
+    are."""
+    if classes.dtype != torch.uint8 or classes.dim() != 3 or classes.shape[2] % 16:
+        raise ValueError(f"classes must be [G, Bg, L] uint8 with L a multiple of "
+                         f"16, got {classes.dtype} {tuple(classes.shape)}")
+    g = classes.shape[0]
+    if gids.dtype != torch.int32 or tuple(gids.shape) != (g,):
+        raise ValueError(f"gids must be [{g}] int32")
+    r = words.shape[0]
+    if tuple(words.shape) != (r, PADDED_WORDS) or words.dtype != torch.int64:
+        raise ValueError(f"rule words must be [R, {PADDED_WORDS}] int64")
+    _check_device("nfa_padded", classes, gids, words)
+    if classes.device.type == "cpu":
+        return nfa_padded_plain(classes, gids, *unpack_words(words))
+    classes = _aligned(classes)
+    gids = gids.contiguous()
+    words = words.contiguous()
+    _, bg, length = classes.shape
+    out = torch.empty((g, bg), dtype=torch.bool, device=classes.device)
+    with torch.cuda.device(classes.device):
+        err = _kernel_fn("nfa_padded", "piiippipp")(
+            classes.data_ptr(), g, bg, length, gids.data_ptr(), words.data_ptr(),
+            r, out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _launched("nfa_padded", err)
+    return out
