@@ -4,7 +4,12 @@ the device NFA verify K5/K5v/K6 (`nfa_verify.cu`: state bit 63, rb 1 to
 32, the builtin ruleset's stacks at every width the engine launches, every
 stream tier, a row shorter than one block, separator-only rows,
 more rows than the grid, padded lane tables, the 32,768 padded bucket, no
-plain version reached from a CUDA tensor, the hybrid engine on the card),
+plain version reached from a CUDA tensor, the hybrid engine on the card;
+K5's live slots at widths 1, 3, 10, 17 and 32 with row counts no multiple
+of a warp's rows, zero 16-byte chunks across flag blocks, 256 byte
+classes, every position an exception, a live byte 0 stepped through zero
+chunks, its occupancy; K6's early exits with padding groups, lanes that
+match at once and a period-2 padding orbit at lengths 16 and 32,768),
 including the shapes the table core, its persistent grid and the file
 listing can get wrong: more than 256 pairs, A-Z and high bytes at the row
 tail, short and odd rows, more rows than the grid holds, many files on one
@@ -656,6 +661,207 @@ def test_nfa_wrappers_never_reach_a_plain_version_on_card(card, monkeypatch):
     nv.nfa_padded(torch.zeros((8, 64, 512), dtype=torch.uint8, device=card),
                   torch.zeros(8, dtype=torch.int32, device=card), tables)
     torch.cuda.synchronize()
+
+
+# -- the K5/K6 redesign: live slots, zero chunks, class tables, early exits
+
+
+def _zero_chunk_rows(n: int, length: int, seed: int) -> np.ndarray:
+    """`_nfa_rows` with zero 16-byte chunks at heads, in the middle (bytes
+    16..48, across the first 32-byte flag block), at tails, every 7th row
+    zero, and every 5th row mostly zero chunks."""
+    rows = _nfa_rows(n, length, seed)
+    rows[::3, :48] = 0
+    rows[1::3, 16:48] = 0
+    rows[2::3, length // 2 :] = 0
+    rows[::7] = 0
+    for i in range(4, n, 5):
+        rows[i].reshape(-1, 16)[::2] = 0
+    rows[1::3, 15] = ord("z")  # right before a zero chunk
+    return rows
+
+
+def _live_stack(rb_live: int, rb: int, seed: int, kind: str = "sparse"):
+    """An rb-slot stack whose first rb_live slots are random automata (the
+    rest zero): "sparse" (`_nfa_stack`), "dense" (every position an
+    exception), "wide" (256 byte classes) or "live0" (byte 0 live)."""
+    rng = np.random.default_rng(seed)
+    follow, accept_b, first, last = _nfa_stack(rb_live, seed)
+    if kind == "dense":
+        follow = np.maximum(follow, rng.random(follow.shape) < 0.4).astype(np.float32)
+    elif kind == "wide":
+        accept_b = (rng.random(accept_b.shape) < 0.5).astype(np.float32)
+        accept_b[:, 1:, 0] = 1.0
+        accept_b[:, 0] = 0.0
+        accept_b[:, ord("z"), 62:] = 1.0
+    elif kind == "live0":
+        accept_b[:, 0, 62:] = 1.0  # "z", zeros, "z" matches across a zero chunk
+        follow[:, 63, 62] = 1.0
+        last[:, 62] = 1.0
+        first[:, 62] = 0.0
+        first[:, 61] = 1.0
+        follow[:, 61, 62] = 1.0
+        accept_b[:, ord("z"), 61] = 1.0
+    out = []
+    for a in (follow, accept_b, first, last):
+        z = np.zeros((rb,) + a.shape[1:], np.float32)
+        z[:rb_live] = a
+        out.append(z)
+    return out
+
+
+@pytest.mark.parametrize("rb_live,rb,n,length,kind", [
+    (1, 1, 64, 512, "sparse"), (3, 32, 101, 512, "sparse"), (10, 16, 203, 4096, "sparse"),
+    (17, 32, 97, 512, "sparse"), (32, 32, 130, 4096, "sparse"), (10, 16, 64, 512, "wide"),
+    (6, 8, 77, 512, "dense"), (5, 8, 64, 512, "live0"), (12, 16, 33, 16384, "live0"),
+])
+def test_nfa_stream_live_slots_and_zero_chunks_equal_plain(card, rb_live, rb, n, length,
+                                                           kind):
+    """K5 at widths that are no power of two and row counts no multiple of
+    the rows a warp holds, over zero chunks (skipped only when byte 0 is
+    dead in every live slot), with 256 byte classes and with every
+    position an exception."""
+    arrays = _live_stack(rb_live, rb, seed=rb_live + n, kind=kind)
+    stack = nv.NfaStack.build(*arrays, device=card)
+    assert stack.rb_live == rb_live and stack.zero_dead == (kind != "live0")
+    if kind == "wide":
+        assert stack.n_classes == 256
+    rows = torch.from_numpy(_zero_chunk_rows(n, length, seed=n)).to(card)
+    before = gs.LAUNCHES["nfa_stream"]
+    got = nv.nfa_stream(rows, stack)
+    torch.cuda.synchronize()
+    assert gs.LAUNCHES["nfa_stream"] == before + 1
+    want = nv.nfa_stream_plain(rows, *_on(card, arrays))
+    assert got.shape == want.shape == (-(-rb // 8), n, length // 32)
+    assert torch.equal(got, want)
+    assert want.any()
+    if kind == "live0":  # a match that crosses a zero chunk
+        skipped = nv.NfaStack(**{**stack.__dict__, "zero_dead": True})
+        assert not torch.equal(nv.nfa_stream(rows, skipped), want)
+
+
+@pytest.mark.parametrize("segments", [2, 8, 32])
+@pytest.mark.parametrize("kind", ["real", "dense"])
+def test_nfa_stream_segments_equal_plain(card, kind, segments):
+    """K5 with each row split into speculative segments and the excess
+    fixed up across their boundaries: secrets straddling every boundary, a
+    dense stack whose excess lives across whole segments."""
+    length = 4096
+    if kind == "real":
+        ver = _builtin_nfa()
+        parts = [ver._rule_byte_tensors(int(r)) for r in np.flatnonzero(ver.has_nfa)[:10]]
+        arrays = [np.stack([p[i] for p in parts]) for i in range(4)]
+    else:
+        arrays = _live_stack(6, 8, seed=segments, kind="dense")
+    rows = _zero_chunk_rows(96, length, seed=segments)
+    sec = np.frombuffer(b"ghp_" + b"a1B2" * 9, np.uint8)
+    seg_len = length // segments
+    for k in range(1, segments):
+        rows[3 + k % 5, k * seg_len - 17 : k * seg_len - 17 + len(sec)] = sec
+    stack = nv.NfaStack.build(*arrays, device=card)
+    rows = torch.from_numpy(rows).to(card)
+    got = nv._stream_launch(rows, stack, segments)
+    want = nv.nfa_stream_plain(rows, *_on(card, arrays))
+    assert torch.equal(got, want) and want.any()
+
+
+def test_nfa_stream_picks_segments_for_few_long_rows(card):
+    """Few long rows split into segments; many rows walk whole."""
+    assert nv._segments("nfa_stream_segments", 0, 2048, 16384, 10, 60) > 1
+    assert nv._segments("nfa_stream_segments", 0, 8192, 4096, 32, 70) == 1
+    assert nv._segments("nfa_padded_segments", 0, 8, 64, 32768) > 8
+
+
+def test_nfa_stream_occupancy_is_not_capped_by_shared_memory(card):
+    """The builtin rules at rb 32 (with a 256-row accept table: 82 KB of
+    shared memory, 2 blocks an SM): the class-compressed image lets more
+    blocks in."""
+    ver = _builtin_nfa()
+    parts = [ver._rule_byte_tensors(int(r)) for r in np.flatnonzero(ver.has_nfa)[:32]]
+    stack = nv.NfaStack.build(*[np.stack([p[i] for p in parts]) for i in range(4)], card)
+    assert stack.n_classes < 256 and stack.table.nbytes < 48 * 1024
+    assert nv.blocks_per_sm("nfa_stream", stack) > 2
+    assert nv.blocks_per_sm("nfa_padded") >= 16
+
+
+@pytest.mark.parametrize("length", [16, 32768])
+def test_nfa_padded_early_exits_equal_plain(card, length):
+    """K6 with groups of padding only (rule 0 over zeros), lanes that match
+    at step 0, lanes of padding only, NUL in mid-data and a rule whose
+    padding orbit has period 2 (it cannot stop early)."""
+    rng = np.random.default_rng(length)
+    r = 6
+    follow, accept_b, first, last = _nfa_stack(r, seed=5)
+    accept = accept_b[:, :64].copy()
+    accept[:, 62, 62:] = 1.0  # class ids 62 62 match at once
+    accept[1, 0, :] = 1.0  # rule 1: class 0 live at every position
+    # rule 5: 2 -> 0 -> 1 -> 0 ... under class 0, position 3 final
+    for a in (follow, accept, first, last):
+        a[5] = 0.0
+    first[5, 2] = last[5, 3] = 1.0
+    follow[5, 2, 0] = follow[5, 0, 1] = follow[5, 1, 0] = follow[5, 1, 3] = 1.0
+    accept[5, 1, 2] = accept[5, 0, 0] = accept[5, 0, 1] = accept[5, 2, 3] = 1.0
+    tables = nv.NfaTables.build(follow, accept, first, last, device=card)
+    g = 16
+    classes = rng.integers(0, 64, size=(g, 64, length), dtype=np.uint8)
+    classes[:, ::4, length // 2 :] = 0  # windows shorter than their bucket
+    classes[:, 1] = 0  # padding lanes
+    classes[:, 2, :2] = 62  # a match at step 1
+    classes[:, 3, length // 4 : length // 4 + 3] = 0  # NUL in mid-data
+    gids = rng.integers(0, 5, g).astype(np.int32)
+    gids[[3, 7]] = 5
+    classes[[3, 7]] = 0
+    classes[[3, 7], :, 0] = 1
+    classes[7, 5, min(3, length - 1)] = 2
+    gids[g - 4 :] = 0  # padding groups: rule 0 over zeros
+    classes[g - 4 :] = 0
+    cls = torch.from_numpy(classes).to(card)
+    gd = torch.from_numpy(gids).to(card)
+    got = nv.nfa_padded(cls, gd, tables)
+    want = nv.nfa_padded_plain(cls, gd, *_on(card, (follow, accept, first, last)))
+    assert torch.equal(got, want)
+    real = np.flatnonzero(gids[: g - 4] != 5)
+    assert want[real, 2].all() and not want[3].any() and want[7, 5]
+    assert not want[g - 4 :].any() and not want[gids == 0, 1].any()
+
+
+@pytest.mark.parametrize("length,segments", [(512, 2), (4096, 16), (32768, 128)])
+def test_nfa_padded_segments_equal_plain(card, length, segments):
+    """K6 with each lane split into speculative segments: matches straddling
+    a boundary, the period-2 orbit across every boundary, padding lanes and
+    groups, NUL in mid-data."""
+    rng = np.random.default_rng(segments)
+    r = 6
+    follow, accept_b, first, last = _nfa_stack(r, seed=7)
+    accept = accept_b[:, :64].copy()
+    accept[:, 62, 62:] = 1.0
+    for a in (follow, accept, first, last):
+        a[5] = 0.0
+    first[5, 2] = last[5, 3] = 1.0
+    follow[5, 2, 0] = follow[5, 0, 1] = follow[5, 1, 0] = follow[5, 1, 3] = 1.0
+    accept[5, 1, 2] = accept[5, 0, 0] = accept[5, 0, 1] = accept[5, 2, 3] = 1.0
+    tables = nv.NfaTables.build(follow, accept, first, last, device=card)
+    g = 12
+    seg_len = length // segments
+    classes = rng.integers(0, 64, size=(g, 64, length), dtype=np.uint8)
+    classes[:, ::4, length // 2 :] = 0
+    classes[:, 1] = 0
+    classes[:, 2] = 0
+    classes[:, 2, seg_len - 1 : seg_len + 1] = 62  # across the first boundary
+    classes[:, 3, length // 3 : length // 3 + 40] = 0
+    gids = rng.integers(0, 5, g).astype(np.int32)
+    gids[4] = 5
+    classes[4] = 0
+    classes[4, :, 0] = 1
+    gids[g - 2 :] = 0
+    classes[g - 2 :] = 0
+    cls = torch.from_numpy(classes).to(card)
+    gd = torch.from_numpy(gids).to(card)
+    got = nv._padded_launch(cls, gd, tables, segments)
+    want = nv.nfa_padded_plain(cls, gd, *_on(card, (follow, accept, first, last)))
+    assert torch.equal(got, want)
+    assert want[: g - 2, 2][gids[: g - 2] != 5].all() and not want[4].any()
+    assert torch.equal(nv.nfa_padded(cls, gd, tables), want)
 
 
 @pytest.mark.parametrize("verify", ["device", "fused"])

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Time one tree's device NFA verify kernels (K5, K5v, K6) on the inputs
+that `chip_smoke.py --keep-inputs PATH` kept: the shapes its phase `nfa`
+timed and every dispatch of the default hit-dense scan.
+
+    PYTHONPATH=<tree> python3 tools/nfa_kernel_times.py PATH LABEL
+
+`trivy_tpu_torch` comes from <tree> (this checkout, or an earlier commit
+unpacked with `git archive`), which builds its own kernels.  A tree whose
+wrappers take the host-built tables (`NfaStack`, `NfaTables`) gets them
+built once, outside the timing.  One JSON line per input: the kernel, its
+shape, the CUDA-event median of 20 calls (host launch work included), the
+profiler's device time per call and a digest of the output (after a
+second of matrix products, so the card's clock is up), so two trees
+can be compared on one card in one call (run them in turns: old, new, new,
+old) and their outputs checked equal; then one line of per-kernel sums over
+the scan's dispatches.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import statistics
+import sys
+import time
+
+import torch
+
+REPS = 20
+NAMES = ("nfa_stream_kernel", "nfa_stream_fix_kernel", "nfa_fused_verdict_kernel",
+         "nfa_padded_kernel", "nfa_padded_fix_kernel")
+
+
+def event_ms(fn) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+                if any(k in e.key for k in NAMES))
+    return total / REPS / 1e3 if total else None
+
+
+def main(path: str, label: str) -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    from trivy_tpu_torch.ops import nfa_verify as nv
+
+    kept = torch.load(path)
+    # an idle card runs at a low clock: keep it busy for a second first
+    x = torch.randn(4096, 4096, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        x = (x @ x).clamp_(-1.0, 1.0)
+    torch.cuda.synchronize()
+    sums: dict[str, float] = {}
+    for key, value in kept.items():
+        if key.startswith("dispatch_"):
+            name, args = value
+        elif key.startswith("nfa_padded"):
+            name, args = "nfa_padded", value
+        else:
+            name, args = ("nfa_fused_verdict" if key == "nfa_fused" else key), value
+        args = [a.cuda() for a in args]
+        if name == "nfa_fused_verdict":
+            args = [args[0], *args[1]] if len(args) == 2 else args
+        if name == "nfa_stream" and hasattr(nv, "NfaStack"):
+            args[1] = nv.NfaStack.from_words(args[1])
+        if name == "nfa_padded" and hasattr(nv, "NfaTables"):
+            args[2] = nv.NfaTables.from_words(args[2])
+        fn = getattr(nv, name)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        ms, dev = event_ms(lambda: fn(*args)), device_ms(lambda: fn(*args))
+        if key.startswith("dispatch_") and dev is not None:
+            sums[name] = sums.get(name, 0.0) + dev
+        print(json.dumps({"tree": label, "input": key, "kernel": name,
+                          "shape": list(args[0].shape), "ms": round(ms, 5),
+                          "device_ms": None if dev is None else round(dev, 5),
+                          "out": digest}), flush=True)
+    print(json.dumps({"tree": label, "dispatch_device_ms_sums":
+                      {k: round(v, 5) for k, v in sums.items()},
+                      "card": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(sys.argv[1], sys.argv[2]))

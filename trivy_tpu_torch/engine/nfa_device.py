@@ -53,11 +53,11 @@ from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import trace as obs_trace
 from trivy_tpu_torch.ops.nfa_verify import (
     STREAM_BLOCK,
+    NfaStack,
+    NfaTables,
     nfa_fused_verdict,
     nfa_padded,
-    nfa_stack,
     nfa_stream,
-    nfa_tables,
 )
 
 MAX_LEN = 1 << 15  # lanes whose walk window exceeds this verify on the host
@@ -157,13 +157,13 @@ class GpuNfaVerifier:
             if has[r] and self._nfas[r] is not None:
                 self._byte_tensor_cache[r] = (fol[r], acc[r], fst[r], lst[r])
 
-    def _device_tables(self) -> torch.Tensor:
-        """The padded path's resident per-rule words (`nfa_tables`), built
-        once and ledgered in memwatch as "nfa-tensors" for the verifier's
-        life."""
+    def _device_tables(self) -> NfaTables:
+        """The padded path's resident per-rule words and K6 tables
+        (`NfaTables`), built once and ledgered in memwatch as "nfa-tensors"
+        for the verifier's life."""
         if self._tables is None:
-            self._tables = nfa_tables(self.follow, self.accept, self.first,
-                                      self.last, self.device)
+            self._tables = NfaTables.build(self.follow, self.accept, self.first,
+                                           self.last, self.device)
             memwatch.track("nfa-tensors", self._tables.nbytes,
                            device=str(self.device), owner=self)
         return self._tables
@@ -305,7 +305,7 @@ class GpuNfaVerifier:
             lst = np.zeros((rb, 64), np.float32)
             for r, slot in rule_slot.items():
                 fol[slot], acc[slot], fst[slot], lst[slot] = self._rule_byte_tensors(r)
-            stack = nfa_stack(fol, acc, fst, lst, self.device)
+            stack = NfaStack.build(fol, acc, fst, lst, self.device)
             mw.append(memwatch.track("verify-stream", stack.nbytes,
                                      device=str(self.device)))
 

@@ -34,24 +34,48 @@ CUDA tensors and a plain PyTorch version beside it for CPU tensors:
   row.
 * **K6**, `nfa_padded` (the twin of `_run`, :325): class ids [G, Bg, L]
   uint8 (lane-contiguous; the reference's [L, G, Bg] transposed), group
-  rule ids [G] int32 and the resident per-rule words ->
+  rule ids [G] int32 and the resident per-rule tables ->
   matched [G, Bg] bool: some match of rule gids[g] ends anywhere in lane
-  (g, b).  The lane walks its whole bucket length, zero padding included,
-  as the reference's does.
+  (g, b), its whole bucket length, zero padding included, as the
+  reference walks it.  The kernel stops a lane once it has matched, and
+  past its last non-zero id at the first step that leaves the state
+  unchanged (every later step gives the same state and hit).
 
 Each rule travels as 64-bit words (`pack_bits64`: bit q of word p is the
-0/1 tensor's [p, q]), the one form on any device: `nfa_stack` and
-`nfa_tables` build them, the kernels read them, and on the CPU the wrappers
-unpack them (`unpack_words`) into the 0/1 float tensors the plain versions
-read, so the two cannot drift.  torch has no unsigned 64-bit arithmetic on
-CUDA: the words travel as int64 and the kernels reinterpret them.  Each
-launch counts in `gram_sieve.LAUNCHES` ("nfa_stream", "nfa_fused",
-"nfa_padded").
+0/1 tensor's [p, q]): `nfa_stack` and `nfa_tables` build them, and on the
+CPU the wrappers unpack them (`unpack_words`) into the 0/1 float tensors the
+plain versions read.  The kernels read tables derived from the same words
+in one place, `NfaStack.from_words` / `NfaTables.from_words`, frozen objects
+that carry the words beside their tables, so a kernel's tables cannot drift
+from the words its plain version reads:
+
+* the step of each rule (`step_words`): reach(S), the OR of follow[p] over
+  the set bits p of S, is `((S & fwd) << 1) | (S & self)` plus the OR of
+  `residual[p]` over the set bits p of `S & exc` (fwd: the edges p -> p + 1
+  of the Glushkov numbering's concatenations; self: p -> p; residual: every
+  other edge; exc: the positions that have one);
+* for K5, the live slots (`rb_live`: 1 + the last slot with a non-zero
+  word; the slots past it never leave state 0), the byte -> class map of
+  the distinct accept columns of those slots and their class words, and
+  `zero_dead` (byte 0 accepted by no live slot, so a run of zero bytes
+  sets S = 0 and flags nothing: the kernel skips zero 16-byte chunks);
+* for K6, one row a rule: the step words, the residual rows and the
+  class masks.
+
+The wrappers take either the object or the words (from which they build
+it).  On a card, a launch of few long rows (K5) or lanes (K6) is cut into
+segments, each walked from the empty state, and a fix-up kernel carries
+the excess state across the boundaries (exact: the step distributes over
+union; `csrc/nfa_verify.cu`, "Segments").  torch has no unsigned 64-bit arithmetic on CUDA: words and tables
+travel as int64 and the kernels reinterpret them.  Each launch counts in
+`gram_sieve.LAUNCHES` ("nfa_stream", "nfa_fused", "nfa_padded").
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -62,6 +86,10 @@ STREAM_BLOCK = 32  # positions OR-compressed into one flag
 MAX_STACK = 32  # rule slots one K5 launch serves (one warp lane a slot)
 STREAM_WORDS = 64 + 256 + 2  # follow[64], accept_b[256], first, last
 PADDED_WORDS = 64 + 64 + 2  # follow[64], classmask[64], first, last
+STEP_WORDS = 5  # fwd, self, exc, first, last (csrc/nfa_step.cuh)
+RULE_WORDS = STEP_WORDS + 64  # + residual[64]
+PADDED_TABLE_WORDS = RULE_WORDS + 64  # + classmask[64]: K6's row a rule
+MAP_WORDS = 256 // 8  # K5's byte -> class map, 256 uint8 in int64 words
 _PACK_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
@@ -103,6 +131,116 @@ def unpack_words(words: torch.Tensor) -> tuple[torch.Tensor, ...]:
     shifts = torch.arange(64, dtype=torch.int64, device=words.device)
     bits = ((words[..., None] >> shifts) & 1).to(torch.float32)
     return bits[:, :64], bits[:, 64:-2], bits[:, -2], bits[:, -1]
+
+
+_POS = np.arange(64, dtype=np.uint64)
+_OWN = np.uint64(1) << _POS  # bit p
+_NEXT = np.where(_POS < 63, np.uint64(1) << np.minimum(_POS + np.uint64(1), np.uint64(63)),
+                 np.uint64(0))  # bit p + 1 (none past 63)
+
+
+def step_words(follow: np.ndarray) -> tuple[np.ndarray, ...]:
+    """Follow words [R, 64] (uint64 bit patterns) -> the decomposed step,
+    uint64: fwd [R] (bit p: the edge p -> p + 1, p < 63), self [R] (bit p:
+    p -> p), exc [R] (bit p: follow[p] has another edge) and residual
+    [R, 64] (follow[p] without those two edges).  For every S,
+    OR_{p in S} follow[p] == ((S & fwd) << 1) | (S & self)
+    | OR_{p in S & exc} residual[p]."""
+    f = np.ascontiguousarray(follow).view(np.uint64)
+    fwd_b = (f & _NEXT) != 0
+    self_b = (f & _OWN) != 0
+    residual = f & ~(np.where(fwd_b, _NEXT, np.uint64(0)) | np.where(self_b, _OWN, np.uint64(0)))
+    return (pack_bits64(fwd_b).view(np.uint64), pack_bits64(self_b).view(np.uint64),
+            pack_bits64(residual != 0).view(np.uint64), residual)
+
+
+def _host_words(words: torch.Tensor) -> np.ndarray:
+    return words.detach().cpu().numpy().view(np.uint64)
+
+
+@dataclass(frozen=True)
+class NfaStack:
+    """A K5 rule stack: `words` [rb, STREAM_WORDS] int64 (what `nfa_stack`
+    returns and the plain versions read unpacked) and the kernel's image of
+    it in shared memory, `table`, built from them by `from_words`: for the
+    `width` = max(rb_live, 1) first slots, word-major by slot (word w of
+    slot s at [w * width + s]), the step words (fwd, self, exc, first,
+    last), residual[64], the class words [n_classes], then the byte -> class
+    map (256 uint8 in MAP_WORDS words)."""
+
+    words: torch.Tensor
+    table: torch.Tensor
+    rb: int
+    rb_live: int
+    n_classes: int
+    zero_dead: bool
+
+    @property
+    def width(self) -> int:
+        return max(self.rb_live, 1)
+
+    @property
+    def nbytes(self) -> int:
+        return self.words.nbytes + self.table.nbytes
+
+    @classmethod
+    def from_words(cls, words: torch.Tensor, device=None) -> NfaStack:
+        """The stack of `words` [rb, STREAM_WORDS] int64, words and table on
+        `device` (default: the words')."""
+        _check_stack_words(words)
+        w = _host_words(words)
+        nz = np.flatnonzero(w.any(axis=1))
+        rb_live = int(nz[-1]) + 1 if len(nz) else 0
+        v = w[: max(rb_live, 1)]
+        fwd, own, exc, residual = step_words(v[:, :64])
+        accept = v[:, 64:320]  # [width, 256]
+        cols, cmap = np.unique(accept.T, axis=0, return_inverse=True)  # [C, width], [256]
+        image = np.concatenate([
+            np.stack([fwd, own, exc, v[:, 320], v[:, 321]]).reshape(-1),
+            residual.T.reshape(-1),
+            cols.reshape(-1),
+            cmap.reshape(-1).astype(np.uint8).view(np.uint64),
+        ])
+        dev = words.device if device is None else device
+        return cls(words=words.to(dev), table=torch.from_numpy(image.view(np.int64)).to(dev),
+                   rb=len(w), rb_live=rb_live, n_classes=len(cols),
+                   zero_dead=not accept[:, 0].any())
+
+    @classmethod
+    def build(cls, follow, accept_b, first, last, device) -> NfaStack:
+        """`nfa_stack`'s 0/1 arrays -> the stack on `device`."""
+        return cls.from_words(nfa_stack(follow, accept_b, first, last, "cpu"), device)
+
+
+@dataclass(frozen=True)
+class NfaTables:
+    """Every rule's K6 tables: `words` [R, PADDED_WORDS] int64 (what
+    `nfa_tables` returns) and `table` [R, PADDED_TABLE_WORDS] int64, a row a
+    rule: the step words (fwd, self, exc, first, last), residual[64],
+    classmask[64]."""
+
+    words: torch.Tensor
+    table: torch.Tensor
+
+    @property
+    def nbytes(self) -> int:
+        return self.words.nbytes + self.table.nbytes
+
+    @classmethod
+    def from_words(cls, words: torch.Tensor, device=None) -> NfaTables:
+        _check_table_words(words)
+        w = _host_words(words)
+        fwd, own, exc, residual = step_words(w[:, :64])
+        table = np.concatenate([np.stack([fwd, own, exc, w[:, 128], w[:, 129]], axis=1),
+                                residual, w[:, 64:128]], axis=1)
+        dev = words.device if device is None else device
+        return cls(words=words.to(dev),
+                   table=torch.from_numpy(np.ascontiguousarray(table).view(np.int64)).to(dev))
+
+    @classmethod
+    def build(cls, follow, accept, first, last, device) -> NfaTables:
+        """`nfa_tables`' 0/1 arrays -> the tables on `device`."""
+        return cls.from_words(nfa_tables(follow, accept, first, last, "cpu"), device)
 
 
 # ---------------------------------------------------------------------------
@@ -295,34 +433,81 @@ def _check_device(name: str, t: torch.Tensor, *others: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands on {o.device} and {t.device}")
 
 
-def nfa_stream(rows: torch.Tensor, words: torch.Tensor, assoc: bool = False) -> torch.Tensor:
-    """K5 on `rows`' device over a stack's words (`nfa_stack`): the CUDA
-    kernel on a card; on the CPU the plain version (`assoc` picks the
-    associative-scan one) over the unpacked words."""
-    if rows.dtype != torch.uint8 or rows.dim() != 2 or rows.shape[1] % STREAM_BLOCK:
-        raise ValueError(f"rows must be [N, L] uint8 with L a multiple of "
-                         f"{STREAM_BLOCK}, got {rows.dtype} {tuple(rows.shape)}")
-    rb = words.shape[0]
+def _check_stack_words(words: torch.Tensor) -> None:
+    rb = words.shape[0] if words.dim() == 2 else 0
     if not 1 <= rb <= MAX_STACK or tuple(words.shape) != (rb, STREAM_WORDS) \
             or words.dtype != torch.int64:
         raise ValueError(f"rule stack words must be [rb <= {MAX_STACK}, "
                          f"{STREAM_WORDS}] int64, got {words.dtype} {tuple(words.shape)}")
+
+
+def _check_table_words(words: torch.Tensor) -> None:
+    if words.dim() != 2 or words.shape[1] != PADDED_WORDS or words.dtype != torch.int64:
+        raise ValueError(f"rule words must be [R, {PADDED_WORDS}] int64")
+
+
+def nfa_stream(rows: torch.Tensor, stack: NfaStack | torch.Tensor,
+               assoc: bool = False) -> torch.Tensor:
+    """K5 on `rows`' device over a rule stack (an `NfaStack`, or the words
+    `nfa_stack` returns): the CUDA kernel on a card; on the CPU the plain
+    version (`assoc` picks the associative-scan one) over the unpacked
+    words."""
+    if rows.dtype != torch.uint8 or rows.dim() != 2 or rows.shape[1] % STREAM_BLOCK:
+        raise ValueError(f"rows must be [N, L] uint8 with L a multiple of "
+                         f"{STREAM_BLOCK}, got {rows.dtype} {tuple(rows.shape)}")
+    words = stack.words if isinstance(stack, NfaStack) else stack
+    _check_stack_words(words)
     _check_device("nfa_stream", rows, words)
     if rows.device.type == "cpu":
         plain = nfa_stream_assoc_plain if assoc else nfa_stream_plain
         return plain(rows, *unpack_words(words))
+    if not isinstance(stack, NfaStack):
+        stack = NfaStack.from_words(words)
+    return _stream_launch(rows, stack)
+
+
+def _stream_launch(rows: torch.Tensor, stack: NfaStack, segments: int = 0) -> torch.Tensor:
+    """Launch K5 on a card: each row split into `segments` (0: as many as
+    `nfa_stream_segments` picks for the card) walked from the empty state,
+    then the fix-up of the excess across their boundaries."""
+    _check_device("nfa_stream", rows, stack.table)
     rows = _aligned(rows)
     n, length = rows.shape
-    out = torch.empty((-(-rb // 8), n, length // STREAM_BLOCK), dtype=torch.uint8,
-                      device=rows.device)
-    words = words.contiguous()
+    table = stack.table.contiguous()
     with torch.cuda.device(rows.device):
-        err = _kernel_fn("nfa_stream", "piipipp")(
-            rows.data_ptr(), n, length, words.data_ptr(), rb, out.data_ptr(),
+        if segments == 0:
+            segments = _segments("nfa_stream_segments", rows.device.index, n, length,
+                                 stack.width, stack.n_classes)
+        out, buf = _word_padded((-(-stack.rb // 8), n, length // STREAM_BLOCK), torch.uint8,
+                                rows.device)
+        ends = torch.empty(((segments - 1) * n * stack.width,), dtype=torch.int64,
+                           device=rows.device)
+        err = _kernel_fn("nfa_stream", "piipiiiiippp")(
+            rows.data_ptr(), n, length, table.data_ptr(), stack.width, stack.n_classes,
+            stack.rb, int(stack.zero_dead), segments, ends.data_ptr(), buf.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _launched("nfa_stream", err)
     return out
+
+
+@functools.lru_cache(maxsize=512)
+def _segments(symbol: str, device_index: int, *shape: int) -> int:
+    """The segment count `symbol` picks for a launch of `shape` on the
+    current card (it depends on the shape and the card alone)."""
+    got = _kernel_fn(symbol, "i" * len(shape))(*shape)
+    if got < 1:
+        raise RuntimeError(f"{symbol}{shape} failed")
+    return got
+
+
+def _word_padded(shape: tuple, dtype: torch.dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """An uninitialised tensor of `shape` at the start of a buffer of whole
+    32-bit words (the fix-up kernels set flag bits with 32-bit atomics):
+    (tensor, buffer)."""
+    n = int(np.prod(shape))
+    buf = torch.empty((-(-n // 4) * 4,), dtype=dtype, device=device)
+    return buf[:n].view(shape), buf
 
 
 def nfa_fused_verdict(
@@ -356,32 +541,60 @@ def nfa_fused_verdict(
     return out
 
 
-def nfa_padded(classes: torch.Tensor, gids: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
-    """K6 on `classes`' device over every rule's words (`nfa_tables`): the
-    CUDA kernel on a card, the plain version over the unpacked words on the
-    CPU.  Class ids must be below 64 and group ids below R, as the engine's
-    are."""
+def nfa_padded(classes: torch.Tensor, gids: torch.Tensor,
+               tables: NfaTables | torch.Tensor) -> torch.Tensor:
+    """K6 on `classes`' device over every rule's tables (an `NfaTables`, or
+    the words `nfa_tables` returns): the CUDA kernel on a card, the plain
+    version over the unpacked words on the CPU.  Class ids must be below 64
+    and group ids below R, as the engine's are."""
     if classes.dtype != torch.uint8 or classes.dim() != 3 or classes.shape[2] % 16:
         raise ValueError(f"classes must be [G, Bg, L] uint8 with L a multiple of "
                          f"16, got {classes.dtype} {tuple(classes.shape)}")
     g = classes.shape[0]
     if gids.dtype != torch.int32 or tuple(gids.shape) != (g,):
         raise ValueError(f"gids must be [{g}] int32")
-    r = words.shape[0]
-    if tuple(words.shape) != (r, PADDED_WORDS) or words.dtype != torch.int64:
-        raise ValueError(f"rule words must be [R, {PADDED_WORDS}] int64")
+    words = tables.words if isinstance(tables, NfaTables) else tables
+    _check_table_words(words)
     _check_device("nfa_padded", classes, gids, words)
     if classes.device.type == "cpu":
         return nfa_padded_plain(classes, gids, *unpack_words(words))
+    if not isinstance(tables, NfaTables):
+        tables = NfaTables.from_words(words)
+    return _padded_launch(classes, gids, tables)
+
+
+def _padded_launch(classes: torch.Tensor, gids: torch.Tensor, tables: NfaTables,
+                   segments: int = 0) -> torch.Tensor:
+    """Launch K6 on a card: each lane split into `segments` (0: as many as
+    `nfa_padded_segments` picks for the card) walked from the empty state,
+    then the fix-up of the excess across their boundaries."""
+    _check_device("nfa_padded", classes, gids, tables.table)
     classes = _aligned(classes)
     gids = gids.contiguous()
-    words = words.contiguous()
-    _, bg, length = classes.shape
+    table = tables.table.contiguous()
+    g, bg, length = classes.shape
     out = torch.empty((g, bg), dtype=torch.bool, device=classes.device)
     with torch.cuda.device(classes.device):
-        err = _kernel_fn("nfa_padded", "piiippipp")(
-            classes.data_ptr(), g, bg, length, gids.data_ptr(), words.data_ptr(),
-            r, out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        if segments == 0:
+            segments = _segments("nfa_padded_segments", classes.device.index, g, bg, length)
+        scratch = g * bg * segments if segments > 1 else 0
+        ends = torch.empty((scratch,), dtype=torch.int64, device=classes.device)
+        info = torch.empty((scratch,), dtype=torch.int32, device=classes.device)
+        err = _kernel_fn("nfa_padded", "piiippiipppp")(
+            classes.data_ptr(), g, bg, length, gids.data_ptr(), table.data_ptr(),
+            table.shape[0], segments, ends.data_ptr(), info.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     _launched("nfa_padded", err)
     return out
+
+
+def blocks_per_sm(kernel: str, stack: NfaStack | None = None) -> int:
+    """Blocks of K5 ("nfa_stream", with `stack`'s image in shared memory)
+    or K6 ("nfa_padded") one SM of the current card holds at once, from
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`."""
+    smem = stack.table.numel() * 8 if kernel == "nfa_stream" else 0
+    got = _kernel_fn("nfa_blocks_per_sm", "ii")(0 if kernel == "nfa_stream" else 1, smem)
+    if got < 0:
+        raise RuntimeError(f"occupancy query for {kernel} failed")
+    return got
