@@ -57,16 +57,34 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             once) against the wall time, and its largest activities;
 8. auto     right after `main`, the same 80,000 files through
             `make_secret_engine()` (the hybrid engine, `trivy fs`'s default):
-            seconds beside `main`'s all-device time, findings equal to it;
+            seconds beside `main`'s all-device time, its sieve/verify/confirm
+            split and `stream_stats`, findings equal to it; a scan past
+            STALL_S dumps all threads' stacks to stderr;
+   sieves   B5 (`gram_sieve_rows`, the twin of the reference's XLA gram
+            sieve) on seeded rows [4096, 4096] and [512, 4096] with
+            `00 00 00 FF` windows, raw and in the auto codec's class ids, and B6
+            (`lut_sieve`) on the builtin LUT over 4,096 packed tiles of 4,096
+            bytes, each held bit for bit to its plain version and timed
+            beside its bound (bytes, and B5's integer work or B6's
+            shared-memory loads, derived);
+   variants the all-device engine's other sieves, counts zeroed before each
+            run: `main`'s files through `make_secret_engine(backend=
+            "native")` (host row sieve) and `GpuSecretEngine(kernel="xla")`
+            (B5), findings equal to `main`'s; the 20,000-file corpus through
+            `sieve="lut"` (B6) and `fused=False` (K1, host derive), findings
+            equal to the oracle, and through `kernel="xla"` under
+            TRIVY_TPU_SYNC_TIMING=1 (its h2d_s and exec_s); each line with
+            seconds, files/s, MB/s, phases and sieve launches;
 9. nfa      the device NFA verify kernels against their plain versions,
             bit for bit: K5 (`nfa_stream`) on the builtin ruleset's real
             rule stacks at every width the engine launches (rb 4, 8, 16,
             32) and the 512, 4,096 and 16,384 tiers, 128 groups x 64
             lanes, and on a random 5-rule stack (bit 63 in use),
-            separator-only rows among them; K5v (`nfa_fused_verdict`) on a
-            lane table with padded entries; K6 (`nfa_padded`) at the 512
+            separator-only rows among them; K5 in fused mode
+            (`nfa_stream_verdict`, the verdict in the walk) on a lane table
+            with padded entries; K6 (`nfa_padded`) at the 512
             and 32,768 buckets with 128 groups; times K5 at 8,192 rows x
-            4,096 bytes, rb 32, K5v, and K6 at the padded path's
+            4,096 bytes, rb 32, the fused launch, and K6 at the padded path's
             [8, 64, 512] and [8, 64, 32,768], each beside the bytes it
             must move, and prints K5's and K6's blocks per SM;
 10. hybrid  bench.py's hit-dense corpus (20,000 files, seed 13) plus
@@ -76,16 +94,18 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             `GpuHybridSecretEngine` with verify dfa, device and fused:
             seconds, files/s, phases, `device_pairs`, `stream_stats` and
             launches each; device and fused must verify lanes on the card
-            and launch K5 (and K5v when fused) and K6, no sieve kernel may
-            launch; findings equal across all four runs and to the oracle
+            and launch K5 (flag-writing when device, fused when fused) and
+            K6, no sieve kernel may launch; findings equal across all four
+            runs and to the oracle
             on every flagged file plus 2,000 sampled; `scan_batch_host` and
             `scan_batch_device_legacy` on 2,000 files equal the fused run;
             the three backends then scan again in the reverse order.  Every
-            K5, K5v and K6 call of the default scan (of the fused one when
+            K5, fused K5 and K6 call of the default scan (of the fused one when
             the default is not fused) is kept with its inputs and held to
             the plain version afterwards, at the engine's own shapes and
             stack width, then timed on its own inputs: device ms each and
-            summed per kernel, the segments each launch was cut into, K5's
+            summed per kernel (a fused dispatch also as a stream-only
+            launch on its rows), the segments each launch was cut into, K5's
             lane-steps (over every byte of a power-of-two slot group,
             launched, live) and the integer-issue bound of K5 and K6
             (derived).  A scan past STALL_S seconds dumps the stacks of
@@ -95,8 +115,10 @@ prints no result.  Phases, one line each (any failure exits non-zero):
 for `tools/nfa_kernel_times.py`, which times another tree's kernels on
 them.
 
-Then one JSON line describing each kernel (launches come from the path runs;
-the NFA kernels' from the default hybrid scan when it verified fused;
+Then one JSON line describing each kernel (launches come from the path runs:
+B5's and B6's from `variants`, the fused and padded NFA kernels' from the
+default hybrid scan when it verified fused, the flag-writing K5's from the
+device run; a kernel never launched on its path fails the run;
 times from CUDA events in this run, each beside the device time of the
 kernels alone from `torch.profiler`, which leaves out the host's launch
 work; the NFA kernels' `path_device_ms` sums their dispatches of that
@@ -128,6 +150,8 @@ SERVE_BATCH = 2_000  # files per serve batch: inside the megakernel's envelope
 SERVE_ROWS = 4096  # the row bucket a serve batch lands in
 MEGA_FP = 2048  # file lanes of a serve batch (2,000 files padded)
 SPLIT = 4  # row shards of the split megakernel
+SIEVE_ROWS = (4096, 512)  # B5's row buckets (TILE_BUCKETS), timed at the first
+SIEVE_LEN = 4096  # the engine's default tile
 NFA_ROWS = 8192  # 128 groups x 64 lanes: one full max-group stream dispatch
 NFA_GROUPS = 128
 HITDENSE_FILES = 20_000  # bench.py's HITDENSE_FILES
@@ -259,8 +283,135 @@ def kernel_phase(np, torch, gs, compiled, codec) -> dict:
     return report
 
 
+def int_issue_ms(ops: int, clock_hz: float) -> float:
+    """A derived bound: `ops` 32-bit integer instructions over the SMs'
+    INT32 lanes at `clock_hz`, in ms."""
+    return ops / (SMS * INT32_LANES_PER_SM * clock_hz) * 1e3
+
+
+def lut_live_steps(torch, tiles, lut) -> int:
+    """The (position, step) pairs B6's early exit takes on these tiles: every
+    position's step 0, and step j while its AND over steps < j is non-zero."""
+    t, length = tiles.shape
+    jmax = lut.shape[0]
+    lv = length - jmax + 1
+    idx = tiles.long()
+    steps = 0
+    for r0 in range(0, t, 512):
+        rows = idx[r0 : r0 + 512]
+        acc = lut[0][rows[:, :lv]]
+        steps += acc.shape[0] * lv
+        for j in range(1, jmax):
+            live = (acc != 0).any(-1)
+            steps += int(live.sum())
+            acc &= lut[j][rows[:, j : j + lv]]
+    return steps
+
+
+def row_sieves_phase(np, torch, gs, ls, compiled, codec, corpus, clock_hz: float) -> dict:
+    """B5 (`gram_sieve_rows`) and B6 (`lut_sieve`) against their plain
+    versions, bit for bit: B5 on seeded rows [4096, 4096] and [512, 4096]
+    (the engine's buckets at tile 4096) with `00 00 00 FF` windows (the pad
+    grams' match) and upper case, in raw bytes and in 6-bit class ids; B6
+    on the builtin LUT over the first 4,096 `pack`ed tiles of `corpus`.
+    Each timed at its largest shape: event ms, device ms, plain ms, and the
+    bound (bytes, and B5's integer work or B6's shared-memory loads, both
+    derived from these inputs)."""
+    from trivy_tpu_torch.engine.probes import build_probe_set
+    from trivy_tpu_torch.rules.model import build_ruleset
+    from trivy_tpu_torch.scanner.packing import pack
+
+    report = {"rows": {"max_abs_err": 0}, "lut": {"max_abs_err": 0}}
+    length = SIEVE_LEN
+    for t, space in [(t, space) for t in SIEVE_ROWS for space in ("raw", "class")]:
+        rows = seeded_rows(np, t, length, seed=SEED + 11 * t)
+        for i in range(1, t, 3):
+            p = (37 * i) % (length - 4)
+            rows[i, p : p + 4] = (0, 0, 0, 255)
+        rows[::5, -4:] = (0, 0, 0, 255)
+        masks, vals = compiled.masks, compiled.vals
+        if space == "class":
+            masks, vals = codec.encode_grams(masks, vals)
+            rows = codec.class_map[rows]
+        sieve = gs.RowGramSieve(masks, vals, device=DEVICE)
+        dev = torch.from_numpy(rows).to(DEVICE)
+        c = sieve.consts
+        got, want = sieve(dev), gs.gram_sieve_rows_plain(dev, c.masks, c.vals, sieve.n_words)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max().item())
+        pad = sieve.num_grams
+        pad_rows = int(((want[:, pad // 32] >> (pad % 32)) & 1).sum())
+        print(f"sieves: rows (B5) T={t} L={length} {space} G={sieve.num_grams} "
+              f"words={sieve.n_words} equal={torch.equal(got, want)} max_abs_err={err} "
+              f"hit_words={int((want != 0).sum())} pad_gram_rows={pad_rows}", flush=True)
+        report["rows"]["max_abs_err"] = max(report["rows"]["max_abs_err"], err)
+        if err or not torch.equal(got, want):
+            fail("sieves", f"B5 T={t} {space} disagrees with its plain version")
+        if not want.any() or (space == "raw") != (pad_rows > 0):
+            fail("sieves", f"B5 T={t} {space}: nothing fired, or the pad grams misfired")
+        if (t, space) == (SIEVE_ROWS[0], "raw"):
+            raw_ms = device_ms(torch, lambda: sieve(dev), REPS)
+            print(f"sieves: rows (B5) shape=[{t}, {length}] raw bytes "
+                  f"device_ms={fmt_ms(raw_ms)} (256 symbols: bank conflicts)", flush=True)
+        if (t, space) == (SIEVE_ROWS[0], "class"):
+            # the space `variants` runs it in (codec auto: unpacked class ids)
+            fn = lambda: sieve(dev)  # noqa: E731
+            positions = t * (length - 3)
+            bytes_ms = (rows.nbytes + t * sieve.n_words * 4 + 2 * 4 * 32 * sieve.n_words) \
+                / HBM_BYTES_PER_S * 1e3
+            # the table form: 2 three-input LOP3 a word of grams and window
+            ops_ms = int_issue_ms(positions * 2 * sieve.n_words, clock_hz)
+            rec = report["rows"]
+            rec.update(ms=event_ms(torch, fn, REPS), device_ms=device_ms(torch, fn, REPS),
+                       plain_ms=event_ms(torch, lambda: gs.gram_sieve_rows_plain(
+                           dev, c.masks, c.vals, sieve.n_words), 1),
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                       shape=[t, length])
+            print(f"sieves: rows (B5) timed shape={rec['shape']} ms={rec['ms']:.4f} "
+                  f"device_ms={fmt_ms(rec['device_ms'])} plain_ms={rec['plain_ms']:.4f} "
+                  f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}; bytes "
+                  f"{bytes_ms:.5f}, integer work {ops_ms:.5f} derived)", flush=True)
+
+    pset = build_probe_set(build_ruleset(None).rules)
+    lut = pset.build_lut()
+    tiles = pack([c for _, c in corpus], length, max(16, pset.jmax)).tiles[:SIEVE_ROWS[0]]
+    sieve = ls.LutSieve(lut, device=DEVICE)
+    dev = torch.from_numpy(np.ascontiguousarray(tiles)).to(DEVICE)
+    got, want = sieve(dev), ls.lut_sieve_plain(dev, sieve.consts.lut)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max().item())
+    report["lut"]["max_abs_err"] = err
+    print(f"sieves: lut (B6) tiles={list(tiles.shape)} J={lut.shape[0]} Pw={lut.shape[2]} "
+          f"equal={torch.equal(got, want)} max_abs_err={err} "
+          f"hit_words={int((want != 0).sum())} blocks_per_sm="
+          f"{ls.blocks_per_sm(lut.shape[0], length)} (256 threads a block)", flush=True)
+    if err or not torch.equal(got, want) or not want.any():
+        fail("sieves", "B6 disagrees with its plain version, or nothing fired")
+    steps = lut_live_steps(torch, dev, sieve.consts.lut)
+    pw = lut.shape[2]
+    bytes_ms = (tiles.nbytes + lut.nbytes + len(tiles) * pw * 4) / HBM_BYTES_PER_S * 1e3
+    # each step of a position loads Pw words of shared memory; an SM serves
+    # 32 lanes a clock
+    loads_ms = steps * pw / (SMS * 32 * clock_hz) * 1e3
+    fn = lambda: sieve(dev)  # noqa: E731
+    rec = report["lut"]
+    rec.update(ms=event_ms(torch, fn, REPS), device_ms=device_ms(torch, fn, REPS),
+               plain_ms=event_ms(torch, lambda: ls.lut_sieve_plain(dev, sieve.consts.lut), 1),
+               bound_ms=max(bytes_ms, loads_ms),
+               bound_by="bytes" if bytes_ms >= loads_ms else "operations",
+               shape=list(tiles.shape))
+    positions = len(tiles) * (length - lut.shape[0] + 1)
+    print(f"sieves: lut (B6) timed shape={rec['shape']} ms={rec['ms']:.4f} "
+          f"device_ms={fmt_ms(rec['device_ms'])} plain_ms={rec['plain_ms']:.4f} "
+          f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}; bytes {bytes_ms:.5f}, "
+          f"shared loads {loads_ms:.5f} derived: {steps} steps of {positions} positions, "
+          f"{steps / positions:.3f} a position)", flush=True)
+    return report
+
+
 KERNEL_NAMES = ("gram_sieve_kernel", "mega_count_kernel", "mega_epilogue_kernel",
-                "nfa_stream_kernel", "nfa_stream_fix_kernel", "nfa_fused_verdict_kernel",
+                "nfa_stream_kernel", "nfa_stream_fix_kernel", "lut_sieve_kernel",
                 "nfa_padded_kernel", "nfa_padded_fix_kernel")
 
 
@@ -791,14 +942,15 @@ def random_nfa_stack(np, rb: int, seed: int):
 
 
 def nfa_phase(np, torch, nv, verifier, keep: dict) -> dict:
-    """K5, K5v and K6 against their plain versions, bit for bit: K5 on the
-    builtin ruleset's real rule stacks at every width the engine launches
-    (rb 4, 8, 16, 32: `RULE_STACK_BUCKETS`) and every stream tier, 128
-    groups x 64 lanes, and on a random 5-rule stack; K5v on the lane table
-    of the 4,096-tier flags, padded lanes included; K6 at the 512 and
-    32,768 buckets with 128 groups.  Times K5 at 8,192 rows x 4,096 bytes,
-    rb 32 (the shape timed since the kernel was first ported), K5v on that
-    lane table and K6 at the padded path's [8, 64, 512] and [8, 64,
+    """K5, its fused mode and K6 against their plain versions, bit for bit:
+    K5 on the builtin ruleset's real rule stacks at every width the engine
+    launches (rb 4, 8, 16, 32: `RULE_STACK_BUCKETS`) and every stream tier,
+    128 groups x 64 lanes, and on a random 5-rule stack; the fused launch
+    on a lane table over the 4,096-tier rows at rb 32, padded lanes
+    included; K6 at the 512 and 32,768 buckets with 128 groups.  Times K5
+    at 8,192 rows x 4,096 bytes, rb 32 (the shape timed since the kernel
+    was first ported), the fused launch on those rows and that lane table,
+    and K6 at the padded path's [8, 64, 512] and [8, 64,
     32,768]; prints K5's and K6's blocks per SM.  The plain versions read
     the 0/1 arrays the words were packed from.  The timed inputs go into
     `keep`."""
@@ -852,7 +1004,9 @@ def nfa_phase(np, torch, nv, verifier, keep: dict) -> dict:
           f"nfa_padded blocks_per_sm={nv.blocks_per_sm('nfa_padded')} (32 threads a block)",
           flush=True)
 
-    # K5v: one lane per (row, slot) claim, 3/4 of a power-of-two table real
+    # K5 in fused mode: one lane per (row, slot) claim, 3/4 of a power-of-two
+    # table real, on the timed rows and stack; the plain verdict over the
+    # plain K5's flags
     rng = np.random.default_rng(SEED)
     n_lanes, npad = 6144, 8192
     table = np.zeros((4, npad), np.int32)
@@ -861,25 +1015,23 @@ def nfa_phase(np, torch, nv, verifier, keep: dict) -> dict:
     b0 = rng.integers(0, lo, n_lanes)
     table[2, :n_lanes] = b0
     table[3, :n_lanes] = np.minimum(b0 + rng.integers(1, 40, n_lanes), lo)
-    lanes = torch.from_numpy(table).to(DEVICE)
-    got = nv.nfa_fused_verdict(flags, *lanes)
-    want = nv.nfa_fused_verdict_plain(flags, *lanes)
+    lanes = nv.LaneIndex.build(table, n, lo, stack.width, DEVICE)
+    got = nv.nfa_stream_verdict(rows, stack, lanes)
+    table_d = lanes.lanes.to(DEVICE)  # the host table, for the plain verdict
+    want = nv.nfa_fused_verdict_plain(flags, *table_d)
     keep_bits = np.unpackbits(want.cpu().numpy())
     nfa_record(torch, report, "nfa_fused", got, want,
-               f"flags={list(flags.shape)} lanes={n_lanes} padded to {npad}",
+               f"rows={[n, length]} rb=32 lanes={n_lanes} padded to {npad}",
                int(keep_bits.sum()))
     if not keep_bits.any() or keep_bits[n_lanes:].any():
-        fail("nfa", "K5v kept nothing, or kept a padded lane")
-    # K5v reads the lane table, and of the flags only the bytes inside
-    # some real lane's [b0, b1) of its (slot byte, row)
-    needed = np.zeros(tuple(flags.shape), bool)
-    for r, sl, a, b in zip(*table[:, :n_lanes]):
-        needed[sl // 8, r, a:b] = True
+        fail("nfa", "the fused launch kept nothing, or kept a padded lane")
     report["nfa_fused"].update(timed(
-        "nfa_fused", lambda: nv.nfa_fused_verdict(flags, *lanes),
-        lambda: nv.nfa_fused_verdict_plain(flags, *lanes), [npad, p, n, lo],
-        int(needed.sum()) + table.nbytes + npad // 8, plain_reps=3))
-    keep["nfa_fused"] = (flags, lanes)
+        "nfa_fused", lambda: nv.nfa_stream_verdict(rows, stack, lanes),
+        lambda: nv.nfa_fused_verdict_plain(nv.nfa_stream_plain(rows, *floats), *table_d),
+        [n, length, 32, npad],
+        # rows, the stack image, the lane table (row, slot, b0, b1) and the keep bits
+        n * length + stack.table.nbytes + 16 * npad + npad // 8))
+    keep["nfa_fused"] = (rows, stack.words, lanes.lanes)
 
     # K6 on the resident tables, each group one of the real rules
     tables = nv.NfaTables.build(verifier.follow, verifier.accept, verifier.first,
@@ -932,7 +1084,7 @@ def capture_dispatches(nd, store: list):
     `engine.nfa_device`) so that each call's inputs and output are kept in
     `store`; launches still count in the wrappers alone.  Returns the
     originals, for `restore_dispatches`."""
-    originals = {k: getattr(nd, k) for k in ("nfa_stream", "nfa_fused_verdict", "nfa_padded")}
+    originals = {k: getattr(nd, k) for k in ("nfa_stream", "nfa_stream_verdict", "nfa_padded")}
 
     def keep(name, fn):
         def call(*args, **kw):
@@ -951,27 +1103,32 @@ def restore_dispatches(nd, originals) -> None:
         setattr(nd, name, fn)
 
 
+# the engine's verify kernel calls -> their kernel's name in the report
+DISPATCH_KINDS = {"nfa_stream": "nfa_stream", "nfa_stream_verdict": "nfa_fused",
+                  "nfa_padded": "nfa_padded"}
+
+
 def dispatch_check(np, torch, nv, store: list, report: dict) -> None:
-    """Hold every K5, K5v and K6 dispatch of one engine scan, at the shapes
-    and stack widths the engine gave it, to the plain version on the same
-    inputs (the plain K5 reads the dispatch's words unpacked; both scan
-    modes define the same flags)."""
-    names = {"nfa_stream": "nfa_stream", "nfa_fused_verdict": "nfa_fused",
-             "nfa_padded": "nfa_padded"}
+    """Hold every K5, fused K5 and K6 dispatch of one engine scan, at the
+    shapes and stack widths the engine gave it, to the plain version on the
+    same inputs (the plain K5 reads the dispatch's words unpacked; both scan
+    modes define the same flags; the fused launch's plain version is the
+    verdict over them)."""
     for i, (name, args, out) in enumerate(store):
-        if name == "nfa_stream":
+        if name in ("nfa_stream", "nfa_stream_verdict"):
             rows, stack = args[0], args[1]
             want = nv.nfa_stream_plain(rows, *nv.unpack_words(stack.words))
             label = (f"rows={list(rows.shape)} rb={stack.rb} rb_live={stack.rb_live} "
                      f"classes={stack.n_classes} zero_dead={stack.zero_dead}")
-        elif name == "nfa_fused_verdict":
-            want = nv.nfa_fused_verdict_plain(*args)
-            label = f"flags={list(args[0].shape)} lanes={len(args[1])}"
+            if name == "nfa_stream_verdict":
+                lanes = args[2]
+                want = nv.nfa_fused_verdict_plain(want, *lanes.lanes.to(want.device))
+                label += f" lanes={lanes.lanes.shape[1]} indexed={lanes.n_indexed}"
         else:
             want = nv.nfa_padded_plain(args[0], args[1], *nv.unpack_words(args[2].words))
             label = f"classes={list(args[0].shape)}"
-        nfa_record(torch, report, names[name], out, want, f"engine dispatch {i} {label}",
-                   int((want != 0).sum()))
+        nfa_record(torch, report, DISPATCH_KINDS[name], out, want,
+                   f"engine dispatch {i} {label}", int((want != 0).sum()))
 
 
 def issue_ms(lane_steps: int, instructions: int, clock_hz: float) -> float:
@@ -982,28 +1139,28 @@ def issue_ms(lane_steps: int, instructions: int, clock_hz: float) -> float:
 
 def dispatch_times(np, torch, nv, store: list, report: dict, clock_hz: float,
                    keep: dict) -> None:
-    """Time every kept K5, K5v and K6 dispatch of the default scan on its
-    own inputs (CUDA events and the profiler's device time), beside its
-    bytes bound and, for K5 and K6, the integer-issue bound of the
-    lane-steps its data needs: K5 the live slots over the bytes of the
-    non-zero 16-byte chunks (`pow2_all_bytes`: every byte of a power-of-two
-    slot group, as a kernel without live slots and zero skips steps), K6 each lane's steps to its last non-zero
-    chunk (the early exits can only cut them).  Sums per kernel go into the
-    report as `path_device_ms`; the inputs into `keep`."""
-    sums = {"nfa_stream": 0.0, "nfa_fused": 0.0, "nfa_padded": 0.0}
+    """Time every kept K5, fused K5 and K6 dispatch of the default scan on
+    its own inputs (CUDA events and the profiler's device time), beside its
+    bytes bound and the integer-issue bound of the lane-steps its data
+    needs: K5 (either mode) the live slots over the bytes of the non-zero
+    16-byte chunks (`pow2_all_bytes`: every byte of a power-of-two slot
+    group, as a kernel without live slots and zero skips steps), K6 each
+    lane's steps to its last non-zero chunk (the early exits can only cut
+    them).  A fused dispatch is also timed as a stream-only launch
+    (`nfa_stream`, flags written) on the same rows.  Sums per kernel go into
+    the report as `path_device_ms`; the inputs into `keep`."""
+    sums = {"nfa_stream": 0.0, "nfa_fused": 0.0, "nfa_padded": 0.0, "stream_only": 0.0}
     steps = {"pow2_all_bytes": 0, "launched": 0, "live": 0}
-    issue = {"nfa_stream": 0.0, "nfa_padded": 0.0}
-    names = {"nfa_stream": "nfa_stream", "nfa_fused_verdict": "nfa_fused",
-             "nfa_padded": "nfa_padded"}
+    issue = {"nfa_stream": 0.0, "nfa_fused": 0.0, "nfa_padded": 0.0}
     for i, (name, args, out) in enumerate(store):
-        kind = names[name]
+        kind = DISPATCH_KINDS[name]
         fn = {"nfa_stream": lambda a=args: nv.nfa_stream(*a),
-              "nfa_fused_verdict": lambda a=args: nv.nfa_fused_verdict(*a),
+              "nfa_stream_verdict": lambda a=args: nv.nfa_stream_verdict(*a),
               "nfa_padded": lambda a=args: nv.nfa_padded(*a)}[name]
         ms, dev = event_ms(torch, fn, REPS), device_ms(torch, fn, REPS)
         extra = ""
-        if name == "nfa_stream":
-            rows, stack = args
+        if name in ("nfa_stream", "nfa_stream_verdict"):
+            rows, stack = args[0], args[1]
             n, length = rows.shape
             pow2 = n * length * (1 << (stack.rb - 1).bit_length())
             launched = n * length * stack.width
@@ -1014,7 +1171,6 @@ def dispatch_times(np, torch, nv, store: list, report: dict, clock_hz: float,
             bound = n * length + stack.table.nbytes + out.numel()
             imss = issue_ms(live, K5_STEP_INSTRUCTIONS, clock_hz)
             issue[kind] += imss
-            keep[f"dispatch_{i}"] = (name, (rows, stack.words))
             seg = nv._segments("nfa_stream_segments", rows.device.index, n, length,
                                stack.width, stack.n_classes)
             extra = (f"rows={list(rows.shape)} rb={stack.rb} rb_live={stack.rb_live} "
@@ -1022,7 +1178,18 @@ def dispatch_times(np, torch, nv, store: list, report: dict, clock_hz: float,
                      f"lane_steps pow2_all_bytes={pow2} launched={launched} "
                      f"live={live} (non-zero chunk bytes {nz_bytes}) "
                      f"int_issue_ms={imss:.5f} (derived)")
-        elif name == "nfa_padded":
+            if name == "nfa_stream":
+                keep[f"dispatch_{i}"] = (name, (rows, stack.words))
+            else:
+                lanes = args[2]
+                keep[f"dispatch_{i}"] = (name, (rows, stack.words, lanes.lanes))
+                bound += lanes.lanes.nbytes  # the lane table (row, slot, b0, b1)
+                only = device_ms(torch, lambda a=args: nv.nfa_stream(a[0], a[1]), REPS)
+                sums["stream_only"] += only or 0.0
+                extra += (f" lanes={lanes.lanes.shape[1]} indexed={lanes.n_indexed} "
+                          f"launches={1 if seg == 1 else 2} (K5{'' if seg == 1 else ' + fix-up'}) "
+                          f"stream_only_device_ms={fmt_ms(only)}")
+        else:
             classes, gids, tables = args
             g, bg, length = classes.shape
             nz = (classes.view(g * bg, -1, 16) != 0).any(-1)
@@ -1038,16 +1205,11 @@ def dispatch_times(np, torch, nv, store: list, report: dict, clock_hz: float,
                      f"real_lanes={int(nz.any(-1).sum())} "
                      f"lane_steps_to_ends={lane_steps} longest_lane={longest} "
                      f"int_issue_ms={imss:.5f} (derived)")
-        else:
-            flags, *lanes = args
-            bound = sum(t.numel() * 4 for t in lanes) + out.numel() + flags.numel()
-            keep[f"dispatch_{i}"] = (name, args)
-            extra = f"flags={list(flags.shape)} lanes={len(lanes[0])}"
         sums[kind] += dev or 0.0
         print(f"nfa: dispatch {i} {name} {extra} ms={ms:.4f} device_ms={fmt_ms(dev)} "
               f"bytes_bound_ms={bound / HBM_BYTES_PER_S * 1e3:.5f}", flush=True)
-    for kind, total in sums.items():
-        report[kind]["path_device_ms"] = total
+    for kind in {DISPATCH_KINDS[name] for name, _, _ in store}:
+        report[kind]["path_device_ms"] = sums[kind]
     print(f"nfa: default scan's dispatches, device ms summed: "
           f"{json.dumps({k: round(v, 4) for k, v in sums.items()})}; K5 lane-steps "
           f"{json.dumps(steps)}; int_issue_ms (derived, {K5_STEP_INSTRUCTIONS} and "
@@ -1147,11 +1309,14 @@ def hybrid_phase(np, torch, gs, bench_corpus) -> dict:
             store if mode == "fused" and auto.verify != "fused" else None)
         if mode != "dfa" and eng.stats.device_pairs == 0:
             fail("hybrid", f"verify={mode}: no lane verified on the device")
-    need = {"device": ("nfa_stream", "nfa_padded"),
-            "fused": ("nfa_stream", "nfa_fused", "nfa_padded")}
-    for mode, kernels in need.items():
-        if not all(launches[mode][k] for k in kernels):
-            fail("hybrid", f"verify={mode} launches {launches[mode]}: expected {kernels}")
+    # the fused mode's K5 computes the verdict and writes no flags: it
+    # launches as "nfa_fused", never as "nfa_stream"
+    need = {"device": (("nfa_stream", "nfa_padded"), "nfa_fused"),
+            "fused": (("nfa_fused", "nfa_padded"), "nfa_stream")}
+    for mode, (kernels, never) in need.items():
+        if not all(launches[mode][k] for k in kernels) or launches[mode][never]:
+            fail("hybrid", f"verify={mode} launches {launches[mode]}: expected {kernels} "
+                 f"and no {never}")
     if any(launches[m][k] for m in launches for k in ("bitplane", "window", "mega",
                                                        "mega_acc", "mega_epilogue")):
         fail("hybrid", "the hybrid launched a sieve kernel: its sieve is the host's")
@@ -1194,26 +1359,121 @@ def hybrid_phase(np, torch, gs, bench_corpus) -> dict:
 def auto_phase(np, torch, corpus, main_results, main_seconds: float) -> None:
     """The kernel corpus (BASELINE config #3, `main`'s) through
     `make_secret_engine()`: the reference's default path on that tree,
-    beside `main`'s all-device time; findings must equal `main`'s."""
+    beside `main`'s all-device time; findings must equal `main`'s.  A scan
+    past STALL_S dumps every thread's stack to stderr, as in `hybrid_run`."""
     from trivy_tpu_torch.engine.hybrid import make_secret_engine
     from trivy_tpu_torch.ftypes import secret_to_json
 
     engine = make_secret_engine(device=DEVICE)
     engine.warmup()
+    faulthandler.dump_traceback_later(STALL_S, file=sys.stderr)
     t0 = time.perf_counter()
-    results = engine.scan_batch(corpus)
-    torch.cuda.synchronize()
+    try:
+        results = engine.scan_batch(corpus)
+        torch.cuda.synchronize()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
     dt = time.perf_counter() - t0
     nbytes = sum(len(c) for _, c in corpus)
     same = (json.dumps([secret_to_json(r) for r in results], sort_keys=True)
             == json.dumps([secret_to_json(r) for r in main_results], sort_keys=True))
+    st = engine.stats
+    nfa = engine._nfa_verifier
+    split = {k: round(getattr(st, k), 4) for k in ("sieve_s", "verify_s", "confirm_s")}
     print(f"auto: kernel corpus files={len(corpus)} MB={nbytes / 1e6:.3f} "
           f"engine={type(engine).__name__} verify={engine.verify} seconds={dt:.4f} "
           f"files_per_s={len(corpus) / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
-          f"device_pairs={engine.stats.device_pairs} phases={json.dumps(engine.stats.phases())} "
+          f"split={json.dumps(split)} stall={dt > STALL_S} "
+          f"device_pairs={st.device_pairs} phases={json.dumps(st.phases())} "
+          f"stream_stats={json.dumps(nfa.stream_stats if nfa else {})} "
           f"main_all_device_seconds={main_seconds:.4f} equal_to_main={same}", flush=True)
     if not same:
         fail("auto", "findings differ from the all-device engine's")
+
+
+def variants_phase(np, torch, gs, main_corpus, main_results, corpus) -> dict:
+    """The all-device engine's other sieves, each driven once with the
+    counts zeroed just before and read just after: `main`'s 80,000 files
+    through `make_secret_engine(backend="native")` (the C++ host row sieve,
+    no sieve kernel) and `GpuSecretEngine(kernel="xla")` (B5), findings
+    equal to `main`'s; the 20,000-file corpus through
+    `GpuSecretEngine(sieve="lut")` (B6) and `GpuSecretEngine(fused=False)`
+    (K1, hit words fetched, the host derive), findings equal to the oracle
+    on every flagged file plus 2,000 sampled; then that corpus through
+    `kernel="xla"` again under TRIVY_TPU_SYNC_TIMING=1 (its H2D/exec split).
+    A run whose sieve kernel never launched fails.  Returns the launches of
+    each run."""
+    from trivy_tpu_torch.engine.device import GpuSecretEngine
+    from trivy_tpu_torch.engine.hybrid import make_secret_engine
+    from trivy_tpu_torch.engine.oracle import OracleScanner
+    from trivy_tpu_torch.ftypes import secret_to_json
+
+    sieves = ("bitplane", "window", "rows", "lut", "mega")
+
+    def doc(results) -> str:
+        return json.dumps([secret_to_json(r) for r in results], sort_keys=True)
+
+    def run(label, engine, items, kernel):
+        engine.warmup()
+        torch.cuda.synchronize()
+        for k in gs.LAUNCHES:
+            gs.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        results = engine.scan_batch(items)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(gs.LAUNCHES)
+        st = engine.stats
+        nbytes = sum(len(c) for _, c in items)
+        print(f"variants: {label} sieve={engine.sieve} kernel={engine.kernel} "
+              f"fused={engine._fused} files={len(items)} MB={nbytes / 1e6:.3f} "
+              f"rows={st.tiles} findings={sum(len(r.findings) for r in results)} "
+              f"seconds={dt:.4f} files_per_s={len(items) / dt:.1f} "
+              f"MB_per_s={nbytes / 1e6 / dt:.3f} dispatches={st.device_dispatches} "
+              f"launches={json.dumps({k: launches[k] for k in sieves})} "
+              f"phases={json.dumps(st.phases())}", flush=True)
+        ran = {k for k in sieves if launches[k]}
+        if ran != ({kernel} if kernel else set()):
+            fail("variants", f"{label}: sieve launches {launches}, expected only {kernel}")
+        return results, launches
+
+    main_doc = doc(main_results)
+    out = {}
+    for label, engine, kernel in (
+        ("make_secret_engine(backend='native')", make_secret_engine(backend="native",
+                                                                   device=DEVICE), None),
+        ("GpuSecretEngine(kernel='xla')", GpuSecretEngine(device=DEVICE, kernel="xla"), "rows"),
+    ):
+        results, out[label] = run(label, engine, main_corpus, kernel)
+        if doc(results) != main_doc:
+            fail("variants", f"{label}: findings differ from main's")
+        del results, engine
+    oracle = OracleScanner()
+    docs = {}
+    for label, engine, kernel in (
+        ("GpuSecretEngine(sieve='lut')", GpuSecretEngine(device=DEVICE, sieve="lut"), "lut"),
+        ("GpuSecretEngine(fused=False)", GpuSecretEngine(device=DEVICE, fused=False),
+         "bitplane"),
+    ):
+        results, out[label] = run(label, engine, corpus, kernel)
+        check_against_oracle(np, oracle, corpus, results, N_SAMPLED, "variants")
+        docs[label] = doc(results)
+    os.environ["TRIVY_TPU_SYNC_TIMING"] = "1"
+    try:
+        engine = GpuSecretEngine(device=DEVICE, kernel="xla")
+        label = "GpuSecretEngine(kernel='xla') TRIVY_TPU_SYNC_TIMING=1"
+        results, out[label] = run(label, engine, corpus, "rows")
+    finally:
+        del os.environ["TRIVY_TPU_SYNC_TIMING"]
+    st = engine.stats
+    print(f"variants: sync timing h2d_s={st.h2d_s:.4f} exec_s={st.exec_s:.4f} "
+          f"dispatches={st.device_dispatches} (H2D, then the sieve and its fetch, a "
+          f"synchronize between)", flush=True)
+    if not (st.h2d_s > 0 and st.exec_s > 0) or len(set(docs.values()) | {doc(results)}) != 1:
+        fail("variants", "sync timing left h2d_s or exec_s at 0, or findings differ")
+    print("variants: equal_findings=True (native and xla to main; lut, unfused and "
+          "sync-timed xla to each other and the oracle)", flush=True)
+    return out
 
 
 def to_cpu(torch, value):
@@ -1249,6 +1509,7 @@ def main(argv: list[str]) -> int:
         from trivy_tpu_torch.obs import memwatch
         from trivy_tpu_torch.ops import _build
         from trivy_tpu_torch.ops import gram_sieve as gs
+        from trivy_tpu_torch.ops import lut_sieve as ls
         from trivy_tpu_torch.ops import megakernel as mk
         from trivy_tpu_torch.ops import nfa_verify as nv
         from trivy_tpu_torch.rules.model import build_ruleset
@@ -1290,9 +1551,13 @@ def main(argv: list[str]) -> int:
     memwatch_line(memwatch, engine)
     del engine
     auto_phase(np, torch, main_corpus, main_results, main_seconds)
-    del main_corpus, main_results
     corpus = bench_corpus.make_kernel_corpus(n_files=N_FILES, seed=SEED)
+    report.update(row_sieves_phase(np, torch, gs, ls, compiled, codec, corpus, clock_hz))
+    variants = variants_phase(np, torch, gs, main_corpus, main_results, corpus)
+    del main_corpus, main_results
     launches = {
+        "rows": variants["GpuSecretEngine(kernel='xla')"]["rows"],
+        "lut": variants["GpuSecretEngine(sieve='lut')"]["lut"],
         "bitplane": k1_launches,
         "window": path_phase(np, torch, gs, corpus[:WINDOW_FILES], 128, "window",
                              WINDOW_SAMPLED, "window")[0],
@@ -1309,14 +1574,17 @@ def main(argv: list[str]) -> int:
     kept: dict = {}  # the NFA kernels' timed inputs, for --keep-inputs
     report.update(nfa_phase(np, torch, nv, verifier, kept))
     hybrid = hybrid_phase(np, torch, gs, bench_corpus)
-    # the NFA kernels' launches in the default scan's run when it verified
-    # fused (the gate's pick on a wide link), else in the fused run's
+    # the fused and padded NFA launches in the default scan's run when it
+    # verified fused (the gate's pick on a wide link), else in the fused
+    # run's; the flag-writing K5 in the legacy (verify="device") run's
     run = "auto" if hybrid["auto"] == "fused" else "fused"
-    print(f"hybrid: kernel launches and dispatches read from the {run} run", flush=True)
-    for kind in ("nfa_stream", "nfa_fused", "nfa_padded"):
+    print(f"hybrid: kernel launches and dispatches read from the {run} run "
+          f"(nfa_stream from the device run)", flush=True)
+    for kind in ("nfa_fused", "nfa_padded"):
         launches[kind] = hybrid["launches"][run][kind]
+    launches["nfa_stream"] = hybrid["launches"]["device"]["nfa_stream"]
     dispatch_check(np, torch, nv, hybrid["dispatches"], report)
-    if len(hybrid["dispatches"]) != sum(launches[k] for k in
+    if len(hybrid["dispatches"]) != sum(hybrid["launches"][run][k] for k in
                                          ("nfa_stream", "nfa_fused", "nfa_padded")):
         fail("hybrid", "the kept dispatches are not the run's launches")
     dispatch_times(np, torch, nv, hybrid["dispatches"], report, clock_hz, kept)
@@ -1333,15 +1601,20 @@ def main(argv: list[str]) -> int:
         # split's epilogue after its psum
         "mega_epilogue": "trivy_tpu/ops/megakernel.py:74",
         # XLA programs (no pallas_call), hot as plain loops: hand kernels
+        "rows": "trivy_tpu/ops/gram_sieve.py:36",
+        "lut": "trivy_tpu/ops/sieve.py:27",
         "nfa_stream": "trivy_tpu/engine/nfa_device.py:393",
+        # the stream and its verdict half of _run_fused, in one launch
         "nfa_fused": "trivy_tpu/engine/nfa_device.py:572",
         "nfa_padded": "trivy_tpu/engine/nfa_device.py:325",
     }
     names = {"bitplane": "gram_sieve_bitplane", "window": "gram_sieve_window",
+             "rows": "gram_sieve_rows", "lut": "lut_sieve",
              "mega": "megakernel_mask", "mega_acc": "megakernel_acc",
              "mega_epilogue": "megakernel_epilogue", "nfa_stream": "nfa_stream",
-             "nfa_fused": "nfa_fused_verdict", "nfa_padded": "nfa_padded"}
+             "nfa_fused": "nfa_stream_verdict", "nfa_padded": "nfa_padded"}
     sources = {"bitplane": "gram_sieve.cu", "window": "gram_sieve.cu",
+               "rows": "gram_sieve.cu", "lut": "lut_sieve.cu",
                "mega": "megakernel.cu", "mega_acc": "megakernel.cu",
                "mega_epilogue": "megakernel.cu", "nfa_stream": "nfa_verify.cu",
                "nfa_fused": "nfa_verify.cu", "nfa_padded": "nfa_verify.cu"}
@@ -1363,9 +1636,12 @@ def main(argv: list[str]) -> int:
             **{k: report[kind][k] for k in ("serve_batch_ms", "path_device_ms")
                if k in report[kind]},
         }
-        for kind in ("bitplane", "window", "mega", "mega_acc", "mega_epilogue",
-                     "nfa_stream", "nfa_fused", "nfa_padded")
+        for kind in ("bitplane", "window", "rows", "lut", "mega", "mega_acc",
+                     "mega_epilogue", "nfa_stream", "nfa_fused", "nfa_padded")
     ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        fail("kernels", f"never launched on their paths: {idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

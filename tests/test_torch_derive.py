@@ -44,9 +44,9 @@ def _intervals(rng, t: int, fp: int, f: int):
 @pytest.mark.parametrize("mode", ["off", "auto"])
 def test_derive_matches_reference(mode, density, monkeypatch):
     ref, port = _engines(mode, monkeypatch)
-    n_words = port.sieve.n_words
+    n_words = port._pallas_obj.n_words
     assert n_words == ref._pallas_obj.n_words
-    np.testing.assert_array_equal(port.sieve.gram_expand, ref._pallas_obj.gram_expand)
+    np.testing.assert_array_equal(port._pallas_obj.gram_expand, ref._pallas_obj.gram_expand)
     rng = np.random.default_rng(int(density * 1000) + len(mode))
     t, fp, f = 128, 32, 27
     bits = rng.random((t, n_words * 32)) < density

@@ -98,7 +98,7 @@ def _link_stats(engine) -> dict:
 def test_engine_matches_reference_and_oracle(mode, monkeypatch):
     items = list(VERIFY_CORPUS) + hostile_corpus(42, TILE)
     ref, port = _engines(mode, monkeypatch)
-    assert port.sieve.num_distinct == ref._pallas_obj.num_distinct
+    assert port._pallas_obj.num_distinct == ref._pallas_obj.num_distinct
     got = fingerprint(port.scan_batch(items))
     assert got == fingerprint(ref.scan_batch(items))
     assert got == oracle_fingerprint(items)
@@ -164,13 +164,18 @@ from trivy_tpu_torch import deadline, faults, lockcheck, native
 from trivy_tpu_torch.engine import hybrid, nfa, nfa_device, pipeline, redfa
 from trivy_tpu_torch.native import loader
 from trivy_tpu_torch.obs import gatelog, memwatch, metrics, trace
-from trivy_tpu_torch.ops import nfa_verify
+from trivy_tpu_torch.ops import lut_sieve, nfa_verify
+from trivy_tpu_torch.registry import digest
 from trivy_tpu_torch.engine.device import GpuSecretEngine
 from trivy_tpu_torch.ftypes import findings_fingerprint
 native.load_native()
 engine = GpuSecretEngine(device="cpu", tile_len=512)
 fp = findings_fingerprint(engine)
 verified = engine.stats.verify_s > 0
+for kw in (dict(sieve="lut"), dict(sieve="native"), dict(kernel="xla", fused=False)):
+    other = GpuSecretEngine(device="cpu", tile_len=512, **kw)
+    verified = verified and findings_fingerprint(other) == fp
+verified = verified and len(engine.ruleset_digest) == 64
 fused = hybrid.GpuHybridSecretEngine(device="cpu", verify="fused")
 verified = verified and findings_fingerprint(fused) == fp and fused.stats.device_pairs > 0
 buf = io.StringIO()
@@ -213,10 +218,11 @@ def _fixture_tree(root) -> None:
 
 def test_port_imports_no_jax_and_no_reference(tmp_path):
     """In a fresh interpreter the port, every module of it imported (the
-    native library built and loaded), scans with its claim-killer and with
-    the hybrid engine's device verify on the CPU and runs its CLI without
-    loading jax or any trivy_tpu module, and its default device raises
-    without a card (the device engine and `make_secret_engine`)."""
+    native library built and loaded), scans with its claim-killer, with
+    its other sieves (LUT, native, B5 unfused) and with the hybrid engine's
+    device verify on the CPU and runs its CLI without loading jax or any
+    trivy_tpu module, and its default device raises without a card (the
+    device engine and `make_secret_engine`)."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

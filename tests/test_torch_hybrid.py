@@ -301,7 +301,9 @@ def test_make_secret_engine_backends():
     assert isinstance(auto, GpuHybridSecretEngine) and auto.verify == "dfa"
     fused = make_secret_engine(backend="hybrid", device="cpu", verify="fused")
     assert isinstance(fused, GpuHybridSecretEngine) and fused.verify == "fused"
-    for kw, item in ((dict(backend="native"), "A7"), (dict(rules_cache_dir="/x"), "A10"),
+    native = make_secret_engine(backend="native", device="cpu", tile_len=TILE)
+    assert isinstance(native, GpuSecretEngine) and native.sieve == "native"
+    for kw, item in ((dict(rules_cache_dir="/x"), "A10"),
                      (dict(program_table=object()), "A9"), (dict(mesh=object()), "A11")):
         with pytest.raises(NotImplementedError, match=item):
             make_secret_engine(device="cpu", **kw)
@@ -312,7 +314,7 @@ def test_make_secret_engine_backends():
 def test_cli_secret_backend(tmp_path, capsys, monkeypatch):
     _fixture_tree(tmp_path)
     reports = {}
-    for backend in ("auto", "hybrid", "tpu", "cpu"):
+    for backend in ("auto", "hybrid", "tpu", "cpu", "native"):
         assert cli.main(["fs", "--scanners", "secret", "--device", "cpu",
                          "--secret-backend", backend, str(tmp_path)]) == 0
         reports[backend] = json.loads(capsys.readouterr().out)
@@ -322,7 +324,7 @@ def test_cli_secret_backend(tmp_path, capsys, monkeypatch):
     monkeypatch.setenv("TRIVY_TPU_SECRET_BACKEND", "cpu")
     assert cli.main(["fs", "--device", "cpu", str(tmp_path)]) == 0
     assert json.loads(capsys.readouterr().out) == reports["auto"]
-    for backend, item in (("native", "A7 rest"), ("server", "A13")):
+    for backend, item in (("server", "A13"),):
         with pytest.raises(SystemExit):
             cli.main(["fs", "--device", "cpu", "--secret-backend", backend, str(tmp_path)])
         assert item in capsys.readouterr().err

@@ -315,7 +315,7 @@ def test_wrappers_take_the_plain_versions_on_cpu(monkeypatch):
     assert torch.equal(seq, nv.nfa_stream_plain(rows, *map(_t, arrays)))
     assert torch.equal(nv.nfa_stream(rows, stack, assoc=True), seq)
     table = _t(_lane_table(rng, 8, 5, 4, 8))
-    assert torch.equal(nv.nfa_fused_verdict(seq, *table),
+    assert torch.equal(nv.nfa_stream_verdict(rows, stack, table),
                        nv.nfa_fused_verdict_plain(seq, *table))
     assert nv.LAUNCHES == before  # the CPU launches no kernel
 
@@ -331,10 +331,9 @@ def test_wrappers_reject_bad_inputs():
         nv.nfa_stream(torch.zeros((4, 64), dtype=torch.uint8), big)  # rb > 32
     with pytest.raises(ValueError):
         nv.nfa_stream(torch.zeros((4, 64), dtype=torch.uint8), stack.to(torch.int32))
-    flags = torch.zeros((1, 4, 2), dtype=torch.uint8)
-    lanes = [torch.zeros(6, dtype=torch.int32)] * 4
+    lanes = torch.zeros((4, 6), dtype=torch.int32)
     with pytest.raises(ValueError):
-        nv.nfa_fused_verdict(flags, *lanes)  # N % 8
+        nv.nfa_stream_verdict(torch.zeros((4, 64), dtype=torch.uint8), stack, lanes)  # N % 8
     tables = nv.nfa_tables(*(np.zeros(s, np.float32) for s in
                              ((2, 64, 64), (2, 64, 64), (2, 64), (2, 64))), device="cpu")
     with pytest.raises(ValueError):

@@ -1,11 +1,11 @@
 """`python -m trivy_tpu_torch fs --scanners secret [--secret-config F]
-[--format json] [--secret-backend auto|hybrid|tpu|cpu] [--device cuda|cpu]
-<dir>`: a filesystem secret scan through the engine that
+[--format json] [--secret-backend auto|hybrid|tpu|cpu|native]
+[--device cuda|cpu] <dir>`: a filesystem secret scan through the engine that
 `engine/hybrid.py` `make_secret_engine` builds for the backend (default
 `auto`: the hybrid engine, as `trivy_tpu`'s CLI), printed as Trivy's JSON
 report (SchemaVersion 2, one `Results[]` entry of Class "secret" per file
 with findings).  Like the reference, the backend's default comes from
-`TRIVY_TPU_SECRET_BACKEND`; `native` and `server` are not ported yet.
+`TRIVY_TPU_SECRET_BACKEND`; `server` is not ported yet.
 
 The walk keeps the reference secret analyzer's gates
 (`trivy_tpu/analyzer/secret.py`, pkg/fanal/analyzer/secret/secret.go:28-153):
@@ -27,7 +27,7 @@ SCHEMA_VERSION = 2
 # The reference CLI's backends (trivy_tpu/cli.py), and the ROADMAP item
 # each one that the port lacks waits for.
 SECRET_BACKENDS = ("auto", "hybrid", "tpu", "cpu", "native", "server")
-NOT_PORTED = {"native": "A7 rest", "server": "A13"}
+NOT_PORTED = {"server": "A13"}
 
 # secret.go:28-42
 SKIP_FILES = {

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from trivy_tpu_torch.engine.grams import GramSet, build_gram_set
+from trivy_tpu_torch.engine.grams import GramSet, build_gram_set, probe_hits_bool
 from trivy_tpu_torch.engine.probes import MAX_CONJUNCTS, ProbeSet, build_probe_set
 from trivy_tpu_torch.rules.model import RuleSet
 
@@ -54,6 +54,22 @@ class CompiledRules:
     @property
     def num_rules(self) -> int:
         return len(self.gate_any)
+
+    def probe_hits_bool(self, gram_hits: np.ndarray) -> np.ndarray:
+        """[F, G] bool gram hits -> [F, P] bool probe hits
+        (`GramSet.probe_hits_bool`)."""
+        return probe_hits_bool(self.wmember, self.pmember, self.pwindows,
+                               self.probe_has_gram, gram_hits)
+
+    def candidate_matrix_bool(self, probe_bool: np.ndarray) -> np.ndarray:
+        """[F, P] bool probe hits -> [F, R] bool candidates, the matmul form
+        of the reference engine's `candidate_matrix_bool`."""
+        f = len(probe_bool)
+        ph = probe_bool.astype(np.float32)
+        gate_ok = ~self.gate_any[None, :] | (ph @ self.gate_member > 0)
+        conj_hit = (ph @ self.conj_member).reshape(f, self.num_rules, self.num_conjuncts) > 0
+        conj_ok = (~self.conj_any[None] | conj_hit).all(-1)
+        return gate_ok & conj_ok
 
     @classmethod
     def from_numpy(cls, arrays: dict) -> "CompiledRules":

@@ -17,10 +17,11 @@
 //     match ends in that 32-byte block.  The same kernel serves the flags
 //     of the associative-scan variant _stream_assoc_impl (:452): its
 //     summaries only shorten the TPU scan's serial depth.
-//   * nfa_fused_verdict_kernel (K5v) -> the verdict half of _run_fused
-//     (:572): a lane table (row, slot, b0, b1) -> keep bits, np.packbits
-//     order (MSB-first), lane i kept when a flag of (row, slot) is set in a
-//     block of [b0, b1).
+//   * the same kernel in fused mode (`nfa_stream_verdict`: K5 with the verdict
+//     in its walk) -> _run_fused (:572), K5 and its verdict half in one
+//     launch: rows x stack x a lane table (row, slot, b0, b1) -> keep bits,
+//     np.packbits order (MSB-first), lane i kept when a match of its slot
+//     ends in a block of [b0, b1) of its row.  No flags are written.
 //   * nfa_padded_kernel (K6) -> _run (:325): class ids [G, Bg, L] x per-group
 //     rule -> matched [G, Bg]: some match ends anywhere in the lane, the
 //     zero padding past its window included, as the reference walks it.
@@ -53,8 +54,22 @@
 // past its end (class 0 only) stops at the first step that leaves S
 // unchanged: from a fixed point under a constant input every later step
 // gives the same state and the same hit.  A rule without exception
-// positions walks without the loop.  K5v: one thread per lane and one
-// ballot per 32 lanes.
+// positions walks without the loop.
+//
+// Fused mode (the verdict in the walk).  A fused dispatch only wants one
+// keep bit a lane, so K5 writes no flags: the host sorts the lanes of each
+// (row, live slot) by b0 and passes a CSR index (`LaneIndex`: offsets a
+// (row, slot), then per lane b0, b1, `reach` = the largest b1 of the lanes
+// up to it in that order, and its id).  When a lane's walk flags block b,
+// it binary-searches the first lane whose reach passes b (every lane
+// before it ends at or before b) and sets, with an atomicOr on the 32-bit
+// word that holds the bit, the keep bit of every lane from there on whose
+// [b0, b1) holds b, until b0 passes b.  Neighbouring lanes may share a
+// boundary block and lanes may nest: each flag keeps all of them.  The
+// search is stateless, so a segment that starts mid-row needs no cursor
+// and the walk holds no extra register; it runs only on a flagged block,
+// in a function of its own (`keep_block`).  The fix-up does the same for
+// the matches it adds.
 //
 // Segments.  A walk is a serial chain, so a launch of few long rows (K5)
 // or lanes (K6) leaves most of the card idle however short the step.  Each
@@ -70,7 +85,7 @@
 // few bytes.
 //
 // Bound on an H100.  Bytes: K5 reads N * L row bytes and writes N * L / 32
-// * ceil(rb/8) flag bytes.  The kernels are bound instead by integer work:
+// * ceil(rb/8) flag bytes (fused: the lane index and N_lanes / 8 keep bytes).  The kernels are bound instead by integer work:
 // K5 by its lane-steps (the live slots x the bytes of the non-zero chunks)
 // x the step's ~18 integer instructions (sm_90a SASS) over the SMs' 64
 // INT32 lanes; K6 likewise by its lanes' steps to their ends, and without
@@ -106,6 +121,43 @@ __host__ __device__ constexpr int image_words(int width, int n_classes) {
   return (nfa_step::kRuleWords + n_classes) * width + kMapWords;
 }
 
+// Fused mode's lane index (host-built by ops/nfa_verify.py `LaneIndex`):
+// the lanes of (row, slot) are [off[row * width + slot], off[... + 1]),
+// sorted by b0; reach[i] is the largest b1 of that (row, slot)'s lanes up to
+// i, so it never falls within a (row, slot).  keep: N_lanes / 8 bytes in
+// whole 32-bit words, zeroed before the launch.
+struct LaneIndex {
+  const int* off;
+  const int* b0;
+  const int* b1;
+  const int* reach;
+  const int* id;
+  unsigned* keep;
+};
+
+// Sets the keep bit of every lane of (row, slot) `key` whose blocks [b0, b1)
+// hold block b.  Out of line: it runs only on a flagged block, and the
+// walk's registers stay the walk's.
+__device__ __noinline__ void keep_block(const LaneIndex li, int key, int b) {
+  const int r1 = li.off[key + 1];
+  int lo = li.off[key], hi = r1;
+  while (lo < hi) {  // the first lane whose reach passes b
+    const int m = (lo + hi) >> 1;
+    if (li.reach[m] > b) {
+      hi = m;
+    } else {
+      lo = m + 1;
+    }
+  }
+  for (int i = lo; i < r1 && li.b0[i] <= b; ++i) {
+    if (li.b1[i] > b) {
+      // lane n: byte n / 8, bit 7 - n % 8 (MSB first), in little-endian words
+      const int n = li.id[i];
+      atomicOr(li.keep + (n >> 5), 1u << (8 * ((n >> 3) & 3) + 7 - (n & 7)));
+    }
+  }
+}
+
 // K5's 16 steps over one 16-byte load; `seen` collects every state.
 template <bool kSkipZero>
 __device__ __forceinline__ void step_chunk(const nfa_step::Rule& rule,
@@ -129,13 +181,14 @@ __device__ __forceinline__ void step_chunk(const nfa_step::Rule& rule,
 // each; segment k of a row covers blocks [k * seg_blocks, ...) (the last
 // one to the row's end) and is walked from the empty state.  For k <
 // n_segments - 1 the state at its end goes to ends[k][row][slot], for the
-// fix-up (`nfa_stream_fix_kernel`).
-template <bool kSkipZero>
+// fix-up (`nfa_stream_fix_kernel`).  kFused: a flagged block keeps its
+// lanes (`keep_block`) instead of setting flags, and `flags` is unused.
+template <bool kSkipZero, bool kFused>
 __global__ void __launch_bounds__(kThreads, kStreamBlocksPerSm)
 nfa_stream_kernel(const uint8_t* __restrict__ rows, int n_rows, int length,
                   const uint64_t* __restrict__ image, int width, int n_classes,
                   int n_bytes, int n_segments, uint64_t* __restrict__ ends,
-                  uint8_t* __restrict__ flags) {
+                  uint8_t* __restrict__ flags, const LaneIndex lanes) {
   extern __shared__ uint64_t s_img[];
   const int n_words = image_words(width, n_classes);
   for (int i = threadIdx.x; i < n_words; i += blockDim.x) s_img[i] = image[i];
@@ -178,12 +231,16 @@ nfa_stream_kernel(const uint8_t* __restrict__ rows, int n_rows, int length,
       uint64_t seen = 0;
       step_chunk<kSkipZero>(rule, ctab, width, cmap, v0, s, seen);
       step_chunk<kSkipZero>(rule, ctab, width, cmap, v1, s, seen);
-      const unsigned ballot = __ballot_sync(kFull, (seen & rule.last) != 0);
-      if (active) {
-        const unsigned bits = (ballot >> (sub * width)) & group_mask;
-        for (int p = slot; p < n_bytes; p += width) {  // slots 8p .. 8p + 7
-          flags[(static_cast<size_t>(p) * n_rows + row) * n_blocks + j] =
-              static_cast<uint8_t>(bits >> (8 * p));
+      if constexpr (kFused) {
+        if (active && (seen & rule.last) != 0) keep_block(lanes, row * width + slot, j);
+      } else {
+        const unsigned ballot = __ballot_sync(kFull, (seen & rule.last) != 0);
+        if (active) {
+          const unsigned bits = (ballot >> (sub * width)) & group_mask;
+          for (int p = slot; p < n_bytes; p += width) {  // slots 8p .. 8p + 7
+            flags[(static_cast<size_t>(p) * n_rows + row) * n_blocks + j] =
+                static_cast<uint8_t>(bits >> (8 * p));
+          }
         }
       }
     }
@@ -198,13 +255,15 @@ nfa_stream_kernel(const uint8_t* __restrict__ rows, int n_rows, int length,
 // segment k the row's true state is ends[k - 1] (exact for k = 1) OR the
 // excess still alive; the excess is walked (`excess_step`) until it dies or
 // the segment ends, and each match it adds sets its flag bit (atomicOr on
-// the flag word: the flags buffer is a whole number of 32-bit words).  The
-// tables are read from device memory: on real data the walks are short.
+// the flag word: the flags buffer is a whole number of 32-bit words;
+// kFused: the keep bits of the block's lanes).  The tables are read from
+// device memory: on real data the walks are short.
+template <bool kFused>
 __global__ void __launch_bounds__(kThreads)
 nfa_stream_fix_kernel(const uint8_t* __restrict__ rows, int n_rows, int length,
                       const uint64_t* __restrict__ image, int width, int n_classes,
                       int n_segments, const uint64_t* __restrict__ ends,
-                      uint8_t* __restrict__ flags) {
+                      uint8_t* __restrict__ flags, const LaneIndex lanes) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rows * width) return;
   const int row = i / width;
@@ -224,40 +283,16 @@ nfa_stream_fix_kernel(const uint8_t* __restrict__ rows, int n_rows, int length,
     for (int t = k * seg_len; g && t < t1; ++t) {
       g = nfa_step::excess_step(rule, g, ctab[cmap[src[t]] * width]);
       if (g & rule.last) {
-        const size_t o = flag_row + t / kBlock;
-        atomicOr(reinterpret_cast<unsigned*>(flags + (o & ~size_t{3})),
-                 bit << (8 * (o & 3)));
+        if constexpr (kFused) {
+          keep_block(lanes, i, t / kBlock);
+        } else {
+          const size_t o = flag_row + t / kBlock;
+          atomicOr(reinterpret_cast<unsigned*>(flags + (o & ~size_t{3})),
+                   bit << (8 * (o & 3)));
+        }
       }
     }
     if (k + 1 < n_segments) g |= ends[(static_cast<size_t>(k) * n_rows + row) * width + slot];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-nfa_fused_verdict_kernel(const uint8_t* __restrict__ flags, int n_bytes,
-                         int n_rows, int n_blocks,
-                         const int* __restrict__ lane_row,
-                         const int* __restrict__ lane_slot,
-                         const int* __restrict__ lane_b0,
-                         const int* __restrict__ lane_b1, int n_lanes,
-                         uint8_t* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool keep = false;
-  if (i < n_lanes) {
-    const int row = lane_row[i], slot = lane_slot[i];
-    const int b0 = max(lane_b0[i], 0), b1 = min(lane_b1[i], n_blocks);
-    if (row >= 0 && row < n_rows && slot >= 0 && slot < 8 * n_bytes) {
-      const uint8_t* f =
-          flags + (static_cast<size_t>(slot >> 3) * n_rows + row) * n_blocks;
-      const uint8_t bit = static_cast<uint8_t>(1u << (slot & 7));
-      for (int j = b0; j < b1 && !keep; ++j) keep = (f[j] & bit) != 0;
-    }
-  }
-  const unsigned ballot = __ballot_sync(kFull, keep);
-  const int lane = threadIdx.x & 31;
-  if (i < n_lanes && (lane & 7) == 0) {
-    // lanes 8k .. 8k + 7 -> one byte, lane 8k in its most significant bit
-    out[i >> 3] = static_cast<uint8_t>(__brev((ballot >> lane) & 0xFFu) >> 24);
   }
 }
 
@@ -440,7 +475,7 @@ int nfa_stream_segments(int n_rows, int length, int width, int n_classes) {
   if (width < 1 || width > kMaxSlots || n_classes < 1 || n_classes > kMaxClasses) return 0;
   const size_t smem = static_cast<size_t>(image_words(width, n_classes)) * sizeof(uint64_t);
   cudaError_t err;
-  const int resident = grid_size(nfa_stream_kernel<true>, kThreads, smem, 1 << 30, &err);
+  const int resident = grid_size(nfa_stream_kernel<true, false>, kThreads, smem, 1 << 30, &err);
   if (err != cudaSuccess) return 0;
   const int rows_per_warp = 32 / width;
   const long n_groups = (n_rows + rows_per_warp - 1) / rows_per_warp;
@@ -453,6 +488,46 @@ int nfa_stream_segments(int n_rows, int length, int width, int n_classes) {
   return n;
 }
 
+}  // extern "C"
+
+namespace {
+
+// K5's launches: phase 1, then the fix-up when the rows are segmented.
+template <bool kFused>
+int launch_stream(const void* rows, int n_rows, int length, const void* image,
+                  int width, int n_classes, int rb, int skip_zero, int n_segments,
+                  void* ends, void* flags, const LaneIndex& lanes, cudaStream_t s) {
+  if (rb < 1 || rb > kMaxSlots || width < 1 || width > rb || n_classes < 1 ||
+      n_classes > kMaxClasses || length % kBlock || n_segments < 1 ||
+      n_segments > length / kBlock) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_rows == 0 || length == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = static_cast<size_t>(image_words(width, n_classes)) * sizeof(uint64_t);
+  const int rows_per_warp = 32 / width;
+  const int n_groups = (n_rows + rows_per_warp - 1) / rows_per_warp;
+  const int work = (n_groups * n_segments + kWarps - 1) / kWarps;
+  auto kernel = skip_zero ? nfa_stream_kernel<true, kFused> : nfa_stream_kernel<false, kFused>;
+  cudaError_t err;
+  const int blocks = grid_size(kernel, kThreads, smem, work, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, kThreads, smem, s>>>(
+      static_cast<const uint8_t*>(rows), n_rows, length,
+      static_cast<const uint64_t*>(image), width, n_classes, (rb + 7) / 8, n_segments,
+      static_cast<uint64_t*>(ends), static_cast<uint8_t*>(flags), lanes);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_segments == 1) return static_cast<int>(err);
+  nfa_stream_fix_kernel<kFused><<<(n_rows * width + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(rows), n_rows, length,
+      static_cast<const uint64_t*>(image), width, n_classes, n_segments,
+      static_cast<const uint64_t*>(ends), static_cast<uint8_t*>(flags), lanes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
 // K5.  rows [n_rows, length] uint8 (length a multiple of 32, 16-byte
 // aligned), image the stack's shared-memory image (`image_words(width,
 // n_classes)` uint64 words; 1 <= width <= rb <= 32, 1 <= n_classes <= 256),
@@ -464,50 +539,28 @@ int nfa_stream_segments(int n_rows, int length, int width, int n_classes) {
 int nfa_stream(const void* rows, int n_rows, int length, const void* image,
                int width, int n_classes, int rb, int skip_zero, int n_segments,
                void* ends, void* flags, void* stream) {
-  if (rb < 1 || rb > kMaxSlots || width < 1 || width > rb || n_classes < 1 ||
-      n_classes > kMaxClasses || length % kBlock || n_segments < 1 ||
-      n_segments > length / kBlock) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rows == 0 || length == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(image_words(width, n_classes)) * sizeof(uint64_t);
-  const int rows_per_warp = 32 / width;
-  const int n_groups = (n_rows + rows_per_warp - 1) / rows_per_warp;
-  const int work = (n_groups * n_segments + kWarps - 1) / kWarps;
-  auto kernel = skip_zero ? nfa_stream_kernel<true> : nfa_stream_kernel<false>;
-  cudaError_t err;
-  const int blocks = grid_size(kernel, kThreads, smem, work, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<blocks, kThreads, smem, s>>>(
-      static_cast<const uint8_t*>(rows), n_rows, length,
-      static_cast<const uint64_t*>(image), width, n_classes, (rb + 7) / 8, n_segments,
-      static_cast<uint64_t*>(ends), static_cast<uint8_t*>(flags));
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_segments == 1) return static_cast<int>(err);
-  nfa_stream_fix_kernel<<<(n_rows * width + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const uint8_t*>(rows), n_rows, length,
-      static_cast<const uint64_t*>(image), width, n_classes, n_segments,
-      static_cast<const uint64_t*>(ends), static_cast<uint8_t*>(flags));
-  return static_cast<int>(cudaGetLastError());
+  return launch_stream<false>(rows, n_rows, length, image, width, n_classes, rb, skip_zero,
+                              n_segments, ends, flags, LaneIndex{},
+                              static_cast<cudaStream_t>(stream));
 }
 
-// K5v.  flags [n_bytes, n_rows, n_blocks] uint8, lane tables [n_lanes] int32
-// (n_lanes a multiple of 8), out [n_lanes / 8] uint8.  A lane outside the
-// flags keeps nothing.
-int nfa_fused_verdict(const void* flags, int n_bytes, int n_rows, int n_blocks,
-                      const void* lane_row, const void* lane_slot,
-                      const void* lane_b0, const void* lane_b1, int n_lanes,
-                      void* out, void* stream) {
-  if (n_lanes % 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_lanes == 0) return static_cast<int>(cudaSuccess);
-  const int blocks = (n_lanes + kThreads - 1) / kThreads;
-  nfa_fused_verdict_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(flags), n_bytes, n_rows, n_blocks,
-      static_cast<const int*>(lane_row), static_cast<const int*>(lane_slot),
-      static_cast<const int*>(lane_b0), static_cast<const int*>(lane_b1), n_lanes,
-      static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+// K5 in fused mode: the arguments of `nfa_stream` without the flags, then
+// the lane index (`LaneIndex`; off [n_rows * width + 1], the other four
+// [off[n_rows * width]] int32) and keep, n_keep_words uint32 words that
+// hold the keep bits of the lane ids (zeroed here first).
+int nfa_stream_verdict(const void* rows, int n_rows, int length, const void* image,
+                       int width, int n_classes, int rb, int skip_zero, int n_segments,
+                       void* ends, const void* off, const void* b0, const void* b1,
+                       const void* reach, const void* id, void* keep, int n_keep_words,
+                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(keep, 0, static_cast<size_t>(n_keep_words) * 4, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const LaneIndex lanes{static_cast<const int*>(off), static_cast<const int*>(b0),
+                        static_cast<const int*>(b1), static_cast<const int*>(reach),
+                        static_cast<const int*>(id), static_cast<unsigned*>(keep)};
+  return launch_stream<true>(rows, n_rows, length, image, width, n_classes, rb, skip_zero,
+                             n_segments, ends, nullptr, lanes, s);
 }
 
 // Segments to split each K6 lane into: the largest power of two that keeps
@@ -562,12 +615,12 @@ int nfa_blocks_per_sm(int kernel, int smem_bytes) {
   cudaError_t err = cudaSuccess;
   if (kernel == 0) {
     if (smem_bytes > 48 * 1024) {
-      err = cudaFuncSetAttribute(nfa_stream_kernel<true>,
+      err = cudaFuncSetAttribute(nfa_stream_kernel<true, false>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     }
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, nfa_stream_kernel<true>, kThreads, smem_bytes);
+          &per_sm, nfa_stream_kernel<true, false>, kThreads, smem_bytes);
     }
   } else {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nfa_padded_kernel,

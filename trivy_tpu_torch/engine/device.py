@@ -1,29 +1,47 @@
-"""The GPU secret engine: device sieve -> on-device candidates -> claim-killer
--> exact confirm.
+"""The GPU secret engine: device sieve -> candidates -> claim-killer -> exact
+confirm.
 
-The port of `trivy_tpu/engine/device.py` `TpuSecretEngine` with
-`kernel="pallas", fused=True`.  A batch inside the single-call envelope (one
-row bucket, at most `MEGA_MAX_FILES` files) runs the **megakernel path**,
-the reference's default on its accelerator: encode, H2D, one megakernel call
-(`ops/megakernel.py`: unpack, sieve, per-file counts, derive, packed verdict
-bits) and the fetch of the packed mask.  Any other batch, or every batch with
-`megakernel=False`, runs the **staged fused path**:
+The port of `trivy_tpu/engine/device.py` `TpuSecretEngine`, with its
+`sieve`, `kernel` and `fused` choices:
 
-  1. the host dedupes blobs by content digest and packs them densely into
-     overlapping rows (`scanner/packing.py`);
-  2. for each row-bucket chunk, the link codec encodes the rows, they go
-     host-to-device from pinned buffers on a side stream, unpack on the
-     device, and the gram sieve kernel runs (`ops/gram_sieve.py`); hit words
-     stay on the device.  Batches of several top-bucket chunks run through
-     the chunk pipeline (`engine/pipeline.py`: the copy of chunk N+1
-     overlaps the kernels of chunk N), and each chunk's rows and hit words
-     stay in the digest-keyed resident row store, so a rescan of unchanged
-     rows crosses no link and launches nothing;
-  3. the device derives the [files, rules] candidate matrix from the hit
-     words (`GpuSecretEngine.derive`), and only that matrix comes back,
-     compacted (`engine/link.py`).
+* `sieve="gram"` (default): rows packed densely (`pack_dense`), encoded by
+  the link codec, staged to the card and sieved there, by K1/K2
+  (`kernel="pallas"`, the twin of the reference's Pallas kernels over
+  distinct (mask, val) pairs; `kernel="auto"` takes it, `ops/gram_sieve.py`
+  `GramSieve`) or by B5 (`kernel="xla"`, the twin of the reference's XLA
+  program over the grams in their own order, `RowGramSieve`).
+  - **fused** (`fused=True`, the default): a batch inside the single-call
+    envelope (one row bucket, at most `MEGA_MAX_FILES` files) runs the
+    **megakernel path** (K1's twin only, as in the reference): encode, H2D,
+    one megakernel call (`ops/megakernel.py`: unpack, sieve, per-file
+    counts, derive, packed verdict bits) and the fetch of the packed mask.
+    Any other batch, or every batch with `megakernel=False`, runs the
+    **staged fused path**: for each row-bucket chunk the rows go
+    host-to-device from pinned buffers on a side stream, unpack and sieve
+    there, and the hit words stay on the device (several chunks run through
+    the chunk pipeline, `engine/pipeline.py`; each chunk's rows and hit
+    words stay in the digest-keyed resident row store); the device derives
+    the [files, rules] candidate matrix (`GpuSecretEngine.derive`) and only
+    that matrix comes back, compacted (`engine/link.py`).
+  - **unfused** (`fused=False`, or `TRIVY_TPU_SYNC_TIMING=1`): the hit words
+    come back (compacted), a digest-keyed cache keeps them on the host, and
+    the host derives the candidates (`DenseBatch.file_hits`,
+    `probe_hits_bool`, `candidate_matrix_bool`).  Under
+    `TRIVY_TPU_SYNC_TIMING=1` each dispatch synchronises after its H2D copy,
+    splitting `SieveStats.h2d_s` from `exec_s`.
+* `sieve="lut"`: files tiled on their own (`pack`, overlap max(16, Jmax)),
+  the tiles sieved on the card by B6 (`ops/lut_sieve.py`, the packed
+  shift-AND over `ProbeSet.build_lut`), the probe words fetched and the
+  candidates resolved on the host (`candidate_matrix`).  No codec.
+* `sieve="native"`: the C++ row sieve on the host (`native/gram_scan.cpp`
+  `gram_sieve`), then the host derive; nothing runs on the card.
 
-Both paths then run the claim-killer: a C DFA / NFA-64 walk per candidate
+`fused` follows the reference's ladder: the argument, else
+`TRIVY_TPU_FUSED` ("0" off, anything else on), else the device default,
+which is on for every device here (the reference's is on only on its
+accelerator; the port's CPU path is the plain twin of its card path).
+
+Every path then runs the claim-killer: a C DFA / NFA-64 walk per candidate
 (file, rule) pair (`engine/redfa.py`, `native/dfa_verify.cpp`) drops the
 pairs the rule's automaton refutes, and the oracle confirms what is left
 byte-exactly, so findings equal the reference engine's by construction.
@@ -32,8 +50,7 @@ Every stage sits inside the reference's spans (`obs/trace.py`: chunk.encode,
 chunk.h2d, chunk.exec, sieve.megakernel, chunk.fetch, verify, confirm),
 fenced device phases (`obs/metrics.py` `device_phase`) and fault seams
 (`faults.py`: device.put, device.exec, device.fetch).  Left out for later
-slices: the forced-sync timing decomposition, mesh staging, the
-executable cache and scan programs.
+slices: mesh staging, the executable cache and scan programs.
 """
 
 from __future__ import annotations
@@ -51,37 +68,51 @@ from trivy_tpu_torch import faults
 from trivy_tpu_torch.compiled import CompiledRules
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from trivy_tpu_torch.engine import link as link_mod
+from trivy_tpu_torch.engine.grams import build_gram_set
 from trivy_tpu_torch.engine.oracle import OracleScanner
 from trivy_tpu_torch.engine.pipeline import (
     ChunkPipeline,
+    ResidentChunkCache,
     ResidentRowStore,
     RowStager,
     chunk_digest,
     default_depth,
     wait_staged,
 )
+from trivy_tpu_torch.engine.probes import build_probe_set
 from trivy_tpu_torch.engine.redfa import DfaVerifier
 from trivy_tpu_torch.ftypes import Secret
-from trivy_tpu_torch.native import load_native
+from trivy_tpu_torch.native import gram_sieve_native, load_native
 from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import trace as obs_trace
 from trivy_tpu_torch.ops import _build
-from trivy_tpu_torch.ops.gram_sieve import GramSieve
+from trivy_tpu_torch.ops.gram_sieve import GramSieve, RowGramSieve
+from trivy_tpu_torch.ops.lut_sieve import LutSieve
 from trivy_tpu_torch.ops.megakernel import MEGA_MAX_FILES, MegaGramSieve
 from trivy_tpu_torch.rules.model import RuleSet, SecretConfig, build_ruleset
 from trivy_tpu_torch.scanner.packing import (
+    DEFAULT_OVERLAP,
     DEFAULT_TILE_LEN,
     DenseBatch,
     dedupe_blobs,
+    pack,
     pack_dense,
 )
 
 # Row-batch shapes: every sieve call uses one of these row counts, and
 # larger scans are chunked into top-bucket batches.  Kept from the reference
-# for shape parity; retune only from a measurement on the card.
+# for shape parity (B5 and B6 take TILE_BUCKETS, K1 TILE_BUCKETS_PALLAS);
+# retune only from a measurement on the card.
+TILE_BUCKETS = (512, 4096)
 TILE_BUCKETS_PALLAS = (4096, 8192, 16384, 32768)
+DEFAULT_MAX_BATCH_TILES = 4096
 
 GRAM_OVERLAP = 3  # gram window (4) - 1
+
+
+def _sync_timing() -> bool:
+    """TRIVY_TPU_SYNC_TIMING set: the forced-sync H2D/exec decomposition."""
+    return bool(os.environ.get("TRIVY_TPU_SYNC_TIMING"))
 
 
 @dataclass
@@ -101,6 +132,10 @@ class SieveStats:
     verify_s: float = 0.0
     confirm_s: float = 0.0
     device_dispatches: int = 0
+    # Filled only under TRIVY_TPU_SYNC_TIMING=1: the H2D copy (ended by a
+    # synchronize) apart from the sieve and its fetch.
+    h2d_s: float = 0.0
+    exec_s: float = 0.0
     # Chunk-pipeline accounting (engine/pipeline.py): finish-stage wall
     # that ran while later chunks were staged or executing, content-digest
     # dedupe savings and seconds (a part of pack_s here, of verify_s in
@@ -128,6 +163,9 @@ class SieveStats:
         }
         if self.verify_s:
             out["verify_s"] = round(self.verify_s, 4)
+        if self.h2d_s or self.exec_s:
+            out["h2d_s"] = round(self.h2d_s, 4)
+            out["exec_s"] = round(self.exec_s, 4)
         if self.pipeline_depth:
             out["pipeline_depth"] = self.pipeline_depth
             out["h2d_overlap_s"] = round(self.h2d_overlap_s, 4)
@@ -152,25 +190,32 @@ class SieveStats:
         return out
 
 
+
+
 class GpuSecretEngine:
     """Drop-in engine with the oracle's Scan semantics, on a CUDA card (or
     on the CPU when `device="cpu"`, through the kernels' plain versions).
 
-    `compiled` takes a `CompiledRules` or the dict of arrays that
-    `CompiledRules.from_numpy` reads; it must be compiled from `ruleset`.
+    `sieve` ("gram", "lut", "native"), `kernel` ("auto" = "pallas", or
+    "xla") and `fused` pick the path (module docstring).  `compiled` takes a
+    `CompiledRules` or the dict of arrays that `CompiledRules.from_numpy`
+    reads; it must be compiled from `ruleset`.
 
-    `megakernel` switches the megakernel path: the argument when given, else
-    `TRIVY_TPU_MEGAKERNEL` ("0" off, anything else on), else on for a CUDA
-    device and off on the CPU, as the reference's is on only on its
-    accelerator.  It needs `tile_len` a power of two >= 256 and some gram.
-    In auto mode (neither given), `warmup()` then prices the reference's
-    megakernel gate (`_price_mega_gate`, engine/hybrid.py `gate_terms`
-    profile "mega") and keeps the megakernel only when it clears the bar.
+    `megakernel` switches the megakernel path (fused K1-twin gram sieve
+    only): the argument when given, else `TRIVY_TPU_MEGAKERNEL` ("0" off,
+    anything else on), else on for a CUDA device and off on the CPU, as the
+    reference's is on only on its accelerator.  It needs `tile_len` a power
+    of two >= 256 and some gram.  In auto mode (neither given), `warmup()`
+    then prices the reference's megakernel gate (`_price_mega_gate`,
+    engine/hybrid.py `gate_terms` profile "mega") and keeps the megakernel
+    only when it clears the bar.
 
-    `pipeline_depth` bounds the chunks in flight (default `default_depth()`,
-    `TRIVY_TPU_PIPELINE_DEPTH`), `dedupe` scans each distinct blob once, and
-    `resident_chunks` caps the resident row store (default
-    `TRIVY_TPU_RESIDENT_CHUNKS`, else 32; 0 turns residency off)."""
+    `max_batch_tiles` caps the row buckets (default 4,096; 32,768 for
+    K1 unless given).  `pipeline_depth` bounds the chunks in flight
+    (default `default_depth()`, `TRIVY_TPU_PIPELINE_DEPTH`), `dedupe` scans
+    each distinct blob once, and `resident_chunks` caps the resident row
+    store and the host hit-word cache (default `TRIVY_TPU_RESIDENT_CHUNKS`,
+    else 32; 0 turns residency off)."""
 
     def __init__(
         self,
@@ -184,52 +229,104 @@ class GpuSecretEngine:
         pipeline_depth: int | None = None,
         dedupe: bool = True,
         resident_chunks: int | None = None,
+        sieve: str = "gram",
+        kernel: str = "auto",
+        fused: bool | None = None,
     ):
+        if sieve not in ("gram", "lut", "native"):
+            raise ValueError(f"unknown sieve: {sieve}")
+        if kernel not in ("auto", "pallas", "xla"):
+            raise ValueError(f"unknown kernel: {kernel}")
         self.device = resolve_device(device)
         self.ruleset = ruleset if ruleset is not None else build_ruleset(config)
         self.oracle = OracleScanner(self.ruleset)
+        pset = None
         if compiled is None:
-            compiled = CompiledRules.build(self.ruleset)
+            pset = build_probe_set(self.ruleset.rules)
+            compiled = CompiledRules.from_sets(pset, build_gram_set(pset))
         elif isinstance(compiled, dict):
             compiled = CompiledRules.from_numpy(compiled)
         self.compiled = compiled
+        self.sieve = sieve
+        self.kernel = "pallas" if kernel == "auto" else kernel
         self.tile_len = tile_len
         self.overlap = GRAM_OVERLAP
-        self.max_batch_tiles = (
-            max_batch_tiles if max_batch_tiles is not None
-            else TILE_BUCKETS_PALLAS[-1]
-        )
         self.stats = SieveStats()
         self.pipeline_depth = (
             pipeline_depth if pipeline_depth is not None else default_depth()
         )
         self.dedupe = dedupe
+        self._ruleset_digest: str | None = None
+        self._resident = ResidentChunkCache(resident_chunks)
         self._row_store = ResidentRowStore(resident_chunks)
         self._stager = RowStager(self.device, self.pipeline_depth)
         self._verifier: DfaVerifier | None = None
+        self._link = None
+        self._codec_tag = ":raw"
+        self._d2h_compact = False
+        self._fused = False
+        self._mega: MegaGramSieve | None = None
+        self._mega_on = False
+        self._mega_auto = False
+        self._kernel_tag = ""
+        self._sieve_fn = None
+        self._pallas_obj: GramSieve | None = None
+        self._tile_buckets = TILE_BUCKETS
+        on_pallas = sieve == "gram" and self.kernel == "pallas"
+        if max_batch_tiles is None:
+            max_batch_tiles = TILE_BUCKETS_PALLAS[-1] if on_pallas else DEFAULT_MAX_BATCH_TILES
+        self.max_batch_tiles = max_batch_tiles
+
+        if sieve == "native":
+            # the C++ row sieve on the host: no codec, no card
+            return
+        if sieve == "lut":
+            # no transcoder (the LUT's byte semantics are the contract), but
+            # the D2H compaction is lossless and applies
+            if pset is None:
+                pset = build_probe_set(self.ruleset.rules)
+            self.pset = pset
+            self._gate, self._gate_any, self._conj, self._conj_any = pset.gate_masks()
+            self._d2h_compact = link_mod.d2h_compaction_enabled()
+            self.overlap = max(DEFAULT_OVERLAP, pset.jmax)
+            self._sieve_fn = LutSieve(pset.build_lut(), device=self.device)
+            return
 
         mode = link_mod.codec_mode()
         self._d2h_compact = mode != "off"
-        self._link = None
         if mode != "off":
             self._link = link_mod.select_codec(
                 link_mod.derive_alphabet(compiled), mode, compiled
             )
         # Resident-row keys carry the codec: coded rows never alias raw ones.
-        self._codec_tag = ":raw"
         if self._link is not None:
             self._codec_tag = ":" + self._link.codec_id
             cmasks, cvals = self._link.encode_grams(compiled.masks, compiled.vals)
         else:
             cmasks, cvals = compiled.masks, compiled.vals
-        self.sieve = GramSieve(cmasks, cvals, device=self.device)
+        fenv = os.environ.get("TRIVY_TPU_FUSED", "")
+        if fused is not None:
+            self._fused = bool(fused)
+        elif fenv:
+            self._fused = fenv != "0"
+        else:
+            self._fused = True
+        if on_pallas:
+            # K1/K2: words over distinct (mask, val) pairs, expanded back to
+            # gram order by `gram_expand`
+            self._pallas_obj = self._sieve_fn = GramSieve(cmasks, cvals, device=self.device)
+            self._tile_buckets = TILE_BUCKETS_PALLAS
+            expand = self._pallas_obj.gram_expand
+            if not len(expand):
+                expand = np.arange(self._pallas_obj.num_distinct)
+        else:
+            # B5: words over the grams in their own order, pad grams after
+            self._sieve_fn = RowGramSieve(cmasks, cvals, device=self.device)
+            expand = np.arange(len(compiled.masks))
 
         def dev(a, dtype=torch.float32) -> torch.Tensor:
             return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
-        expand = self.sieve.gram_expand
-        if not len(expand):
-            expand = np.arange(self.sieve.num_distinct)
         self._expand = dev(expand, torch.int64)
         self._wmember = dev(compiled.wmember)
         self._pmember = dev(compiled.pmember)
@@ -250,11 +347,10 @@ class GpuSecretEngine:
             want_mega = env != "0"
         else:
             want_mega = self.device.type == "cuda"
-        self._mega: MegaGramSieve | None = None
-        self._mega_on = False
-        self._kernel_tag = ""
         if (
             want_mega
+            and on_pallas
+            and self._fused
             and len(compiled.masks) > 0
             and tile_len >= 256
             and tile_len & (tile_len - 1) == 0
@@ -282,12 +378,27 @@ class GpuSecretEngine:
 
     # ------------------------------------------------------------------
 
+    @property
+    def ruleset_digest(self) -> str:
+        """Content digest of the active rule material (registry/digest.py),
+        computed on first use."""
+        if self._ruleset_digest is None:
+            from trivy_tpu_torch.registry.digest import ruleset_digest
+
+            self._ruleset_digest = ruleset_digest(self.ruleset)
+        return self._ruleset_digest
+
     def _buckets(self) -> list[int]:
-        """Row batch shapes: TILE_BUCKETS_PALLAS capped by max_batch_tiles."""
-        caps = [b for b in TILE_BUCKETS_PALLAS if b <= self.max_batch_tiles]
+        """Row batch shapes: the sieve's buckets capped by max_batch_tiles."""
+        caps = [b for b in self._tile_buckets if b <= self.max_batch_tiles]
         if not caps or caps[-1] != self.max_batch_tiles:
             caps.append(self.max_batch_tiles)
         return caps
+
+    @property
+    def _staged_cols(self) -> int:
+        """Width of a staged row: the codec's packed width, else the tile."""
+        return self._link.coded_len(self.tile_len) if self._link is not None else self.tile_len
 
     @staticmethod
     def _pad_chunk(rows: np.ndarray, off: int, max_rows: int) -> np.ndarray:
@@ -301,13 +412,19 @@ class GpuSecretEngine:
     def warmup(self) -> None:
         """Build the claim-killer (native library and DFA tables, ~0.6 s
         of host time for the builtin ruleset) and, on a card, load the
-        kernel libraries the engine launches, ahead of timed scanning.  In
-        auto mode, price the megakernel gate from a measured dispatch."""
+        kernel library of the sieve and make its first launch at the
+        smallest bucket, ahead of timed scanning.  In auto mode, price the
+        megakernel gate from a measured dispatch."""
         self._host_verifier()
+        if self.sieve == "native":
+            return
         if self.device.type == "cuda":
-            _build.load("gram_sieve")
+            _build.load("lut_sieve" if self.sieve == "lut" else "gram_sieve")
             if self._mega is not None:
                 _build.load("megakernel")
+            self._exec(torch.zeros((self._buckets()[0], self._staged_cols),
+                                   dtype=torch.uint8, device=self.device))
+            self._sync()
         if self._mega is not None and self._mega_on and self._mega_auto:
             self._price_mega_gate(self._mega_exec_mb_s())
 
@@ -316,9 +433,8 @@ class GpuSecretEngine:
         minimum file pad (8 lanes, all padding): the reference's gate
         pricing shape."""
         rows = self._buckets()[0]
-        cols = self._link.coded_len(self.tile_len) if self._link is not None else self.tile_len
         args = (
-            torch.zeros((rows, cols), dtype=torch.uint8, device=self.device),
+            torch.zeros((rows, self._staged_cols), dtype=torch.uint8, device=self.device),
             torch.zeros((1, 8), dtype=torch.int32, device=self.device),
             torch.full((1, 8), -1, dtype=torch.int32, device=self.device),
             torch.zeros((8, 1), dtype=torch.int8, device=self.device),
@@ -352,6 +468,23 @@ class GpuSecretEngine:
                           terms)
         self.mega_gate = {**rec, "exec_mb_per_sec": exec_mb_s}
 
+    # -- candidate resolution on the host (unfused, lut, native) --------
+
+    def candidate_matrix_bool(self, probe_bool: np.ndarray) -> np.ndarray:
+        """[F, P] bool probe hits -> [F, R] bool candidates (matmul form)."""
+        return self.compiled.candidate_matrix_bool(probe_bool)
+
+    def candidate_matrix(self, file_hits: np.ndarray) -> np.ndarray:
+        """[F, R] bool candidates from per-file probe bitmaps [F, Pw] (the
+        LUT sieve's resolution, over `ProbeSet.gate_masks`)."""
+        h = file_hits[:, None, :]  # [F, 1, Pw]
+        gate_ok = ~self._gate_any[None, :] | (h & self._gate[None]).any(-1)
+        conj_hit = (file_hits[:, None, None, :] & self._conj[None]).any(-1)  # [F, R, K]
+        conj_ok = (~self._conj_any[None] | conj_hit).all(-1)
+        return gate_ok & conj_ok
+
+    # -- staging and the sieve call --------------------------------------
+
     def _encode_chunk(self, part: np.ndarray) -> tuple[np.ndarray, int]:
         """(staged buffer, raw padded bytes): the link codec transcodes the
         padded chunk to packed class ids; without one the chunk ships as
@@ -374,10 +507,10 @@ class GpuSecretEngine:
     def _note_dispatch(self) -> None:
         self.stats.device_dispatches += 1
 
-    def _chunk_digest(self, buf: np.ndarray) -> str | None:
-        """Row-store key of a staged buffer (digest + codec), or None when
-        residency is off."""
-        if not self._row_store.capacity:
+    def _chunk_digest(self, buf: np.ndarray, cache: ResidentChunkCache) -> str | None:
+        """Cache key of a staged buffer (digest + codec), or None when the
+        cache is off."""
+        if not cache.capacity:
             return None
         return chunk_digest(buf) + self._codec_tag
 
@@ -390,53 +523,40 @@ class GpuSecretEngine:
             rows = self._link.unpack(rows, self.tile_len)
             ph.done(rows)
         ph = obs_metrics.device_phase("sieve-step")
-        out = self.sieve(rows)
+        out = self._sieve_fn(rows)
         ph.done(out)
         return out
 
-    def _sieve_rows(self, rows: np.ndarray) -> torch.Tensor:
-        """Hit words [Tpad, Dw] on the device, Tpad the bucket-padded row
-        count (one bucket, or whole top-bucket chunks): the counterpart of
-        the reference's `_sieve_rows_fused`.  Each chunk's staged rows and
-        hit words enter the resident row store under the chunk digest, and
-        a digest-identical chunk is served from there without staging or
-        launching anything.  Several chunks run through `ChunkPipeline`:
-        the encode and copy of chunk N+1 overlap the kernels of chunk N."""
-        store = self._row_store
+    def _sieve_rows(self, rows: np.ndarray, fetch: bool = False):
+        """Per-row hit words over one row bucket or whole top-bucket chunks.
+        `fetch` False: [Tpad, Dw] on the device, Tpad the bucket-padded row
+        count (the reference's `_sieve_rows_fused`); each chunk's staged rows
+        and hit words enter the resident row store.  `fetch` True: [T, W]
+        uint32 on the host (the reference's `_sieve_rows`); each chunk's
+        words are fetched (compacted) and enter the host hit-word cache.
+        Either way the key is the chunk digest, and a digest-identical chunk
+        is served from its cache without staging or launching anything.
+        Several chunks run through `ChunkPipeline`: the encode and copy of
+        chunk N+1 overlap the kernels of chunk N (and the fetch of chunk
+        N-1).  Under TRIVY_TPU_SYNC_TIMING=1 the host path runs serially
+        and uncached (`_timed_dispatch`): a cache hit would skip the
+        transfer it measures."""
         buckets = self._buckets()
-        max_rows = buckets[-1]
         total = len(rows)
-        fit = next((b for b in buckets if total <= b), None)
-        if fit is not None:
-            buf, raw_n = self._encode_chunk(self._pad_chunk(rows, 0, fit))
-            digest = self._chunk_digest(buf)
-            if digest is not None:
-                res = store.rows(digest)
-                if res is not None:
-                    self.stats.resident_hits += 1
-                    return res[1]
-            self._note_dispatch()
-            self._count_link(raw_n, buf.nbytes)
-            with obs_trace.span("chunk.h2d", bytes=buf.nbytes):
-                faults.fire("device.put")
-                dev, ready = self._stager.stage_rows(buf)
-            with obs_trace.span("chunk.exec"):
-                faults.fire("device.exec")
-                out = self._exec(wait_staged(dev, ready))
-            if digest is not None:
-                store.put_rows(digest, dev, out)
-            return out
-        n_chunks = -(-total // max_rows)
+        size = next((b for b in buckets if total <= b), buckets[-1])
+        n_chunks = max(1, -(-total // size))
+        if fetch and _sync_timing():
+            return np.concatenate([self._timed_dispatch(rows, ci * size, size)
+                                   for ci in range(n_chunks)])[:total]
+        cache = self._resident if fetch else self._row_store
         outs: list = [None] * n_chunks
 
         def stage(ci):
-            part = self._pad_chunk(rows, ci * max_rows, max_rows)
-            buf, raw_n = self._encode_chunk(part)
-            digest = self._chunk_digest(buf)
-            if digest is not None:
-                res = store.rows(digest)
-                if res is not None:
-                    return (digest, res[0], None, res[1], True)
+            buf, raw_n = self._encode_chunk(self._pad_chunk(rows, ci * size, size))
+            digest = self._chunk_digest(buf, cache)
+            hit = cache.get(digest) if digest is not None else None
+            if hit is not None:
+                return (digest, None, None, hit if fetch else hit[1], True)
             self._count_link(raw_n, buf.nbytes)
             with obs_trace.span("chunk.h2d", chunk=ci, bytes=buf.nbytes):
                 faults.fire("device.put")
@@ -456,14 +576,74 @@ class GpuSecretEngine:
 
         def finish(ci, handle):
             digest, dev, _ready, out, hit = handle
-            if not hit and digest is not None:
-                store.put_rows(digest, dev, out)
+            if not hit:
+                if fetch:
+                    with obs_trace.span("chunk.fetch", chunk=ci):
+                        faults.fire("device.fetch")
+                        ph = obs_metrics.device_phase("compact")
+                        out = self._fetch_hits(out)
+                        ph.done()
+                if digest is not None:
+                    cache.put(digest, out if fetch else (dev, out))
             outs[ci] = out
 
-        pipe = ChunkPipeline(stage, execute, finish, depth=self.pipeline_depth)
-        pipe.run(range(n_chunks))
-        self.stats.h2d_overlap_s += pipe.stats.h2d_overlap_s
-        return torch.cat(outs)
+        if n_chunks == 1:
+            finish(0, execute(0, stage(0)))
+        else:
+            pipe = ChunkPipeline(stage, execute, finish, depth=self.pipeline_depth)
+            pipe.run(range(n_chunks))
+            self.stats.h2d_overlap_s += pipe.stats.h2d_overlap_s
+        if fetch:
+            return np.concatenate(outs)[:total]
+        return outs[0] if n_chunks == 1 else torch.cat(outs)
+
+    def _fetch(self, out: torch.Tensor) -> np.ndarray:
+        """D2H of a device result whose leading axis is rows (hit words or
+        the candidate matrix), compacted to its non-zero rows unless
+        compaction is off; the raw/actual byte pair lands in stats."""
+        if self._d2h_compact:
+            arr, raw_b, got_b = link_mod.fetch_rows_compact(out)
+        else:
+            arr = out.cpu().numpy()
+            raw_b = got_b = arr.nbytes
+        self.stats.d2h_bytes_raw += raw_b
+        self.stats.d2h_bytes += got_b
+        return arr
+
+    def _fetch_hits(self, out: torch.Tensor) -> np.ndarray:
+        """One chunk's hit words on the host, [T, W] uint32."""
+        return self._fetch(out).view(np.uint32)
+
+    def _timed_dispatch(self, rows: np.ndarray, off: int, size: int) -> np.ndarray:
+        """One uncached dispatch of rows [off, off + size), its words
+        fetched, under TRIVY_TPU_SYNC_TIMING=1: the copy is forced to
+        complete (a synchronize) before the sieve runs, splitting
+        stats.h2d_s from stats.exec_s."""
+        buf, raw_n = self._encode_chunk(self._pad_chunk(rows, off, size))
+        self._note_dispatch()
+        self._count_link(raw_n, buf.nbytes)
+        t0 = time.perf_counter()
+        dev, ready = self._stager.stage_rows(buf)
+        dev = wait_staged(dev, ready)
+        self._sync()  # the forced round trip
+        self.stats.h2d_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = self._fetch_hits(self._exec(dev))
+        self.stats.exec_s += time.perf_counter() - t0
+        return out
+
+    # -- the fused derive and the megakernel -----------------------------
+
+    def _use_fused_derive(self) -> bool:
+        """The device-resident sieve and on-device derive: the fused gram
+        path, never under sync timing (whose phase split assumes the serial
+        host path)."""
+        return (
+            self._fused
+            and self.sieve == "gram"
+            and len(self.compiled.masks) > 0
+            and not _sync_timing()
+        )
 
     def derive(
         self, hits: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -500,18 +680,6 @@ class GpuSecretEngine:
             torch.backends.cuda.matmul.allow_tf32 = prev
         conj_ok = (~self._conj_any | conj_hit).all(dim=-1)
         return (gate_ok & conj_ok).to(torch.uint8)
-
-    def _fetch(self, out: torch.Tensor) -> np.ndarray:
-        """D2H of the candidate matrix, compacted unless the codec is off;
-        the raw/actual byte pair lands in stats."""
-        if self._d2h_compact:
-            arr, raw_b, got_b = link_mod.fetch_rows_compact(out)
-        else:
-            arr = out.cpu().numpy()
-            raw_b = got_b = arr.nbytes
-        self.stats.d2h_bytes_raw += raw_b
-        self.stats.d2h_bytes += got_b
-        return arr
 
     def _derive_candidates(self, batch: DenseBatch, hits: torch.Tensor) -> np.ndarray:
         """[F, R] bool candidates; the file count pads to a power of two
@@ -572,7 +740,7 @@ class GpuSecretEngine:
         # digest — identical row bytes under another file split (or a
         # re-baked program) must never alias a cached verdict mask.
         store = self._row_store
-        digest = self._chunk_digest(buf)
+        digest = self._chunk_digest(buf, store)
         mask = None
         if digest is not None:
             digest += self._kernel_tag + ":" + hashlib.blake2b(
@@ -614,19 +782,56 @@ class GpuSecretEngine:
 
     def _candidates(self, contents: list[bytes]) -> np.ndarray:
         """[F, R] bool candidate matrix for a content batch."""
+        if self.sieve == "lut":
+            t0 = time.perf_counter()
+            tiled = pack(contents, self.tile_len, self.overlap)
+            self.stats.pack_s += time.perf_counter() - t0
+            self.stats.tiles += len(tiled.tiles)
+            t0 = time.perf_counter()
+            tile_hits = self._sieve_rows(tiled.tiles, fetch=True)
+            self.stats.sieve_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cand = self.candidate_matrix(tiled.file_hits(tile_hits))
+            self.stats.candidate_s += time.perf_counter() - t0
+            return cand
+
         t0 = time.perf_counter()
         batch = pack_dense(contents, self.tile_len, self.overlap)
         self.stats.pack_s += time.perf_counter() - t0
         self.stats.tiles += len(batch.rows)
-        if self.megakernel_active:
-            cand = self._mega_candidates(batch)
-            if cand is not None:
+        t0 = time.perf_counter()
+        if self.sieve == "native":
+            row_hits = gram_sieve_native(batch.rows, self.compiled.masks, self.compiled.vals)
+            self.stats.sieve_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gram_hits = batch.file_hits(row_hits)  # the per-row bools ORed per file
+        else:
+            if self.megakernel_active and self._use_fused_derive():
+                cand = self._mega_candidates(batch)
+                if cand is not None:
+                    return cand
+            if self._use_fused_derive():
+                # hit words stay on the device; only the compacted [F, R]
+                # candidate matrix comes back
+                hits_dev = self._sieve_rows(batch.rows)
+                self.stats.sieve_s += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                cand = self._derive_candidates(batch, hits_dev)
+                self.stats.candidate_s += time.perf_counter() - t0
                 return cand
-        t0 = time.perf_counter()
-        hits = self._sieve_rows(batch.rows)
-        self.stats.sieve_s += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cand = self._derive_candidates(batch, hits)
+            word_hits = self._sieve_rows(batch.rows, fetch=True)  # [T, W] uint32
+            self.stats.sieve_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            bits = np.unpackbits(
+                batch.file_hits(word_hits).astype("<u4").view(np.uint8), axis=-1,
+                bitorder="little").astype(bool)
+            if self._pallas_obj is not None:
+                # K1's words are over distinct (mask, val) pairs: expand back
+                # to the gram order
+                gram_hits = self._pallas_obj.expand_bool(bits[:, : self._pallas_obj.num_distinct])
+            else:
+                gram_hits = bits[:, : len(self.compiled.masks)]
+        cand = self.candidate_matrix_bool(self.compiled.probe_hits_bool(gram_hits))
         self.stats.candidate_s += time.perf_counter() - t0
         return cand
 
@@ -639,6 +844,8 @@ class GpuSecretEngine:
             return self.scan_batch(items)
         finally:
             self._mega_on = prev
+
+    # -- the claim-killer and the confirm ---------------------------------
 
     def _host_verifier(self) -> DfaVerifier:
         """The claim-killer (engine/redfa.py), built once per engine: the

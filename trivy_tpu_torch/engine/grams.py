@@ -210,12 +210,29 @@ class GramSet:
         """[F, G] bool gram hits -> [F, P] bool probe hits.
 
         Probes without grams are always-hit (sound over-approximation)."""
-        window_hit = gram_hits.astype(np.float32) @ self._wmember > 0  # [F, W]
-        probe_hit = (
-            window_hit.astype(np.float32) @ self._pmember
-        ) >= self._pwindows[None, :]  # all windows present
-        probe_hit[:, ~self.probe_has_gram] = True
-        return probe_hit
+        return probe_hits_bool(self._wmember, self._pmember, self._pwindows,
+                               self.probe_has_gram, gram_hits)
+
+    def probe_hits(self, gram_hits: np.ndarray) -> np.ndarray:
+        """[F, G] bool gram hits -> [F, Pw] packed uint32 probe bitmaps."""
+        probe_hit = self.probe_hits_bool(gram_hits)
+        pw = (self.num_probes + 31) // 32
+        padded = np.zeros((len(probe_hit), pw * 32), dtype=bool)
+        padded[:, : self.num_probes] = probe_hit
+        return np.packbits(padded, axis=-1, bitorder="little").view("<u4")
+
+
+def probe_hits_bool(wmember: np.ndarray, pmember: np.ndarray, pwindows: np.ndarray,
+                    probe_has_gram: np.ndarray, gram_hits: np.ndarray) -> np.ndarray:
+    """`GramSet.probe_hits_bool` over its membership arrays (which a
+    `CompiledRules` carries too): a probe hits when every one of its
+    windows has a gram hit, or when it has no gram."""
+    window_hit = gram_hits.astype(np.float32) @ wmember > 0  # [F, W]
+    probe_hit = (
+        window_hit.astype(np.float32) @ pmember
+    ) >= pwindows[None, :]  # all windows present
+    probe_hit[:, ~probe_has_gram] = True
+    return probe_hit
 
 
 def build_gram_set(pset: ProbeSet) -> GramSet:

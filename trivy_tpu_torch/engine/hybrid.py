@@ -278,7 +278,7 @@ class GpuHybridSecretEngine:
         # Rules that are candidates with zero gram hits (all their gating
         # probes are gram-less), resolved once on an all-zero row.
         zero = np.zeros((1, self.gset.num_grams), dtype=bool)
-        base = self.candidate_matrix_bool(self.gset.probe_hits_bool(zero))[0]
+        base = self.compiled.candidate_matrix_bool(self.gset.probe_hits_bool(zero))[0]
         self._base_cand = np.flatnonzero(base)
         self._build_scan_tables()
 
@@ -303,16 +303,6 @@ class GpuHybridSecretEngine:
             verify = "device" if terms["wide"] else "dfa"
         reason = "link-wide" if terms["wide"] else "link-narrow"
         return verify, record_gate("auto", verify, reason, terms)
-
-    def candidate_matrix_bool(self, probe_bool: np.ndarray) -> np.ndarray:
-        """[F, P] bool probe hits -> [F, R] bool candidates (matmul form)."""
-        c = self.compiled
-        f, r = len(probe_bool), c.num_rules
-        ph = probe_bool.astype(np.float32)
-        gate_ok = ~c.gate_any[None, :] | (ph @ c.gate_member > 0)
-        conj_hit = (ph @ c.conj_member).reshape(f, r, c.num_conjuncts) > 0
-        conj_ok = (~c.conj_any[None] | conj_hit).all(-1)
-        return gate_ok & conj_ok
 
     def _build_scan_tables(self) -> None:
         """Flat CSR tables for the fused C scan (gram_sieve_scan_files)."""
@@ -691,10 +681,12 @@ def make_secret_engine(
               where the reference would fall back to the device engine)
       hybrid  host pre-sieve + verify + confirm (`GpuHybridSecretEngine`)
       device  all bytes through the device sieve (`GpuSecretEngine`)
+      native  the device engine over the C++ host row sieve
+              (`GpuSecretEngine(sieve="native")`)
       oracle  the pure-Python reference engine
     Aliases: tpu = device, cpu = oracle.  Not in the port yet, and raising
-    NotImplementedError: backend "native" (ROADMAP A7 rest), `mesh` (A11),
-    `rules_cache_dir` (A10) and `program_table` (A9)."""
+    NotImplementedError: `mesh` (A11), `rules_cache_dir` (A10) and
+    `program_table` (A9)."""
     backend = {"tpu": "device", "cpu": "oracle"}.get(backend, backend)
     if mesh is not None:
         raise NotImplementedError("mesh engines are not ported yet (ROADMAP A11)")
@@ -704,15 +696,13 @@ def make_secret_engine(
     if kw.get("program_table") is not None:
         raise NotImplementedError("scan programs are not ported yet (ROADMAP A9)")
     kw.pop("program_table", None)
-    if backend == "native":
-        raise NotImplementedError(
-            "backend 'native' (the device engine over the C++ host sieve) is "
-            "not ported yet (ROADMAP A7 rest)")
     if backend == "oracle":
         return OracleScanner(ruleset=ruleset, config=config)
-    if backend == "device":
+    if backend in ("device", "native"):
         from trivy_tpu_torch.engine.device import GpuSecretEngine
 
+        if backend == "native":
+            kw["sieve"] = "native"
         return GpuSecretEngine(ruleset=ruleset, config=config, device=device, **kw)
     if backend not in ("auto", "hybrid"):
         raise ValueError(f"unknown secret-engine backend: {backend!r}")

@@ -20,8 +20,9 @@ reference's, unchanged in meaning:
   during assembly, with at most `default_depth()` fetches outstanding.  The
   legacy mode fetches the flag map (compacted, `link.fetch_stream_packed`)
   and maps it to lanes on the host; the **fused** mode ships a per-tier
-  lane table with the rows, resolves verdicts on the device (K5v,
-  `nfa_fused_verdict`) and fetches one keep bit per lane;
+  lane table (and its index, `LaneIndex`) with the rows, resolves verdicts
+  in the same launch (`nfa_stream_verdict`: K5 keeps the lanes of each
+  block it flags and writes no flags) and fetches one keep bit per lane;
 * **padded**: spans holding a NUL byte or longer than 16,384, and lanes of
   rules beyond the stack, pack as class ids into [G, Bg, L] buckets
   (`LEN_BUCKETS`) and run K6 (`nfa_padded`) against the resident per-rule
@@ -53,11 +54,12 @@ from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import trace as obs_trace
 from trivy_tpu_torch.ops.nfa_verify import (
     STREAM_BLOCK,
+    LaneIndex,
     NfaStack,
     NfaTables,
-    nfa_fused_verdict,
     nfa_padded,
     nfa_stream,
+    nfa_stream_verdict,
 )
 
 MAX_LEN = 1 << 15  # lanes whose walk window exceeds this verify on the host
@@ -386,13 +388,13 @@ class GpuNfaVerifier:
                         )
                         faults.fire("nfa.dispatch")
                         rows_dev = _to_device(rows_arr)
-                        lanes_dev = _to_device(table)
+                        lanes = LaneIndex.build(table, len(rows_arr), lo_blocks,
+                                                stack.width, self.device)
                         ph = obs_metrics.device_phase("verify.fused")
-                        flags = nfa_stream(rows_dev, stack, assoc=assoc)
-                        out = nfa_fused_verdict(flags, *lanes_dev)
+                        out = nfa_stream_verdict(rows_dev, stack, lanes, assoc=assoc)
                         ph.done(out)
                         # what the legacy flag-map fetch would have moved
-                        raw_b = flags.shape[0] * lo_blocks * gcap * LANES_PER_GROUP
+                        raw_b = -(-stack.rb // 8) * lo_blocks * gcap * LANES_PER_GROUP
                         in_flight.append(("fused", lane_ids, out, raw_b))
                     else:
                         faults.fire("nfa.dispatch")

@@ -283,6 +283,22 @@ class ProbeSet:
         return (len(self.probes) + 31) // 32
 
 
+    def build_lut(self) -> np.ndarray:
+        """LUT [Jmax, 256, Pw] uint32 for the packed shift-AND sieve."""
+        pw = self.num_words
+        lut = np.zeros((self.jmax, 256, pw), dtype=np.uint32)
+        for p, probe in enumerate(self.probes):
+            w, bit = p // 32, np.uint32(1 << (p % 32))
+            for j in range(self.jmax):
+                if j < len(probe.classes):
+                    bs = probe.classes[j]
+                    for b in range(256):
+                        if bs >> b & 1:
+                            lut[j, b, w] |= bit
+                else:
+                    lut[j, :, w] |= bit  # always-true padding beyond probe length
+        return lut
+
     def gate_masks(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Per-rule packed probe masks for candidate resolution.
 

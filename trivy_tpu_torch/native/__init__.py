@@ -1,3 +1,3 @@
-from trivy_tpu_torch.native.loader import load_native
+from trivy_tpu_torch.native.loader import gram_sieve_native, load_native
 
-__all__ = ["load_native"]
+__all__ = ["gram_sieve_native", "load_native"]

@@ -6,9 +6,11 @@
 // Copied from the scan section of native/gram_sieve.cpp: the mask-group
 // tables at the top of that file, the tri-gram screen, fold_files, the
 // per-hit probe-class confirm_hit, scan_files_impl, CandidateSink and the
-// per-file-pointer entry point gram_sieve_scan_files.  The row and stream
-// sieves and the packed-stream gram_sieve_scan of that file are not on the
-// port's path.  Host code, built with g++, not nvcc.
+// per-file-pointer entry point gram_sieve_scan_files; and from its row
+// section the row sieve gram_sieve, the host sieve of the device engine's
+// sieve="native" (trivy_tpu_torch/native/loader.py gram_sieve_native).  The
+// stream sieve and the packed-stream gram_sieve_scan of that file are not
+// on the port's path.  Host code, built with g++, not nvcc.
 //
 // Screen: per distinct gram mask an O(1) membership probe per window
 // (16-bit masks: a direct 64K-bit set; other masks: a 2^17-bit bloom with a
@@ -512,6 +514,40 @@ struct CandidateSink {
 }  // namespace
 
 extern "C" {
+
+// Row API: [T, L] rows (zero-padded); out [T, G].  Each row is an
+// independent stream (row boundaries here DO cut windows; callers pack rows
+// with overlap): out[t, g] = 1 when gram g matches a case-folded window
+// starting at one of the row's first L - 3 positions.
+void gram_sieve(const uint8_t* rows, int64_t T, int64_t L,
+                const uint32_t* masks, const uint32_t* vals, int32_t G,
+                uint8_t* out) {
+    memset(out, 0, (size_t)T * (size_t)G);
+    if (L < 4 || G <= 0) return;
+    std::vector<MaskGroup> groups = build_groups(masks, vals, G);
+    const MaskGroup* gp = groups.data();
+    const size_t ngroups = groups.size();
+
+    for (int64_t t = 0; t < T; ++t) {
+        const uint8_t* row = rows + t * L;
+        uint8_t* orow = out + t * G;
+        uint32_t w = 0;
+        for (int64_t i = 0; i < L; ++i) {
+            uint8_t b = row[i];
+            if (b >= 'A' && b <= 'Z') b += 32;
+            w = (w >> 8) | ((uint32_t)b << 24);
+            if (i < 3) continue;
+            for (size_t k = 0; k < ngroups; ++k) {
+                const uint32_t x = w & gp[k].mask;
+                if (table_probe(gp[k], x)) {
+                    for (int32_t g = gp[k].start; g < gp[k].end; ++g) {
+                        if (x == vals[g]) orow[g] = 1;
+                    }
+                }
+            }
+        }
+    }
+}
 
 // Per-file-pointer fused scan: folds straight from the caller's file
 // buffers into one case-folded stream (>= 4 zero bytes between files), sieves

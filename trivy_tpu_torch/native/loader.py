@@ -2,18 +2,22 @@
 hybrid engine's host pre-sieve.
 
 A port of `trivy_tpu/native/loader.py` reduced to what the engines run:
-`dfa_verify.cpp` and `gram_scan.cpp` (this directory) build with `g++` into
+`dfa_verify.cpp`, `gram_scan.cpp` and `lane_index.cpp` (this directory)
+build with `g++` into
 one shared library under `trivy_tpu_torch/_build/` (listed in
 `.gitignore`), keyed by a digest of the sources, the flags and the host
 CPU's feature flags (`-march=native` code must not load on another CPU that
 shares the directory), so an edited source never loads a stale build, and
 loads through ctypes.  Bound:
-`dfa_verify_pairs`, `dfa_verify_pairs_files` and `gram_sieve_scan_files`.
+`dfa_verify_pairs`, `dfa_verify_pairs_files`, `gram_sieve_scan_files`, the
+row sieve `gram_sieve` (`gram_sieve_native`) and the fused K5's lane index
+`lane_index` (`ops/nfa_verify.LaneIndex.build`).
 
 Unlike the reference, a failed build raises with the compiler's output
 instead of returning None: the reference's None makes its engine skip the
-claim-killer without a word, and the port would rather fail than hide a
-missing step.  Nothing here runs at import time.
+claim-killer without a word (and its `gram_sieve_native` fall back to numpy),
+and the port would rather fail than hide a missing step.  Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -25,11 +29,13 @@ import platform
 import subprocess
 from pathlib import Path
 
+import numpy as np
+
 from trivy_tpu_torch import lockcheck
 
 NATIVE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = NATIVE_DIR.parent / "_build"
-SOURCES = ("dfa_verify.cpp", "gram_scan.cpp")
+SOURCES = ("dfa_verify.cpp", "gram_scan.cpp", "lane_index.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _lock = lockcheck.make_lock("native.loader")
@@ -90,8 +96,8 @@ def build() -> Path:
         errors.append(f"$ {' '.join(attempt)}\n{proc.stderr}")
     tmp.unlink(missing_ok=True)
     raise RuntimeError(
-        "the native library (trivy_tpu_torch/native/dfa_verify.cpp, "
-        "gram_scan.cpp) did not build:\n" + "\n".join(errors)
+        f"the native library (trivy_tpu_torch/native/: {', '.join(SOURCES)}) "
+        "did not build:\n" + "\n".join(errors)
     )
 
 
@@ -132,5 +138,37 @@ def load_native() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int64,                   # out_pairs, cap
         ]
         lib.gram_sieve_scan_files.restype = ctypes.c_int64
+        lib.gram_sieve.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,   # rows, T, L
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,  # masks, vals, G
+            ctypes.c_void_p,                                   # out
+        ]
+        lib.gram_sieve.restype = None
+        lib.lane_index.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,                   # table [4, N], N
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,    # n_rows, n_blocks, width
+            ctypes.c_void_p,                                   # out
+        ]
+        lib.lane_index.restype = ctypes.c_int64
         _lib = lib
     return _lib
+
+
+def gram_sieve_native(rows: np.ndarray, masks: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """[T, L] uint8 rows -> [T, G] bool hits (the twin of the reference
+    loader's; masks sorted so equal masks are contiguous, as the gram set
+    sorts them).  Raises when the library does not build, where the
+    reference returns None and falls back to numpy."""
+    lib = load_native()
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    masks = np.ascontiguousarray(masks, dtype=np.uint32)
+    vals = np.ascontiguousarray(vals, dtype=np.uint32)
+    t, length = rows.shape
+    g = len(masks)
+    out = np.zeros((t, g), dtype=np.uint8)
+    lib.gram_sieve(
+        rows.ctypes.data, t, length,
+        masks.ctypes.data, vals.ctypes.data, g,
+        out.ctypes.data,
+    )
+    return out.astype(bool)

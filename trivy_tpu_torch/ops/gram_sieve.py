@@ -14,10 +14,17 @@ reinterpret with `.numpy().view(np.uint32)` at the host boundary.
 * **window** (`gram_sieve_window`, the twin of `_sieve_window`): positions
   past the row end read zero, and the test is `(w & mask) == val`.
 
+* **rows** (`gram_sieve_rows`, B5, the twin of the XLA program
+  `trivy_tpu/ops/gram_sieve.py` `gram_sieve_rows`, which the reference
+  engine runs with `kernel="xla"`): only the L - 3 windows that lie inside
+  the row (no wrap, no zero fill), `(w & mask) == val`, and the bits in the
+  caller's gram order (`pad_grams` pads the list to whole words with
+  never-matching grams, `RowGramSieve`), not over distinct pairs.
+
 Each wrapper launches the hand-written CUDA kernel of `csrc/gram_sieve.cu`
 for a CUDA tensor, and counts the launch in `LAUNCHES`; for a CPU tensor it
-runs the plain PyTorch version beside it.  The two row-tail rules differ on
-purpose: each matches its own reference kernel bit for bit.
+runs the plain PyTorch version beside it.  The three row-tail rules differ
+on purpose: each matches its own reference program bit for bit.
 
 The kernels read the pairs as a pair-set table (`sieve_table`) and the
 plain versions read the (mask, val) pairs themselves; `sieve_consts` builds
@@ -45,9 +52,13 @@ SLICE_WORDS = 8
 # The megakernel's wrappers (`ops/megakernel.py`) and the NFA verify's
 # (`ops/nfa_verify.py`) count here too.
 LAUNCHES: dict[str, int] = {
-    "bitplane": 0, "window": 0, "mega": 0, "mega_acc": 0, "mega_epilogue": 0,
-    "nfa_stream": 0, "nfa_fused": 0, "nfa_padded": 0,
+    "bitplane": 0, "window": 0, "rows": 0, "lut": 0, "mega": 0, "mega_acc": 0,
+    "mega_epilogue": 0, "nfa_stream": 0, "nfa_fused": 0, "nfa_padded": 0,
 }
+
+# The three row-tail rules (`_sieve_plain`): wrapped windows (K1), windows
+# zero-filled past the row end (K2), windows inside the row only (B5).
+TAILS = {"bitplane": "wrap", "window": "zero", "rows": "cut"}
 
 
 def dedupe_grams(
@@ -165,19 +176,21 @@ def sieve_consts(
 
 def _sieve_plain(
     rows: torch.Tensor, masks: torch.Tensor, vals: torch.Tensor,
-    n_words: int, wrap: bool,
+    n_words: int, tail: str,
 ) -> torch.Tensor:
     t, length = rows.shape
     f = rows.to(torch.int64)
     f = torch.where((f >= 65) & (f <= 90), f + 32, f)
 
     def shifted(k: int) -> torch.Tensor:
-        if wrap:
+        if tail == "wrap":
             return torch.roll(f, -k, dims=1)
-        tail = torch.zeros((t, min(k, length)), dtype=f.dtype, device=f.device)
-        return torch.cat([f[:, k:], tail], dim=1)
+        if tail == "cut":
+            return f[:, k : max(length - 3, 0) + k]
+        pad = torch.zeros((t, min(k, length)), dtype=f.dtype, device=f.device)
+        return torch.cat([f[:, k:], pad], dim=1)
 
-    w = f | (shifted(1) << 8) | (shifted(2) << 16) | (shifted(3) << 24)
+    w = shifted(0) | (shifted(1) << 8) | (shifted(2) << 16) | (shifted(3) << 24)
     m = masks.to(torch.int64) & 0xFFFFFFFF
     v = vals.to(torch.int64) & 0xFFFFFFFF
     hit = torch.zeros((t, n_words * 32), dtype=torch.int64, device=rows.device)
@@ -202,14 +215,49 @@ def gram_sieve_bitplane_plain(
 ) -> torch.Tensor:
     """Plain K1: wrapped windows against whole-byte (mask, val) pairs
     (int32 bit patterns, see `byte_test_constants`)."""
-    return _sieve_plain(rows, masks, vals, n_words, wrap=True)
+    return _sieve_plain(rows, masks, vals, n_words, "wrap")
 
 
 def gram_sieve_window_plain(
     rows: torch.Tensor, masks: torch.Tensor, vals: torch.Tensor, n_words: int
 ) -> torch.Tensor:
     """Plain K2: zero-filled windows, `(w & mask) == val`."""
-    return _sieve_plain(rows, masks, vals, n_words, wrap=False)
+    return _sieve_plain(rows, masks, vals, n_words, "zero")
+
+
+def gram_sieve_rows_plain(
+    rows: torch.Tensor, masks: torch.Tensor, vals: torch.Tensor, n_words: int
+) -> torch.Tensor:
+    """Plain B5: the L - 3 windows inside the row, `(w & mask) == val`, bit
+    g of the words for the caller's gram g (duplicates included).  One pass
+    per distinct mask, as K1's and K2's, in place of the reference's
+    [T, L - 3, G] compare."""
+    return _sieve_plain(rows, masks, vals, n_words, "cut")
+
+
+def pad_grams(masks: np.ndarray, vals: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Pad gram constants to a multiple of 32 with never-matching entries
+    (the reference's `pad_grams`): mask all bytes, require the all-zero
+    window with 0xFF in the top byte, which only `00 00 00 FF` matches."""
+    g = len(masks)
+    gpad = -(-max(g, 1) // 32) * 32
+    m = np.full(gpad, 0xFFFFFFFF, dtype=np.uint32)
+    v = np.zeros(gpad, dtype=np.uint32)
+    m[:g] = masks
+    v[:g] = vals
+    v[g:] = 0xFF000000
+    return m, v
+
+
+def gram_sieve_numpy(
+    rows: np.ndarray, masks: np.ndarray, vals: np.ndarray
+) -> np.ndarray:
+    """NumPy reference implementation (unpacked bool output [T, G])."""
+    f = rows.astype(np.uint32)
+    upper = (f >= 65) & (f <= 90)
+    f = np.where(upper, f + 32, f)
+    w = f[:, :-3] | (f[:, 1:-2] << 8) | (f[:, 2:-1] << 16) | (f[:, 3:] << 24)
+    return ((w[:, :, None] & masks[None, None, :]) == vals[None, None, :]).any(axis=1)
 
 
 # ---------------------------------------------------------------------------
@@ -250,8 +298,7 @@ def _check(rows, consts: SieveConsts, n_words: int) -> None:
 def _sieve(kind: str, rows, consts: SieveConsts, n_words: int) -> torch.Tensor:
     _check(rows, consts, n_words)
     if rows.device.type == "cpu":
-        return _sieve_plain(rows, consts.masks, consts.vals, n_words,
-                            wrap=kind == "bitplane")
+        return _sieve_plain(rows, consts.masks, consts.vals, n_words, TAILS[kind])
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
     rows = rows.contiguous()
@@ -284,6 +331,35 @@ def gram_sieve_window(
     """K2 on `rows`' device: the CUDA kernel on a card (`consts.table`),
     the plain version on the CPU (`consts.masks`/`vals`)."""
     return _sieve("window", rows, consts, n_words)
+
+
+def gram_sieve_rows(
+    rows: torch.Tensor, consts: SieveConsts, n_words: int
+) -> torch.Tensor:
+    """B5 on `rows`' device: the CUDA kernel on a card (`consts.table`),
+    the plain version on the CPU (`consts.masks`/`vals`)."""
+    return _sieve("rows", rows, consts, n_words)
+
+
+class RowGramSieve:
+    """Callable B5 sieve: rows [T, L] uint8 -> hit words [T, Gp / 32] int32,
+    bit g for the caller's gram g (the pad grams of `pad_grams` included:
+    they fire on a window `00 00 00 FF`, as the reference's do; callers
+    read bits below `num_grams`)."""
+
+    def __init__(self, masks: np.ndarray, vals: np.ndarray,
+                 device: str | torch.device = DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        self.num_grams = len(masks)
+        pmasks, pvals = pad_grams(np.asarray(masks, dtype=np.uint32),
+                                  np.asarray(vals, dtype=np.uint32))
+        self.n_words = len(pmasks) // 32
+        self.consts = sieve_consts(pmasks, pvals, self.n_words, self.device)
+
+    def __call__(self, rows: torch.Tensor) -> torch.Tensor:
+        if rows.device != self.device:
+            raise ValueError(f"rows on {rows.device}, sieve on {self.device}")
+        return gram_sieve_rows(rows, self.consts, self.n_words)
 
 
 class GramSieve:

@@ -27,11 +27,15 @@ CUDA tensors and a plain PyTorch version beside it for CPU tensors:
   per-block affine summaries combined by an associative scan.  On the card
   both scan modes launch K5 (one thread walks a 16 KB row in microseconds;
   the summaries exist to shorten the TPU scan's serial depth).
-* **K5v**, `nfa_fused_verdict` (the verdict half of `_run_fused`, :572):
-  flags and a lane table row/slot/b0/b1 [N] int32 (N a power of two >= 8;
-  padded lanes all 0) -> keep [N/8] uint8, np.packbits order (MSB-first):
-  lane i keeps when its slot's flag is set in some block of [b0, b1) of its
-  row.
+* **K5 in fused mode**, `nfa_stream_verdict` (the twin of `_run_fused`,
+  :572: the stream and its verdict half in one launch): rows, a stack and a
+  lane table row/slot/b0/b1 [N] int32 (N a power of two >= 8; padded lanes
+  all 0) -> keep [N/8] uint8, np.packbits order (MSB-first): lane i keeps
+  when its slot's match ends in some block of [b0, b1) of its row.  The
+  kernel writes no flags: each flagged block sets the keep bits of its
+  lanes through a CSR index of the table (`LaneIndex`).  Its plain version
+  is `nfa_fused_verdict_plain` (the reference's cumulative block-sum
+  gather) over the plain K5's flags.
 * **K6**, `nfa_padded` (the twin of `_run`, :325): class ids [G, Bg, L]
   uint8 (lane-contiguous; the reference's [L, G, Bg] transposed), group
   rule ids [G] int32 and the resident per-rule tables ->
@@ -243,6 +247,45 @@ class NfaTables:
         return cls.from_words(nfa_tables(follow, accept, first, last, "cpu"), device)
 
 
+@dataclass(frozen=True)
+class LaneIndex:
+    """A fused dispatch's lane table and the kernel's index of it.  `lanes`
+    [4, N] int32 on the host (row, slot, b0, b1; what the plain version
+    reads) and `index`, one int32 tensor on the launch's device: offsets
+    [n_rows * width + 1] (the lanes of (row, slot) at [off[row * width +
+    slot], off[... + 1])), then per indexed lane, sorted by (row, slot, b0):
+    b0, b1, `reach` (the largest b1 of its (row, slot)'s lanes up to it) and
+    its lane id.  Only lanes that can keep are indexed: row in [0, n_rows),
+    slot in [0, width) (a slot past the live ones never matches), and a
+    non-empty block range once clamped to [0, n_blocks)."""
+
+    lanes: torch.Tensor
+    index: torch.Tensor
+    n_rows: int
+    width: int
+    n_indexed: int
+
+    @classmethod
+    def build(cls, lanes, n_rows: int, n_blocks: int, width: int, device) -> LaneIndex:
+        """`lanes` [4, N] int32 (array or tensor), N a multiple of 8 -> the
+        index on `device`, built by the native library's `lane_index` (a
+        counting sort: two passes over the table) and copied over once."""
+        from trivy_tpu_torch.native import load_native
+
+        table = np.ascontiguousarray(np.asarray(
+            lanes.cpu() if isinstance(lanes, torch.Tensor) else lanes, dtype=np.int32))
+        if table.ndim != 2 or table.shape[0] != 4 or table.shape[1] % 8:
+            raise ValueError(f"lane table must be [4, N] int32, N a multiple of 8, "
+                             f"got {table.shape}")
+        n, n_keys = table.shape[1], n_rows * width
+        out = np.empty(n_keys + 1 + 4 * n, np.int32)
+        m = load_native().lane_index(table.ctypes.data, n, n_rows, n_blocks, width,
+                                     out.ctypes.data)
+        return cls(lanes=torch.from_numpy(table),
+                   index=torch.from_numpy(out[: n_keys + 1 + 4 * m]).to(device),
+                   n_rows=n_rows, width=width, n_indexed=int(m))
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU tensors, tests, and the on-card comparison)
 # ---------------------------------------------------------------------------
@@ -360,7 +403,9 @@ def nfa_fused_verdict_plain(
     flags: torch.Tensor, lane_row: torch.Tensor, lane_slot: torch.Tensor,
     lane_b0: torch.Tensor, lane_b1: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain K5v: the reference's cumulative block-sum gather."""
+    """The verdict half of `_run_fused` over K5's flags: the reference's
+    cumulative block-sum gather (the plain version of the fused launch's
+    keep bits, after `nfa_stream_plain`)."""
     bits = (flags[lane_slot.long() // 8, lane_row.long()].to(torch.int32)
             >> (lane_slot.long() % 8)[:, None].to(torch.int32)) & 1  # [N, Lo]
     csz = torch.nn.functional.pad(torch.cumsum(bits, dim=1), (1, 0))  # [N, Lo+1]
@@ -510,32 +555,68 @@ def _word_padded(shape: tuple, dtype: torch.dtype, device) -> tuple[torch.Tensor
     return buf[:n].view(shape), buf
 
 
-def nfa_fused_verdict(
-    flags: torch.Tensor, lane_row: torch.Tensor, lane_slot: torch.Tensor,
-    lane_b0: torch.Tensor, lane_b1: torch.Tensor,
-) -> torch.Tensor:
-    """K5v on `flags`' device.  The lane table must index inside `flags`
-    (row < N, slot < 8 ceil(rb/8), 0 <= b0, b1 <= Lo), as the engine's
-    does; the kernel reads nothing outside `flags` for a lane that does
-    not, and keeps nothing for it."""
-    if flags.dtype != torch.uint8 or flags.dim() != 3:
-        raise ValueError(f"flags must be [P, N, Lo] uint8, got {flags.dtype} "
-                         f"{tuple(flags.shape)}")
-    lanes = (lane_row, lane_slot, lane_b0, lane_b1)
-    n = len(lane_row)
-    if n % 8 or any(t.dtype != torch.int32 or t.shape != (n,) for t in lanes):
-        raise ValueError("lane tables must be four [N] int32 tensors, N a multiple of 8")
-    _check_device("nfa_fused_verdict", flags, *lanes)
-    if flags.device.type == "cpu":
-        return nfa_fused_verdict_plain(flags, *lanes)
-    flags = flags.contiguous()
-    lanes = [t.contiguous() for t in lanes]
-    out = torch.empty(n // 8, dtype=torch.uint8, device=flags.device)
-    with torch.cuda.device(flags.device):
-        err = _kernel_fn("nfa_fused_verdict", "piiippppipp")(
-            flags.data_ptr(), flags.shape[0], flags.shape[1], flags.shape[2],
-            *(t.data_ptr() for t in lanes), n, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+def nfa_stream_verdict(rows: torch.Tensor, stack: NfaStack | torch.Tensor,
+                       lanes: LaneIndex | torch.Tensor | np.ndarray,
+                       assoc: bool = False) -> torch.Tensor:
+    """K5 in fused mode on `rows`' device: keep [N/8] uint8 for a lane table
+    (a `LaneIndex`, or the [4, N] int32 table, N a multiple of 8, from which
+    it is built).  On a card one launch (two when segmented) computes the
+    verdict in the walk; on the CPU the plain flags (`assoc` picks the
+    associative-scan version) and `nfa_fused_verdict_plain`.  A lane whose
+    row, slot or blocks lie outside the launch keeps nothing."""
+    if rows.dtype != torch.uint8 or rows.dim() != 2 or rows.shape[1] % STREAM_BLOCK:
+        raise ValueError(f"rows must be [N, L] uint8 with L a multiple of "
+                         f"{STREAM_BLOCK}, got {rows.dtype} {tuple(rows.shape)}")
+    words = stack.words if isinstance(stack, NfaStack) else stack
+    _check_stack_words(words)
+    _check_device("nfa_stream_verdict", rows, words)
+    n, length = rows.shape
+    if rows.device.type == "cpu":
+        table = lanes.lanes if isinstance(lanes, LaneIndex) else torch.as_tensor(lanes)
+        if table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != 4 \
+                or table.shape[1] % 8:
+            raise ValueError("lane table must be [4, N] int32, N a multiple of 8")
+        # the plain version reads flags [ceil(rb/8), ...]: a slot past them
+        # keeps nothing, as on the card
+        keep = (table[1] >= 0) & (table[1] < 8 * -(-words.shape[0] // 8)) \
+            & (table[0] >= 0) & (table[0] < n)
+        table = torch.where(keep, table, torch.zeros_like(table))
+        table[2:] = table[2:].clamp(0, length // STREAM_BLOCK)
+        plain = nfa_stream_assoc_plain if assoc else nfa_stream_plain
+        return nfa_fused_verdict_plain(plain(rows, *unpack_words(words)), *table)
+    if not isinstance(stack, NfaStack):
+        stack = NfaStack.from_words(words)
+    if not isinstance(lanes, LaneIndex):
+        lanes = LaneIndex.build(lanes, n, length // STREAM_BLOCK, stack.width, rows.device)
+    if (lanes.n_rows, lanes.width) != (n, stack.width):
+        raise ValueError(f"lane index for {lanes.n_rows} rows x {lanes.width} slots, "
+                         f"launch of {n} rows x {stack.width}")
+    return _verdict_launch(rows, stack, lanes)
+
+
+def _verdict_launch(rows: torch.Tensor, stack: NfaStack, lanes: LaneIndex,
+                    segments: int = 0) -> torch.Tensor:
+    """Launch K5 in fused mode on a card (`segments` as `_stream_launch`)."""
+    _check_device("nfa_stream_verdict", rows, stack.table, lanes.index)
+    rows = _aligned(rows)
+    n, length = rows.shape
+    table = stack.table.contiguous()
+    index = lanes.index.contiguous()
+    n_keys, m = lanes.n_rows * lanes.width + 1, lanes.n_indexed
+    ptrs = [index.data_ptr() + 4 * o for o in (0, n_keys, n_keys + m, n_keys + 2 * m,
+                                               n_keys + 3 * m)]
+    n_lanes = lanes.lanes.shape[1]
+    with torch.cuda.device(rows.device):
+        if segments == 0:
+            segments = _segments("nfa_stream_segments", rows.device.index, n, length,
+                                 stack.width, stack.n_classes)
+        out, buf = _word_padded((n_lanes // 8,), torch.uint8, rows.device)
+        ends = torch.empty(((segments - 1) * n * stack.width,), dtype=torch.int64,
+                           device=rows.device)
+        err = _kernel_fn("nfa_stream_verdict", "piipiiiiipppppppip")(
+            rows.data_ptr(), n, length, table.data_ptr(), stack.width, stack.n_classes,
+            stack.rb, int(stack.zero_dead), segments, ends.data_ptr(), *ptrs,
+            buf.data_ptr(), buf.numel() // 4, torch.cuda.current_stream().cuda_stream,
         )
     _launched("nfa_fused", err)
     return out

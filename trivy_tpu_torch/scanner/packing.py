@@ -1,7 +1,8 @@
 """Blob packing: variable-length file contents -> fixed-shape device rows.
 
-A copy of `trivy_tpu/scanner/packing.py` cut to what the port's engine runs
-(`dedupe_blobs`, `pack_dense`).  Instead of one worker per file
+A copy of `trivy_tpu/scanner/packing.py` cut to what the port's engines run
+(`dedupe_blobs`, `pack_dense` and its `DenseBatch.file_hits`, and the tiled
+`pack` of the LUT sieve).  Instead of one worker per file
 (pkg/fanal/analyzer/analyzer.go:396-448), files are packed into a
 [T, row_len] uint8 matrix whose rows are processed data-parallel.
 Consecutive rows overlap by `overlap` bytes so a gram never straddles a row
@@ -69,6 +70,30 @@ def dedupe_blobs(contents: list[bytes]) -> DedupeResult:
 
 
 @dataclass
+class PackedBatch:
+    tiles: np.ndarray  # [T, tile_len] uint8
+    tile_file: np.ndarray  # [T] int32 — which input blob each tile came from
+    num_files: int
+
+    def file_hits(self, tile_hits: np.ndarray) -> np.ndarray:
+        """OR-combine per-tile hit bitmaps [T, Pw] into per-file bitmaps [F, Pw]."""
+        pw = tile_hits.shape[1]
+        out = np.zeros((self.num_files, pw), dtype=tile_hits.dtype)
+        real = self.tile_file >= 0
+        np.bitwise_or.at(out, self.tile_file[real], tile_hits[: len(self.tile_file)][real])
+        return out
+
+
+def _tile_counts(contents: list[bytes], tile_len: int, overlap: int) -> list[int]:
+    stride = tile_len - overlap
+    counts = []
+    for c in contents:
+        extra = max(len(c) + overlap - tile_len, 0)
+        counts.append(1 + (-(-extra // stride) if extra else 0))
+    return counts
+
+
+@dataclass
 class DenseBatch:
     """Zero-waste packing: files concatenated (with a small zero gap) into one
     stream, reshaped into overlapping rows.  A row may span several files;
@@ -80,6 +105,31 @@ class DenseBatch:
     file_row_lo: np.ndarray  # [F] int32 — first row overlapping the file
     file_row_hi: np.ndarray  # [F] int32 — last row (inclusive)
     num_files: int
+
+    def file_hits(self, row_hits: np.ndarray) -> np.ndarray:
+        """OR row-level hit bitmaps [T, W] into per-file bitmaps [F, W].
+
+        Exactly ORs rows [lo_i, hi_i] per file: reduceat runs over
+        interleaved (lo_i, hi_i+1) boundaries (with a zero sentinel row so
+        hi+1 may reach nrows) and keeps the even segments.  End-bounding
+        means rows past a file's hi — trailing padding included — never
+        contribute, with no reliance on padding-can't-hit invariants.
+        """
+        if self.num_files == 0:
+            return np.zeros((0, row_hits.shape[1]), dtype=row_hits.dtype)
+        nrows = len(row_hits)
+        lo = np.minimum(self.file_row_lo, nrows - 1).astype(np.int64)
+        hi = self.file_row_hi
+        valid = hi >= self.file_row_lo
+        padded = np.concatenate(
+            [row_hits, np.zeros((1, row_hits.shape[1]), row_hits.dtype)]
+        )
+        idx = np.empty(2 * self.num_files, dtype=np.int64)
+        idx[0::2] = lo
+        idx[1::2] = np.clip(hi, 0, nrows - 1) + 1
+        out = np.bitwise_or.reduceat(padded, idx, axis=0)[0::2]
+        out[~valid] = 0
+        return out
 
 
 def pack_dense(
@@ -127,3 +177,31 @@ def pack_dense(
     )
 
 
+
+
+def pack(
+    contents: list[bytes],
+    tile_len: int = DEFAULT_TILE_LEN,
+    overlap: int = DEFAULT_OVERLAP,
+    pad_tiles_to: int | None = None,
+) -> PackedBatch:
+    """Tile each file on its own: tiles of `tile_len` bytes overlapping by
+    `overlap`, file tails zero-padded (the LUT sieve's packing)."""
+    stride = tile_len - overlap
+    counts = _tile_counts(contents, tile_len, overlap)
+    total = sum(counts)
+    t_alloc = max(pad_tiles_to, total) if pad_tiles_to is not None else total
+    tiles = np.zeros((t_alloc, tile_len), dtype=np.uint8)
+    tile_file = np.full(t_alloc, -1, dtype=np.int32)
+
+    t = 0
+    for fi, c in enumerate(contents):
+        data = np.frombuffer(c, dtype=np.uint8)
+        for k in range(counts[fi]):
+            start = k * stride
+            chunk = data[start : start + tile_len]
+            tiles[t, : len(chunk)] = chunk
+            tile_file[t] = fi
+            t += 1
+
+    return PackedBatch(tiles=tiles, tile_file=tile_file, num_files=len(contents))
