@@ -62,11 +62,14 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             STALL_S dumps all threads' stacks to stderr;
    sieves   B5 (`gram_sieve_rows`, the twin of the reference's XLA gram
             sieve) on seeded rows [4096, 4096] and [512, 4096] with
-            `00 00 00 FF` windows, raw and in the auto codec's class ids, and B6
-            (`lut_sieve`) on the builtin LUT over 4,096 packed tiles of 4,096
-            bytes, each held bit for bit to its plain version and timed
-            beside its bound (bytes, and B5's integer work or B6's
-            shared-memory loads, derived);
+            `00 00 00 FF` windows, raw and in the auto codec's 4-bit class
+            ids, and B6 (`lut_sieve`) on the builtin LUT over 4,096 packed
+            tiles of 4,096 bytes, each held bit for bit to its plain version
+            and timed beside its bound (bytes, and B5's integer work or B6's
+            shared-memory loads of the live steps, derived) and its design's
+            floor (B5's shared loads a position, B6's issued steps); with
+            each kernel's ptxas registers and spills, blocks per SM, byte
+            classes and passes;
    variants the all-device engine's other sieves, counts zeroed before each
             run: `main`'s files through `make_secret_engine(backend=
             "native")` (host row sieve) and `GpuSecretEngine(kernel="xla")`
@@ -111,9 +114,10 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             (derived).  A scan past STALL_S seconds dumps the stacks of
             all threads to stderr.
 
-`--keep-inputs PATH` saves the NFA kernels' timed inputs (`torch.save`)
-for `tools/nfa_kernel_times.py`, which times another tree's kernels on
-them.
+`--keep-inputs PATH` saves the timed inputs of the NFA kernels and of B5
+and B6 (keys `sieve_*`) in one file (`torch.save`) for
+`tools/nfa_kernel_times.py` and `tools/sieve_kernel_times.py`, which time
+another tree's kernels on them.
 
 Then one JSON line describing each kernel (launches come from the path runs:
 B5's and B6's from `variants`, the fused and padded NFA kernels' from the
@@ -289,46 +293,60 @@ def int_issue_ms(ops: int, clock_hz: float) -> float:
     return ops / (SMS * INT32_LANES_PER_SM * clock_hz) * 1e3
 
 
-def lut_live_steps(torch, tiles, lut) -> int:
-    """The (position, step) pairs B6's early exit takes on these tiles: every
-    position's step 0, and step j while its AND over steps < j is non-zero."""
-    t, length = tiles.shape
-    jmax = lut.shape[0]
-    lv = length - jmax + 1
-    idx = tiles.long()
-    steps = 0
-    for r0 in range(0, t, 512):
-        rows = idx[r0 : r0 + 512]
-        acc = lut[0][rows[:, :lv]]
-        steps += acc.shape[0] * lv
-        for j in range(1, jmax):
-            live = (acc != 0).any(-1)
-            steps += int(live.sum())
-            acc &= lut[j][rows[:, j : j + lv]]
-    return steps
+def ptxas_summary(_build, lib: str, kernel: str) -> str:
+    """`registers/spill bytes` of each instantiation of `kernel` in
+    csrc/<lib>.cu, as `nvcc -Xptxas -v` reported them."""
+    parts = []
+    for r in _build.resources(lib):
+        name = demangle(r["kernel"])
+        at = name.find(kernel + "<")
+        if at >= 0:
+            args = name[at + len(kernel) + 1 : name.index(">", at)]
+            args = args.replace("(int)", "").replace("(bool)", "")
+            parts.append(f"<{args}>:{r['registers']}r/{r['spill_bytes']}B")
+    return " ".join(parts) or "not reported"
 
 
-def row_sieves_phase(np, torch, gs, ls, compiled, codec, corpus, clock_hz: float) -> dict:
+def row_sieves_phase(np, torch, gs, ls, _build, compiled, codec, corpus, clock_hz: float,
+                     kept: dict) -> dict:
     """B5 (`gram_sieve_rows`) and B6 (`lut_sieve`) against their plain
     versions, bit for bit: B5 on seeded rows [4096, 4096] and [512, 4096]
     (the engine's buckets at tile 4096) with `00 00 00 FF` windows (the pad
-    grams' match) and upper case, in raw bytes and in 6-bit class ids; B6
-    on the builtin LUT over the first 4,096 `pack`ed tiles of `corpus`.
-    Each timed at its largest shape: event ms, device ms, plain ms, and the
-    bound (bytes, and B5's integer work or B6's shared-memory loads, both
-    derived from these inputs)."""
+    grams' match) and upper case, in raw bytes and in the auto codec's 4-bit
+    class ids (`codec`, as `variants` runs it), and in raw bytes on B6's
+    tiles (text); B6 on the builtin LUT over the first 4,096 `pack`ed tiles
+    of `corpus`.  Prints each kernel's ptxas registers and spills, blocks per
+    SM, byte classes and passes, and checks that the built B6 walks as
+    `ls.walk_steps` models it.  Each timed at its largest shape: event ms,
+    device ms, plain ms, the bound (bytes, and B5's integer work over its
+    distinct pairs or B6's shared-memory loads of the live steps, both
+    derived from these inputs) and beside it the design's own floor (B5: its
+    shared loads a position; B6: the steps its warps issue).  The inputs go
+    into `kept` (for `tools/sieve_kernel_times.py`)."""
     from trivy_tpu_torch.engine.probes import build_probe_set
     from trivy_tpu_torch.rules.model import build_ruleset
     from trivy_tpu_torch.scanner.packing import pack
 
     report = {"rows": {"max_abs_err": 0}, "lut": {"max_abs_err": 0}}
     length = SIEVE_LEN
-    for t, space in [(t, space) for t in SIEVE_ROWS for space in ("raw", "class")]:
-        rows = seeded_rows(np, t, length, seed=SEED + 11 * t)
-        for i in range(1, t, 3):
-            p = (37 * i) % (length - 4)
-            rows[i, p : p + 4] = (0, 0, 0, 255)
-        rows[::5, -4:] = (0, 0, 0, 255)
+    print(f"sieves: ptxas gram_rows_kernel<NW,VEC> {ptxas_summary(_build, 'gram_rows', 'gram_rows_kernel')}",
+          flush=True)
+    print(f"sieves: ptxas lut_class_kernel<PW,VEC> {ptxas_summary(_build, 'lut_sieve', 'lut_class_kernel')}",
+          flush=True)
+    pset = build_probe_set(build_ruleset(None).rules)
+    lut = pset.build_lut()
+    tiles = pack([c for _, c in corpus], length, max(16, pset.jmax)).tiles[:SIEVE_ROWS[0]]
+    tiles = np.ascontiguousarray(tiles)
+    cases = [(t, space) for t in SIEVE_ROWS for space in ("raw", "class")]
+    for t, space in cases + [(len(tiles), "text")]:
+        if space == "text":
+            rows = tiles
+        else:
+            rows = seeded_rows(np, t, length, seed=SEED + 11 * t)
+            for i in range(1, t, 3):
+                p = (37 * i) % (length - 4)
+                rows[i, p : p + 4] = (0, 0, 0, 255)
+            rows[::5, -4:] = (0, 0, 0, 255)
         masks, vals = compiled.masks, compiled.vals
         if space == "class":
             masks, vals = codec.encode_grams(masks, vals)
@@ -336,31 +354,50 @@ def row_sieves_phase(np, torch, gs, ls, compiled, codec, corpus, clock_hz: float
         sieve = gs.RowGramSieve(masks, vals, device=DEVICE)
         dev = torch.from_numpy(rows).to(DEVICE)
         c = sieve.consts
+        kept[f"sieve_b5_{space}_{t}"] = (
+            torch.from_numpy(rows), torch.from_numpy(np.asarray(masks, np.int64)),
+            torch.from_numpy(np.asarray(vals, np.int64)))
         got, want = sieve(dev), gs.gram_sieve_rows_plain(dev, c.masks, c.vals, sieve.n_words)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max().item())
         pad = sieve.num_grams
         pad_rows = int(((want[:, pad // 32] >> (pad % 32)) & 1).sum())
+        blocks = gs.read_row_tables(c.table.cpu().numpy(), c.passes)
+        pair_words = sum(b.nw for b in blocks)
         print(f"sieves: rows (B5) T={t} L={length} {space} G={sieve.num_grams} "
-              f"words={sieve.n_words} equal={torch.equal(got, want)} max_abs_err={err} "
+              f"words={sieve.n_words} pairs={len(gs.dedupe_grams(*gs.pad_grams(masks, vals))[0])} "
+              f"passes={len(blocks)} pair_words={[b.nw for b in blocks]} "
+              f"classes_per_offset={[list(b.counts) for b in blocks]} "
+              f"blocks_per_sm={gs.rows_blocks_per_sm(c)} "
+              f"(256 threads a block) equal={torch.equal(got, want)} max_abs_err={err} "
               f"hit_words={int((want != 0).sum())} pad_gram_rows={pad_rows}", flush=True)
         report["rows"]["max_abs_err"] = max(report["rows"]["max_abs_err"], err)
         if err or not torch.equal(got, want):
             fail("sieves", f"B5 T={t} {space} disagrees with its plain version")
-        if not want.any() or (space == "raw") != (pad_rows > 0):
+        if not want.any() or (space == "raw" and not pad_rows) or (
+                space == "class" and pad_rows):
             fail("sieves", f"B5 T={t} {space}: nothing fired, or the pad grams misfired")
-        if (t, space) == (SIEVE_ROWS[0], "raw"):
+        positions = t * (length - 3)
+        # this design's floor: 4 lookups a pair word and position, and the
+        # class map's 19 a 16-position chunk, at one wavefront a clock per SM
+        loads = 4 * pair_words + 19 / 16
+        floor_ms = positions * loads / (SMS * 32 * clock_hz) * 1e3
+        if t == SIEVE_ROWS[0] and space != "class":
             raw_ms = device_ms(torch, lambda: sieve(dev), REPS)
-            print(f"sieves: rows (B5) shape=[{t}, {length}] raw bytes "
-                  f"device_ms={fmt_ms(raw_ms)} (256 symbols: bank conflicts)", flush=True)
+            print(f"sieves: rows (B5) shape=[{t}, {length}] raw bytes ({space}) "
+                  f"device_ms={fmt_ms(raw_ms)} floor_ms={floor_ms:.5f} "
+                  f"(shared loads, {loads:.2f} a position, derived)", flush=True)
         if (t, space) == (SIEVE_ROWS[0], "class"):
             # the space `variants` runs it in (codec auto: unpacked class ids)
             fn = lambda: sieve(dev)  # noqa: E731
-            positions = t * (length - 3)
-            bytes_ms = (rows.nbytes + t * sieve.n_words * 4 + 2 * 4 * 32 * sieve.n_words) \
+            n_pairs = len(gs.dedupe_grams(*gs.pad_grams(masks, vals))[0])
+            bytes_ms = (rows.nbytes + t * sieve.n_words * 4 + 2 * 4 * n_pairs) \
                 / HBM_BYTES_PER_S * 1e3
-            # the table form: 2 three-input LOP3 a word of grams and window
-            ops_ms = int_issue_ms(positions * 2 * sieve.n_words, clock_hz)
+            # the table form: 2 three-input LOP3 a word of distinct pairs
+            # and window (the gram-order output follows from the pair bits)
+            ops_ms = int_issue_ms(positions * 2 * pair_words, clock_hz)
+            # the first-cut kernel's yardstick, over the padded grams' words
+            gram_ops_ms = int_issue_ms(positions * 2 * sieve.n_words, clock_hz)
             rec = report["rows"]
             rec.update(ms=event_ms(torch, fn, REPS), device_ms=device_ms(torch, fn, REPS),
                        plain_ms=event_ms(torch, lambda: gs.gram_sieve_rows_plain(
@@ -371,29 +408,40 @@ def row_sieves_phase(np, torch, gs, ls, compiled, codec, corpus, clock_hz: float
             print(f"sieves: rows (B5) timed shape={rec['shape']} ms={rec['ms']:.4f} "
                   f"device_ms={fmt_ms(rec['device_ms'])} plain_ms={rec['plain_ms']:.4f} "
                   f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}; bytes "
-                  f"{bytes_ms:.5f}, integer work {ops_ms:.5f} derived)", flush=True)
+                  f"{bytes_ms:.5f}, integer work over {pair_words} pair words "
+                  f"{ops_ms:.5f} derived) gram_words_ops_ms={gram_ops_ms:.5f} "
+                  f"(over {sieve.n_words} padded gram words) floor_ms={floor_ms:.5f} "
+                  f"(shared loads, {loads:.2f} a position, derived)", flush=True)
 
-    pset = build_probe_set(build_ruleset(None).rules)
-    lut = pset.build_lut()
-    tiles = pack([c for _, c in corpus], length, max(16, pset.jmax)).tiles[:SIEVE_ROWS[0]]
     sieve = ls.LutSieve(lut, device=DEVICE)
-    dev = torch.from_numpy(np.ascontiguousarray(tiles)).to(DEVICE)
+    dev = torch.from_numpy(tiles).to(DEVICE)
+    kept["sieve_b6"] = (torch.from_numpy(tiles), torch.from_numpy(lut.astype(np.int64)))
     got, want = sieve(dev), ls.lut_sieve_plain(dev, sieve.consts.lut)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max().item())
     report["lut"]["max_abs_err"] = err
+    (block,) = ls.read_lut_tables(sieve.consts.table.cpu().numpy(), sieve.consts.passes,
+                                  lut.shape[0])
+    policy = ls.kernel_policy()
     print(f"sieves: lut (B6) tiles={list(tiles.shape)} J={lut.shape[0]} Pw={lut.shape[2]} "
+          f"classes={block.table.shape[1]} passes={len(sieve.consts.passes)} "
+          f"table_KB={sieve.consts.passes[0][2] * 4 / 1024:.1f} "
           f"equal={torch.equal(got, want)} max_abs_err={err} "
           f"hit_words={int((want != 0).sum())} blocks_per_sm="
-          f"{ls.blocks_per_sm(lut.shape[0], length)} (256 threads a block)", flush=True)
+          f"{ls.blocks_per_sm(sieve.consts, length)} (256 threads a block) "
+          f"walk (threads, queue slots, steps)={policy}", flush=True)
     if err or not torch.equal(got, want) or not want.any():
         fail("sieves", "B6 disagrees with its plain version, or nothing fired")
-    steps = lut_live_steps(torch, dev, sieve.consts.lut)
+    if policy != (ls.BLOCK_THREADS, ls.QUEUE_SLOTS, ls.WALK):
+        fail("sieves", f"B6 walks with {policy}, ls.walk_steps models "
+                       f"{(ls.BLOCK_THREADS, ls.QUEUE_SLOTS, ls.WALK)}")
+    steps, issued = ls.walk_steps(dev, sieve.consts.lut)
     pw = lut.shape[2]
     bytes_ms = (tiles.nbytes + lut.nbytes + len(tiles) * pw * 4) / HBM_BYTES_PER_S * 1e3
     # each step of a position loads Pw words of shared memory; an SM serves
     # 32 lanes a clock
     loads_ms = steps * pw / (SMS * 32 * clock_hz) * 1e3
+    floor_ms = issued * pw / (SMS * 32 * clock_hz) * 1e3  # the steps the warps issue
     fn = lambda: sieve(dev)  # noqa: E731
     rec = report["lut"]
     rec.update(ms=event_ms(torch, fn, REPS), device_ms=device_ms(torch, fn, REPS),
@@ -405,14 +453,16 @@ def row_sieves_phase(np, torch, gs, ls, compiled, codec, corpus, clock_hz: float
     print(f"sieves: lut (B6) timed shape={rec['shape']} ms={rec['ms']:.4f} "
           f"device_ms={fmt_ms(rec['device_ms'])} plain_ms={rec['plain_ms']:.4f} "
           f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}; bytes {bytes_ms:.5f}, "
-          f"shared loads {loads_ms:.5f} derived: {steps} steps of {positions} positions, "
-          f"{steps / positions:.3f} a position)", flush=True)
+          f"shared loads {loads_ms:.5f} derived: {steps} live steps of {positions} "
+          f"positions, {steps / positions:.3f} a position) floor_ms={floor_ms:.5f} "
+          f"(issued steps, derived: {issued}, {issued / positions:.3f} a position, "
+          f"{issued / steps:.2f}x the live steps)", flush=True)
     return report
 
 
-KERNEL_NAMES = ("gram_sieve_kernel", "mega_count_kernel", "mega_epilogue_kernel",
-                "nfa_stream_kernel", "nfa_stream_fix_kernel", "lut_sieve_kernel",
-                "nfa_padded_kernel", "nfa_padded_fix_kernel")
+KERNEL_NAMES = ("gram_sieve_kernel", "gram_rows_kernel", "mega_count_kernel",
+                "mega_epilogue_kernel", "nfa_stream_kernel", "nfa_stream_fix_kernel",
+                "lut_class_kernel", "nfa_padded_kernel", "nfa_padded_fix_kernel")
 
 
 def device_ms(torch, fn, reps: int):
@@ -1488,7 +1538,7 @@ def to_cpu(torch, value):
 def main(argv: list[str]) -> int:
     keep_path = None
     if argv[:1] == ["--keep-inputs"] and len(argv) == 2:
-        keep_path = argv[1]  # the NFA kernels' timed inputs, torch.save'd there
+        keep_path = argv[1]  # the sieves' and NFA kernels' timed inputs, torch.save'd there
     elif argv:
         fail("setup", f"usage: chip_smoke.py [--keep-inputs PATH], got {argv}")
     try:
@@ -1552,7 +1602,9 @@ def main(argv: list[str]) -> int:
     del engine
     auto_phase(np, torch, main_corpus, main_results, main_seconds)
     corpus = bench_corpus.make_kernel_corpus(n_files=N_FILES, seed=SEED)
-    report.update(row_sieves_phase(np, torch, gs, ls, compiled, codec, corpus, clock_hz))
+    kept: dict = {}  # the sieves' and NFA kernels' timed inputs, for --keep-inputs
+    report.update(row_sieves_phase(np, torch, gs, ls, _build, compiled, codec, corpus,
+                                   clock_hz, kept))
     variants = variants_phase(np, torch, gs, main_corpus, main_results, corpus)
     del main_corpus, main_results
     launches = {
@@ -1571,7 +1623,6 @@ def main(argv: list[str]) -> int:
     launches["mega_epilogue"] = split["mega_epilogue"]
 
     verifier = GpuNfaVerifier(build_ruleset(None).rules, device=DEVICE)
-    kept: dict = {}  # the NFA kernels' timed inputs, for --keep-inputs
     report.update(nfa_phase(np, torch, nv, verifier, kept))
     hybrid = hybrid_phase(np, torch, gs, bench_corpus)
     # the fused and padded NFA launches in the default scan's run when it
@@ -1590,7 +1641,7 @@ def main(argv: list[str]) -> int:
     dispatch_times(np, torch, nv, hybrid["dispatches"], report, clock_hz, kept)
     if keep_path:
         torch.save({k: to_cpu(torch, v) for k, v in kept.items()}, keep_path)
-        print(f"nfa: timed inputs kept in {keep_path}", flush=True)
+        print(f"nfa, sieves: timed inputs kept in {keep_path}", flush=True)
 
     replaces = {
         "bitplane": "trivy_tpu/ops/gram_sieve_pallas.py:271",
@@ -1614,7 +1665,7 @@ def main(argv: list[str]) -> int:
              "mega_epilogue": "megakernel_epilogue", "nfa_stream": "nfa_stream",
              "nfa_fused": "nfa_stream_verdict", "nfa_padded": "nfa_padded"}
     sources = {"bitplane": "gram_sieve.cu", "window": "gram_sieve.cu",
-               "rows": "gram_sieve.cu", "lut": "lut_sieve.cu",
+               "rows": "gram_rows.cu", "lut": "lut_sieve.cu",
                "mega": "megakernel.cu", "mega_acc": "megakernel.cu",
                "mega_epilogue": "megakernel.cu", "nfa_stream": "nfa_verify.cu",
                "nfa_fused": "nfa_verify.cu", "nfa_padded": "nfa_verify.cu"}

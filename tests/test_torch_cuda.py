@@ -1,7 +1,11 @@
 """The CUDA kernels of `trivy_tpu_torch/csrc/` on an NVIDIA card: the gram
-sieves K1/K2 and B5 (`gram_sieve.cu`: pad grams, `00 00 00 FF` windows,
-raw and coded rows, more than 256 grams, rows shorter than a window), the
-LUT sieve B6 (`lut_sieve.cu`: packed tiles, more than 256 probes), the
+sieves K1/K2 (`gram_sieve.cu`) and B5 (`gram_rows.cu`: pad grams,
+`00 00 00 FF` windows, raw and coded rows, more than 256 grams and more than
+64 byte classes, odd lengths, rows off a 16-byte boundary, rows shorter than
+a window), the LUT sieve B6 (`lut_sieve.cu`: packed tiles, more than 256
+probes, 256 byte classes, J = 1, 2 and 32, every position surviving to J,
+positions dying at varied steps at J = 16 and 32, odd and unaligned tiles,
+the walk's constants), the
 engine's other sieves on the card against the CPU, the megakernel K3/K4
 (`megakernel.cu`) and the device NFA verify K5 in both modes and K6
 (`nfa_verify.cu`: the fused launch over packed lanes sharing boundary
@@ -1045,6 +1049,147 @@ def test_lut_sieve_more_than_256_probes(card):
     dev = torch.from_numpy(tiles).to(card)
     want = ls.lut_sieve_plain(dev, sieve.consts.lut)
     assert torch.equal(sieve(dev), want) and want[:, 8:].any()
+
+
+def _unaligned(rows: np.ndarray, card) -> torch.Tensor:
+    """`rows` on the card as a contiguous view whose base is 1 byte past a
+    16-byte boundary: the kernels' byte path."""
+    t, length = rows.shape
+    flat = torch.zeros(t * length + 16, dtype=torch.uint8, device=card)
+    view = flat[1 : 1 + t * length].view(t, length)
+    view.copy_(torch.from_numpy(rows))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 1
+    return view
+
+
+@pytest.mark.parametrize("space", ["raw", "4"])
+@pytest.mark.parametrize("t,length", [(300, 4096), (70, 4097), (33, 517), (40, 17),
+                                      (11, 4), (6, 5)])
+def test_gram_sieve_rows_odd_lengths_and_unaligned_rows(card, compiled, t, length, space):
+    """Row lengths no multiple of 16, a single window (L = 4), and rows whose
+    base is off a 16-byte boundary, in raw bytes and 4-bit class ids."""
+    masks, vals = compiled.masks, compiled.vals
+    rows = _b5_rows(t, length, seed=3 * t + length)
+    if space != "raw":
+        codec = link.select_codec(link.derive_alphabet(compiled), space, compiled)
+        masks, vals = codec.encode_grams(masks, vals)
+        rows = codec.class_map[rows]
+    sieve = gs.RowGramSieve(masks, vals, device=card)
+    c = sieve.consts
+    for dev in (torch.from_numpy(rows).to(card), _unaligned(rows, card)):
+        want = gs.gram_sieve_rows_plain(dev, c.masks, c.vals, sieve.n_words)
+        assert torch.equal(sieve(dev), want)
+    if length >= 8:
+        assert want.any()
+
+
+def test_gram_sieve_rows_many_byte_classes(card):
+    """Grams over random full bytes: more than 64 classes at every offset
+    (2-way and worse bank sharing, the class map's 8-bit ids well past 32),
+    three passes of pairs."""
+    rng = np.random.default_rng(9)
+    masks = np.full(600, 0xFFFFFFFF, np.uint32)
+    vals = rng.integers(0, 1 << 32, 600, dtype=np.uint64).astype(np.uint32)
+    rows = rng.integers(0, 256, size=(257, 1024), dtype=np.uint8)
+    for i in range(257):
+        v = vals[(7 * i) % 600]
+        rows[i, 3 * i % 1000 : 3 * i % 1000 + 4] = np.frombuffer(np.uint32(v).tobytes(), np.uint8)
+    sieve = gs.RowGramSieve(masks, vals, device=card)
+    blocks = gs.read_row_tables(sieve.consts.table.cpu().numpy(), sieve.consts.passes)
+    assert len(blocks) == 3 and min(min(b.counts) for b in blocks[:2]) > 64
+    dev = torch.from_numpy(rows).to(card)
+    c = sieve.consts
+    want = gs.gram_sieve_rows_plain(dev, c.masks, c.vals, sieve.n_words)
+    assert torch.equal(sieve(dev), want) and want.any()
+    assert gs.rows_blocks_per_sm(c) >= 1
+
+
+def test_gram_rows_occupancy(card, compiled):
+    """The builtin ruleset's one pass: 4 blocks of 256 threads an SM.  The
+    query must not lower the kernel's shared-memory limit: a larger table
+    (raw bytes' 35 classes after class ids' 17) still launches."""
+    codec = link.select_codec(link.derive_alphabet(compiled), "4", compiled)
+    small = gs.RowGramSieve(*codec.encode_grams(compiled.masks, compiled.vals), device=card)
+    large = gs.RowGramSieve(compiled.masks, compiled.vals, device=card)
+    assert small.consts.passes[0][2] < large.consts.passes[0][2]
+    assert len(large.consts.passes) == 1 and gs.rows_blocks_per_sm(small.consts) >= 4
+    dev = torch.from_numpy(_b5_rows(64, 4096, seed=5)).to(card)
+    c = large.consts
+    assert torch.equal(large(dev), gs.gram_sieve_rows_plain(dev, c.masks, c.vals, large.n_words))
+
+
+def _lut_case(kind: str, rng) -> np.ndarray:
+    """LUT words for the B6 card cases: in j1, j2, j32 and survive probe 0
+    accepts every byte, so every position walks to J; sparse_j16 and
+    sparse_j32 have no such probe (each offset rejects ~4% of bytes, each
+    probe ~20% more), so positions die at every step, some only at J."""
+    if kind == "distinct":  # every byte its own class, J = 3
+        one = np.arange(256, dtype=np.uint32).reshape(1, 256, 1) * np.uint32(0x01010101)
+        return np.repeat(one, 3, axis=0) ^ np.uint32(0x5A5A5A5A)
+    if kind.startswith("sparse_j"):
+        lut = rng.random((int(kind[len("sparse_j"):]), 256, 96)) < 0.8
+        lut[rng.random(lut.shape[:2]) < 0.04] = False
+        return np.packbits(lut, axis=-1, bitorder="little").view("<u4").astype(np.uint32)
+    jmax = {"j1": 1, "j2": 2, "j32": 32, "survive": 12}[kind]
+    lut = rng.random((jmax, 256, 96)) < 0.5
+    lut[:, :, 0] = True  # probe 0 accepts every byte: every position survives to J
+    if kind != "survive":
+        lut[:, :, 1:] &= rng.random((jmax, 256, 95)) < 0.3
+    return np.packbits(lut, axis=-1, bitorder="little").view("<u4").astype(np.uint32)
+
+
+def _lut_classes(consts) -> int:
+    """Byte classes of the first pass of a `LutConsts`' tables."""
+    from trivy_tpu_torch.ops import lut_sieve as ls
+
+    (block, *_) = ls.read_lut_tables(consts.table.cpu().numpy(), consts.passes,
+                                     consts.lut.shape[0])
+    return block.table.shape[1]
+
+
+@pytest.mark.parametrize("kind", ["distinct", "j1", "j2", "j32", "survive", "sparse_j16",
+                                  "sparse_j32"])
+@pytest.mark.parametrize("t,length", [(300, 4096), (41, 1001), (5, 40)])
+def test_lut_sieve_shapes_on_card(card, kind, t, length):
+    """B6 against its plain version: 256 byte classes, J = 1, 2 and 32, a
+    LUT where every position survives to J (full queues every round),
+    sparse LUTs at J = 16 and 32 where positions die at varied steps (early
+    exits inside a queued walk, mixed with re-queues), odd tile lengths and
+    tiles off a 16-byte boundary."""
+    from trivy_tpu_torch.ops import lut_sieve as ls
+
+    rng = np.random.default_rng(len(kind) + t)
+    lut = _lut_case(kind, rng)
+    tiles = rng.integers(0, 256, size=(t, length), dtype=np.uint8)
+    sieve = ls.LutSieve(lut, device=card)
+    if kind == "distinct":
+        assert _lut_classes(sieve.consts) == 256
+    # the 9 positions a tile of 40 bytes has at J = 32 all die short of J
+    fires = not (kind == "sparse_j32" and length == 40)
+    if kind.startswith("sparse_j") and length > 100:
+        live, _ = ls.walk_steps(torch.from_numpy(tiles), torch.from_numpy(lut.view(np.int32)))
+        positions = t * (length - lut.shape[0] + 1)
+        assert 2 * positions < live < lut.shape[0] * positions
+    for dev in (torch.from_numpy(tiles).to(card), _unaligned(tiles, card)):
+        want = ls.lut_sieve_plain(dev, sieve.consts.lut)
+        assert torch.equal(sieve(dev), want) and bool(want.any()) == fires
+    assert ls.blocks_per_sm(sieve.consts, length) >= 1
+
+
+def test_lut_sieve_walk_policy_is_the_modelled_one(card):
+    """The built kernel walks with the constants `ls.walk_steps` models."""
+    from trivy_tpu_torch.ops import lut_sieve as ls
+
+    assert ls.kernel_policy() == (ls.BLOCK_THREADS, ls.QUEUE_SLOTS, ls.WALK)
+
+
+def test_lut_sieve_occupancy(card):
+    """The builtin LUT over byte classes (67): at least 4 blocks of 256
+    threads an SM at tile 4096 (the 256-symbol table fitted 2)."""
+    from trivy_tpu_torch.ops import lut_sieve as ls
+
+    consts = ls.LutSieve(_builtin_lut(), device=card).consts
+    assert _lut_classes(consts) == 67 and ls.blocks_per_sm(consts, 4096) >= 4
 
 
 def test_sieve_wrappers_never_reach_a_plain_version_on_card(card, compiled, monkeypatch):

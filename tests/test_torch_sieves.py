@@ -7,7 +7,8 @@ package (on the CPU; `JAX_PLATFORMS=cpu`):
   windows (the pad grams' match), L in {16, 512} and unpacked 4- and 6-bit
   class ids; `pad_grams` and `gram_sieve_numpy` equal the reference's;
 * B6, `lut_sieve_plain` (`ops/lut_sieve.py`), against `sieve_tiles`, and the
-  kernel's LUT layout (`lut_table`) against the LUT it came from;
+  kernel's class tables (`lut_tables`) read back against the LUT they came
+  from;
 * the copies the sieves need: `ProbeSet.build_lut`, `pack` and
   `PackedBatch.file_hits`, `DenseBatch.file_hits`, `GramSet.probe_hits`,
   the native row sieve `gram_sieve_native` (the port's g++ library against
@@ -150,17 +151,22 @@ def test_lut_sieve_plain_equals_reference(probe_sets, length):
     assert got.any()
 
 
+def _class_rows(table, passes, jmax, i):
+    """Pass i's block of `lut_tables` read back: [J, 256, nw] words."""
+    nw, cmap, ctab = ls.read_lut_tables(table, passes, jmax)[i]
+    return ctab[:, cmap, :nw]
+
+
 def test_lut_table_layout(probe_sets):
     lut = probe_sets[0].build_lut()
-    table = ls.lut_table(lut)
+    table, passes = ls.lut_tables(lut)
     j, _, pw = lut.shape
-    assert table.shape == (1, j, ls.SLICE_WORDS, 256)
-    np.testing.assert_array_equal(table[0, :, :pw].transpose(0, 2, 1), lut)
-    assert not table[0, :, pw:].any()
+    assert len(passes) == 1 and passes[0][1] == pw
+    np.testing.assert_array_equal(_class_rows(table, passes, j, 0), lut)
     wide = np.arange(3 * 256 * 10, dtype=np.uint32).reshape(3, 256, 10)
-    t2 = ls.lut_table(wide)
-    assert t2.shape == (2, 3, 8, 256)
-    np.testing.assert_array_equal(t2[1, :, :2].transpose(0, 2, 1), wide[:, :, 8:])
+    t2, p2 = ls.lut_tables(wide)
+    assert [p[1] for p in p2] == [8, 2]
+    np.testing.assert_array_equal(_class_rows(t2, p2, 3, 1), wide[:, :, 8:])
     with pytest.raises(ValueError):
         ls.lut_sieve(torch.zeros((2, 8), dtype=torch.uint8), ls.lut_consts(lut, "cpu"))
 

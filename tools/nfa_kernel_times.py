@@ -69,7 +69,9 @@ def host_ms(fn) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn):
+def device_ms(fn, names=NAMES):
+    """Device time per call of the kernels named `names` that `fn` launches,
+    from the profiler; None when it sees none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -79,8 +81,17 @@ def device_ms(fn):
             fn()
         torch.cuda.synchronize()
     total = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
-                if any(k in e.key for k in NAMES))
+                if any(k in e.key for k in names))
     return total / REPS / 1e3 if total else None
+
+
+def warm_up() -> None:
+    """An idle card runs at a low clock: keep it busy for a second."""
+    x = torch.randn(4096, 4096, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        x = (x @ x).clamp_(-1.0, 1.0)
+    torch.cuda.synchronize()
 
 
 def main(path: str, label: str) -> int:
@@ -90,15 +101,12 @@ def main(path: str, label: str) -> int:
     from trivy_tpu_torch.ops import nfa_verify as nv
 
     kept = torch.load(path)
-    # an idle card runs at a low clock: keep it busy for a second first
-    x = torch.randn(4096, 4096, device="cuda")
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < 1.0:
-        x = (x @ x).clamp_(-1.0, 1.0)
-    torch.cuda.synchronize()
+    warm_up()
     sums: dict[str, float] = {}
     host_sums: dict[str, float] = {}
     for key, value in kept.items():
+        if key.startswith("sieve_"):  # B5's and B6's: tools/sieve_kernel_times.py
+            continue
         if key.startswith("dispatch_"):
             name, args = value
         elif key.startswith("nfa_padded"):

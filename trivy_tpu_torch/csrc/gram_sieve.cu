@@ -10,16 +10,8 @@
 //     compare (`byte_test_constants`).
 //   * WRAP = false -> `_sieve_window` (pallas_call at :311, body
 //     `_make_window_kernel` :204).  Positions past the row end read zero.
-// and the XLA program trivy_tpu/ops/gram_sieve.py `gram_sieve_rows` (:36,
-// B5, jitted at :57, the reference engine's kernel="xla"):
-//   * CUT = true -> only the L - 3 windows that lie inside the row, over the
-//     caller's grams in their own order, padded to whole words
-//     (`pad_grams`: mask 0xFFFFFFFF, val 0xFF000000, which the table
-//     accepts on a window 00 00 00 FF exactly as the compare does).  Its
-//     bound on an H100: the bytes (T*L read, T*Gw*4 written) and the
-//     integer work of the table form, 2 three-input LOP3 a word of grams and
-//     window (derived; chip_smoke.py prints both); the shared-memory lookups
-//     are K1's, 4 x 8 a slice and window.
+// (B5, the reference's XLA `gram_sieve_rows`, has its own kernel:
+// gram_rows.cu.)
 // Both fold bytes 0x41..0x5A to lowercase; the fold is baked into the table
 // (256 symbols, since a row may hold any byte), so the kernel folds nothing.
 //
@@ -53,7 +45,7 @@ using sieve_row::kWarps;
 
 constexpr int kSymbols = 256;
 
-template <bool WRAP, bool VEC, bool CUT>
+template <bool WRAP, bool VEC>
 __global__ void __launch_bounds__(sieve_row::kThreads, sieve_row::kMinBlocks)
 gram_sieve_kernel(const uint8_t* __restrict__ rows, int n_rows, int length,
                   const uint32_t* __restrict__ table, int n_slices,
@@ -65,9 +57,7 @@ gram_sieve_kernel(const uint8_t* __restrict__ rows, int n_rows, int length,
   const int warp = threadIdx.x >> 5;
   const int sub = lane & (group - 1);
   const int rows_per_warp = 32 / group;
-  // CUT: windows start at positions [0, length - 3) only
-  const int n_pos_total = CUT ? (length > 3 ? length - 3 : 0) : length;
-  const int n_chunks = (n_pos_total + kChunk - 1) / kChunk;
+  const int n_chunks = (length + kChunk - 1) / kChunk;
   const int n_groups = (n_rows + rows_per_warp - 1) / rows_per_warp;
 
   for (int sl = 0; sl < n_slices; ++sl) {
@@ -88,12 +78,11 @@ gram_sieve_kernel(const uint8_t* __restrict__ rows, int n_rows, int length,
           uint32_t sym[kSyms];
           if constexpr (VEC) {
             sieve_row::fetch_chunk<8, WRAP>(src, length, c, sym);
-            sieve_row::sieve_chunk<kSymbols>(
-                s_tab, sym, CUT ? min(kChunk, n_pos_total - c * kChunk) : kChunk, acc);
+            sieve_row::sieve_chunk<kSymbols>(s_tab, sym, kChunk, acc);
           } else {
             sieve_row::fetch_chunk_bytes<WRAP>(src, length, c, sym);
             sieve_row::sieve_chunk<kSymbols>(
-                s_tab, sym, min(kChunk, n_pos_total - c * kChunk), acc);
+                s_tab, sym, min(kChunk, length - c * kChunk), acc);
           }
         }
       }
@@ -123,10 +112,10 @@ int lanes_per_row(int length) {
   return group;
 }
 
-template <bool WRAP, bool VEC, bool CUT>
+template <bool WRAP, bool VEC>
 int launch_kernel(const void* rows, int n_rows, int length, const void* table,
                   int n_words, void* out, cudaStream_t stream) {
-  auto kernel = gram_sieve_kernel<WRAP, VEC, CUT>;
+  auto kernel = gram_sieve_kernel<WRAP, VEC>;
   const int group = lanes_per_row(length);
   const int rows_per_warp = 32 / group;
   const int n_groups = (n_rows + rows_per_warp - 1) / rows_per_warp;
@@ -143,17 +132,17 @@ int launch_kernel(const void* rows, int n_rows, int length, const void* table,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool WRAP, bool CUT = false>
+template <bool WRAP>
 int launch(const void* rows, int n_rows, int length, const void* table,
            int n_words, void* out, void* stream_ptr) {
   if (n_rows == 0 || length == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool vec = length % kChunk == 0 &&
                    reinterpret_cast<uintptr_t>(rows) % 16 == 0;
-  return vec ? launch_kernel<WRAP, true, CUT>(rows, n_rows, length, table, n_words,
-                                              out, stream)
-             : launch_kernel<WRAP, false, CUT>(rows, n_rows, length, table,
-                                               n_words, out, stream);
+  return vec ? launch_kernel<WRAP, true>(rows, n_rows, length, table, n_words,
+                                         out, stream)
+             : launch_kernel<WRAP, false>(rows, n_rows, length, table, n_words,
+                                          out, stream);
 }
 
 }  // namespace
@@ -174,20 +163,6 @@ int gram_sieve_window(const void* rows, int n_rows, int length,
                       const void* table, int n_words, void* out,
                       void* stream) {
   return launch<false>(rows, n_rows, length, table, n_words, out, stream);
-}
-
-// B5 (`gram_sieve_rows`): the windows inside the row, over the caller's
-// padded grams in their own order; a row shorter than 4 bytes hits nothing
-// (its words are zeroed).
-int gram_sieve_rows(const void* rows, int n_rows, int length,
-                    const void* table, int n_words, void* out,
-                    void* stream) {
-  if (length < 4) {
-    return static_cast<int>(cudaMemsetAsync(
-        out, 0, static_cast<size_t>(n_rows) * n_words * 4,
-        static_cast<cudaStream_t>(stream)));
-  }
-  return launch<false, true>(rows, n_rows, length, table, n_words, out, stream);
 }
 
 }  // extern "C"

@@ -419,7 +419,8 @@ class GpuSecretEngine:
         if self.sieve == "native":
             return
         if self.device.type == "cuda":
-            _build.load("lut_sieve" if self.sieve == "lut" else "gram_sieve")
+            _build.load("lut_sieve" if self.sieve == "lut" else
+                        "gram_sieve" if self._pallas_obj is not None else "gram_rows")
             if self._mega is not None:
                 _build.load("megakernel")
             self._exec(torch.zeros((self._buckets()[0], self._staged_cols),

@@ -21,15 +21,19 @@ reinterpret with `.numpy().view(np.uint32)` at the host boundary.
   caller's gram order (`pad_grams` pads the list to whole words with
   never-matching grams, `RowGramSieve`), not over distinct pairs.
 
-Each wrapper launches the hand-written CUDA kernel of `csrc/gram_sieve.cu`
-for a CUDA tensor, and counts the launch in `LAUNCHES`; for a CPU tensor it
-runs the plain PyTorch version beside it.  The three row-tail rules differ
-on purpose: each matches its own reference program bit for bit.
+Each wrapper launches a hand-written CUDA kernel (`csrc/gram_sieve.cu` for
+K1/K2, `csrc/gram_rows.cu` for B5) for a CUDA tensor, and counts the
+launch in `LAUNCHES`; for a CPU tensor it runs the plain PyTorch version
+beside it.  The three row-tail rules differ on purpose: each matches its
+own reference program bit for bit.
 
-The kernels read the pairs as a pair-set table (`sieve_table`) and the
-plain versions read the (mask, val) pairs themselves; `sieve_consts` builds
-both at once as one `SieveConsts`, which `GramSieve` keeps on its device and
-hands to the wrappers whole.
+K1/K2 read the pairs as a pair-set table (`sieve_table`) and the plain
+versions read the (mask, val) pairs themselves; `sieve_consts` builds both
+at once as one `SieveConsts`, which `GramSieve` keeps on its device and
+hands to the wrappers whole.  B5 reads `row_tables`: the distinct pairs'
+table over per-offset byte classes, and a gram -> pair index that expands
+the pair bits to gram order in the kernel; `row_consts` builds its
+`RowConsts`.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from trivy_tpu_torch.bytefreq import FREQ
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
 DEFAULT_BLOCK_ROWS = 64
@@ -169,6 +174,137 @@ def sieve_consts(
                        dev(sieve_table(masks, vals, n_words)))
 
 
+# Symbols in the order byte classes are numbered (`byte_classes`): the bytes
+# most frequent in source and config text first (`bytefreq.FREQ`; ties in
+# byte order), so their classes take the low ids.  A class id c shares a
+# shared-memory bank with c + 32 only, so text whose classes stay below 32
+# reads its tables without conflicts.
+SYMBOL_ORDER = np.argsort(-FREQ, kind="stable")
+
+
+def byte_classes(columns: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Symbols whose rows of `columns` ([S, ...]) are equal share a class.
+    Returns (class id of each symbol [S] int64, one symbol of each class
+    [C]), ids numbered by first appearance in `SYMBOL_ORDER`."""
+    s = len(columns)
+    _, inverse = np.unique(columns.reshape(s, -1), axis=0, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    ids = np.full(inverse.max() + 1, -1, dtype=np.int64)
+    reps = []
+    for sym in SYMBOL_ORDER[SYMBOL_ORDER < s]:
+        if ids[inverse[sym]] < 0:
+            ids[inverse[sym]] = len(reps)
+            reps.append(sym)
+    return ids[inverse], np.array(reps, dtype=np.int64)
+
+
+ROW_HEADER = 8  # words of a B5 pass block before what the kernel stages
+
+
+def row_tables(
+    masks: np.ndarray, vals: np.ndarray
+) -> tuple[np.ndarray, tuple[tuple[int, int, int], ...]]:
+    """B5's kernel tables for gram constants padded to a multiple of 32
+    (`pad_grams`).  The grams' distinct (mask, val) pairs (`dedupe_grams`)
+    are sieved 256 a pass; per pass, one block of uint32 words:
+
+    * [0:4] C_k, the classes at offset k: symbols whose pair columns
+      (`sieve_table`, case fold baked in) at offset k are equal; [4:8] 0;
+    * [8:264] the class map: byte k of word s is symbol s's class at k;
+    * for k = 0..3, C_k rows of ST = nw | 1 words (nw pair words in this
+      pass; an odd stride keeps classes below 32 in distinct banks): row c
+      holds the pairs that accept class c at offset k, word nw zero;
+    * the gram -> pair index, one uint16 per gram, two a word, low half
+      first: the pair's bit within this pass, 0xFFFF for a pair of another;
+    * zero words up to a multiple of 4 (blocks stay 16-byte aligned).
+
+    Returns (the blocks concatenated, and per pass (word offset of its
+    block, nw, words staged = block length - ROW_HEADER))."""
+    masks = np.asarray(masks, dtype=np.uint32)
+    vals = np.asarray(vals, dtype=np.uint32)
+    if not len(masks) or len(masks) % 32:
+        raise ValueError(f"{len(masks)} grams: pad them to a multiple of 32")
+    dmasks, dvals, expand = dedupe_grams(masks, vals)
+    dw = -(-len(dmasks) // 32)
+    tab = sieve_table(dmasks, dvals, dw)
+    blocks, passes, offset = [], [], 0
+    for sl in range(len(tab)):
+        nw = min(SLICE_WORDS, dw - SLICE_WORDS * sl)
+        head = np.zeros(ROW_HEADER, dtype=np.uint32)
+        cmap = np.zeros(256, dtype=np.uint32)
+        parts = []
+        for k in range(4):
+            cols = tab[sl, k, :nw].T  # [256 symbols, nw]
+            cls, reps = byte_classes(cols)
+            head[k] = len(reps)
+            cmap |= cls.astype(np.uint32) << np.uint32(8 * k)
+            part = np.zeros((len(reps), nw | 1), dtype=np.uint32)
+            part[:, :nw] = cols[reps]
+            parts.append(part.reshape(-1))
+        local = expand - 32 * SLICE_WORDS * sl
+        idx = np.where((local >= 0) & (local < 32 * nw), local, 0xFFFF).astype("<u2")
+        block = np.concatenate([head, cmap, *parts, idx.view("<u4")])
+        block = np.concatenate([block, np.zeros(-len(block) % 4, dtype=np.uint32)])
+        passes.append((offset, nw, len(block) - ROW_HEADER))
+        blocks.append(block)
+        offset += len(block)
+    return np.concatenate(blocks), tuple(passes)
+
+
+class RowBlock(NamedTuple):
+    """One pass block of `row_tables`, read back: `nw` pair words, `counts`
+    the classes at each offset, `classes` [4, 256] each symbol's class at
+    each offset, `tables` per offset [C_k, nw | 1] words, `index` the
+    gram -> pair index [Gp] uint16."""
+
+    nw: int
+    counts: tuple[int, ...]
+    classes: np.ndarray
+    tables: tuple[np.ndarray, ...]
+    index: np.ndarray
+
+
+def read_row_tables(table: np.ndarray, passes) -> list[RowBlock]:
+    """`row_tables`' blocks (uint32 words, or their int32 bit patterns) ->
+    one `RowBlock` a pass."""
+    table = np.ascontiguousarray(table).view(np.uint32)
+    out = []
+    for offset, nw, staged in passes:
+        block = table[offset : offset + ROW_HEADER + staged]
+        counts = tuple(int(c) for c in block[:4])
+        cmap = block[ROW_HEADER : ROW_HEADER + 256]
+        classes = np.stack([(cmap >> np.uint32(8 * k)) & np.uint32(0xFF)
+                            for k in range(4)]).astype(np.int64)
+        at, tables = ROW_HEADER + 256, []
+        for c in counts:
+            tables.append(block[at : at + c * (nw | 1)].reshape(c, nw | 1))
+            at += c * (nw | 1)
+        out.append(RowBlock(nw, counts, classes, tuple(tables), block[at:].view("<u2")))
+    return out
+
+
+class RowConsts(NamedTuple):
+    """B5's constants on one device: the padded grams `masks`/`vals` [Gp]
+    (int32 bits) for the plain version, and for the kernel `table`, the
+    blocks of `row_tables` as one int32 tensor, with `passes` (word offset,
+    pair words, staged words) of each block.  Build it with `row_consts`."""
+
+    masks: torch.Tensor
+    vals: torch.Tensor
+    table: torch.Tensor
+    passes: tuple[tuple[int, int, int], ...]
+
+
+def row_consts(masks: np.ndarray, vals: np.ndarray,
+               device: str | torch.device) -> RowConsts:
+    """Padded gram constants as uint32 -> their `RowConsts` on `device`."""
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(as_int32_bits(a).copy()).to(device)
+
+    table, passes = row_tables(masks, vals)
+    return RowConsts(dev(masks), dev(vals), dev(table), passes)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU tensors, tests, and the on-card comparison)
 # ---------------------------------------------------------------------------
@@ -271,8 +407,7 @@ def _kernel_fn(kind: str):
     return _build.function("gram_sieve", f"gram_sieve_{kind}", "piipipp")
 
 
-def _check(rows, consts: SieveConsts, n_words: int) -> None:
-    masks, vals, table = consts
+def _check_pairs(rows, masks, vals, n_words: int) -> None:
     if rows.dtype != torch.uint8 or rows.dim() != 2:
         raise ValueError(f"rows must be a 2-D uint8 tensor, got {rows.dtype} "
                          f"{tuple(rows.shape)}")
@@ -284,8 +419,9 @@ def _check(rows, consts: SieveConsts, n_words: int) -> None:
         raise ValueError("masks and vals differ in length")
     if n_words < max(1, -(-len(masks) // 32)):
         raise ValueError(f"n_words={n_words} too small for {len(masks)} pairs")
-    # what sieve_table(..., n_words) gives
-    shape = (table_slices(n_words), 4, SLICE_WORDS, 256)
+
+
+def _check_table(rows, table: torch.Tensor, shape: tuple[int, ...]) -> None:
     if (table.dtype != torch.int32 or tuple(table.shape) != shape
             or table.device != rows.device or not table.is_contiguous()):
         raise ValueError(
@@ -293,6 +429,12 @@ def _check(rows, consts: SieveConsts, n_words: int) -> None:
             f"{rows.device}, got {table.dtype} {tuple(table.shape)} on "
             f"{table.device}"
         )
+
+
+def _check(rows, consts: SieveConsts, n_words: int) -> None:
+    _check_pairs(rows, consts.masks, consts.vals, n_words)
+    # what sieve_table(..., n_words) gives
+    _check_table(rows, consts.table, (table_slices(n_words), 4, SLICE_WORDS, 256))
 
 
 def _sieve(kind: str, rows, consts: SieveConsts, n_words: int) -> torch.Tensor:
@@ -334,11 +476,47 @@ def gram_sieve_window(
 
 
 def gram_sieve_rows(
-    rows: torch.Tensor, consts: SieveConsts, n_words: int
+    rows: torch.Tensor, consts: RowConsts, n_words: int
 ) -> torch.Tensor:
-    """B5 on `rows`' device: the CUDA kernel on a card (`consts.table`),
-    the plain version on the CPU (`consts.masks`/`vals`)."""
-    return _sieve("rows", rows, consts, n_words)
+    """B5 on `rows`' device: the CUDA kernel of `csrc/gram_rows.cu` on a
+    card (`consts.table`: one launch a pass of 256 distinct pairs, the
+    later passes ORing their grams' bits into the words; counted once), the
+    plain version on the CPU (`consts.masks`/`vals`)."""
+    _check_pairs(rows, consts.masks, consts.vals, n_words)
+    if len(consts.masks) != 32 * n_words:
+        raise ValueError(f"{len(consts.masks)} grams, expected {32 * n_words} (padded)")
+    end = consts.passes[-1][0] + consts.passes[-1][2] + ROW_HEADER
+    _check_table(rows, consts.table, (end,))
+    if rows.device.type == "cpu":
+        return _sieve_plain(rows, consts.masks, consts.vals, n_words, TAILS["rows"])
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    from trivy_tpu_torch.ops import _build
+
+    rows = rows.contiguous()
+    t, length = rows.shape
+    out = torch.empty((t, n_words), dtype=torch.int32, device=rows.device)
+    fn = _build.function("gram_rows", "gram_sieve_rows", "piipiiiipp")
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for i, (offset, nw, staged) in enumerate(consts.passes):
+            err = fn(rows.data_ptr(), t, length, consts.table.data_ptr() + 4 * offset,
+                     nw, staged, n_words, int(i > 0), out.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"gram_sieve_rows launch failed: cudaError {err}")
+    LAUNCHES["rows"] += 1
+    return out
+
+
+def rows_blocks_per_sm(consts: RowConsts) -> int:
+    """Blocks of B5's first pass one SM of the current card holds at once."""
+    from trivy_tpu_torch.ops import _build
+
+    _, nw, staged = consts.passes[0]
+    got = _build.function("gram_rows", "gram_rows_blocks_per_sm", "ii")(nw, staged)
+    if got < 0:
+        raise RuntimeError("occupancy query for gram_sieve_rows failed")
+    return got
 
 
 class RowGramSieve:
@@ -354,7 +532,7 @@ class RowGramSieve:
         pmasks, pvals = pad_grams(np.asarray(masks, dtype=np.uint32),
                                   np.asarray(vals, dtype=np.uint32))
         self.n_words = len(pmasks) // 32
-        self.consts = sieve_consts(pmasks, pvals, self.n_words, self.device)
+        self.consts = row_consts(pmasks, pvals, self.device)
 
     def __call__(self, rows: torch.Tensor) -> torch.Tensor:
         if rows.device != self.device:

@@ -12,8 +12,9 @@ probe 32 w + p accepts the byte at offset j; all ones past a probe's
 length).  `lut_sieve` launches the hand-written CUDA kernel of
 `csrc/lut_sieve.cu` for a CUDA tensor and counts the launch in
 `gram_sieve.LAUNCHES["lut"]`; for a CPU tensor it runs `lut_sieve_plain`.
-The kernel reads the LUT as word-major slices of 8 words (`lut_table`), the
-plain version reads it as it is; `lut_consts` builds both at once as one
+The kernel reads the LUT over byte classes (`lut_tables`: bytes whose
+columns are equal at every offset share one row), 256 probes a pass; the
+plain version reads it as it is.  `lut_consts` builds both at once as one
 `LutConsts`, which `LutSieve` keeps on its device.  Words are int32 tensors
 holding the uint32 bit patterns.
 """
@@ -26,30 +27,87 @@ import numpy as np
 import torch
 
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from trivy_tpu_torch.ops.gram_sieve import LAUNCHES, as_int32_bits
+from trivy_tpu_torch.ops.gram_sieve import LAUNCHES, as_int32_bits, byte_classes
 
-SLICE_WORDS = 8  # probe words a kernel pass keeps (`kSliceWords`)
+SLICE_WORDS = 8  # probe words a kernel pass keeps: 256 probes
 PLAIN_ROWS = 64  # tiles the plain version sieves at once
+LUT_HEADER = 4  # words of a pass block before what the kernel stages
+MAX_J = 32  # the kernel's limit on the LUT's offsets (`kMaxJ`)
+# The kernel's walk (`csrc/lut_sieve.cu`; `kernel_policy` reads it back on a
+# card): threads of a block, survivor slots of a warp's queue, and the steps
+# a queued position takes before it is queued again.
+BLOCK_THREADS, QUEUE_SLOTS, WALK = 256, 64, 4
+
+
+def lut_tables(lut: np.ndarray) -> tuple[np.ndarray, tuple[tuple[int, int, int], ...]]:
+    """LUT [J, 256, Pw] uint32 -> the kernel's tables, one pass per 8 probe
+    words (256 probes).  Per pass, one block of uint32 words:
+
+    * [0] C, the byte classes: bytes whose columns (the pass's words at
+      every offset j) are equal, numbered as `byte_classes` does (frequent
+      text bytes first); [1:4] 0;
+    * [4:68] the class map, 256 uint8: byte b's class;
+    * for j < J, C rows of ST = nw | 1 words (nw words in this pass; the odd
+      stride keeps classes below 32 in distinct banks): row c holds
+      lut[j, b, words] for the bytes b of class c, word nw zero;
+    * zero words up to a multiple of 4 (blocks stay 16-byte aligned).
+
+    Returns (the blocks concatenated, and per pass (word offset of its
+    block, nw, words staged = block length - LUT_HEADER))."""
+    lut = np.asarray(lut, dtype=np.uint32)
+    jmax, n_sym, pw = lut.shape
+    if n_sym != 256:
+        raise ValueError(f"LUT must be [J, 256, Pw], got {lut.shape}")
+    blocks, passes, offset = [], [], 0
+    for w0 in range(0, pw, SLICE_WORDS):
+        nw = min(SLICE_WORDS, pw - w0)
+        cols = lut[:, :, w0 : w0 + nw]  # [J, 256, nw]
+        cls, reps = byte_classes(cols.transpose(1, 0, 2))
+        head = np.zeros(LUT_HEADER, dtype=np.uint32)
+        head[0] = len(reps)
+        rows = np.zeros((jmax, len(reps), nw | 1), dtype=np.uint32)
+        rows[:, :, :nw] = cols[:, reps]
+        cmap = cls.astype(np.uint8).view("<u4")
+        block = np.concatenate([head, cmap, rows.reshape(-1)])
+        block = np.concatenate([block, np.zeros(-len(block) % 4, dtype=np.uint32)])
+        passes.append((offset, nw, len(block) - LUT_HEADER))
+        blocks.append(block)
+        offset += len(block)
+    return np.concatenate(blocks), tuple(passes)
+
+
+class LutBlock(NamedTuple):
+    """One pass block of `lut_tables`, read back: `nw` probe words,
+    `classes` [256] each byte's class, `table` [J, C, nw | 1] words."""
+
+    nw: int
+    classes: np.ndarray
+    table: np.ndarray
+
+
+def read_lut_tables(table: np.ndarray, passes, jmax: int) -> list[LutBlock]:
+    """`lut_tables`' blocks (uint32 words, or their int32 bit patterns) for
+    a LUT of `jmax` offsets -> one `LutBlock` a pass."""
+    table = np.ascontiguousarray(table).view(np.uint32)
+    out = []
+    for offset, nw, staged in passes:
+        block = table[offset : offset + LUT_HEADER + staged]
+        c, at = int(block[0]), LUT_HEADER + 64
+        classes = block[LUT_HEADER:at].view(np.uint8).astype(np.int64)
+        rows = block[at : at + jmax * c * (nw | 1)].reshape(jmax, c, nw | 1)
+        out.append(LutBlock(nw, classes, rows))
+    return out
 
 
 class LutConsts(NamedTuple):
     """One LUT in both forms, int32 bit patterns on one device: `lut` [J,
-    256, Pw] for the plain version and `table` [ceil(Pw / 8), J, 8, 256]
-    for the kernel."""
+    256, Pw] for the plain version, and for the kernel `table`, the blocks
+    of `lut_tables` as one tensor, with `passes` (word offset, probe words,
+    staged words) of each block."""
 
     lut: torch.Tensor
     table: torch.Tensor
-
-
-def lut_table(lut: np.ndarray) -> np.ndarray:
-    """LUT [J, 256, Pw] uint32 -> the kernel's word-major slices
-    [ceil(Pw / 8), J, 8, 256] uint32, words past Pw zero."""
-    j, s, pw = lut.shape
-    n_slices = -(-pw // SLICE_WORDS)
-    padded = np.zeros((j, s, n_slices * SLICE_WORDS), dtype=np.uint32)
-    padded[:, :, :pw] = lut
-    table = padded.reshape(j, s, n_slices, SLICE_WORDS).transpose(2, 0, 3, 1)
-    return np.ascontiguousarray(table)
+    passes: tuple[tuple[int, int, int], ...]
 
 
 def lut_consts(lut: np.ndarray, device: str | torch.device) -> LutConsts:
@@ -58,7 +116,8 @@ def lut_consts(lut: np.ndarray, device: str | torch.device) -> LutConsts:
         return torch.from_numpy(as_int32_bits(a).copy()).to(device)
 
     lut = np.asarray(lut, dtype=np.uint32)
-    return LutConsts(dev(lut), dev(lut_table(lut)))
+    table, passes = lut_tables(lut)
+    return LutConsts(dev(lut), dev(table), passes)
 
 
 def _or_reduce(a: torch.Tensor) -> torch.Tensor:
@@ -89,25 +148,92 @@ def lut_sieve_plain(tiles: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _kernel_fn():
-    from trivy_tpu_torch.ops import _build
+def walk_steps(tiles: torch.Tensor, lut: torch.Tensor) -> tuple[int, int]:
+    """The steps of the kernel's walk on these tiles, for a LUT [J, 256, Pw]
+    of one pass (Pw <= 8): `live`, the (position, step) pairs its early exit
+    takes (every position's step 0, and step j while its AND over steps < j
+    is non-zero), and `issued`, the steps its warps issue x 32 lanes: steps
+    0 and 1 of every slot of every round (the ragged last round's too), and
+    for each batch drained from a warp's queue the most steps a lane of it
+    took (at most WALK), the queue modelled as the kernel keeps it:
+    survivors pushed in lane order, the top 32 taken further whenever 32
+    wait and the live ones pushed again, the rest drained likewise at the
+    tile's end."""
+    t, length = tiles.shape
+    jmax = lut.shape[0]
+    lv = length - jmax + 1
+    rounds = -(-lv // BLOCK_THREADS)
+    idx = tiles.long()
+    live = 0
+    walks = torch.full((t, rounds * BLOCK_THREADS), -1, dtype=torch.int32,
+                       device=tiles.device)
+    for r0 in range(0, t, 512):
+        rows = idx[r0 : r0 + 512]
+        acc = lut[0][rows[:, :lv]]
+        live += acc.shape[0] * lv
+        steps = torch.zeros(acc.shape[:2], dtype=torch.int32, device=tiles.device)
+        queued = None
+        for j in range(1, jmax):
+            alive = (acc != 0).any(-1)
+            live += int(alive.sum())
+            if j == 2:
+                queued = alive
+            if j >= 2:
+                steps += alive.int()
+            acc &= lut[j][rows[:, j : j + lv]]
+        if queued is not None:
+            walks[r0 : r0 + 512, :lv] = torch.where(queued, steps, -1)
+    warps = BLOCK_THREADS // 32
+    issued = 32 * t * warps * rounds * min(jmax, 2)
+    # [tile, round, warp, lane] -> one row of rounds x 32 lanes a warp
+    warp_walks = walks.view(t, rounds, warps, 32).transpose(1, 2).reshape(-1, rounds, 32)
+    n_warps = len(warp_walks)
+    # the steps each queued position has left; the last column a dump slot
+    stack = torch.zeros((n_warps, QUEUE_SLOTS + 1), dtype=torch.int32, device=tiles.device)
+    count = torch.zeros(n_warps, dtype=torch.int64, device=tiles.device)
+    lanes = torch.arange(32, device=tiles.device)
+    longest = 0
 
-    return _build.function("lut_sieve", "lut_sieve", "piipiipp")
+    def push(left, alive):
+        nonlocal count
+        slot = torch.where(alive, count[:, None] + alive.cumsum(1) - alive.long(),
+                           QUEUE_SLOTS)
+        stack.scatter_(1, slot, left)
+        count = count + alive.sum(1)
+
+    def drain(n):  # the top n[w] slots of each warp w
+        nonlocal count, longest
+        has = lanes < n[:, None]
+        top = (count[:, None] - n[:, None] + lanes).clamp(0, QUEUE_SLOTS)
+        left = torch.where(has, stack.gather(1, top), 0)
+        longest += int(left.clamp(max=WALK).max(1).values.sum())
+        count = count - n
+        push(left - WALK, has & (left > WALK))
+
+    for r in range(rounds):
+        w = warp_walks[:, r]
+        push(w, w >= 0)
+        while bool((count >= 32).any()):
+            drain(torch.where(count >= 32, 32, 0))
+    while bool((count > 0).any()):
+        drain(count.clamp(max=32))
+    return live, issued + 32 * longest
 
 
 def _check(tiles: torch.Tensor, consts: LutConsts) -> None:
     if tiles.dtype != torch.uint8 or tiles.dim() != 2:
         raise ValueError(f"tiles must be a 2-D uint8 tensor, got {tiles.dtype} "
                          f"{tuple(tiles.shape)}")
-    lut, table = consts
+    lut, table, passes = consts
     if lut.dtype != torch.int32 or lut.dim() != 3 or lut.shape[1] != 256:
         raise ValueError(f"lut must be [J, 256, Pw] int32, got {lut.dtype} "
                          f"{tuple(lut.shape)}")
     jmax, _, pw = lut.shape
-    shape = (-(-pw // SLICE_WORDS), jmax, SLICE_WORDS, 256)
-    if tuple(table.shape) != shape or table.dtype != torch.int32 \
-            or not table.is_contiguous():
-        raise ValueError(f"table must be a contiguous int32 tensor of shape {shape}")
+    end = passes[-1][0] + passes[-1][2] + LUT_HEADER
+    if (tuple(table.shape) != (end,) or table.dtype != torch.int32
+            or not table.is_contiguous() or sum(p[1] for p in passes) != pw):
+        raise ValueError(f"table must be the contiguous int32 blocks of lut_tables, "
+                         f"{end} words for {pw} probe words")
     if not 1 <= jmax <= tiles.shape[1]:
         raise ValueError(f"tiles of {tiles.shape[1]} bytes are shorter than J={jmax}")
     for name, c in (("lut", lut), ("table", table)):
@@ -117,35 +243,54 @@ def _check(tiles: torch.Tensor, consts: LutConsts) -> None:
 
 def lut_sieve(tiles: torch.Tensor, consts: LutConsts) -> torch.Tensor:
     """B6 on `tiles`' device: the CUDA kernel on a card (which reads
-    `consts.table`), the plain version on the CPU (`consts.lut`)."""
+    `consts.table`, one launch a pass of 256 probes, counted once), the
+    plain version on the CPU (`consts.lut`)."""
     _check(tiles, consts)
     if tiles.device.type == "cpu":
         return lut_sieve_plain(tiles, consts.lut)
     if tiles.device.type != "cuda":
         raise ValueError(f"unsupported device {tiles.device}")
+    if consts.lut.shape[0] > MAX_J:
+        raise ValueError(f"the kernel takes J <= {MAX_J}, got {consts.lut.shape[0]}")
+    from trivy_tpu_torch.ops import _build
+
     tiles = tiles.contiguous()
     t, length = tiles.shape
     jmax, _, pw = consts.lut.shape
     out = torch.empty((t, pw), dtype=torch.int32, device=tiles.device)
+    fn = _build.function("lut_sieve", "lut_sieve", "piipiiiiipp")
     with torch.cuda.device(tiles.device):
-        err = _kernel_fn()(
-            tiles.data_ptr(), t, length, consts.table.data_ptr(), jmax, pw,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"lut_sieve launch failed: cudaError {err}")
+        stream = torch.cuda.current_stream().cuda_stream
+        for w0, (offset, nw, staged) in zip(range(0, pw, SLICE_WORDS), consts.passes):
+            err = fn(tiles.data_ptr(), t, length, consts.table.data_ptr() + 4 * offset,
+                     jmax, nw, staged, pw, w0, out.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"lut_sieve launch failed: cudaError {err}")
     LAUNCHES["lut"] += 1
     return out
 
 
-def blocks_per_sm(jmax: int, length: int) -> int:
-    """Blocks of the LUT sieve one SM of the current card holds at once."""
+def blocks_per_sm(consts: LutConsts, length: int) -> int:
+    """Blocks of the LUT sieve's first pass one SM of the current card holds
+    at once, for tiles of `length` bytes."""
     from trivy_tpu_torch.ops import _build
 
-    got = _build.function("lut_sieve", "lut_sieve_blocks_per_sm", "ii")(jmax, length)
+    _, nw, staged = consts.passes[0]
+    got = _build.function("lut_sieve", "lut_sieve_blocks_per_sm", "iii")(
+        length, nw, staged)
     if got < 0:
         raise RuntimeError("occupancy query for lut_sieve failed")
     return got
+
+
+def kernel_policy() -> tuple[int, int, int]:
+    """(threads a block, queue slots a warp, walk) as the built kernel of
+    `csrc/lut_sieve.cu` has them: `walk_steps` models the kernel only while
+    this equals (BLOCK_THREADS, QUEUE_SLOTS, WALK)."""
+    from trivy_tpu_torch.ops import _build
+
+    fn = _build.function("lut_sieve", "lut_sieve_policy", "i")
+    return fn(0), fn(1), fn(2)
 
 
 class LutSieve:
