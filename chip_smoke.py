@@ -113,6 +113,26 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             launched, live) and the integer-issue bound of K5 and K6
             (derived).  A scan past STALL_S seconds dumps the stacks of
             all threads to stderr.
+11. programs BASELINE config #5 (`trivy fs --scanners secret,license`): the
+            100,000-file monorepo (`bench_corpus.make_monorepo_corpus`,
+            seed 11, ~405 MB) with every 250th file a packaged SPDX text
+            (400 LICENSE files), through the scan programs: the device
+            program engine over all files (K1 staged over the merged
+            104-rule secret + license axis) and as 10 batches of 2,000 (K3,
+            mask_bytes 13), the default program engine (the hybrid's native
+            program path, no kernel of ours) and a secret-only
+            `make_secret_engine()` scan, counts zeroed before each and read
+            after (K1 and K3 must move; the license classifier's product,
+            B14, must run on the card).  Secret verdicts byte-identical
+            across the three, license verdicts equal across the program runs
+            and to the host decision on the default run's candidates, every
+            planted file and 1,000 sampled others (verdict []); K1's last
+            chunk and K3's last batch over the merged table, and K3 over the
+            license-only table, bit-equal to their plain versions; B14 on the
+            candidate texts against numpy's product: equal Matches, max abs
+            error, CUDA-event ms beside its bound, the host time of the
+            fingerprinting.  Each run prints seconds, files/s, MB/s, its
+            program counters and launches.
 
 `--keep-inputs PATH` saves the timed inputs of the NFA kernels and of B5
 and B6 (keys `sieve_*`) in one file (`torch.save`) for
@@ -166,6 +186,12 @@ REPS = 20
 DEVICE = "cuda"
 SMS = 132  # H100 SXM streaming multiprocessors
 INT32_LANES_PER_SM = 64  # H100 INT32 lanes an SM (NVIDIA Hopper white paper)
+FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+PROGRAM_FILES = 100_000  # BASELINE config #5, `trivy fs --scanners secret,license`
+PROGRAM_SEED = 11  # bench_corpus.make_monorepo_corpus's default
+LICENSE_EVERY = 250  # every 250th file a packaged SPDX text: 400 LICENSE files
+PROGRAM_BATCHES = 10  # batches of SERVE_BATCH files through the device program engine
+PROGRAM_SAMPLED = 1_000  # non-candidates held to the host decision
 # Integer instructions of one K5 step (a byte of a lane, no live exception
 # position), counted in `cuobjdump -sass` of the sm_90a build: see PERF.md.
 K5_STEP_INSTRUCTIONS = 18
@@ -602,18 +628,18 @@ def file_ranges(np, t: int, n_files: int, fp: int, seed: int):
 
 
 class _Recorder:
-    """Stands in for an engine's MegaGramSieve and keeps the last K3 call's
-    arguments."""
+    """Stands in for an engine's sieve or MegaGramSieve and keeps the last
+    call's arguments."""
 
-    def __init__(self, mega):
-        self.mega, self.args = mega, None
+    def __init__(self, inner):
+        self.inner, self.args = inner, None
 
     def __call__(self, *args):
         self.args = args
-        return self.mega(*args)
+        return self.inner(*args)
 
     def __getattr__(self, name):
-        return getattr(self.mega, name)
+        return getattr(self.inner, name)
 
 
 def serve_batch_k3(np, torch, mk, corpus, all_rows_ms: float) -> float:
@@ -628,12 +654,12 @@ def serve_batch_k3(np, torch, mk, corpus, all_rows_ms: float) -> float:
     if rec.args is None:
         fail("mega", "the serve batch did not run the megakernel")
     coded, lo, hi, valid = rec.args
-    got, want = rec.mega(*rec.args), mk.megakernel_plain(rec.mega, *rec.args)
+    got, want = rec.inner(*rec.args), mk.megakernel_plain(rec.inner, *rec.args)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         fail("mega", "K3 on the serve batch disagrees with its plain version")
-    ms = event_ms(torch, lambda: rec.mega(*rec.args), REPS)
-    dev_ms = device_ms(torch, lambda: rec.mega(*rec.args), REPS)
+    ms = event_ms(torch, lambda: rec.inner(*rec.args), REPS)
+    dev_ms = device_ms(torch, lambda: rec.inner(*rec.args), REPS)
     files = int((valid > 0).sum())
     real = int((hi.long() + 1).max()) if files else 0
     print(f"mega: K3 serve batch in=[{coded.shape[0]}, {coded.shape[1]}] "
@@ -1526,6 +1552,290 @@ def variants_phase(np, torch, gs, main_corpus, main_results, corpus) -> dict:
     return out
 
 
+def program_corpus(bench_corpus):
+    """BASELINE config #5: the 100,000-file monorepo with every
+    LICENSE_EVERY-th file replaced by `third_party/pkg<i>/LICENSE`, the
+    port's packaged SPDX texts in turn (bench.py's `bench_programs`
+    layout).  Returns the items and {index: SPDX id} of the planted files."""
+    from trivy_tpu_torch.license.classifier import FullTextClassifier
+
+    root = FullTextClassifier.PACKAGED_DIR
+    names = sorted(f[:-4] for f in os.listdir(root) if f.endswith(".txt"))
+    texts = {}
+    for name in names:
+        with open(os.path.join(root, name + ".txt"), "rb") as f:
+            texts[name] = f.read()
+    items, planted = [], {}
+    base = bench_corpus.make_monorepo_corpus(PROGRAM_FILES, seed=PROGRAM_SEED)
+    for i, item in enumerate(base):
+        if i % LICENSE_EVERY == 0:
+            planted[i] = names[len(planted) % len(names)]
+            item = (f"third_party/pkg{i}/LICENSE", texts[planted[i]])
+        items.append(item)
+    return items, planted
+
+
+def program_docs(res) -> tuple:
+    """(secret verdicts as canonical JSON, license verdicts as tuples)."""
+    import dataclasses
+
+    from trivy_tpu_torch.ftypes import secret_to_json
+
+    return (json.dumps([secret_to_json(s) for s in res["secret"]], sort_keys=True),
+            [[dataclasses.astuple(f) for f in fs] for fs in res["license"]])
+
+
+def program_run(torch, gs, label: str, engine, batches, b14: dict, before=None):
+    """`engine.scan_programs` over `batches`, counts (kernel launches, B14's
+    calls) zeroed just before and read just after; prints the run's line
+    with the program counters (over `before`) and the engine's phase
+    seconds it added, and returns (the verdicts of all batches, launches,
+    B14's calls)."""
+    phases_before = engine.stats.phases()
+    torch.cuda.synchronize()
+    for k in gs.LAUNCHES:
+        gs.LAUNCHES[k] = 0
+    b14.update(calls=0, rows=0)
+    t0 = time.perf_counter()
+    parts = [engine.scan_programs(b) for b in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, calls = dict(gs.LAUNCHES), dict(b14)
+    res = {k: [v for p in parts for v in p[k]] for k in parts[0]}
+    files = sum(len(b) for b in batches)
+    nbytes = sum(len(c) for b in batches for _, c in b)
+    before = before or {}
+    stats = {
+        pid: {k: round(v - before.get(pid, {}).get(k, 0), 6) for k, v in st.items()}
+        for pid, st in engine.program_stats.items()
+    }
+    phases = {k: round(v - phases_before.get(k, 0), 4)
+              for k, v in engine.stats.phases().items() if k.endswith("_s")}
+    ran = {k: v for k, v in launches.items() if v}
+    print(f"programs: {label} engine={type(engine).__name__} batches={len(batches)} "
+          f"files={files} MB={nbytes / 1e6:.3f} seconds={dt:.4f} "
+          f"files_per_s={files / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
+          f"program_stats={json.dumps(stats, sort_keys=True)} launches={json.dumps(ran)} "
+          f"b14_calls={calls['calls']} b14_rows={calls['rows']} "
+          f"phases_s={json.dumps(phases)}", flush=True)
+    return res, launches, calls
+
+
+def kernel_parity(torch, name: str, fn, want) -> None:
+    """`fn()` (one kernel launch) against its plain version's `want`, then
+    its CUDA-event ms on the same inputs."""
+    got = fn()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max().item())
+    same = torch.equal(got, want)
+    if err or not same or not want.any():
+        fail("programs", f"{name} disagrees with its plain version, or nothing fired")
+    print(f"programs: {name} equal={same} max_abs_err={err} "
+          f"nonzero={int((want != 0).sum())} ms={event_ms(torch, fn, REPS):.4f}", flush=True)
+
+
+def programs_phase(np, torch, gs, mk, bench_corpus) -> None:
+    """BASELINE config #5 (`trivy fs --scanners secret,license`) through the
+    scan programs, on `program_corpus`'s 100,000 files: the device program
+    engine (`make_program_engine(backend="device")`, the default table,
+    secret then license: K1 staged over the merged 104-rule axis) over all
+    files, then 10 batches of 2,000 files through the same engine (K3,
+    mask_bytes 13); the default program engine (`make_program_engine()`:
+    the hybrid's native program path, no sieve kernel); a secret-only
+    `make_secret_engine()` scan.  Each run zeroes the counts just before and
+    reads them just after: K1 and K3 must move in theirs, and the license
+    classifier's product (B14) must run on the card.  The secret verdicts
+    must be byte-identical across the three engines, the license verdicts
+    equal across the program runs (the batches' too) and equal to the host
+    decision (`decide_findings(device="cpu")`) on every file the default
+    run's license slice marks a candidate, every planted LICENSE file and
+    1,000 sampled others, whose verdict must be [].  Then K1's last chunk
+    and K3's last batch over the merged table, and K3 over the license
+    program's own table (a license-only engine on batch 0), against their
+    plain versions; and B14 on the default run's candidate and planted texts
+    against numpy's product: equal Matches, its max abs error, CUDA-event ms
+    beside its bound, and the host time of the fingerprinting."""
+    import copy
+
+    from trivy_tpu_torch.engine.hybrid import GpuHybridSecretEngine, make_secret_engine
+    from trivy_tpu_torch.license import classifier as lc
+    from trivy_tpu_torch.license.decide import decide_findings
+    from trivy_tpu_torch.programs import (
+        LicenseScanProgram,
+        build_program_table,
+        default_programs,
+        make_program_engine,
+    )
+
+    t0 = time.perf_counter()
+    items, planted = program_corpus(bench_corpus)
+    nbytes = sum(len(c) for _, c in items)
+    print(f"programs: corpus files={len(items)} MB={nbytes / 1e6:.3f} "
+          f"license_files={len(planted)} setup_seconds={time.perf_counter() - t0:.2f}",
+          flush=True)
+    table = build_program_table(default_programs())
+    # The license slice's candidate files of the default run, and the
+    # product's calls on the card (B14 has no hand kernel to count them).
+    lic = table.programs[1]
+    real_resolve, real_matmul = lic.resolve, lc.FullTextClassifier._matmul
+    candidates: dict = {}
+    b14 = {"calls": 0, "rows": 0}
+
+    def resolve(engine, batch, cand, offset):
+        candidates[id(engine)] = np.flatnonzero(cand.any(axis=1))
+        return real_resolve(engine, batch, cand, offset)
+
+    def counted(self, fps):
+        if self.device.type == torch.device(DEVICE).type:
+            b14["calls"] += 1
+            b14["rows"] += len(fps)
+        return real_matmul(self, fps)
+
+    lic.resolve = resolve
+    lc.FullTextClassifier._matmul = counted
+    try:
+        # warm-up on throwaway engines: libraries loaded, first calls done
+        for backend in ("device", "auto"):
+            make_program_engine(table, backend=backend, device=DEVICE).scan_programs(
+                items[:20])
+        dev = make_program_engine(table, backend="device", device=DEVICE)
+        if not dev.megakernel_active:
+            fail("programs", "the megakernel is off on a CUDA device")
+        dev._host_verifier()  # the claim-killer's tables, outside the timing
+        dev._sieve_fn = k1 = _Recorder(dev._sieve_fn)
+        res_dev, launches, calls = program_run(
+            torch, gs, "make_program_engine(backend='device')", dev, [items], b14)
+        if not launches["bitplane"] or launches["mega"] or not calls["calls"]:
+            fail("programs", f"device run: launches {launches}, B14 calls {calls}: "
+                 "expected K1 over the merged axis and the product on the card")
+        b14_launches = {"device": calls["calls"]}
+        batches = [items[i * SERVE_BATCH : (i + 1) * SERVE_BATCH]
+                   for i in range(PROGRAM_BATCHES)]
+        dev._mega = k3 = _Recorder(dev._mega)
+        res_b, launches, calls = program_run(
+            torch, gs, "make_program_engine(backend='device'), batches", dev, batches, b14,
+            before=copy.deepcopy(dev.program_stats))
+        if launches["mega"] != PROGRAM_BATCHES or launches["bitplane"] or k3.mask_bytes != 13:
+            fail("programs", f"batches: launches {launches}, mask_bytes {k3.mask_bytes}: "
+                 f"expected {PROGRAM_BATCHES} K3 launches at mask_bytes 13")
+        b14_launches["batches"] = calls["calls"]
+        n = PROGRAM_BATCHES * SERVE_BATCH
+        if program_docs(res_b) != program_docs({k: v[:n] for k, v in res_dev.items()}):
+            fail("programs", "the batches' verdicts differ from the whole-corpus run's")
+        auto = make_program_engine(table, device=DEVICE)
+        if not isinstance(auto, GpuHybridSecretEngine):
+            fail("programs", f"make_program_engine() built {type(auto).__name__}")
+        auto.warmup()
+        res_auto, launches, calls = program_run(
+            torch, gs, "make_program_engine()", auto, [items], b14)
+        if any(launches.values()) or not calls["calls"]:
+            fail("programs", f"default run: launches {launches}, B14 calls {calls}: "
+                 "expected no kernel of ours and the product on the card")
+        b14_launches["default"] = calls["calls"]
+        cands = candidates[id(auto._programs)]
+    finally:
+        lic.resolve = real_resolve
+        lc.FullTextClassifier._matmul = real_matmul
+
+    solo = make_secret_engine(device=DEVICE)
+    solo.warmup()
+    t0 = time.perf_counter()
+    secret_only = solo.scan_batch(items)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"programs: make_secret_engine() engine={type(solo).__name__} "
+          f"verify={solo.verify} files={len(items)} seconds={dt:.4f} "
+          f"files_per_s={len(items) / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
+          f"phases={json.dumps(solo.stats.phases())}", flush=True)
+    docs_dev, docs_auto = program_docs(res_dev), program_docs(res_auto)
+    solo_doc = program_docs({"secret": secret_only, "license": []})[0]
+    if not docs_dev[0] == docs_auto[0] == solo_doc:
+        fail("programs", "secret verdicts differ between the program runs and the "
+             "secret-only engine")
+    if docs_dev[1] != docs_auto[1]:
+        fail("programs", "license verdicts differ between the two program runs")
+    rest = np.setdiff1d(np.arange(len(items)), np.union1d(cands, list(planted)))
+    rng = np.random.default_rng(SEED)
+    sampled = rng.choice(rest, size=min(PROGRAM_SAMPLED, len(rest)), replace=False)
+    if any(docs_auto[1][i] for i in sampled):
+        fail("programs", "a file outside the license candidates has a license verdict")
+    check = sorted(set(cands.tolist()) | set(planted) | set(sampled.tolist()))
+    t0 = time.perf_counter()
+    host = program_docs({"secret": [], "license": decide_findings(
+        [items[i][1].decode("utf-8", errors="replace") for i in check], device="cpu")})[1]
+    host_s = time.perf_counter() - t0
+    bad = [items[i][0] for i, want in zip(check, host) if docs_auto[1][i] != want]
+    if bad:
+        fail("programs", f"{len(bad)} license verdicts differ from the host decision, "
+             f"first {bad[0]}")
+    own = sum(1 for i, name in planted.items()
+              if res_auto["license"][i] and res_auto["license"][i][0].name == name)
+    found = sum(1 for fs in res_auto["license"] if fs)
+    print(f"programs: equal_secret_verdicts=True (device program run, default program run, "
+          f"secret-only) secret_files_with_findings={sum(1 for s in secret_only if s.findings)} "
+          f"equal_license_verdicts=True license_files_found={found} "
+          f"host_decision_equal_on={len(check)} (candidates {len(cands)}, planted "
+          f"{len(planted)}, sampled non-candidates {len(sampled)}) host_decision_s={host_s:.2f} "
+          f"planted_classified_as_own_id={own}/{len(planted)}", flush=True)
+
+    # K1's last chunk and K3's last batch over the merged table
+    rows = k1.args[0]
+    consts = k1.inner._bitplane_consts
+    n_words = k1.inner.n_words
+    print(f"programs: K1 merged table chunk rows={list(rows.shape)} "
+          f"D={k1.inner.num_distinct} n_words={n_words}", flush=True)
+    kernel_parity(torch, "K1 merged", lambda: gs.gram_sieve_bitplane(rows, consts, n_words),
+                  gs.gram_sieve_bitplane_plain(rows, consts.masks, consts.vals, n_words))
+    kernel_parity(torch, f"K3 merged mask_bytes={k3.mask_bytes}", lambda: k3.inner(*k3.args),
+                  mk.megakernel_plain(k3.inner, *k3.args))
+    # K3 over the license program's own table, through a license-only engine
+    lic_only = make_program_engine([LicenseScanProgram()], backend="device", device=DEVICE)
+    lic_only._mega = k3l = _Recorder(lic_only._mega)
+    res_l = lic_only.scan_programs(batches[0])
+    if k3l.args is None or k3l.mask_bytes != 3:
+        fail("programs", "the license-only batch did not run K3 at mask_bytes 3")
+    kernel_parity(torch, f"K3 license-only mask_bytes={k3l.mask_bytes}",
+                  lambda: k3l.inner(*k3l.args), mk.megakernel_plain(k3l.inner, *k3l.args))
+    if program_docs({"secret": [], **res_l})[1] != docs_dev[1][:SERVE_BATCH]:
+        fail("programs", "the license-only engine's verdicts differ from the merged table's")
+
+    # B14 on the default run's candidate and planted texts
+    idx = sorted(set(cands.tolist()) | set(planted))
+    texts = [items[i][1].decode("utf-8", errors="replace") for i in idx]
+    t0 = time.perf_counter()
+    fps = np.stack([lc._fingerprint(lc.normalize_tokens(t)) for t in texts])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    clf = lc.shared_classifier(DEVICE)
+    sims = clf._matmul(fps)
+    want = fps @ clf.matrix.T
+    err = float(np.abs(sims - want).max())
+    same = clf.matches(sims) == clf.matches(want)
+    if not same:
+        fail("programs", "B14's Matches differ from numpy's product")
+    a = torch.from_numpy(fps).to(clf.device)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ms = event_ms(torch, lambda: torch.matmul(a, clf._matrix_dev.T), REPS)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        clf._matmul(fps)
+    call_ms = (time.perf_counter() - t0) / REPS * 1e3
+    f, dim = fps.shape
+    n_lic = len(clf.names)
+    byte_ms = 4 * (f * dim + n_lic * dim + f * n_lic) / HBM_BYTES_PER_S * 1e3
+    op_ms = 2 * f * dim * n_lic / FP32_FLOPS_PER_S * 1e3
+    print(f"programs: B14 torch.matmul [{f}, {dim}] x [{dim}, {n_lic}] float32, TF32 off "
+          f"ms={ms:.4f} bound_ms={max(byte_ms, op_ms):.6f} "
+          f"bound_by={'bytes' if byte_ms >= op_ms else 'operations'} "
+          f"call_ms={call_ms:.4f} (host to card and back) fingerprint_host_ms={host_ms:.1f} "
+          f"max_abs_err={err:.3e} matches_equal={same} "
+          f"launches={json.dumps(b14_launches)} (library call, no hand kernel)", flush=True)
+    print(f"programs: card {card_line()}", flush=True)
+
+
 def to_cpu(torch, value):
     """Tensors of a (nested) tuple moved to the host, for torch.save."""
     if isinstance(value, torch.Tensor):
@@ -1639,6 +1949,8 @@ def main(argv: list[str]) -> int:
                                          ("nfa_stream", "nfa_fused", "nfa_padded")):
         fail("hybrid", "the kept dispatches are not the run's launches")
     dispatch_times(np, torch, nv, hybrid["dispatches"], report, clock_hz, kept)
+    del corpus
+    programs_phase(np, torch, gs, mk, bench_corpus)
     if keep_path:
         torch.save({k: to_cpu(torch, v) for k, v in kept.items()}, keep_path)
         print(f"nfa, sieves: timed inputs kept in {keep_path}", flush=True)

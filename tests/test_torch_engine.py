@@ -178,6 +178,11 @@ for kw in (dict(sieve="lut"), dict(sieve="native"), dict(kernel="xla", fused=Fal
 verified = verified and len(engine.ruleset_digest) == 64
 fused = hybrid.GpuHybridSecretEngine(device="cpu", verify="fused")
 verified = verified and findings_fingerprint(fused) == fp and fused.stats.device_pairs > 0
+from trivy_tpu_torch import license, programs
+mit = license.shared_classifier("cpu").corpus_text("MIT").encode()
+res = programs.make_program_engine(device="cpu").scan_programs(
+    [("LICENSE", mit), ("a.env", b"t = ghp_" + b"Ab1" * 12 + b"\n")])
+verified = verified and res["license"][0][0].name == "MIT" and bool(res["secret"][1].findings)
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     cli.main(["fs", "--scanners", "secret", "--device", "cpu", sys.argv[1]])
@@ -219,9 +224,9 @@ def _fixture_tree(root) -> None:
 def test_port_imports_no_jax_and_no_reference(tmp_path):
     """In a fresh interpreter the port, every module of it imported (the
     native library built and loaded), scans with its claim-killer, with
-    its other sieves (LUT, native, B5 unfused) and with the hybrid engine's
-    device verify on the CPU and runs its CLI without loading jax or any
-    trivy_tpu module, and its default device raises without a card (the
+    its other sieves (LUT, native, B5 unfused), with the hybrid engine's
+    device verify and through the scan programs (secret + license) on the
+    CPU and runs its CLI without loading jax or any trivy_tpu module, and its default device raises without a card (the
     device engine and `make_secret_engine`)."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)

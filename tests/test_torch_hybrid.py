@@ -52,6 +52,7 @@ from trivy_tpu_torch.engine.hybrid import GpuHybridSecretEngine, make_secret_eng
 from trivy_tpu_torch.engine.oracle import OracleScanner
 from trivy_tpu_torch.ftypes import VERIFY_CORPUS, findings_fingerprint
 from trivy_tpu_torch.obs import gatelog
+from trivy_tpu_torch.programs import build_program_table, default_programs
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -303,10 +304,15 @@ def test_make_secret_engine_backends():
     assert isinstance(fused, GpuHybridSecretEngine) and fused.verify == "fused"
     native = make_secret_engine(backend="native", device="cpu", tile_len=TILE)
     assert isinstance(native, GpuSecretEngine) and native.sieve == "native"
-    for kw, item in ((dict(rules_cache_dir="/x"), "A10"),
-                     (dict(program_table=object()), "A9"), (dict(mesh=object()), "A11")):
+    for kw, item in ((dict(rules_cache_dir="/x"), "A10"), (dict(mesh=object()), "A11")):
         with pytest.raises(NotImplementedError, match=item):
             make_secret_engine(device="cpu", **kw)
+    # a program table (A9) builds a program engine over its merged ruleset
+    table = build_program_table(default_programs())
+    for backend, cls in (("auto", GpuHybridSecretEngine), ("native", GpuSecretEngine)):
+        eng = make_secret_engine(ruleset=table.merged_ruleset(), backend=backend,
+                                 device="cpu", program_table=table)
+        assert isinstance(eng, cls) and eng.program_table is table
     with pytest.raises(ValueError):
         make_secret_engine(backend="warp", device="cpu")
 

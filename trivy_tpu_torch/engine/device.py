@@ -49,8 +49,15 @@ byte-exactly, so findings equal the reference engine's by construction.
 Every stage sits inside the reference's spans (`obs/trace.py`: chunk.encode,
 chunk.h2d, chunk.exec, sieve.megakernel, chunk.fetch, verify, confirm),
 fenced device phases (`obs/metrics.py` `device_phase`) and fault seams
-(`faults.py`: device.put, device.exec, device.fetch).  Left out for later
-slices: mesh staging, the executable cache and scan programs.
+(`faults.py`: device.put, device.exec, device.fetch).
+
+With a `program_table` (`programs/base.py`, built by
+`programs.make_program_engine`) the rule axis is the table's merged one:
+`scan_programs` runs the same pass once (dedupe, candidates, the
+claim-killer on the columns of `verify=True` programs only) and hands each
+program its slice of the candidate matrix, and `scan_batch` routes through
+it for the secret program.  Left out for later slices: mesh staging and the
+executable cache.
 """
 
 from __future__ import annotations
@@ -215,7 +222,10 @@ class GpuSecretEngine:
     (default `default_depth()`, `TRIVY_TPU_PIPELINE_DEPTH`), `dedupe` scans
     each distinct blob once, and `resident_chunks` caps the resident row
     store and the host hit-word cache (default `TRIVY_TPU_RESIDENT_CHUNKS`,
-    else 32; 0 turns residency off)."""
+    else 32; 0 turns residency off).
+
+    `program_table` (a `ProgramTable` whose merged ruleset is `ruleset`)
+    makes the engine multi-program: `scan_programs`, `programs_snapshot`."""
 
     def __init__(
         self,
@@ -232,6 +242,7 @@ class GpuSecretEngine:
         sieve: str = "gram",
         kernel: str = "auto",
         fused: bool | None = None,
+        program_table=None,
     ):
         if sieve not in ("gram", "lut", "native"):
             raise ValueError(f"unknown sieve: {sieve}")
@@ -240,6 +251,8 @@ class GpuSecretEngine:
         self.device = resolve_device(device)
         self.ruleset = ruleset if ruleset is not None else build_ruleset(config)
         self.oracle = OracleScanner(self.ruleset)
+        self.program_table = program_table
+        self.program_stats: dict[str, dict] = {}
         pset = None
         if compiled is None:
             pset = build_probe_set(self.ruleset.rules)
@@ -882,38 +895,34 @@ class GpuSecretEngine:
         self.stats.verify_s += time.perf_counter() - t0
         return cand
 
-    def scan_batch(self, items: list[tuple[str, bytes]]) -> list[Secret]:
-        """Scan (path, content) blobs; returns per-file Secret results."""
-        if not items:
-            return []
+    def _dedupe(self, items: list[tuple[str, bytes]]):
+        """Content-digest dedupe in front of the sieve: (the distinct items,
+        the dedupe record or None).  Sieve, derive and verify run over
+        distinct blobs; candidates fan back out to every alias through
+        `dd.inverse`, and the confirm stays per (path, content) because path
+        gating is per file."""
+        if not (self.dedupe and len(items) > 1):
+            return items, None
+        t0 = time.perf_counter()
+        dd = dedupe_blobs([c for _, c in items])
+        dt = time.perf_counter() - t0
+        self.stats.dedupe_s += dt
+        self.stats.pack_s += dt
+        if not dd.any_duplicates():
+            return items, None
+        self.stats.dedupe_saved_bytes += dd.saved_bytes
+        return [items[int(i)] for i in dd.unique_index], dd
+
+    def _count_batch(self, items: list[tuple[str, bytes]]) -> None:
         self.stats.files += len(items)
         self.stats.bytes += sum(len(c) for _, c in items)
         self.stats.pipeline_depth = self.pipeline_depth
 
-        # Content-digest dedupe: sieve, derive and verify run over distinct
-        # blobs, candidates fan back out to every alias; the confirm stays
-        # per (path, content) because path gating is per file.
-        contents = [c for _, c in items]
-        scan_items = items
-        dd = None
-        if self.dedupe and len(items) > 1:
-            t0 = time.perf_counter()
-            dd = dedupe_blobs(contents)
-            dt = time.perf_counter() - t0
-            self.stats.dedupe_s += dt
-            self.stats.pack_s += dt
-            if dd.any_duplicates():
-                self.stats.dedupe_saved_bytes += dd.saved_bytes
-                scan_items = [items[int(i)] for i in dd.unique_index]
-                contents = [c for _, c in scan_items]
-            else:
-                dd = None
-
-        cand = self._candidates(contents)
-        cand = self._verify_candidates(scan_items, cand)
-        if dd is not None:
-            cand = cand[dd.inverse]
-
+    def confirm(self, items: list[tuple[str, bytes]], cand: np.ndarray,
+                offset: int = 0) -> list[Secret]:
+        """The exact confirm: the oracle over each file's candidate rules,
+        column j of `cand` being rule `offset + j` of the engine's ruleset
+        (the secret program's slice starts at 0)."""
         t0 = time.perf_counter()
         results: list[Secret] = []
         with obs_trace.span("confirm", files=len(items)):
@@ -929,11 +938,96 @@ class GpuSecretEngine:
                         results.append(Secret())
                     continue
                 self.stats.candidate_pairs += len(idxs)
-                res = self.oracle.scan(path, content, rule_indices=idxs.tolist())
+                res = self.oracle.scan(path, content,
+                                       rule_indices=(idxs + offset).tolist())
                 self.stats.confirmed_findings += len(res.findings)
                 results.append(res)
         self.stats.confirm_s += time.perf_counter() - t0
         return results
+
+    def scan_batch(self, items: list[tuple[str, bytes]]) -> list[Secret]:
+        """Scan (path, content) blobs; returns per-file Secret results."""
+        if self.program_table is not None:
+            # the rule axis is the merged table's: the secret program's
+            # slice (indices 0..N-1) through the demux
+            return self.scan_programs(items, only=("secret",)).get(
+                "secret", [Secret() for _ in items])
+        if not items:
+            return []
+        self._count_batch(items)
+        scan_items, dd = self._dedupe(items)
+        cand = self._candidates([c for _, c in scan_items])
+        cand = self._verify_candidates(scan_items, cand)
+        if dd is not None:
+            cand = cand[dd.inverse]
+        return self.confirm(items, cand)
+
+    def scan_programs(
+        self,
+        items: list[tuple[str, bytes]],
+        only: tuple[str, ...] | None = None,
+    ) -> dict[str, list]:
+        """One sieve pass, per-program verdicts: {program_id: [verdict per
+        item, in item order]}, in table order.
+
+        Sieves the merged rule axis as scan_batch does (same pack, dedupe,
+        candidates), applies the claim-killer only to the columns of
+        programs with `verify=True`, then hands each program its slice of
+        the candidate matrix.  `only` restricts which programs resolve; the
+        pass is one either way."""
+        table = self.program_table
+        if table is None:
+            raise RuntimeError(
+                "scan_programs needs an engine built with a program_table "
+                "(programs.make_program_engine)")
+        wanted = [(p, sl) for p, sl in table.slices()
+                  if only is None or p.program_id in only]
+        if not items:
+            return {p.program_id: [] for p, _ in wanted}
+        self._count_batch(items)
+        scan_items, dd = self._dedupe(items)
+        cand = self._candidates([c for _, c in scan_items])
+        vmask = table.verify_column_mask(cand.shape[1])
+        if vmask.any():
+            # The claim-killer refutes (file, rule) pairs by exact DFA match:
+            # sound only for the columns whose program opted in.  The
+            # opt-out columns go in zeroed and keep their raw candidacy.
+            verified = self._verify_candidates(scan_items, cand & vmask[None, :])
+            cand = np.where(vmask[None, :], verified, cand)
+        if dd is not None:
+            cand = cand[dd.inverse]
+
+        out: dict[str, list] = {}
+        for prog, sl in wanted:
+            pslice = cand[:, sl]
+            t0 = time.perf_counter()
+            verdicts = prog.resolve(self, items, pslice, sl.start)
+            resolve_s = time.perf_counter() - t0
+            if len(verdicts) != len(items):
+                raise RuntimeError(
+                    f"program {prog.program_id!r} returned {len(verdicts)} "
+                    f"verdicts for {len(items)} items")
+            st = self.program_stats.setdefault(prog.program_id, {
+                "files": 0, "candidate_files": 0, "candidate_pairs": 0,
+                "verdicts": 0, "resolve_s": 0.0,
+            })
+            st["files"] += len(items)
+            st["candidate_files"] += int(pslice.any(axis=1).sum())
+            st["candidate_pairs"] += int(pslice.sum())
+            st["verdicts"] += prog.verdict_count(verdicts)
+            st["resolve_s"] = round(st["resolve_s"] + resolve_s, 6)
+            out[prog.program_id] = verdicts
+        return out
+
+    def programs_snapshot(self) -> dict:
+        """The program table's attribution: each program's counters."""
+        if self.program_table is None:
+            return {"enabled": False}
+        snap = self.program_table.snapshot()
+        for p in snap["programs"]:
+            p.update(self.program_stats.get(p["id"], {}))
+        snap["enabled"] = True
+        return snap
 
     def scan(self, file_path: str, content: bytes) -> Secret:
         return self.scan_batch([(file_path, content)])[0]

@@ -25,6 +25,14 @@ The sieve is the host's: this engine builds, stages and launches none of
 the sieve kernels K1-K4.  Unlike the reference, it raises where the
 reference falls back quietly: a device verifier that cannot be built under
 `auto`, and a native library that does not build.
+
+With a `program_table` the engine scans as the reference's does, whose
+hybrid inherits the all-device engine's program demux with the native
+sieve: the C++ row sieve over `pack_dense` rows, the host derive, the host
+DFA claim-killer on the opted-in columns, the programs' resolves.  The
+chunked pre-sieve and the device NFA verify never run then.  The port
+composes: the demux is a `GpuSecretEngine(sieve="native")` over the merged
+ruleset that shares this engine's stats.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from trivy_tpu_torch import deadline, lockcheck
 from trivy_tpu_torch.compiled import CompiledRules
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from trivy_tpu_torch.engine import link as link_mod
-from trivy_tpu_torch.engine.device import SieveStats
+from trivy_tpu_torch.engine.device import GpuSecretEngine, SieveStats
 from trivy_tpu_torch.engine.grams import build_gram_set, fold_members
 from trivy_tpu_torch.engine.nfa_device import GpuNfaVerifier
 from trivy_tpu_torch.engine.oracle import OracleScanner
@@ -219,7 +227,9 @@ class GpuHybridSecretEngine:
     the kernels' plain versions).  `compiled` takes a `CompiledRules` or the
     reference's arrays (`CompiledRules.from_numpy`); it must be compiled
     from `ruleset`.  `rule_stack` takes `build_rule_stack`'s `vstack_*`
-    arrays to seed the verifier."""
+    arrays to seed the verifier.  `program_table` (whose merged ruleset is
+    `ruleset`) makes it multi-program: `scan_programs`, `programs_snapshot`,
+    and `scan_batch` through the secret program (module docstring)."""
 
     def __init__(
         self,
@@ -233,6 +243,7 @@ class GpuHybridSecretEngine:
         compiled: CompiledRules | dict | None = None,
         rule_stack: dict | None = None,
         device: str | torch.device = DEFAULT_DEVICE,
+        program_table=None,
     ):
         if verify not in VERIFY_MODES:
             raise ValueError(f"unknown verify mode: {verify!r}")
@@ -281,6 +292,34 @@ class GpuHybridSecretEngine:
         base = self.compiled.candidate_matrix_bool(self.gset.probe_hits_bool(zero))[0]
         self._base_cand = np.flatnonzero(base)
         self._build_scan_tables()
+        self.program_table = program_table
+        self._programs: GpuSecretEngine | None = None
+        if program_table is not None:
+            self._programs = GpuSecretEngine(
+                ruleset=self.ruleset, compiled=compiled, device=self.device,
+                sieve="native", pipeline_depth=self.pipeline_depth, dedupe=dedupe,
+                program_table=program_table,
+            )
+            self._programs.stats = self.stats
+
+    @property
+    def program_stats(self) -> dict:
+        return self._programs.program_stats if self._programs is not None else {}
+
+    def scan_programs(self, items: list[tuple[str, bytes]],
+                      only: tuple[str, ...] | None = None) -> dict[str, list]:
+        """One native-sieve pass, per-program verdicts
+        (`GpuSecretEngine.scan_programs`)."""
+        if self._programs is None:
+            raise RuntimeError(
+                "scan_programs needs an engine built with a program_table "
+                "(programs.make_program_engine)")
+        return self._programs.scan_programs(items, only)
+
+    def programs_snapshot(self) -> dict:
+        if self._programs is None:
+            return {"enabled": False}
+        return self._programs.programs_snapshot()
 
     def _resolve_verify(self, verify: str) -> tuple[str, dict]:
         """(verify mode, gate log record).  `auto` on a CUDA device prices
@@ -387,6 +426,8 @@ class GpuHybridSecretEngine:
         load_native()
         if self._nfa_verifier is not None:
             self._nfa_verifier.warmup()
+        if self._programs is not None:
+            self._programs.warmup()
 
     # ------------------------------------------------------------------
 
@@ -456,6 +497,8 @@ class GpuHybridSecretEngine:
 
     def scan_batch(self, items: list[tuple[str, bytes]]) -> list[Secret]:
         """Scan (path, content) blobs; returns per-file Secret results."""
+        if self._programs is not None:
+            return self._programs.scan_batch(items)
         if not items:
             return []
         self.stats.files += len(items)
@@ -684,23 +727,23 @@ def make_secret_engine(
       native  the device engine over the C++ host row sieve
               (`GpuSecretEngine(sieve="native")`)
       oracle  the pure-Python reference engine
-    Aliases: tpu = device, cpu = oracle.  Not in the port yet, and raising
-    NotImplementedError: `mesh` (A11), `rules_cache_dir` (A10) and
-    `program_table` (A9)."""
+    Aliases: tpu = device, cpu = oracle.  A `program_table` kwarg makes the
+    engine multi-program (`ruleset` must be its merged ruleset: use
+    `programs.make_program_engine`); the oracle has no sieve to demux and
+    refuses it.  Not in the port yet, and raising NotImplementedError:
+    `mesh` (A11) and `rules_cache_dir` (A10)."""
     backend = {"tpu": "device", "cpu": "oracle"}.get(backend, backend)
     if mesh is not None:
         raise NotImplementedError("mesh engines are not ported yet (ROADMAP A11)")
     if rules_cache_dir is not None:
         raise NotImplementedError(
             "the compiled-rules registry is not ported yet (ROADMAP A10)")
-    if kw.get("program_table") is not None:
-        raise NotImplementedError("scan programs are not ported yet (ROADMAP A9)")
-    kw.pop("program_table", None)
     if backend == "oracle":
+        if kw.get("program_table") is not None:
+            raise ValueError(
+                "the oracle backend has no device pass to demux programs from")
         return OracleScanner(ruleset=ruleset, config=config)
     if backend in ("device", "native"):
-        from trivy_tpu_torch.engine.device import GpuSecretEngine
-
         if backend == "native":
             kw["sieve"] = "native"
         return GpuSecretEngine(ruleset=ruleset, config=config, device=device, **kw)

@@ -1,0 +1,68 @@
+"""Program-engine construction, the twin of `trivy_tpu/programs/factory.py`.
+
+`make_program_engine` is to multi-program scanning what
+`make_secret_engine` is to secrets: the one place a program table turns
+into an engine.  The reference can route the compile through its
+program-id-keyed artifact registry (`rules_cache_dir`); that registry is
+not ported yet (ROADMAP A10), so the argument raises here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from trivy_tpu_torch.device import DEFAULT_DEVICE
+from trivy_tpu_torch.engine.hybrid import make_secret_engine
+from trivy_tpu_torch.programs.base import ProgramTable, build_program_table
+from trivy_tpu_torch.programs.license import LicenseScanProgram
+from trivy_tpu_torch.programs.secret import SecretScanProgram
+
+
+def default_programs(config=None) -> list:
+    """The stock table: the builtin secret ruleset plus the SPDX license
+    program, one sieve pass for both."""
+    return [SecretScanProgram(config=config), LicenseScanProgram()]
+
+
+def make_program_engine(
+    programs: list | ProgramTable | None = None,
+    *,
+    config=None,
+    backend: str = "auto",
+    device: str | torch.device = DEFAULT_DEVICE,
+    mesh=None,
+    rules_cache_dir: str | None = None,
+    **kw,
+):
+    """Build a multi-program engine over one merged sieve pass.
+
+    `programs` is a list of ScanPrograms (or a prebuilt ProgramTable);
+    None = `default_programs(config)`.  `backend` accepts the
+    make_secret_engine engine backends (auto/device/native/hybrid; alias
+    tpu = device): the oracle backend has no sieve and therefore no
+    program demux.  `compiled` (in `kw`) takes the merged table's
+    `CompiledRules` or the reference's arrays.  `rules_cache_dir` (A10)
+    and `mesh` (A11) are not ported yet and raise NotImplementedError."""
+    if programs is None:
+        programs = default_programs(config)
+    table = (
+        programs
+        if isinstance(programs, ProgramTable)
+        else build_program_table(programs)
+    )
+    backend = {"tpu": "device"}.get(backend, backend)
+    if backend in ("oracle", "cpu"):
+        raise ValueError(
+            "the oracle backend has no device pass to demux programs from"
+        )
+    if rules_cache_dir is not None:
+        raise NotImplementedError(
+            "the program-id-keyed rules registry is not ported yet (ROADMAP A10)")
+    return make_secret_engine(
+        ruleset=table.merged_ruleset(),
+        backend=backend,
+        device=device,
+        mesh=mesh,
+        program_table=table,
+        **kw,
+    )
