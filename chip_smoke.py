@@ -134,6 +134,23 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             fingerprinting.  Each run prints seconds, files/s, MB/s, its
             program counters and launches.
 
+12. registry (right after `build`) the compiled-rules registry and the
+            executable cache from a start with nothing on disk: this script
+            runs itself twice as a fresh process (`--registry-start`) on
+            one empty temporary rules cache and one empty library cache.
+            Each builds `make_secret_engine()` and the device engine
+            through the registry, runs `aot_warmup` on both, and scans
+            `VERIFY_CORPUS` and the 20,000-file corpus (the device engine
+            as 10 serve batches), findings held to the oracle on every
+            flagged file plus 500 sampled; it prints the reference
+            `bench_coldstart` fields (rule compile and save, artifact load,
+            engine construction with the registry off, in the first process
+            only, and on) with the library build or load seconds, the
+            library cache's `stats()`, its rule compiles and its kernel
+            launches.  The second process must make no rule compile and no
+            library build (`compiles == 0`), both processes' findings must
+            be equal, and each engine must launch its kernels.
+
 `--keep-inputs PATH` saves the timed inputs of the NFA kernels and of B5
 and B6 (keys `sieve_*`) in one file (`torch.save`) for
 `tools/nfa_kernel_times.py` and `tools/sieve_kernel_times.py`, which time
@@ -1845,7 +1862,164 @@ def to_cpu(torch, value):
     return value
 
 
+REGISTRY_SAMPLED = 500
+# Every compiler a cold engine start runs, wherever an engine binds it.
+RULE_COMPILERS = (("engine.nfa", "compile_rules"), ("engine.probes", "build_probe_set"),
+                  ("engine.grams", "build_gram_set"),
+                  ("engine.nfa_device", "build_rule_stack"),
+                  ("engine.device", "build_probe_set"), ("engine.device", "build_gram_set"),
+                  ("engine.hybrid", "build_probe_set"), ("engine.hybrid", "build_gram_set"))
+
+
+def registry_start(mode: str) -> int:
+    """One process start against the rules and library caches the caller
+    named (TRIVY_TPU_RULES_CACHE_DIR, TRIVY_TPU_AOT_CACHE): the
+    `bench_coldstart` fields, the seconds of building or loading the native
+    and the kernel libraries (the first process's build with an empty
+    cache), of `aot_warmup`, the rule compiles it made, and both engines'
+    findings and launches, as one JSON line."""
+    import hashlib
+    import importlib
+
+    import numpy as np
+    import torch
+
+    import bench_corpus
+    from trivy_tpu_torch.engine.hybrid import make_secret_engine
+    from trivy_tpu_torch.engine.oracle import OracleScanner
+    from trivy_tpu_torch.ftypes import VERIFY_CORPUS, findings_fingerprint, secret_to_json
+    from trivy_tpu_torch.native import load_native
+    from trivy_tpu_torch.ops import _build
+    from trivy_tpu_torch.ops import gram_sieve as gs
+    from trivy_tpu_torch.registry import aotcache, store
+    from trivy_tpu_torch.rules.model import build_ruleset
+
+    compiles = {"n": 0}
+    for mod_name, attr in RULE_COMPILERS:
+        module = importlib.import_module(f"trivy_tpu_torch.{mod_name}")
+        real = getattr(module, attr)
+
+        def counted(*a, _real=real, **kw):
+            compiles["n"] += 1
+            return _real(*a, **kw)
+
+        setattr(module, attr, counted)
+    rules_dir = os.environ["TRIVY_TPU_RULES_CACHE_DIR"]
+    ruleset = build_ruleset(None)
+    out = {"start": mode}
+    t0 = time.perf_counter()
+    art, source = store.get_or_compile(ruleset, cache_dir=rules_dir)
+    out["compile_and_save_s" if source == "cold" else "first_load_s"] = round(
+        time.perf_counter() - t0, 4)
+    out["digest"] = art.digest
+    if source != mode:
+        fail("registry", f"the {mode} start found its artifact {source}")
+    t0 = time.perf_counter()
+    if store.get_or_compile(ruleset, cache_dir=rules_dir)[1] != "warm":
+        fail("registry", "a saved artifact did not load")
+    out["artifact_load_s"] = round(time.perf_counter() - t0, 4)
+    t0 = time.perf_counter()
+    load_native()
+    out["native_library_s"] = round(time.perf_counter() - t0, 4)
+    engines, construct = {}, {}
+    for backend in ("auto", "device"):
+        t0 = time.perf_counter()
+        engines[backend] = make_secret_engine(backend=backend, device=DEVICE,
+                                              rules_cache_dir=rules_dir)
+        construct[backend] = round(time.perf_counter() - t0, 4)
+        if engines[backend].ruleset_digest != art.digest:
+            fail("registry", f"{backend}: the engine's digest is not the artifact's")
+    out["engine_construct_warm_s"] = construct
+    names = sorted({n for e in engines.values() for n in store.engine_libraries(e)})
+    t0 = time.perf_counter()
+    _build.load_all(names)  # one nvcc a missing source, all started together
+    out["kernel_libraries_s"] = round(time.perf_counter() - t0, 4)
+    t0 = time.perf_counter()
+    out["aot_warmup"] = {b: store.aot_warmup(e) for b, e in engines.items()}
+    out["aot_warmup_s"] = round(time.perf_counter() - t0, 4)
+    out["aot_stats"] = aotcache.stats()
+    out["rule_compiles"] = compiles["n"]
+    if mode == "cold":  # the registry off: every start compiles
+        cold = {}
+        for backend in ("auto", "device"):
+            t0 = time.perf_counter()
+            make_secret_engine(backend=backend, device=DEVICE)
+            cold[backend] = round(time.perf_counter() - t0, 4)
+        out["engine_construct_cold_s"] = cold
+        out["warm_speedup"] = {b: round(cold[b] / construct[b], 2) for b in cold}
+    corpus = bench_corpus.make_kernel_corpus(n_files=N_FILES, seed=SEED)
+    batches = [corpus[i : i + SERVE_BATCH] for i in range(0, len(corpus), SERVE_BATCH)]
+    oracle = OracleScanner(ruleset)
+    out["fingerprints"], out["launches"], out["checked"] = {}, {}, {}
+    for backend, engine in engines.items():
+        for k in gs.LAUNCHES:
+            gs.LAUNCHES[k] = 0
+        fp = findings_fingerprint(engine, VERIFY_CORPUS)
+        if fp != findings_fingerprint(oracle, VERIFY_CORPUS):
+            fail("registry", f"{backend}: VERIFY_CORPUS findings differ from the oracle")
+        t0 = time.perf_counter()
+        results = [r for b in batches for r in engine.scan_batch(b)]
+        torch.cuda.synchronize()
+        out[f"{backend}_scan_s"] = round(time.perf_counter() - t0, 4)
+        out["launches"][backend] = {k: v for k, v in gs.LAUNCHES.items() if v}
+        out["checked"][backend] = check_against_oracle(np, oracle, corpus, results,
+                                                       REGISTRY_SAMPLED, "registry")
+        doc = json.dumps([secret_to_json(r) for r in results], sort_keys=True).encode()
+        out["fingerprints"][backend] = hashlib.sha256(fp + doc).hexdigest()[:16]
+    out["rule_compiles_after_scans"] = compiles["n"]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def registry_phase() -> None:
+    """The cold and the warm start, each a fresh process of this script on
+    one pair of empty temporary caches (`registry_start`)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-registry-")
+    env = dict(os.environ, TRIVY_TPU_RULES_CACHE_DIR=os.path.join(root, "rules"),
+               TRIVY_TPU_AOT_CACHE=os.path.join(root, "libs"))
+    runs = {}
+    try:
+        for mode in ("cold", "warm"):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--registry-start", mode], env=env,
+                                  capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail("registry", f"the {mode} start failed:\n{proc.stderr[-3000:]}")
+            runs[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(f"registry: {mode} start process_s={wall:.2f} {json.dumps(runs[mode])}",
+                  flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cold, warm = runs["cold"], runs["warm"]
+    if warm["rule_compiles_after_scans"] != 0 or warm["aot_stats"]["compiles"] != 0:
+        fail("registry", f"the warm start compiled: {warm['rule_compiles_after_scans']} rule "
+             f"compiles, library cache {warm['aot_stats']}")
+    if cold["aot_stats"]["compiles"] == 0 or cold["rule_compiles"] == 0:
+        fail("registry", "the cold start built nothing: the caches were not empty")
+    fps = {(m, b): runs[m]["fingerprints"][b] for m in runs for b in ("auto", "device")}
+    if len(set(fps.values())) != 1:
+        fail("registry", f"findings differ across starts and engines: {fps}")
+    for mode, run in runs.items():
+        device_k = sum(run["launches"]["device"].get(k, 0) for k in ("mega", "bitplane"))
+        verify_k = sum(run["launches"]["auto"].get(k, 0) for k in
+                       ("nfa_stream", "nfa_fused", "nfa_padded"))
+        if not device_k or not verify_k:
+            fail("registry", f"{mode}: an engine launched none of its kernels: "
+                 f"{run['launches']}")
+    print(f"registry: warm start made 0 rule compiles and 0 library builds "
+          f"(hits {warm['aot_stats']['hits']}); findings equal across starts, engines "
+          f"and the oracle (checked {cold['checked']})", flush=True)
+
+
 def main(argv: list[str]) -> int:
+    if argv[:1] == ["--registry-start"] and len(argv) == 2:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return registry_start(argv[1])
     keep_path = None
     if argv[:1] == ["--keep-inputs"] and len(argv) == 2:
         keep_path = argv[1]  # the sieves' and NFA kernels' timed inputs, torch.save'd there
@@ -1899,6 +2073,7 @@ def main(argv: list[str]) -> int:
             print(f"build: {name}.cu {demangle(r['kernel'])} registers={r['registers']} "
                   f"static_smem_bytes={r['smem_bytes']} spill_bytes={r['spill_bytes']}",
                   flush=True)
+    registry_phase()
 
     compiled = CompiledRules.build(build_ruleset(None))
     codec = link.select_codec(link.derive_alphabet(compiled), "auto", compiled)

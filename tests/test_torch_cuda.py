@@ -26,7 +26,11 @@ row, a run of rows with more files than a block lists, and a batch of
 padding rows.  Also the engine's staging and residency on the card (the
 pinned ring and side stream, row-store entries kept intact, a pipelined
 scan and its resident rescan) and its observability seams (the
-`device_phase` fence, the memwatch CUDA sampler).
+`device_phase` fence, the memwatch CUDA sampler).  And the executable
+cache (`registry/aotcache.py`): libraries loaded from a warm cache in a
+fresh process run K1 and K5 equal to their plain versions with no build, a
+tampered cached library is rebuilt and never loaded, and `aot_warmup`
+leaves nothing to build for a second engine.
 
 These tests need a card and `nvcc`; without a card they skip.  On a machine
 with one: `python -m pytest -m cuda tests/test_torch_cuda.py` (no JAX needed).
@@ -1340,3 +1344,137 @@ def test_classifier_on_card_equals_cpu(card):
     assert gpu.classify_batch(texts) == cpu.classify_batch(texts)
     fps = np.stack([classifier._fingerprint(classifier.normalize_tokens(t)) for t in texts])
     np.testing.assert_allclose(gpu._matmul(fps), cpu._matmul(fps), rtol=0, atol=1e-5)
+
+
+# -- the executable cache on the card (registry/aotcache.py)
+
+_WARM_KERNELS = r"""
+import json, sys
+import numpy as np, torch
+from trivy_tpu_torch.compiled import CompiledRules
+from trivy_tpu_torch.ops import gram_sieve as gs
+from trivy_tpu_torch.ops import nfa_verify as nv
+from trivy_tpu_torch.registry import aotcache
+from trivy_tpu_torch.rules.model import build_ruleset
+sys.path.insert(0, "tests")
+from test_torch_cuda import _nfa_rows, _nfa_stack, _rows
+
+compiled = CompiledRules.build(build_ruleset(None))
+rows = torch.from_numpy(_rows(100, 4096, seed=7))
+k1 = gs.GramSieve(compiled.masks, compiled.vals, device="cuda")(rows.cuda())
+want1 = gs.GramSieve(compiled.masks, compiled.vals, device="cpu")(rows)
+arrays = _nfa_stack(8, seed=3)
+nrows = torch.from_numpy(_nfa_rows(64, 4096, seed=4))
+k5 = nv.nfa_stream(nrows.cuda(), nv.nfa_stack(*arrays, device="cuda"))
+want5 = nv.nfa_stream_plain(nrows, *[torch.from_numpy(a) for a in arrays])
+torch.cuda.synchronize()
+print(json.dumps({"stats": aotcache.stats(),
+                  "launches": [gs.LAUNCHES["bitplane"], gs.LAUNCHES["nfa_stream"]],
+                  "k1": torch.equal(k1.cpu(), want1) and bool(want1.any()),
+                  "k5": torch.equal(k5.cpu(), want5) and bool(want5.any())}))
+"""
+
+
+def test_warm_cache_libraries_run_k1_and_k5_equal_to_plain(card, tmp_path):
+    """Two fresh processes on one executable cache: the first builds the
+    K1 and K5 libraries, the second loads them (no build) and both
+    kernels equal their plain versions bit for bit."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, TRIVY_TPU_AOT_CACHE=str(tmp_path))
+    runs = []
+    for _ in range(2):
+        proc = subprocess.run([sys.executable, "-c", _WARM_KERNELS], cwd=repo, env=env,
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    cold, warm = runs
+    assert cold["stats"]["compiles"] == cold["stats"]["misses"] >= 2
+    assert warm["stats"] == {"compiles": 0, "hits": cold["stats"]["misses"], "misses": 0,
+                             "rejects": 0}
+    for run in runs:
+        assert run["k1"] and run["k5"] and run["launches"] == [1, 1]
+
+
+def test_tampered_cached_library_is_rebuilt_never_loaded(card, tmp_path, monkeypatch):
+    """A flipped byte in a cached `.so`: rejected, rebuilt from the source,
+    and only the rebuilt bytes reach `ctypes`, whose kernel then equals its
+    plain version."""
+    import ctypes
+    import hashlib
+
+    from trivy_tpu_torch.ops import _build
+    from trivy_tpu_torch.registry import aotcache
+
+    lib = _build.build_all(["gram_sieve"], tmp_path)["gram_sieve"]
+    blob = bytearray(lib.read_bytes())
+    blob[len(blob) // 3] ^= 0xFF
+    lib.write_bytes(bytes(blob))
+    loaded = []
+    real_cdll = ctypes.CDLL
+
+    def cdll(path, *a, **kw):
+        loaded.append(hashlib.sha256(open(path, "rb").read()).digest())
+        return real_cdll(path, *a, **kw)
+
+    monkeypatch.setattr(_build.ctypes, "CDLL", cdll)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "_FUNCTIONS", {})
+    aotcache.reset_stats()
+    _build.load("gram_sieve", tmp_path)
+    assert aotcache.stats() == {"compiles": 1, "hits": 0, "misses": 0, "rejects": 1}
+    assert loaded == [hashlib.sha256(lib.read_bytes()).digest()]
+    assert hashlib.sha256(bytes(blob)).digest() not in loaded
+    compiled = CompiledRules.build(build_ruleset(None))
+    rows = torch.from_numpy(_rows(64, 4096, seed=5))
+    got = gs.GramSieve(compiled.masks, compiled.vals, device=card)(rows.to(card))
+    want = gs.GramSieve(compiled.masks, compiled.vals, device="cpu")(rows)
+    assert torch.equal(got.cpu(), want) and want.any()
+
+
+@pytest.mark.parametrize("kind", ["device", "hybrid"])
+def test_aot_warmup_leaves_nothing_to_build_for_a_second_engine(card, kind, tmp_path,
+                                                                monkeypatch):
+    """`aot_warmup` on a `GpuSecretEngine` (K1 + K3 libraries, one launch a
+    bucket) or a `GpuHybridSecretEngine` (K5/K6 library): a second engine
+    on the same caches builds nothing and scans as the CPU does."""
+    from trivy_tpu_torch.engine.hybrid import GpuHybridSecretEngine, make_secret_engine
+    from trivy_tpu_torch.native import loader
+    from trivy_tpu_torch.ops import _build
+    from trivy_tpu_torch.registry import aotcache
+    from trivy_tpu_torch.registry.store import aot_warmup
+
+    rules = str(tmp_path / "rules")
+
+    def engine():
+        monkeypatch.setattr(_build, "_LOADED", {})
+        monkeypatch.setattr(loader, "_lib", None)
+        backend = "device" if kind == "device" else "hybrid"
+        kw = dict(megakernel=True) if kind == "device" else dict(verify="device")
+        return make_secret_engine(backend=backend, device=card, rules_cache_dir=rules,
+                                  aot_cache_dir=str(tmp_path / "libs"), **kw)
+
+    aotcache.reset_stats()
+    first = engine()
+    info = aot_warmup(first)
+    want_libs = ["native", "gram_sieve", "megakernel"] if kind == "device" else [
+        "native", "nfa_verify"]
+    assert info["libraries"] == want_libs and aotcache.stats()["compiles"] == len(want_libs)
+    if kind == "device":
+        assert info["buckets"] == first._buckets() and info["launched"] == len(first._buckets()) + 1
+    else:
+        assert isinstance(first, GpuHybridSecretEngine) and info["verify"] == "stream"
+    aotcache.reset_stats()
+    second = engine()
+    assert aot_warmup(second)["libraries"] == want_libs
+    assert aotcache.stats() == {"compiles": 0, "hits": len(want_libs), "misses": 0,
+                                "rejects": 0}
+    cpu_kw = dict(tile_len=512) if kind == "device" else dict(verify="device")
+    cpu = make_secret_engine(backend="device" if kind == "device" else "hybrid",
+                             device="cpu", **cpu_kw)
+    items = list(VERIFY_CORPUS) + [("b.env", b"k = ghp_" + b"Zz9" * 12 + b"\n")]
+    assert findings_fingerprint(second, items) == findings_fingerprint(cpu, items)

@@ -183,9 +183,23 @@ mit = license.shared_classifier("cpu").corpus_text("MIT").encode()
 res = programs.make_program_engine(device="cpu").scan_programs(
     [("LICENSE", mit), ("a.env", b"t = ghp_" + b"Ab1" * 12 + b"\n")])
 verified = verified and res["license"][0][0].name == "MIT" and bool(res["secret"][1].findings)
+import tempfile
+from trivy_tpu_torch.commands import rules as rules_cmd
+from trivy_tpu_torch.registry import aotcache, store
+rules_dir = tempfile.mkdtemp()
+cold = hybrid.make_secret_engine(device="cpu", rules_cache_dir=rules_dir)
+warm = hybrid.make_secret_engine(device="cpu", rules_cache_dir=rules_dir)
+verified = verified and findings_fingerprint(warm) == fp == findings_fingerprint(cold)
+verified = verified and store.aot_warmup(warm)["libraries"] == ["native"]
+verified = verified and aotcache.stats()["hits"] + aotcache.stats()["compiles"] > 0
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
-    cli.main(["fs", "--scanners", "secret", "--device", "cpu", sys.argv[1]])
+    verified = verified and cli.main(["rules", "ls", "--rules-cache-dir", rules_dir]) == 0
+verified = verified and cold.ruleset_digest[:16] in buf.getvalue()
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    cli.main(["fs", "--scanners", "secret", "--device", "cpu", "--rules-cache-dir", rules_dir,
+              sys.argv[1]])
 raised = []
 if not torch.cuda.is_available():
     for make in (GpuSecretEngine, hybrid.make_secret_engine):
@@ -226,8 +240,10 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     native library built and loaded), scans with its claim-killer, with
     its other sieves (LUT, native, B5 unfused), with the hybrid engine's
     device verify and through the scan programs (secret + license) on the
-    CPU and runs its CLI without loading jax or any trivy_tpu module, and its default device raises without a card (the
-    device engine and `make_secret_engine`)."""
+    CPU, starts warm from the compiled-rules registry (`registry.store`,
+    `registry.aotcache`, `rules ls`) and runs its CLI without loading jax
+    or any trivy_tpu module, and its default device raises without a card
+    (the device engine and `make_secret_engine`)."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -251,9 +267,11 @@ def _secret_rows(report: dict) -> set:
     }
 
 
-def test_cli_matches_jax_cli(tmp_path, capsys):
+def test_cli_matches_jax_cli(tmp_path, tmp_path_factory, capsys, monkeypatch):
     from trivy_tpu_torch import __main__ as cli
 
+    # both CLIs start from the compiled-rules registry by default: keep it here
+    monkeypatch.setenv("TRIVY_TPU_RULES_CACHE_DIR", str(tmp_path_factory.mktemp("rules")))
     _fixture_tree(tmp_path)
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
     proc = subprocess.run(

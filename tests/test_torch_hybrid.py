@@ -53,6 +53,7 @@ from trivy_tpu_torch.engine.oracle import OracleScanner
 from trivy_tpu_torch.ftypes import VERIFY_CORPUS, findings_fingerprint
 from trivy_tpu_torch.obs import gatelog
 from trivy_tpu_torch.programs import build_program_table, default_programs
+from trivy_tpu_torch.registry.digest import ruleset_digest
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -292,7 +293,7 @@ def test_megakernel_gate_prices_auto_mode_only(monkeypatch):
 # -- the factory and the CLI ---------------------------------------------------
 
 
-def test_make_secret_engine_backends():
+def test_make_secret_engine_backends(tmp_path):
     assert isinstance(make_secret_engine(backend="oracle"), OracleScanner)
     assert isinstance(make_secret_engine(backend="cpu"), OracleScanner)
     for backend in ("device", "tpu"):
@@ -304,9 +305,13 @@ def test_make_secret_engine_backends():
     assert isinstance(fused, GpuHybridSecretEngine) and fused.verify == "fused"
     native = make_secret_engine(backend="native", device="cpu", tile_len=TILE)
     assert isinstance(native, GpuSecretEngine) and native.sieve == "native"
-    for kw, item in ((dict(rules_cache_dir="/x"), "A10"), (dict(mesh=object()), "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_secret_engine(device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A11"):
+        make_secret_engine(device="cpu", mesh=object())
+    # rules_cache_dir (ported): the engine starts from the registry's artifact
+    warm = make_secret_engine(device="cpu", rules_cache_dir=str(tmp_path))
+    assert isinstance(warm, GpuHybridSecretEngine) and warm.verify == "dfa"
+    assert warm.ruleset_digest == ruleset_digest(auto.ruleset)
+    assert (tmp_path / warm.ruleset_digest / "manifest.json").exists()
     # a program table (A9) builds a program engine over its merged ruleset
     table = build_program_table(default_programs())
     for backend, cls in (("auto", GpuHybridSecretEngine), ("native", GpuSecretEngine)):
@@ -317,7 +322,9 @@ def test_make_secret_engine_backends():
         make_secret_engine(backend="warp", device="cpu")
 
 
-def test_cli_secret_backend(tmp_path, capsys, monkeypatch):
+def test_cli_secret_backend(tmp_path, tmp_path_factory, capsys, monkeypatch):
+    # the CLI starts from the compiled-rules registry by default: keep it here
+    monkeypatch.setenv("TRIVY_TPU_RULES_CACHE_DIR", str(tmp_path_factory.mktemp("rules")))
     _fixture_tree(tmp_path)
     reports = {}
     for backend in ("auto", "hybrid", "tpu", "cpu", "native"):

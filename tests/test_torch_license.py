@@ -18,7 +18,13 @@
 Tolerance: exact, but for the raw scores (1e-5 absolute, above).
 """
 
+import ast
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,12 +33,11 @@ import torch
 from trivy_tpu.license import classifier as ref_classifier
 from trivy_tpu.license import phrases as ref_phrases
 from trivy_tpu.license.decide import decide_findings as ref_decide
-from trivy_tpu.programs import LicenseScanProgram as RefLicenseProgram
 from trivy_tpu_torch.license import classifier, phrases
 from trivy_tpu_torch.license.decide import decide_findings
-from trivy_tpu_torch.programs import LicenseScanProgram
 
 SCORE_ATOL = 1e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -102,16 +107,79 @@ def test_decide_findings_matches_reference(clfs):
     assert decide_findings([], device="cpu") == []
 
 
+_PHRASE_TABLES = """
+import dataclasses, json
+from trivy_tpu.license import phrases as ref_phrases
+from trivy_tpu.programs import LicenseScanProgram as RefLicenseProgram
+from trivy_tpu_torch.license import phrases
+from trivy_tpu_torch.programs import LicenseScanProgram
+
+text = "Apache License\\n  Version 2.0, January 2004"
+print(json.dumps({
+    side: {
+        "anchor_tokens": mod.anchor_tokens(),
+        "phrases": mod._PHRASES,
+        "phrase_anchors": list(mod._PHRASE_ANCHORS.items()),
+        "generic_anchors": list(mod._GENERIC_ANCHORS),
+        "classify": [dataclasses.astuple(f) for f in mod.classify_text(text)],
+        "verdict_digest": prog().verdict_digest(),
+    }
+    for side, mod, prog in (("port", phrases, LicenseScanProgram),
+                            ("ref", ref_phrases, RefLicenseProgram))
+}))
+"""
+
+
+def source_order_anchors(module) -> None:
+    """Put `module._PHRASE_ANCHORS` back, in place, in the order its source
+    lists it.  `monkeypatch.delitem` restores a deleted key at the end of
+    the dict, and `anchor_tokens()`, the license program's rule columns and
+    its `verdict_digest` follow dict order: the reference's own
+    `tests/test_programs.py` deletes "Apache-2.0" that way, so whatever ran
+    earlier in the process must not decide the order a test sees."""
+    tree = ast.parse(Path(module.__file__).read_text())
+    keys = next(
+        [k.value for k in node.value.keys]
+        for node in tree.body
+        if isinstance(node, ast.AnnAssign) and getattr(node.target, "id", "") == "_PHRASE_ANCHORS"
+    )
+    table = module._PHRASE_ANCHORS
+    if list(table) != keys and set(table) == set(keys):
+        items = [(k, table[k]) for k in keys]
+        table.clear()
+        table.update(items)
+
+
 def test_anchor_tokens_phrases_and_verdict_digest_are_the_reference():
-    assert phrases.anchor_tokens() == ref_phrases.anchor_tokens()
-    assert len(phrases.anchor_tokens()) == 18 and "public domain" in phrases.anchor_tokens()
-    assert phrases._PHRASES == ref_phrases._PHRASES
-    assert phrases._PHRASE_ANCHORS == ref_phrases._PHRASE_ANCHORS
-    assert phrases._GENERIC_ANCHORS == ref_phrases._GENERIC_ANCHORS
-    text = "Apache License\n  Version 2.0, January 2004"
-    assert [dataclasses.astuple(f) for f in phrases.classify_text(text)] == [
-        dataclasses.astuple(f) for f in ref_phrases.classify_text(text)]
-    assert LicenseScanProgram().verdict_digest() == RefLicenseProgram().verdict_digest()
+    """In a fresh interpreter, so that no test that ran before it in this
+    process (the reference's anchor-coverage tests reorder its table) can
+    change the order either package lists its anchors in."""
+    proc = subprocess.run([sys.executable, "-c", _PHRASE_TABLES], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    port, ref = got["port"], got["ref"]
+    assert port["anchor_tokens"] == ref["anchor_tokens"]
+    assert len(port["anchor_tokens"]) == 18 and "public domain" in port["anchor_tokens"]
+    assert port["phrases"] == ref["phrases"]
+    assert port["phrase_anchors"] == ref["phrase_anchors"]
+    assert port["generic_anchors"] == ref["generic_anchors"]
+    assert port["classify"] == ref["classify"] and port["classify"]
+    assert port["verdict_digest"] == ref["verdict_digest"]
+
+
+def test_source_order_anchors_undoes_a_reordering(monkeypatch):
+    """The helper above puts a table that `monkeypatch.delitem` reordered
+    back in source order, for both packages."""
+    for module in (phrases, ref_phrases):
+        want = list(module._PHRASE_ANCHORS.items())
+        monkeypatch.setattr(module, "_PHRASE_ANCHORS", dict(want))
+        value = module._PHRASE_ANCHORS.pop("Apache-2.0")
+        module._PHRASE_ANCHORS["Apache-2.0"] = value
+        assert list(module._PHRASE_ANCHORS.items()) != want
+        source_order_anchors(module)
+        assert list(module._PHRASE_ANCHORS.items()) == want
 
 
 def test_classifier_device_and_tf32(clfs, monkeypatch):

@@ -13,8 +13,9 @@
   slice equals the reference's `decide_findings` on every file; the
   program counters equal the reference's where the two sieve alike;
 * `only=`, `scan_batch` routing, `programs_snapshot`, the table's
-  rejections, the anchor-coverage `ProgramCompileError`s, and the
-  arguments that raise (`rules_cache_dir` A10, `mesh` A11, the oracle).
+  rejections, the anchor-coverage `ProgramCompileError`s, the arguments
+  that raise (`mesh` A11, the oracle) and `rules_cache_dir`, which
+  compiles the merged table and each member program into the registry.
 
 The port is fed the reference's own merged compile
 (`registry.store.compile_ruleset`), carried by `CompiledRules.from_numpy`.
@@ -32,7 +33,9 @@ import pytest
 import bench_corpus
 from test_programs import _corpus_text, _mixed_corpus
 from test_torch_engine import fingerprint
+from test_torch_license import source_order_anchors
 from trivy_tpu import programs as ref_programs
+from trivy_tpu.license import phrases as ref_phrases
 from trivy_tpu.license.decide import decide_findings as ref_decide
 from trivy_tpu.registry import store as rstore
 from trivy_tpu_torch import programs
@@ -47,6 +50,8 @@ from trivy_tpu_torch.programs import (
     build_program_table,
     make_program_engine,
 )
+from trivy_tpu_torch.registry import store as rstore_port
+from trivy_tpu_torch.registry.digest import ruleset_digest
 
 TILE = 512
 CAP = 64
@@ -62,6 +67,15 @@ CASES = {
     "hybrid": ("hybrid", "auto", {}),
 }
 REF_KW = {"device": dict(tile_len=TILE), "native": {}, "hybrid": {}}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def anchor_order():
+    """Both packages' anchor tables in source order, whatever ran before in
+    this process (`source_order_anchors`): the reference's merged compile
+    and its table digest follow that order."""
+    for module in (ref_phrases, phrases):
+        source_order_anchors(module)
 
 
 def license_doc(verdicts) -> list:
@@ -188,14 +202,26 @@ def test_table_rejections():
         t.verify_column_mask(17)
 
 
+def _patch_anchors(monkeypatch, table: dict) -> None:
+    """Swap in a new anchor table wherever the port binds it.  A new dict,
+    not `delitem`/`setitem` on the shared one: undoing a `delitem` puts the
+    key back last and reorders the anchors for the rest of the process."""
+    from trivy_tpu_torch.programs import license as lic_mod
+
+    for module in (phrases, lic_mod):
+        monkeypatch.setattr(module, "_PHRASE_ANCHORS", table)
+
+
 def test_anchor_coverage_missing_anchor_fails(monkeypatch):
-    monkeypatch.delitem(phrases._PHRASE_ANCHORS, "Apache-2.0")
+    _patch_anchors(monkeypatch, {
+        k: v for k, v in phrases._PHRASE_ANCHORS.items() if k != "Apache-2.0"})
     with pytest.raises(ProgramCompileError, match="no anchor token"):
         LicenseScanProgram().ruleset()
 
 
 def test_anchor_coverage_non_substring_anchor_fails(monkeypatch):
-    monkeypatch.setitem(phrases._PHRASE_ANCHORS, "Apache-2.0", "walrus")
+    _patch_anchors(monkeypatch, {
+        k: "walrus" if k == "Apache-2.0" else v for k, v in phrases._PHRASE_ANCHORS.items()})
     with pytest.raises(ProgramCompileError, match="not a substring"):
         LicenseScanProgram().ruleset()
 
@@ -208,9 +234,16 @@ def test_anchor_coverage_corpus_text_without_anchor_fails(monkeypatch):
         LicenseScanProgram().ruleset()
 
 
-def test_factory_arguments_that_raise(table):
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_program_engine(table, device="cpu", rules_cache_dir="/x")
+def test_factory_arguments_that_raise(table, tmp_path):
+    # rules_cache_dir (ported): the merged table and each member program
+    # compile into the registry, keyed by program id
+    eng = make_program_engine(table, device="cpu", rules_cache_dir=str(tmp_path))
+    assert isinstance(eng, GpuHybridSecretEngine) and eng.program_table is table
+    assert eng.ruleset_digest == ruleset_digest(table.merged_ruleset())
+    for pid, rs in ((table.table_id, table.merged_ruleset()),
+                    *((p.program_id, p.ruleset()) for p in table.programs)):
+        assert rstore_port.load_artifact(rstore_port.program_cache_dir(str(tmp_path), pid),
+                                         ruleset_digest(rs), program_id=pid) is not None, pid
     with pytest.raises(NotImplementedError, match="A11"):
         make_program_engine(table, device="cpu", mesh=object())
     for backend in ("oracle", "cpu"):

@@ -1,11 +1,16 @@
 """`python -m trivy_tpu_torch fs --scanners secret [--secret-config F]
 [--format json] [--secret-backend auto|hybrid|tpu|cpu|native]
-[--device cuda|cpu] <dir>`: a filesystem secret scan through the engine that
-`engine/hybrid.py` `make_secret_engine` builds for the backend (default
-`auto`: the hybrid engine, as `trivy_tpu`'s CLI), printed as Trivy's JSON
-report (SchemaVersion 2, one `Results[]` entry of Class "secret" per file
-with findings).  Like the reference, the backend's default comes from
-`TRIVY_TPU_SECRET_BACKEND`; `server` is not ported yet.
+[--device cuda|cpu] [--rules-cache-dir D] <dir>`: a filesystem secret scan
+through the engine that `engine/hybrid.py` `make_secret_engine` builds for
+the backend (default `auto`: the hybrid engine, as `trivy_tpu`'s CLI),
+printed as Trivy's JSON report (SchemaVersion 2, one `Results[]` entry of
+Class "secret" per file with findings).  Like the reference, the backend's
+default comes from `TRIVY_TPU_SECRET_BACKEND`, and the engine starts from
+the compiled-rules registry (`--rules-cache-dir`, default
+`TRIVY_TPU_RULES_CACHE_DIR`, else `~/.cache/trivy-tpu/rulesets`; "off"
+compiles every start).  `python -m trivy_tpu_torch rules compile|ls|verify`
+maintains the registry (`commands/rules.py`).  What waits for a ROADMAP
+item is in `NOT_PORTED`.
 
 The walk keeps the reference secret analyzer's gates
 (`trivy_tpu/analyzer/secret.py`, pkg/fanal/analyzer/secret/secret.go:28-153):
@@ -24,10 +29,12 @@ from trivy_tpu_torch.rules.model import load_config
 
 SCHEMA_VERSION = 2
 
-# The reference CLI's backends (trivy_tpu/cli.py), and the ROADMAP item
-# each one that the port lacks waits for.
+# The reference CLI's backends (trivy_tpu/cli.py).
 SECRET_BACKENDS = ("auto", "hybrid", "tpu", "cpu", "native", "server")
-NOT_PORTED = {"server": "A13"}
+# What the port lacks of the reference CLI, and the ROADMAP item it waits
+# for: the server backend, and `rules push`, which installs a ruleset into
+# a running server's registry (with `install_ruleset` and `RulesetManager`).
+NOT_PORTED = {"server": "A13", "rules push": "A13"}
 
 # secret.go:28-42
 SKIP_FILES = {
@@ -135,8 +142,34 @@ def main(argv: list[str] | None = None) -> int:
     fs.add_argument("--secret-backend", choices=SECRET_BACKENDS,
                     default=_env_default("secret-backend", "auto"))
     fs.add_argument("--device", default=DEFAULT_DEVICE)
+    fs.add_argument("--rules-cache-dir", default=_env_default("rules-cache-dir", ""),
+                    help="compiled-ruleset registry directory (default "
+                    "~/.cache/trivy-tpu/rulesets; 'off' disables warm starts)")
     fs.add_argument("target")
+    rules = sub.add_parser("rules", help="manage the compiled-ruleset registry")
+    rules_sub = rules.add_subparsers(dest="rules_command")
+    for name, text in (("compile", "compile a secret-config into the cache"),
+                       ("ls", "list cached compiled artifacts"),
+                       ("verify", "prove a cached artifact round-trips to "
+                                  "byte-identical findings on the builtin corpus"),
+                       ("push", "install a ruleset into a running server (not ported)")):
+        cmd = rules_sub.add_parser(name, help=text)
+        cmd.add_argument("--rules-cache-dir", default=_env_default("rules-cache-dir", ""))
+        if name != "ls":
+            cmd.add_argument("--secret-config", default=_env_default("secret-config", ""))
+        if name in ("compile", "verify"):
+            cmd.add_argument("--device", default=DEFAULT_DEVICE)
+        if name == "compile":
+            cmd.add_argument("--warmup", action="store_true",
+                             help="also build or load every kernel library a device "
+                             "engine launches and, on a card, launch its sieve once a bucket")
     args = parser.parse_args(argv)
+    if args.command == "rules":
+        if args.rules_command == "push":
+            parser.error(f"rules push is not ported yet (ROADMAP {NOT_PORTED['rules push']})")
+        from trivy_tpu_torch.commands.rules import run_rules
+
+        return run_rules(args)
     scanners = {s.strip() for s in args.scanners.split(",") if s.strip()}
     if scanners != {"secret"}:
         parser.error("only --scanners secret is supported")
@@ -145,11 +178,13 @@ def main(argv: list[str] | None = None) -> int:
                      f"(ROADMAP {NOT_PORTED[args.secret_backend]})")
 
     from trivy_tpu_torch.engine.hybrid import make_secret_engine
+    from trivy_tpu_torch.registry.store import resolve_rules_cache_dir
     from trivy_tpu_torch.rules.model import build_ruleset
 
     ruleset = build_ruleset(load_config(args.secret_config))
     engine = make_secret_engine(ruleset=ruleset, backend=args.secret_backend,
-                                device=args.device)
+                                device=args.device,
+                                rules_cache_dir=resolve_rules_cache_dir(args.rules_cache_dir))
     items = collect(args.target, ruleset, args.secret_config)
     secrets = engine.scan_batch(items)
     json.dump(_report(args.target, secrets), sys.stdout, indent=2)

@@ -8,7 +8,9 @@ candidate (file, rule) lanes.  It comes from either side:
   the probe and gram compilers;
 * `CompiledRules.from_numpy(arrays)` takes them as `trivy_tpu` built them,
   under the JAX package's own attribute names (`ARRAY_NAMES`), so a test can
-  hand the reference's state across and hold the two engines equal.
+  hand the reference's state across and hold the two engines equal;
+* `CompiledRules.from_artifact(art)` derives them from a registry
+  `CompiledArtifact` (`registry/store.py`) without compiling anything.
 """
 
 from __future__ import annotations
@@ -93,6 +95,12 @@ class CompiledRules:
         `_build_member_matrices`)."""
         pset = build_probe_set(ruleset.rules)
         return cls.from_sets(pset, build_gram_set(pset))
+
+    @classmethod
+    def from_artifact(cls, art) -> "CompiledRules":
+        """From a registry `CompiledArtifact`'s probe and gram sets: the
+        membership matrices only, no compiler runs."""
+        return cls.from_sets(art.pset, art.gset)
 
     @classmethod
     def from_sets(cls, pset: ProbeSet, gset: GramSet) -> "CompiledRules":

@@ -96,6 +96,7 @@ from trivy_tpu_torch.ops import _build
 from trivy_tpu_torch.ops.gram_sieve import GramSieve, RowGramSieve
 from trivy_tpu_torch.ops.lut_sieve import LutSieve
 from trivy_tpu_torch.ops.megakernel import MEGA_MAX_FILES, MegaGramSieve
+from trivy_tpu_torch.registry.store import CompiledArtifact
 from trivy_tpu_torch.rules.model import RuleSet, SecretConfig, build_ruleset
 from trivy_tpu_torch.scanner.packing import (
     DEFAULT_OVERLAP,
@@ -205,8 +206,13 @@ class GpuSecretEngine:
 
     `sieve` ("gram", "lut", "native"), `kernel` ("auto" = "pallas", or
     "xla") and `fused` pick the path (module docstring).  `compiled` takes a
+    registry `CompiledArtifact` (a warm start: the probe set, gram set, link
+    alphabet and digest come from it, and nothing is compiled), a
     `CompiledRules` or the dict of arrays that `CompiledRules.from_numpy`
-    reads; it must be compiled from `ruleset`.
+    reads; it must be compiled from `ruleset`.  `aot_cache_dir` is the
+    executable cache `warmup()` and `registry.store.aot_warmup` load the
+    kernel libraries from (default `TRIVY_TPU_AOT_CACHE`, else
+    `trivy_tpu_torch/_build/`).
 
     `megakernel` switches the megakernel path (fused K1-twin gram sieve
     only): the argument when given, else `TRIVY_TPU_MEGAKERNEL` ("0" off,
@@ -233,7 +239,7 @@ class GpuSecretEngine:
         config: SecretConfig | None = None,
         tile_len: int = DEFAULT_TILE_LEN,
         max_batch_tiles: int | None = None,
-        compiled: CompiledRules | dict | None = None,
+        compiled: CompiledArtifact | CompiledRules | dict | None = None,
         device: str | torch.device = DEFAULT_DEVICE,
         megakernel: bool | None = None,
         pipeline_depth: int | None = None,
@@ -243,6 +249,7 @@ class GpuSecretEngine:
         kernel: str = "auto",
         fused: bool | None = None,
         program_table=None,
+        aot_cache_dir: str | None = None,
     ):
         if sieve not in ("gram", "lut", "native"):
             raise ValueError(f"unknown sieve: {sieve}")
@@ -253,8 +260,16 @@ class GpuSecretEngine:
         self.oracle = OracleScanner(self.ruleset)
         self.program_table = program_table
         self.program_stats: dict[str, dict] = {}
+        self.aot_cache_dir = aot_cache_dir
         pset = None
-        if compiled is None:
+        alphabet = None
+        self._ruleset_digest: str | None = None
+        if isinstance(compiled, CompiledArtifact):
+            # warm start: the artifact was digest-matched to this ruleset
+            pset, alphabet = compiled.pset, compiled.alphabet
+            self._ruleset_digest = compiled.digest
+            compiled = CompiledRules.from_artifact(compiled)
+        elif compiled is None:
             pset = build_probe_set(self.ruleset.rules)
             compiled = CompiledRules.from_sets(pset, build_gram_set(pset))
         elif isinstance(compiled, dict):
@@ -269,7 +284,6 @@ class GpuSecretEngine:
             pipeline_depth if pipeline_depth is not None else default_depth()
         )
         self.dedupe = dedupe
-        self._ruleset_digest: str | None = None
         self._resident = ResidentChunkCache(resident_chunks)
         self._row_store = ResidentRowStore(resident_chunks)
         self._stager = RowStager(self.device, self.pipeline_depth)
@@ -308,9 +322,9 @@ class GpuSecretEngine:
         mode = link_mod.codec_mode()
         self._d2h_compact = mode != "off"
         if mode != "off":
-            self._link = link_mod.select_codec(
-                link_mod.derive_alphabet(compiled), mode, compiled
-            )
+            if alphabet is None:
+                alphabet = link_mod.derive_alphabet(compiled)
+            self._link = link_mod.select_codec(alphabet, mode, compiled)
         # Resident-row keys carry the codec: coded rows never alias raw ones.
         if self._link is not None:
             self._codec_tag = ":" + self._link.codec_id
@@ -393,8 +407,8 @@ class GpuSecretEngine:
 
     @property
     def ruleset_digest(self) -> str:
-        """Content digest of the active rule material (registry/digest.py),
-        computed on first use."""
+        """Content digest of the active rule material (registry/digest.py):
+        a warm-start artifact's, else computed on first use."""
         if self._ruleset_digest is None:
             from trivy_tpu_torch.registry.digest import ruleset_digest
 
@@ -433,9 +447,10 @@ class GpuSecretEngine:
             return
         if self.device.type == "cuda":
             _build.load("lut_sieve" if self.sieve == "lut" else
-                        "gram_sieve" if self._pallas_obj is not None else "gram_rows")
+                        "gram_sieve" if self._pallas_obj is not None else "gram_rows",
+                        self.aot_cache_dir)
             if self._mega is not None:
-                _build.load("megakernel")
+                _build.load("megakernel", self.aot_cache_dir)
             self._exec(torch.zeros((self._buckets()[0], self._staged_cols),
                                    dtype=torch.uint8, device=self.device))
             self._sync()
@@ -447,12 +462,7 @@ class GpuSecretEngine:
         minimum file pad (8 lanes, all padding): the reference's gate
         pricing shape."""
         rows = self._buckets()[0]
-        args = (
-            torch.zeros((rows, self._staged_cols), dtype=torch.uint8, device=self.device),
-            torch.zeros((1, 8), dtype=torch.int32, device=self.device),
-            torch.full((1, 8), -1, dtype=torch.int32, device=self.device),
-            torch.zeros((8, 1), dtype=torch.int8, device=self.device),
-        )
+        args = self._mega_zero_args()
         self._mega(*args)  # warm
         self._sync()
         t0 = time.perf_counter()
@@ -460,6 +470,17 @@ class GpuSecretEngine:
         self._sync()
         dt = max(time.perf_counter() - t0, 1e-9)
         return rows * self.tile_len / dt / 1e6
+
+    def _mega_zero_args(self) -> tuple:
+        """K3's arguments at the smallest row bucket, all zero rows, and the
+        minimum file pad (8 lanes, all padding)."""
+        rows = self._buckets()[0]
+        return (
+            torch.zeros((rows, self._staged_cols), dtype=torch.uint8, device=self.device),
+            torch.zeros((1, 8), dtype=torch.int32, device=self.device),
+            torch.full((1, 8), -1, dtype=torch.int32, device=self.device),
+            torch.zeros((8, 1), dtype=torch.int8, device=self.device),
+        )
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -869,7 +890,7 @@ class GpuSecretEngine:
         confirm.  The native library builds on first use and raises when
         it does not: the port never skips this step quietly."""
         if self._verifier is None:
-            load_native()
+            load_native(self.aot_cache_dir)
             self._verifier = DfaVerifier(self.ruleset.rules)
         return self._verifier
 

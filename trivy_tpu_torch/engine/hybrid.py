@@ -61,6 +61,7 @@ from trivy_tpu_torch.ftypes import Secret
 from trivy_tpu_torch.native import load_native
 from trivy_tpu_torch.obs import gatelog
 from trivy_tpu_torch.obs import trace as obs_trace
+from trivy_tpu_torch.registry.store import CompiledArtifact
 from trivy_tpu_torch.rules.model import RuleSet, SecretConfig, build_ruleset
 from trivy_tpu_torch.scanner.packing import dedupe_blobs
 
@@ -224,12 +225,17 @@ class GpuHybridSecretEngine:
     """Host-sieve + verify + confirm engine with the oracle's semantics.
 
     `device` is where the device verify runs (default "cuda"; "cpu" runs
-    the kernels' plain versions).  `compiled` takes a `CompiledRules` or the
+    the kernels' plain versions).  `compiled` takes a registry
+    `CompiledArtifact` (a warm start: the probe set, gram set, rule stack and
+    digest come from it, and nothing is compiled), a `CompiledRules` or the
     reference's arrays (`CompiledRules.from_numpy`); it must be compiled
     from `ruleset`.  `rule_stack` takes `build_rule_stack`'s `vstack_*`
-    arrays to seed the verifier.  `program_table` (whose merged ruleset is
-    `ruleset`) makes it multi-program: `scan_programs`, `programs_snapshot`,
-    and `scan_batch` through the secret program (module docstring)."""
+    arrays to seed the verifier (default: the artifact's).  `aot_cache_dir`
+    is the executable cache the native library and the verify kernels load
+    from (default `TRIVY_TPU_AOT_CACHE`, else `trivy_tpu_torch/_build/`).
+    `program_table` (whose merged ruleset is `ruleset`) makes it
+    multi-program: `scan_programs`, `programs_snapshot`, and `scan_batch`
+    through the secret program (module docstring)."""
 
     def __init__(
         self,
@@ -240,18 +246,29 @@ class GpuHybridSecretEngine:
         probe_confirm: bool = True,
         pipeline_depth: int | None = None,
         dedupe: bool = True,
-        compiled: CompiledRules | dict | None = None,
+        compiled: CompiledArtifact | CompiledRules | dict | None = None,
         rule_stack: dict | None = None,
         device: str | torch.device = DEFAULT_DEVICE,
         program_table=None,
+        aot_cache_dir: str | None = None,
     ):
         if verify not in VERIFY_MODES:
             raise ValueError(f"unknown verify mode: {verify!r}")
         self.device = resolve_device(device)
         self.ruleset = ruleset if ruleset is not None else build_ruleset(config)
         self.oracle = OracleScanner(self.ruleset)
-        self.pset = build_probe_set(self.ruleset.rules)
-        self.gset = build_gram_set(self.pset)
+        self.aot_cache_dir = aot_cache_dir
+        self._ruleset_digest: str | None = None
+        if isinstance(compiled, CompiledArtifact):
+            # warm start: the artifact was digest-matched to this ruleset
+            self.pset, self.gset = compiled.pset, compiled.gset
+            self._ruleset_digest = compiled.digest
+            if rule_stack is None:
+                rule_stack = compiled.vstack
+            compiled = CompiledRules.from_artifact(compiled)
+        else:
+            self.pset = build_probe_set(self.ruleset.rules)
+            self.gset = build_gram_set(self.pset)
         if compiled is None:
             compiled = CompiledRules.from_sets(self.pset, self.gset)
         elif isinstance(compiled, dict):
@@ -282,7 +299,7 @@ class GpuHybridSecretEngine:
             # In device modes the DFA still verifies the lanes the device
             # does not take (no 64-position automaton, oversize windows).
             self._dfa_verifier = DfaVerifier(self.ruleset.rules, prefix_bounds=bounds)
-        load_native()  # raises with g++'s output when the library does not build
+        load_native(aot_cache_dir)  # raises with g++'s output when it does not build
         (self._norm_masks, self._norm_vals, self._norm_perm,
          self._norm_strip) = normalize_grams(self.gset.masks, self.gset.vals)
         self.probe_confirm = probe_confirm
@@ -298,9 +315,19 @@ class GpuHybridSecretEngine:
             self._programs = GpuSecretEngine(
                 ruleset=self.ruleset, compiled=compiled, device=self.device,
                 sieve="native", pipeline_depth=self.pipeline_depth, dedupe=dedupe,
-                program_table=program_table,
+                program_table=program_table, aot_cache_dir=aot_cache_dir,
             )
             self._programs.stats = self.stats
+
+    @property
+    def ruleset_digest(self) -> str:
+        """Content digest of the active rule material (registry/digest.py):
+        a warm-start artifact's, else computed on first use."""
+        if self._ruleset_digest is None:
+            from trivy_tpu_torch.registry.digest import ruleset_digest
+
+            self._ruleset_digest = ruleset_digest(self.ruleset)
+        return self._ruleset_digest
 
     @property
     def program_stats(self) -> dict:
@@ -423,9 +450,9 @@ class GpuHybridSecretEngine:
     def warmup(self) -> None:
         """Build the native library and the device verifier's resident
         tensors (and, on a card, load its kernels) ahead of timed scans."""
-        load_native()
+        load_native(self.aot_cache_dir)
         if self._nfa_verifier is not None:
-            self._nfa_verifier.warmup()
+            self._nfa_verifier.warmup(self.aot_cache_dir)
         if self._programs is not None:
             self._programs.warmup()
 
@@ -730,19 +757,29 @@ def make_secret_engine(
     Aliases: tpu = device, cpu = oracle.  A `program_table` kwarg makes the
     engine multi-program (`ruleset` must be its merged ruleset: use
     `programs.make_program_engine`); the oracle has no sieve to demux and
-    refuses it.  Not in the port yet, and raising NotImplementedError:
-    `mesh` (A11) and `rules_cache_dir` (A10)."""
+    refuses it.
+
+    `rules_cache_dir` routes construction through the compiled-artifact
+    registry (`registry/store.py`): a valid cached artifact supplies the
+    tensors (a warm start, no compile), and a miss compiles once and
+    persists for the next process.  None (the default) leaves the registry
+    out.  `aot_cache_dir` (in `kw`) is the executable cache the engine's
+    libraries load from.  `mesh` (A11) is not ported yet and raises
+    NotImplementedError."""
     backend = {"tpu": "device", "cpu": "oracle"}.get(backend, backend)
     if mesh is not None:
         raise NotImplementedError("mesh engines are not ported yet (ROADMAP A11)")
-    if rules_cache_dir is not None:
-        raise NotImplementedError(
-            "the compiled-rules registry is not ported yet (ROADMAP A10)")
     if backend == "oracle":
         if kw.get("program_table") is not None:
             raise ValueError(
                 "the oracle backend has no device pass to demux programs from")
         return OracleScanner(ruleset=ruleset, config=config)
+    if rules_cache_dir is not None and "compiled" not in kw:
+        from trivy_tpu_torch.registry.store import get_or_compile
+
+        if ruleset is None:
+            ruleset = build_ruleset(config)
+        kw["compiled"], _ = get_or_compile(ruleset, cache_dir=rules_cache_dir)
     if backend in ("device", "native"):
         if backend == "native":
             kw["sieve"] = "native"

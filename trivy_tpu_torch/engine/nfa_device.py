@@ -170,13 +170,14 @@ class GpuNfaVerifier:
                            device=str(self.device), owner=self)
         return self._tables
 
-    def warmup(self) -> None:
-        """Ship the resident tensors and, on a card, load the kernels."""
+    def warmup(self, aot_cache_dir: str | None = None) -> None:
+        """Ship the resident tensors and, on a card, load the kernels (from
+        the executable cache `aot_cache_dir`, else the default one)."""
         self._device_tables()
         if self.device.type == "cuda":
             from trivy_tpu_torch.ops import _build
 
-            _build.load("nfa_verify")
+            _build.load("nfa_verify", aot_cache_dir)
 
     # ------------------------------------------------------------------
 

@@ -4,11 +4,14 @@ hybrid engine's host pre-sieve.
 A port of `trivy_tpu/native/loader.py` reduced to what the engines run:
 `dfa_verify.cpp`, `gram_scan.cpp` and `lane_index.cpp` (this directory)
 build with `g++` into
-one shared library under `trivy_tpu_torch/_build/` (listed in
-`.gitignore`), keyed by a digest of the sources, the flags and the host
-CPU's feature flags (`-march=native` code must not load on another CPU that
-shares the directory), so an edited source never loads a stale build, and
-loads through ctypes.  Bound:
+one shared library through the executable cache (`registry/aotcache.py`:
+`TRIVY_TPU_AOT_CACHE`, else `trivy_tpu_torch/_build/`, listed in
+`.gitignore`).  Its file name carries a digest of the sources and the
+flags, so an edited source never loads a stale build; its manifest pins
+`g++ --version` and a digest of the host CPU's feature flags
+(`-march=native` code must not load on another CPU that shares the
+directory) beside the library's sha256, and it loads through ctypes only
+when all of that matches.  Bound:
 `dfa_verify_pairs`, `dfa_verify_pairs_files`, `gram_sieve_scan_files`, the
 row sieve `gram_sieve` (`gram_sieve_native`) and the fused K5's lane index
 `lane_index` (`ops/nfa_verify.LaneIndex.build`).
@@ -23,6 +26,7 @@ at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import platform
@@ -32,9 +36,9 @@ from pathlib import Path
 import numpy as np
 
 from trivy_tpu_torch import lockcheck
+from trivy_tpu_torch.registry import aotcache
 
 NATIVE_DIR = Path(__file__).resolve().parent
-BUILD_DIR = NATIVE_DIR.parent / "_build"
 SOURCES = ("dfa_verify.cpp", "gram_scan.cpp", "lane_index.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
@@ -67,22 +71,37 @@ def _cpu_key() -> bytes:
     return platform.machine().encode()
 
 
-def build() -> Path:
-    """Compile the sources (once per source digest) and return the library
-    path; raises RuntimeError with g++'s output when neither the native nor
-    the portable (no `-march=native`) build succeeds."""
-    srcs = [NATIVE_DIR / s for s in SOURCES]
+@functools.cache
+def gxx_version() -> str:
+    """The first line of `g++ --version`, the compiler field of the key."""
+    try:
+        proc = _run(["g++", "--version"])
+    except (OSError, subprocess.SubprocessError) as exc:
+        raise RuntimeError(f"g++ --version failed: {exc}") from exc
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ --version failed:\n{proc.stderr}")
+    return proc.stdout.splitlines()[0].strip()
+
+
+def _key() -> tuple[str, dict]:
+    """(digest of the sources, the flags and the host CPU's feature flags,
+    which names the library; the executable cache's key of it)."""
     h = hashlib.sha256()
-    for s in srcs:
-        h.update(s.read_bytes())
+    for s in SOURCES:
+        h.update((NATIVE_DIR / s).read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     h.update(_cpu_key())
-    out = BUILD_DIR / f"libtrivytorch-native-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    digest = h.hexdigest()[:16]
+    target = "cpu-" + hashlib.sha256(_cpu_key()).hexdigest()[:16]
+    return digest, aotcache.make_key(kind="g++", compiler=gxx_version(), target=target,
+                                     digest=digest)
+
+
+def _gxx_build(out: Path):
+    """An `aotcache.Build`: compiles the sources to `out` with
+    `-march=native`, else without it, and raises with g++'s output when
+    neither succeeds."""
+    cmd = ["g++", *CXX_FLAGS, "-o", str(out), *(str(NATIVE_DIR / s) for s in SOURCES)]
     errors = []
     for attempt in (cmd, [c for c in cmd if c != "-march=native"]):
         try:
@@ -91,26 +110,36 @@ def build() -> Path:
             errors.append(f"$ {' '.join(attempt)}\n{exc}")
             continue
         if proc.returncode == 0:
-            os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-            return out
+            return lambda: proc.stderr
         errors.append(f"$ {' '.join(attempt)}\n{proc.stderr}")
-    tmp.unlink(missing_ok=True)
+    out.unlink(missing_ok=True)
     raise RuntimeError(
         f"the native library (trivy_tpu_torch/native/: {', '.join(SOURCES)}) "
         "did not build:\n" + "\n".join(errors)
     )
 
 
-def load_native() -> ctypes.CDLL:
-    """The loaded native library, built on first use (raises when it does
-    not build)."""
+def build(cache_dir: str | os.PathLike | None = None) -> Path:
+    """The library's path in the executable cache (`cache_dir`, else the
+    default one), built when missing or rejected; raises RuntimeError with
+    g++'s output when neither the native nor the portable (no
+    `-march=native`) build succeeds."""
+    digest, key = _key()
+    lib = aotcache.cache_dir(cache_dir) / f"libtrivytorch-native-{digest}.so"
+    return aotcache.get_or_compile(lib, key, _gxx_build)
+
+
+def load_native(cache_dir: str | os.PathLike | None = None) -> ctypes.CDLL:
+    """The loaded native library, from the executable cache (`cache_dir`,
+    else the default one), built on first use (raises when it does not
+    build).  One library a process: a later call returns the first."""
     global _lib
     if _lib is not None:
         return _lib
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(build(cache_dir)))
         lib.dfa_verify_pairs.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # stream, starts, lens
             *_PAIR_ARGS, *_TABLE_ARGS,

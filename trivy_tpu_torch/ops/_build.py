@@ -1,18 +1,23 @@
 """Build and load the port's CUDA sources (`trivy_tpu_torch/csrc/*.cu`).
 
 Each source compiles with `nvcc` into a shared library with a plain C
-interface under `trivy_tpu_torch/_build/` (listed in `.gitignore`), at first
-use, and loads through `ctypes`.  The library's file name carries a digest of
-the source, every header in `csrc/` (`*.cuh`, which sources share) and the
-flags, so an edited source or header never loads a stale build.  What
-`ptxas -v` says of each kernel (registers, shared memory, spills) is kept
-beside the library and read back by `resources`.
+interface, at first use, and loads through `ctypes`.  Every build and load
+goes through the executable cache (`registry/aotcache.py`): the library
+lives in the cache directory (`TRIVY_TPU_AOT_CACHE`, else
+`trivy_tpu_torch/_build/`, listed in `.gitignore`) beside a manifest of its
+key (platform, `nvcc --version`, the target `sm_90a`, the digest below),
+its sha256 and what `ptxas -v` said of each kernel (registers, shared
+memory, spills; read back by `resources`), and it loads only when all of
+that matches.  The library's file name carries a digest of the source,
+every header in `csrc/` (`*.cuh`, which sources share) and the flags, so an
+edited source or header never loads a stale build.
 Nothing here runs at import time; a missing `nvcc` or a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -20,9 +25,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from trivy_tpu_torch.registry import aotcache
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+BUILD_DIR = aotcache.DEFAULT_DIR
+TARGET = "sm_90a"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,45 +52,49 @@ def nvcc() -> str:
     return found
 
 
-def _library_path(name: str) -> Path:
+def _source_digest(name: str) -> str:
     h = hashlib.blake2b(digest_size=8)
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
+    return h.hexdigest()
 
 
-def _start_build(name: str) -> tuple[Path, Path, subprocess.Popen | None]:
-    """(library, temporary output, running nvcc or None when built)."""
-    lib = _library_path(name)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    if lib.exists():
-        return lib, tmp, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-    )
-    return lib, tmp, proc
+def _library_path(name: str, cache_dir: str | os.PathLike | None = None) -> Path:
+    return aotcache.cache_dir(cache_dir) / f"lib{name}-{_source_digest(name)}.so"
 
 
-def _finish_build(
-    name: str, lib: Path, tmp: Path, proc: subprocess.Popen | None
-) -> Path:
-    if proc is None:
-        return lib
-    out, _ = proc.communicate()
+@functools.cache
+def nvcc_version() -> str:
+    """`nvcc --version`, the compiler field of every library's key."""
+    proc = subprocess.run([nvcc(), "--version"], capture_output=True, text=True, timeout=60)
     if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-    _log_path(lib).write_text(out)
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib
+        raise RuntimeError(f"nvcc --version failed:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout.strip()
 
 
-def _log_path(lib: Path) -> Path:
-    return lib.with_suffix(".ptxas.txt")
+def _key(name: str) -> dict:
+    return aotcache.make_key(kind="nvcc", compiler=nvcc_version(), target=TARGET,
+                             digest=_source_digest(name))
+
+
+def _nvcc_build(name: str):
+    """An `aotcache.Build` for `csrc/<name>.cu`: starts nvcc on the output
+    path, and its wait returns the compiler's output (the ptxas report)."""
+    def start(out: Path):
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def wait() -> str:
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{text}")
+            return text
+
+        return wait
+
+    return start
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -96,7 +108,7 @@ def resources(name: str) -> list[dict]:
     {"kernel" (mangled name), "registers", "smem_bytes" (static; the
     kernels' tables are dynamic shared memory, sized at launch),
     "spill_bytes" (stores + loads)}.  Builds the source when needed."""
-    text = _log_path(build_all([name])[name]).read_text()
+    text = aotcache.build_log(build_all([name])[name])
     out: list[dict] = []
     for line in text.splitlines():
         if m := _ENTRY.search(line):
@@ -111,22 +123,33 @@ def resources(name: str) -> list[dict]:
     return out
 
 
-def build_all(names: list[str] | None = None) -> dict[str, Path]:
-    """Compile every named source (default: all of `csrc/`), one `nvcc`
-    process per source, all started together; returns name -> library."""
+def build_all(names: list[str] | None = None,
+              cache_dir: str | os.PathLike | None = None) -> dict[str, Path]:
+    """Every named source (default: all of `csrc/`) from the executable
+    cache, built where missing or rejected, one `nvcc` process per source,
+    all started together; returns name -> library."""
     if names is None:
         names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
-    started = {n: _start_build(n) for n in names}
-    return {n: _finish_build(n, *started[n]) for n in names}
+    return aotcache.get_or_compile_many(
+        {n: (_library_path(n, cache_dir), _key(n), _nvcc_build(n)) for n in names})
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, building it on first use."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        path = build_all([name])[name]
-        lib = _LOADED[name] = ctypes.CDLL(str(path))
-    return lib
+def load_all(names: list[str],
+             cache_dir: str | os.PathLike | None = None) -> dict[str, ctypes.CDLL]:
+    """The loaded libraries for `csrc/<name>.cu` of each name, from the
+    executable cache (`cache_dir`, else the default one), the missing ones
+    built together.  One library a source a process: a name already loaded
+    keeps the library loaded first."""
+    missing = [n for n in names if n not in _LOADED]
+    if missing:
+        for n, path in build_all(missing, cache_dir).items():
+            _LOADED[n] = ctypes.CDLL(str(path))
+    return {n: _LOADED[n] for n in names}
+
+
+def load(name: str, cache_dir: str | os.PathLike | None = None) -> ctypes.CDLL:
+    """`load_all` of one source."""
+    return load_all([name], cache_dir)[name]
 
 
 def function(name: str, symbol: str, signature: str):

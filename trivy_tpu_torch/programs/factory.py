@@ -2,9 +2,8 @@
 
 `make_program_engine` is to multi-program scanning what
 `make_secret_engine` is to secrets: the one place a program table turns
-into an engine.  The reference can route the compile through its
-program-id-keyed artifact registry (`rules_cache_dir`); that registry is
-not ported yet (ROADMAP A10), so the argument raises here.
+into an engine, and (`rules_cache_dir`) the place its compile goes through
+the program-id-keyed artifact registry (`registry/store.py`).
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from trivy_tpu_torch.engine.hybrid import make_secret_engine
 from trivy_tpu_torch.programs.base import ProgramTable, build_program_table
 from trivy_tpu_torch.programs.license import LicenseScanProgram
 from trivy_tpu_torch.programs.secret import SecretScanProgram
+from trivy_tpu_torch.registry.store import get_or_compile
 
 
 def default_programs(config=None) -> list:
@@ -41,8 +41,13 @@ def make_program_engine(
     make_secret_engine engine backends (auto/device/native/hybrid; alias
     tpu = device): the oracle backend has no sieve and therefore no
     program demux.  `compiled` (in `kw`) takes the merged table's
-    `CompiledRules` or the reference's arrays.  `rules_cache_dir` (A10)
-    and `mesh` (A11) are not ported yet and raise NotImplementedError."""
+    `CompiledArtifact`, `CompiledRules` or the reference's arrays.
+    `rules_cache_dir` routes every compile through the registry's
+    program-id-keyed warm path: the merged table under
+    `programs/<table_id>/<digest>`, and each member program's own artifact
+    warmed too, so a standalone engine for any member starts warm from the
+    same store.  `mesh` (A11) is not ported yet and raises
+    NotImplementedError."""
     if programs is None:
         programs = default_programs(config)
     table = (
@@ -55,11 +60,15 @@ def make_program_engine(
         raise ValueError(
             "the oracle backend has no device pass to demux programs from"
         )
-    if rules_cache_dir is not None:
-        raise NotImplementedError(
-            "the program-id-keyed rules registry is not ported yet (ROADMAP A10)")
+    merged = table.merged_ruleset()
+    if rules_cache_dir is not None and "compiled" not in kw:
+        kw["compiled"], _ = get_or_compile(merged, cache_dir=rules_cache_dir,
+                                           program_id=table.table_id)
+        for prog in table.programs:
+            get_or_compile(prog.ruleset(), cache_dir=rules_cache_dir,
+                           program_id=prog.program_id)
     return make_secret_engine(
-        ruleset=table.merged_ruleset(),
+        ruleset=merged,
         backend=backend,
         device=device,
         mesh=mesh,
