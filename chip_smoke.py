@@ -151,6 +151,27 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             library build (`compiles == 0`), both processes' findings must
             be equal, and each engine must launch its kernels.
 
+13. mesh   (after `hybrid`) the mesh plane on a split of the one card into
+            4 lanes (`Mesh(["cuda"] * 4)`: the shards run in turn on that
+            card, so its seconds are the split's cost, not a multi-card
+            speed), through the entry points, counts zeroed before each run
+            and read after: `main`'s 80,000 files through
+            `make_secret_engine(backend="device", mesh=)` (K1 a lane), the
+            20,000-file corpus as 10 serve batches through the meshed
+            megakernel (K4 a lane, one epilogue a batch), through B5
+            (`kernel="xla"`) and B6 (`sieve="lut"`), and the hit-dense corpus
+            through `make_secret_engine(mesh=)` with verify fused and device
+            (K5, fused K5 and K6 once a lane a dispatch).  Findings must equal
+            `main`'s, `serve`'s, `variants`' and `hybrid`'s; every kernel's
+            launches must be 4x its unmeshed count.  Each run prints seconds,
+            files/s, phases, launches, per-lane occupancy (real rows) and
+            efficiency; the default engine on the split prints its gate
+            (profile, devices: one card prices as "fused" at 1 device); a
+            last `mesh:` line has the launches summed and the phase's seconds.
+
+A `stall:` line counts the hybrid and `auto` scans run with the STALL_S dump
+armed and those that passed it.
+
 `--keep-inputs PATH` saves the timed inputs of the NFA kernels and of B5
 and B6 (keys `sieve_*`) in one file (`torch.save`) for
 `tools/nfa_kernel_times.py` and `tools/sieve_kernel_times.py`, which time
@@ -199,6 +220,8 @@ HITDENSE_FILES = 20_000  # bench.py's HITDENSE_FILES
 EXTRA_FILES = 8  # NUL-bracketed and jumbo files added to the hit-dense corpus
 LEGACY_BATCH = 2_000
 STALL_S = 6.0  # a hybrid scan this long dumps its threads' stacks (they take < 2 s on an H100)
+STALLS = {"armed": 0, "past": 0}  # hybrid and auto scans run with the dump armed, and past STALL_S
+MESH_LANES = 4  # lanes of the split of the one card in phase `mesh`
 REPS = 20
 DEVICE = "cuda"
 SMS = 132  # H100 SXM streaming multiprocessors
@@ -935,7 +958,7 @@ def serve_phase(np, torch, gs, corpus) -> dict:
     checked = check_against_oracle(np, OracleScanner(), flat, runs["mega"][0],
                                    N_SAMPLED, "serve")
     print(f"serve: equal_findings=True checked_against_oracle={checked}", flush=True)
-    return {way: launches for way, (_, launches) in runs.items()}
+    return {**{way: launches for way, (_, launches) in runs.items()}, "doc": docs["mega"]}
 
 
 def spans_phase(torch, corpus) -> None:
@@ -1329,7 +1352,8 @@ def hitdense_corpus(np, bench_corpus):
     return corpus
 
 
-def hybrid_run(np, torch, gs, engine, corpus, label: str, store: list | None = None):
+def hybrid_run(np, torch, gs, engine, corpus, label: str, store: list | None = None,
+               phase: str = "hybrid"):
     """One scan of `corpus` with fresh stats, counts zeroed just before and
     read just after; prints the run's line and returns (results, seconds,
     launches).  With `store`, every verify kernel call of the scan is kept
@@ -1350,11 +1374,13 @@ def hybrid_run(np, torch, gs, engine, corpus, label: str, store: list | None = N
         faulthandler.cancel_dump_traceback_later()
         restore_dispatches(nfa_device, originals)
     dt = time.perf_counter() - t0
+    STALLS["armed"] += 1
+    STALLS["past"] += dt > STALL_S
     launches = dict(gs.LAUNCHES)
     st = engine.stats
     nbytes = sum(len(c) for _, c in corpus)
     nfa = engine._nfa_verifier
-    print(f"hybrid: {label} verify={engine.verify} files={len(corpus)} "
+    print(f"{phase}: {label} verify={engine.verify} files={len(corpus)} "
           f"MB={nbytes / 1e6:.3f} findings={sum(len(r.findings) for r in results)} "
           f"seconds={dt:.4f} files_per_s={len(corpus) / dt:.1f} "
           f"MB_per_s={nbytes / 1e6 / dt:.3f} candidate_pairs={st.candidate_pairs} "
@@ -1446,7 +1472,8 @@ def hybrid_phase(np, torch, gs, bench_corpus) -> dict:
           f"seconds={json.dumps({m: round(v, 4) for m, v in seconds.items()})} "
           f"round2_seconds={json.dumps({m: round(v, 4) for m, v in again.items()})} "
           f"auto_chose={auto.verify} fastest={fastest}", flush=True)
-    return {"launches": launches, "auto": auto.verify, "dispatches": store}
+    return {"launches": launches, "auto": auto.verify, "dispatches": store,
+            "doc": docs["fused"], "corpus": corpus}
 
 
 def auto_phase(np, torch, corpus, main_results, main_seconds: float) -> None:
@@ -1467,6 +1494,8 @@ def auto_phase(np, torch, corpus, main_results, main_seconds: float) -> None:
     finally:
         faulthandler.cancel_dump_traceback_later()
     dt = time.perf_counter() - t0
+    STALLS["armed"] += 1
+    STALLS["past"] += dt > STALL_S
     nbytes = sum(len(c) for _, c in corpus)
     same = (json.dumps([secret_to_json(r) for r in results], sort_keys=True)
             == json.dumps([secret_to_json(r) for r in main_results], sort_keys=True))
@@ -1566,7 +1595,120 @@ def variants_phase(np, torch, gs, main_corpus, main_results, corpus) -> dict:
         fail("variants", "sync timing left h2d_s or exec_s at 0, or findings differ")
     print("variants: equal_findings=True (native and xla to main; lut, unfused and "
           "sync-timed xla to each other and the oracle)", flush=True)
+    out["doc"] = doc(results)
     return out
+
+
+def findings_doc(results) -> str:
+    """Canonical JSON of a scan's findings, file by file."""
+    from trivy_tpu_torch.ftypes import secret_to_json
+
+    return json.dumps([secret_to_json(r) for r in results], sort_keys=True)
+
+
+def mesh_phase(np, torch, gs, main_corpus, main_doc: str, main_k1: int, corpus,
+               serve: dict, variants: dict, hybrid: dict) -> dict:
+    """The mesh plane on a split of the one card into MESH_LANES lanes
+    (`Mesh(["cuda"] * 4)`: shards run in turn on that card, so the seconds
+    are the cost of the split, not a multi-card speed), through the entry
+    points a user calls, counts zeroed just before each run and read just
+    after: `main`'s 80,000 files through `make_secret_engine(backend=
+    "device", mesh=)` (staged K1 a lane), the 20,000-file corpus as 10 serve
+    batches through the meshed megakernel (K4 a lane and one epilogue a
+    batch), through B5 (`kernel="xla"`) and B6 (`sieve="lut"`), and the
+    hit-dense corpus through `make_secret_engine(mesh=)` with verify fused
+    and device (K5 or fused K5, and K6, once a lane a dispatch).  Findings
+    must equal the unmeshed runs' (`main`, `serve`, `variants`, `hybrid`),
+    and every kernel's launches must equal lanes x its unmeshed count.  Each
+    run prints its seconds, files/s, phases, launches, per-lane occupancy
+    (real rows) and efficiency; the default engine's gate its profile and
+    devices (one card: "fused" at 1 device).  Returns the launches summed
+    over the runs."""
+    from trivy_tpu_torch.engine.hybrid import make_secret_engine
+    from trivy_tpu_torch.mesh import topology
+
+    n = MESH_LANES
+    split = topology.Mesh([DEVICE] * n)
+    t_phase = time.perf_counter()
+    totals: dict = {}
+
+    def record(label, launches, want):
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            fail("mesh", f"{label}: launches {got}, expected {want} (lanes x unmeshed)")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def run(label, engine, batches, want_doc, want):
+        engine.warmup()
+        torch.cuda.synchronize()
+        topology.reset_occupancy()
+        for k in gs.LAUNCHES:
+            gs.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        results = [r for b in batches for r in engine.scan_batch(b)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(gs.LAUNCHES)
+        snap = topology.occupancy_snapshot()
+        files = sum(len(b) for b in batches)
+        nbytes = sum(len(c) for b in batches for _, c in b)
+        print(f"mesh: {label} lanes={n} batches={len(batches)} files={files} "
+              f"MB={nbytes / 1e6:.3f} rows={engine.stats.tiles} "
+              f"findings={sum(len(r.findings) for r in results)} seconds={dt:.4f} "
+              f"files_per_s={files / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
+              f"launches={json.dumps({k: v for k, v in launches.items() if v})} "
+              f"occupancy_rows={json.dumps({t: d['rows'] for t, d in sorted(snap.items())})} "
+              f"occupancy_efficiency={topology.occupancy_efficiency():.4f} "
+              f"phases={json.dumps(engine.stats.phases())}", flush=True)
+        if findings_doc(results) != want_doc:
+            fail("mesh", f"{label}: findings differ from the unmeshed run's")
+        if sorted(snap) != sorted(split.tags):
+            fail("mesh", f"{label}: staging lanes {sorted(snap)}, expected {split.tags}")
+        record(label, launches, want)
+
+    engine = make_secret_engine(backend="device", device=DEVICE, mesh=split)
+    run("make_secret_engine(backend='device', mesh=) main corpus", engine, [main_corpus],
+        main_doc, {"bitplane": n * main_k1})
+    del engine
+    batches = [corpus[i : i + SERVE_BATCH] for i in range(0, len(corpus), SERVE_BATCH)]
+    k3 = serve["mega"]["mega"]
+    run("make_secret_engine(backend='device', mesh=, megakernel=True) serve batches",
+        make_secret_engine(backend="device", device=DEVICE, mesh=split, megakernel=True),
+        batches, serve["doc"], {"mega_acc": n * k3, "mega_epilogue": k3})
+    sync_xla = "GpuSecretEngine(kernel='xla') TRIVY_TPU_SYNC_TIMING=1"
+    run("make_secret_engine(backend='device', mesh=, kernel='xla')",
+        make_secret_engine(backend="device", device=DEVICE, mesh=split, kernel="xla"),
+        [corpus], variants["doc"], {"rows": n * variants[sync_xla]["rows"]})
+    run("make_secret_engine(backend='device', mesh=, sieve='lut')",
+        make_secret_engine(backend="device", device=DEVICE, mesh=split, sieve="lut"),
+        [corpus], variants["doc"],
+        {"lut": n * variants["GpuSecretEngine(sieve='lut')"]["lut"]})
+
+    auto = make_secret_engine(device=DEVICE, mesh=split)
+    print(f"mesh: make_secret_engine(mesh=) gate {gate_line(auto.gate_decision)} "
+          f"devices={auto.gate_decision.get('devices')} verify_devices={auto.verify_devices()} "
+          f"verify={auto.verify}", flush=True)
+    if auto.verify_devices() != 1 or auto.gate_decision.get("profile") == "mesh":
+        fail("mesh", "a split of one card must price as one device")
+    hd = hybrid["corpus"]
+    for verify, kinds in (("fused", ("nfa_fused", "nfa_padded")),
+                          ("device", ("nfa_stream", "nfa_padded"))):
+        engine = make_secret_engine(device=DEVICE, mesh=split, verify=verify)
+        engine.warmup()
+        results, _dt, launches = hybrid_run(np, torch, gs, engine, hd,
+                                            f"make_secret_engine(mesh=, verify={verify!r})",
+                                            phase="mesh")
+        if engine._nfa_verifier.mesh is not split or engine.stats.device_pairs == 0:
+            fail("mesh", f"verify={verify}: the verifier did not join the mesh")
+        if findings_doc(results) != hybrid["doc"]:
+            fail("mesh", f"verify={verify}: findings differ from the hybrid phase's")
+        record(f"verify={verify}", launches,
+               {k: n * hybrid["launches"][verify][k] for k in kinds})
+    seconds = time.perf_counter() - t_phase
+    print(f"mesh: {json.dumps({'lanes': n, 'launches': totals, 'seconds': round(seconds, 2)})}",
+          flush=True)
+    return totals
 
 
 def program_corpus(bench_corpus):
@@ -2091,7 +2233,8 @@ def main(argv: list[str]) -> int:
     report.update(row_sieves_phase(np, torch, gs, ls, _build, compiled, codec, corpus,
                                    clock_hz, kept))
     variants = variants_phase(np, torch, gs, main_corpus, main_results, corpus)
-    del main_corpus, main_results
+    main_doc = findings_doc(main_results)
+    del main_results
     launches = {
         "rows": variants["GpuSecretEngine(kernel='xla')"]["rows"],
         "lut": variants["GpuSecretEngine(sieve='lut')"]["lut"],
@@ -2124,7 +2267,9 @@ def main(argv: list[str]) -> int:
                                          ("nfa_stream", "nfa_fused", "nfa_padded")):
         fail("hybrid", "the kept dispatches are not the run's launches")
     dispatch_times(np, torch, nv, hybrid["dispatches"], report, clock_hz, kept)
-    del corpus
+    mesh_phase(np, torch, gs, main_corpus, main_doc, k1_launches, corpus, serve, variants,
+               hybrid)
+    del corpus, main_corpus, hybrid
     programs_phase(np, torch, gs, mk, bench_corpus)
     if keep_path:
         torch.save({k: to_cpu(torch, v) for k, v in kept.items()}, keep_path)
@@ -2180,6 +2325,8 @@ def main(argv: list[str]) -> int:
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         fail("kernels", f"never launched on their paths: {idle}")
+    print(f"stall: hybrid and auto scans with the dump armed={STALLS['armed']} "
+          f"past STALL_S={STALLS['past']}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

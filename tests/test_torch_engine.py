@@ -178,6 +178,12 @@ for kw in (dict(sieve="lut"), dict(sieve="native"), dict(kernel="xla", fused=Fal
 verified = verified and len(engine.ruleset_digest) == 64
 fused = hybrid.GpuHybridSecretEngine(device="cpu", verify="fused")
 verified = verified and findings_fingerprint(fused) == fp and fused.stats.device_pairs > 0
+from trivy_tpu_torch.mesh import plan as mesh_plan, topology as mesh_topology
+mesh = mesh_topology.get_mesh(override="4", device_type="cpu")
+meshed = hybrid.make_secret_engine(backend="device", device="cpu", tile_len=512, mesh=mesh)
+verified = verified and findings_fingerprint(meshed) == fp and meshed.mesh is mesh
+meshed = hybrid.make_secret_engine(backend="hybrid", device="cpu", verify="fused", mesh=mesh)
+verified = verified and findings_fingerprint(meshed) == fp and len(mesh_plan.plan_table()) == 9
 from trivy_tpu_torch import license, programs
 mit = license.shared_classifier("cpu").corpus_text("MIT").encode()
 res = programs.make_program_engine(device="cpu").scan_programs(
@@ -243,7 +249,9 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     CPU, starts warm from the compiled-rules registry (`registry.store`,
     `registry.aotcache`, `rules ls`) and runs its CLI without loading jax
     or any trivy_tpu module, and its default device raises without a card
-    (the device engine and `make_secret_engine`)."""
+    (the device engine and `make_secret_engine`).  The mesh plane
+    (`trivy_tpu_torch.mesh`) and meshed CPU engines, device and hybrid,
+    load no jax or trivy_tpu module either."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

@@ -305,7 +305,10 @@ def test_make_secret_engine_backends(tmp_path):
     assert isinstance(fused, GpuHybridSecretEngine) and fused.verify == "fused"
     native = make_secret_engine(backend="native", device="cpu", tile_len=TILE)
     assert isinstance(native, GpuSecretEngine) and native.sieve == "native"
-    with pytest.raises(NotImplementedError, match="A11"):
+    # mesh (A11, ported): a list of devices is a mesh; anything else raises
+    meshed = make_secret_engine(device="cpu", mesh=["cpu"] * 2)
+    assert isinstance(meshed, GpuHybridSecretEngine) and meshed.mesh.size == 2
+    with pytest.raises(TypeError, match="mesh"):
         make_secret_engine(device="cpu", mesh=object())
     # rules_cache_dir (ported): the engine starts from the registry's artifact
     warm = make_secret_engine(device="cpu", rules_cache_dir=str(tmp_path))

@@ -13,8 +13,9 @@
   slice equals the reference's `decide_findings` on every file; the
   program counters equal the reference's where the two sieve alike;
 * `only=`, `scan_batch` routing, `programs_snapshot`, the table's
-  rejections, the anchor-coverage `ProgramCompileError`s, the arguments
-  that raise (`mesh` A11, the oracle) and `rules_cache_dir`, which
+  rejections, the anchor-coverage `ProgramCompileError`s, `mesh` (a list
+  of devices passes through; anything else raises), the arguments that
+  raise (the oracle) and `rules_cache_dir`, which
   compiles the merged table and each member program into the registry.
 
 The port is fed the reference's own merged compile
@@ -244,7 +245,9 @@ def test_factory_arguments_that_raise(table, tmp_path):
                     *((p.program_id, p.ruleset()) for p in table.programs)):
         assert rstore_port.load_artifact(rstore_port.program_cache_dir(str(tmp_path), pid),
                                          ruleset_digest(rs), program_id=pid) is not None, pid
-    with pytest.raises(NotImplementedError, match="A11"):
+    meshed = make_program_engine(table, backend="native", device="cpu", mesh=["cpu"] * 2)
+    assert isinstance(meshed, GpuSecretEngine) and meshed.mesh.size == 2
+    with pytest.raises(TypeError, match="mesh"):
         make_program_engine(table, device="cpu", mesh=object())
     for backend in ("oracle", "cpu"):
         with pytest.raises(ValueError, match="oracle"):

@@ -1,6 +1,7 @@
 """`python -m trivy_tpu_torch fs --scanners secret [--secret-config F]
 [--format json] [--secret-backend auto|hybrid|tpu|cpu|native]
-[--device cuda|cpu] [--rules-cache-dir D] <dir>`: a filesystem secret scan
+[--device cuda|cpu] [--rules-cache-dir D] [--mesh N|NxM|auto|none] <dir>`:
+a filesystem secret scan
 through the engine that `engine/hybrid.py` `make_secret_engine` builds for
 the backend (default `auto`: the hybrid engine, as `trivy_tpu`'s CLI),
 printed as Trivy's JSON report (SchemaVersion 2, one `Results[]` entry of
@@ -8,7 +9,10 @@ Class "secret" per file with findings).  Like the reference, the backend's
 default comes from `TRIVY_TPU_SECRET_BACKEND`, and the engine starts from
 the compiled-rules registry (`--rules-cache-dir`, default
 `TRIVY_TPU_RULES_CACHE_DIR`, else `~/.cache/trivy-tpu/rulesets`; "off"
-compiles every start).  `python -m trivy_tpu_torch rules compile|ls|verify`
+compiles every start).  `--mesh` (default `TRIVY_TPU_MESH`) is validated
+and seated in `TRIVY_TPU_MESH`, where every engine's `topology.get_mesh()`
+reads it, as the reference's is; a bad spec exits 2.
+`python -m trivy_tpu_torch rules compile|ls|verify`
 maintains the registry (`commands/rules.py`).  What waits for a ROADMAP
 item is in `NOT_PORTED`.
 
@@ -145,6 +149,10 @@ def main(argv: list[str] | None = None) -> int:
     fs.add_argument("--rules-cache-dir", default=_env_default("rules-cache-dir", ""),
                     help="compiled-ruleset registry directory (default "
                     "~/.cache/trivy-tpu/rulesets; 'off' disables warm starts)")
+    fs.add_argument("--mesh", default=_env_default("mesh", ""),
+                    help="device mesh for data-parallel scans: N or NxM devices, "
+                    "'auto' (mesh only on a host with several cards), 'none' to "
+                    "force single-device (default auto; TRIVY_TPU_MESH)")
     fs.add_argument("target")
     rules = sub.add_parser("rules", help="manage the compiled-ruleset registry")
     rules_sub = rules.add_subparsers(dest="rules_command")
@@ -176,6 +184,17 @@ def main(argv: list[str] | None = None) -> int:
     if args.secret_backend in NOT_PORTED:
         parser.error(f"--secret-backend {args.secret_backend} is not ported yet "
                      f"(ROADMAP {NOT_PORTED[args.secret_backend]})")
+    if args.mesh:
+        # validated here, so a typo'd spec is a usage error, not a mid-scan
+        # ValueError; seated where every engine's get_mesh() reads it
+        from trivy_tpu_torch.mesh import topology as mesh_topology
+
+        try:
+            mesh_topology.parse_spec(args.mesh)
+        except ValueError as e:
+            print(f"trivy-tpu: {e}", file=sys.stderr)
+            return 2
+        os.environ["TRIVY_TPU_MESH"] = args.mesh
 
     from trivy_tpu_torch.engine.hybrid import make_secret_engine
     from trivy_tpu_torch.registry.store import resolve_rules_cache_dir

@@ -56,8 +56,24 @@ With a `program_table` (`programs/base.py`, built by
 `scan_programs` runs the same pass once (dedupe, candidates, the
 claim-killer on the columns of `verify=True` programs only) and hands each
 program its slice of the candidate matrix, and `scan_batch` routes through
-it for the secret program.  Left out for later slices: mesh staging and the
-executable cache.
+it for the secret program.  Its kernel libraries load through the
+executable cache (`registry/aotcache.py`).
+
+**Mesh** (`mesh=`, the reference's meshed branches; `mesh/`): a `Mesh` of
+lanes, else the process mesh `topology.get_mesh()` when its first lane is
+the engine's device (`topology.engine_mesh`; None on the CPU and on a
+one-card host unless `TRIVY_TPU_MESH` asks).  Row buckets round up to
+lanes (x K1's block rows), every chunk stages one shard a lane through
+that lane's `RowStager` (`pipeline.stage_rows`, its memwatch entries held
+until the chunk is done), and the sieve runs per shard: K1/K2 by
+`make_sharded_pallas_sieve` (B1m, the codec's unpack shard-local), B5 by
+`make_sharded_gram_sieve` (B5m), B6 by `make_sharded_sieve` (B6m), the
+megakernel by `make_sharded_megakernel` (K3m: K4 a shard, counts summed,
+one epilogue).  The fused derive reads every shard's hit words gathered in
+row order on the engine's device (the first lane), so a file whose rows
+straddle a shard boundary derives as unmeshed; fetched results are demuxed
+lane by lane (`link._demux_shards`).  Resident entries carry the lane count
+in their key.
 """
 
 from __future__ import annotations
@@ -81,21 +97,34 @@ from trivy_tpu_torch.engine.pipeline import (
     ChunkPipeline,
     ResidentChunkCache,
     ResidentRowStore,
-    RowStager,
     chunk_digest,
     default_depth,
+    lane_stagers,
+    stage_rows,
     wait_staged,
 )
 from trivy_tpu_torch.engine.probes import build_probe_set
 from trivy_tpu_torch.engine.redfa import DfaVerifier
 from trivy_tpu_torch.ftypes import Secret
+from trivy_tpu_torch.mesh import topology as mesh_topology
+from trivy_tpu_torch.mesh.plan import Sharded
 from trivy_tpu_torch.native import gram_sieve_native, load_native
+from trivy_tpu_torch.obs import memwatch
 from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import trace as obs_trace
 from trivy_tpu_torch.ops import _build
-from trivy_tpu_torch.ops.gram_sieve import GramSieve, RowGramSieve
-from trivy_tpu_torch.ops.lut_sieve import LutSieve
-from trivy_tpu_torch.ops.megakernel import MEGA_MAX_FILES, MegaGramSieve
+from trivy_tpu_torch.ops.gram_sieve import (
+    GramSieve,
+    RowGramSieve,
+    make_sharded_gram_sieve,
+    make_sharded_pallas_sieve,
+)
+from trivy_tpu_torch.ops.lut_sieve import LutSieve, make_sharded_sieve
+from trivy_tpu_torch.ops.megakernel import (
+    MEGA_MAX_FILES,
+    MegaGramSieve,
+    make_sharded_megakernel,
+)
 from trivy_tpu_torch.registry.store import CompiledArtifact
 from trivy_tpu_torch.rules.model import RuleSet, SecretConfig, build_ruleset
 from trivy_tpu_torch.scanner.packing import (
@@ -231,7 +260,11 @@ class GpuSecretEngine:
     else 32; 0 turns residency off).
 
     `program_table` (a `ProgramTable` whose merged ruleset is `ruleset`)
-    makes the engine multi-program: `scan_programs`, `programs_snapshot`."""
+    makes the engine multi-program: `scan_programs`, `programs_snapshot`.
+
+    `mesh` (a `mesh.topology.Mesh` or a list of devices whose first is
+    `device`; default `topology.engine_mesh`'s) runs the sieve over its lanes
+    (module docstring)."""
 
     def __init__(
         self,
@@ -250,12 +283,20 @@ class GpuSecretEngine:
         fused: bool | None = None,
         program_table=None,
         aot_cache_dir: str | None = None,
+        mesh=None,
     ):
         if sieve not in ("gram", "lut", "native"):
             raise ValueError(f"unknown sieve: {sieve}")
         if kernel not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown kernel: {kernel}")
         self.device = resolve_device(device)
+        self.mesh = mesh_topology.engine_mesh(self.device, mesh)
+        # Batches pad to lanes x bucket so every shard gets whole rows (the
+        # K1 branch further multiplies by its block rows).
+        self._tile_align = mesh_topology.mesh_device_count(self.mesh)
+        # Resident keys carry the lane count: a meshed entry never aliases
+        # an unmeshed one.
+        self._mesh_tag = f":lanes{self.mesh.size}" if self.mesh is not None else ""
         self.ruleset = ruleset if ruleset is not None else build_ruleset(config)
         self.oracle = OracleScanner(self.ruleset)
         self.program_table = program_table
@@ -286,13 +327,15 @@ class GpuSecretEngine:
         self.dedupe = dedupe
         self._resident = ResidentChunkCache(resident_chunks)
         self._row_store = ResidentRowStore(resident_chunks)
-        self._stager = RowStager(self.device, self.pipeline_depth)
+        self._stagers = lane_stagers(self.mesh, self.device, self.pipeline_depth)
+        self._stager = self._stagers[0]
         self._verifier: DfaVerifier | None = None
         self._link = None
         self._codec_tag = ":raw"
         self._d2h_compact = False
         self._fused = False
         self._mega: MegaGramSieve | None = None
+        self._mega_fn = None  # K3m, the meshed split (None: K3, `_mega`)
         self._mega_on = False
         self._mega_auto = False
         self._kernel_tag = ""
@@ -317,6 +360,8 @@ class GpuSecretEngine:
             self._d2h_compact = link_mod.d2h_compaction_enabled()
             self.overlap = max(DEFAULT_OVERLAP, pset.jmax)
             self._sieve_fn = LutSieve(pset.build_lut(), device=self.device)
+            if self.mesh is not None:
+                self._sieve_fn = make_sharded_sieve(self.mesh, self._sieve_fn)
             return
 
         mode = link_mod.codec_mode()
@@ -338,10 +383,19 @@ class GpuSecretEngine:
             self._fused = fenv != "0"
         else:
             self._fused = True
+        # the codec's unpack, shard-local under a mesh
+        unpack = None
+        if self._link is not None:
+            unpack = lambda rows: self._link.unpack(rows, self.tile_len)  # noqa: E731
         if on_pallas:
             # K1/K2: words over distinct (mask, val) pairs, expanded back to
             # gram order by `gram_expand`
             self._pallas_obj = self._sieve_fn = GramSieve(cmasks, cvals, device=self.device)
+            if self.mesh is not None:
+                self._sieve_fn = make_sharded_pallas_sieve(self.mesh, self._pallas_obj,
+                                                           pre=unpack)
+                # every shard tiles into whole blocks
+                self._tile_align *= self._pallas_obj.block_rows
             self._tile_buckets = TILE_BUCKETS_PALLAS
             expand = self._pallas_obj.gram_expand
             if not len(expand):
@@ -349,6 +403,8 @@ class GpuSecretEngine:
         else:
             # B5: words over the grams in their own order, pad grams after
             self._sieve_fn = RowGramSieve(cmasks, cvals, device=self.device)
+            if self.mesh is not None:
+                self._sieve_fn = make_sharded_gram_sieve(self.mesh, self._sieve_fn, unpack)
             expand = np.arange(len(compiled.masks))
 
         def dev(a, dtype=torch.float32) -> torch.Tensor:
@@ -401,6 +457,8 @@ class GpuSecretEngine:
             # or codec change re-bakes the constants, and a stale mask must
             # never alias the new program's.
             self._kernel_tag = ":" + self._mega.kernel_id
+            if self.mesh is not None:
+                self._mega_fn = make_sharded_megakernel(self.mesh, self._mega)
             self._mega_on = True
 
     # ------------------------------------------------------------------
@@ -416,11 +474,13 @@ class GpuSecretEngine:
         return self._ruleset_digest
 
     def _buckets(self) -> list[int]:
-        """Row batch shapes: the sieve's buckets capped by max_batch_tiles."""
+        """Row batch shapes: the sieve's buckets capped by max_batch_tiles,
+        rounded up to the mesh's lane multiple."""
+        align = self._tile_align
         caps = [b for b in self._tile_buckets if b <= self.max_batch_tiles]
         if not caps or caps[-1] != self.max_batch_tiles:
             caps.append(self.max_batch_tiles)
-        return caps
+        return [-(-b // align) * align for b in caps]
 
     @property
     def _staged_cols(self) -> int:
@@ -463,13 +523,18 @@ class GpuSecretEngine:
         pricing shape."""
         rows = self._buckets()[0]
         args = self._mega_zero_args()
-        self._mega(*args)  # warm
+        self._mega_call(*args)  # warm
         self._sync()
         t0 = time.perf_counter()
-        self._mega(*args)
+        self._mega_call(*args)
         self._sync()
         dt = max(time.perf_counter() - t0, 1e-9)
         return rows * self.tile_len / dt / 1e6
+
+    def _mega_call(self, coded, lo, hi, valid) -> torch.Tensor:
+        """The packed verdict mask of one batch: K3m under a mesh, else K3."""
+        fn = self._mega_fn if self._mega_fn is not None else self._mega
+        return fn(coded, lo, hi, valid)
 
     def _mega_zero_args(self) -> tuple:
         """K3's arguments at the smallest row bucket, all zero rows, and the
@@ -484,7 +549,9 @@ class GpuSecretEngine:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for dev in (self.mesh.distinct_devices() if self.mesh is not None
+                        else (self.device,)):
+                torch.cuda.synchronize(dev)
 
     def _price_mega_gate(self, exec_mb_s: float) -> None:
         """The reference's `_price_mega_gate`: the megakernel stays on only
@@ -496,7 +563,8 @@ class GpuSecretEngine:
         terms = gate_terms(
             h2d_ratio=self._link.ratio if self._link is not None else 1.0,
             d2h_ratio=link_mod.FUSED_MASK_D2H_RATIO,
-            profile="mega", devices=1, exec_mb_s=exec_mb_s, device=self.device,
+            profile="mega", devices=mesh_topology.distinct_device_count(self.mesh),
+            exec_mb_s=exec_mb_s, device=self.device,
         )
         self._mega_on = bool(terms["wide"])
         rec = record_gate("auto", "fused", "mega-wide" if self._mega_on else "mega-narrow",
@@ -547,12 +615,31 @@ class GpuSecretEngine:
         cache is off."""
         if not cache.capacity:
             return None
-        return chunk_digest(buf) + self._codec_tag
+        return chunk_digest(buf) + self._codec_tag + self._mesh_tag
 
-    def _exec(self, rows: torch.Tensor) -> torch.Tensor:
+    def _stage(self, buf: np.ndarray, real_rows: int):
+        """(rows, ready, handles) of one chunk staged to the device, or one
+        shard a lane under a mesh (`pipeline.stage_rows`, which ledgers each
+        lane's real rows and bytes); the caller releases `handles` once the
+        chunk's kernels are done with the rows."""
+        return stage_rows(buf, self._stagers, self.mesh, real_rows)
+
+    def _gather(self, out):
+        """A meshed result's shards joined in row order on the engine's
+        device; an unmeshed one as it is."""
+        return out.gather(self.device) if isinstance(out, Sharded) else out
+
+    def _exec(self, rows):
         """Unpack (codec) and sieve one staged chunk on the current stream;
         the hit words stay on the device.  With tracing on, each part runs
-        as a fenced `device_phase`; off, the phases are shared no-ops."""
+        as a fenced `device_phase`; off, the phases are shared no-ops.
+        Under a mesh the sharded sieve unpacks and sieves lane by lane, one
+        phase."""
+        if self.mesh is not None:
+            ph = obs_metrics.device_phase("sieve-step")
+            out = self._sieve_fn(rows)
+            ph.done(out.shards)
+            return out
         if self._link is not None:
             ph = obs_metrics.device_phase("unpack")
             rows = self._link.unpack(rows, self.tile_len)
@@ -591,15 +678,18 @@ class GpuSecretEngine:
             digest = self._chunk_digest(buf, cache)
             hit = cache.get(digest) if digest is not None else None
             if hit is not None:
-                return (digest, None, None, hit if fetch else hit[1], True)
+                out = hit if fetch else hit[1]
+                return (digest, None, None, out, True, memwatch.NOOP_HANDLE)
             self._count_link(raw_n, buf.nbytes)
             with obs_trace.span("chunk.h2d", chunk=ci, bytes=buf.nbytes):
                 faults.fire("device.put")
-                dev, ready = self._stager.stage_rows(buf)
-            return (digest, dev, ready, None, False)
+                # the lanes' staging ledger entries ride the pipeline handle
+                # and release at finish (or cancel on a drained pipeline)
+                dev, ready, mw = self._stage(buf, max(0, min(size, total - ci * size)))
+            return (digest, dev, ready, None, False, mw)
 
         def execute(ci, staged):
-            digest, dev, ready, out, hit = staged
+            digest, dev, ready, out, hit, mw = staged
             if hit:
                 self.stats.resident_hits += 1
                 return staged
@@ -607,10 +697,11 @@ class GpuSecretEngine:
             with obs_trace.span("chunk.exec", chunk=ci):
                 faults.fire("device.exec")
                 out = self._exec(wait_staged(dev, ready))
-            return (digest, dev, None, out, False)
+            return (digest, dev, None, out, False, mw)
 
         def finish(ci, handle):
-            digest, dev, _ready, out, hit = handle
+            digest, dev, _ready, out, hit, mw = handle
+            mw.release()
             if not hit:
                 if fetch:
                     with obs_trace.span("chunk.fetch", chunk=ci):
@@ -622,14 +713,25 @@ class GpuSecretEngine:
                     cache.put(digest, out if fetch else (dev, out))
             outs[ci] = out
 
+        def cancel(ci, handle):
+            handle[5].release()
+
         if n_chunks == 1:
-            finish(0, execute(0, stage(0)))
+            staged = stage(0)
+            try:
+                handle = execute(0, staged)
+            except BaseException:
+                cancel(0, staged)
+                raise
+            finish(0, handle)
         else:
-            pipe = ChunkPipeline(stage, execute, finish, depth=self.pipeline_depth)
+            pipe = ChunkPipeline(stage, execute, finish, depth=self.pipeline_depth,
+                                 cancel=cancel)
             pipe.run(range(n_chunks))
             self.stats.h2d_overlap_s += pipe.stats.h2d_overlap_s
         if fetch:
             return np.concatenate(outs)[:total]
+        outs = [self._gather(o) for o in outs]
         return outs[0] if n_chunks == 1 else torch.cat(outs)
 
     def _fetch(self, out: torch.Tensor) -> np.ndarray:
@@ -639,7 +741,7 @@ class GpuSecretEngine:
         if self._d2h_compact:
             arr, raw_b, got_b = link_mod.fetch_rows_compact(out)
         else:
-            arr = out.cpu().numpy()
+            arr = link_mod._demux_shards(out)
             raw_b = got_b = arr.nbytes
         self.stats.d2h_bytes_raw += raw_b
         self.stats.d2h_bytes += got_b
@@ -658,12 +760,15 @@ class GpuSecretEngine:
         self._note_dispatch()
         self._count_link(raw_n, buf.nbytes)
         t0 = time.perf_counter()
-        dev, ready = self._stager.stage_rows(buf)
-        dev = wait_staged(dev, ready)
-        self._sync()  # the forced round trip
-        self.stats.h2d_s += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out = self._fetch_hits(self._exec(dev))
+        dev, ready, mw = self._stage(buf, min(size, len(rows) - off))
+        try:
+            dev = wait_staged(dev, ready)
+            self._sync()  # the forced round trip
+            self.stats.h2d_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = self._fetch_hits(self._exec(dev))
+        finally:
+            mw.release()
         self.stats.exec_s += time.perf_counter() - t0
         return out
 
@@ -777,6 +882,7 @@ class GpuSecretEngine:
         store = self._row_store
         digest = self._chunk_digest(buf, store)
         mask = None
+        mw = memwatch.NOOP_HANDLE
         if digest is not None:
             digest += self._kernel_tag + ":" + hashlib.blake2b(
                 lo.tobytes() + hi.tobytes(), digest_size=8
@@ -790,14 +896,14 @@ class GpuSecretEngine:
             self._count_link(raw_n, buf.nbytes)
             with obs_trace.span("chunk.h2d", bytes=buf.nbytes):
                 faults.fire("device.put")
-                dev, ready = self._stager.stage_rows(buf)
+                dev, ready, mw = self._stage(buf, total)
             lo_d = torch.from_numpy(lo).to(self.device)
             hi_d = torch.from_numpy(hi).to(self.device)
             v_d = torch.from_numpy(valid).to(self.device)
             with obs_trace.span("sieve.megakernel", rows=fit, files=f):
                 faults.fire("device.exec")
                 ph = obs_metrics.device_phase("sieve.megakernel")
-                mask = self._mega(wait_staged(dev, ready), lo_d, hi_d, v_d)
+                mask = self._mega_call(wait_staged(dev, ready), lo_d, hi_d, v_d)
                 ph.done(mask)
             if digest is not None:
                 store.put_rows(digest, dev, mask)
@@ -808,7 +914,10 @@ class GpuSecretEngine:
             faults.fire("device.fetch")
             # raw bytes: what the staged path's [Fp, R] uint8 candidate
             # fetch would have moved for the same batch.
-            lanes, raw_b, got_b = link_mod.fetch_mask_packed(mask, fp * r)
+            try:
+                lanes, raw_b, got_b = link_mod.fetch_mask_packed(mask, fp * r)
+            finally:
+                mw.release()  # the fetch waited on the kernels reading the rows
             self.stats.d2h_bytes_raw += raw_b
             self.stats.d2h_bytes += got_b
         cand = lanes.reshape(fp, self._mega.mask_bytes * 8)[:f, :r]

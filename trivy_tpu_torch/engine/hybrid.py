@@ -33,6 +33,12 @@ DFA claim-killer on the opted-in columns, the programs' resolves.  The
 chunked pre-sieve and the device NFA verify never run then.  The port
 composes: the demux is a `GpuSecretEngine(sieve="native")` over the merged
 ruleset that shares this engine's stats.
+
+With a mesh (`mesh=`, else `topology.engine_mesh`'s) the device verify splits
+each dispatch's groups over the lanes (`GpuNfaVerifier(mesh=)`), and the
+gate prices the reference's "mesh" profile at the mesh's count of DISTINCT
+devices: lanes that split one card share its one link, so such a split
+prices as "fused" at one device.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from trivy_tpu_torch.engine.pipeline import ChunkPipeline, default_depth
 from trivy_tpu_torch.engine.probes import build_probe_set
 from trivy_tpu_torch.engine.redfa import DfaVerifier, compute_prefix_bounds
 from trivy_tpu_torch.ftypes import Secret
+from trivy_tpu_torch.mesh import topology as mesh_topology
 from trivy_tpu_torch.native import load_native
 from trivy_tpu_torch.obs import gatelog
 from trivy_tpu_torch.obs import trace as obs_trace
@@ -235,7 +242,9 @@ class GpuHybridSecretEngine:
     from (default `TRIVY_TPU_AOT_CACHE`, else `trivy_tpu_torch/_build/`).
     `program_table` (whose merged ruleset is `ruleset`) makes it
     multi-program: `scan_programs`, `programs_snapshot`, and `scan_batch`
-    through the secret program (module docstring)."""
+    through the secret program (module docstring).  `mesh` (a `Mesh` whose
+    first lane is `device`, or a list of devices; default
+    `topology.engine_mesh`'s) is the device verify's (module docstring)."""
 
     def __init__(
         self,
@@ -251,10 +260,13 @@ class GpuHybridSecretEngine:
         device: str | torch.device = DEFAULT_DEVICE,
         program_table=None,
         aot_cache_dir: str | None = None,
+        mesh=None,
     ):
         if verify not in VERIFY_MODES:
             raise ValueError(f"unknown verify mode: {verify!r}")
         self.device = resolve_device(device)
+        # One mesh for the whole device path: the verifier joins it.
+        self.mesh = mesh_topology.engine_mesh(self.device, mesh)
         self.ruleset = ruleset if ruleset is not None else build_ruleset(config)
         self.oracle = OracleScanner(self.ruleset)
         self.aot_cache_dir = aot_cache_dir
@@ -294,7 +306,7 @@ class GpuHybridSecretEngine:
                 self._nfa_verifier = GpuNfaVerifier(
                     self.ruleset.rules, prefix_bounds=bounds,
                     fused=self.verify == "fused", rule_stack=rule_stack,
-                    device=self.device,
+                    device=self.device, mesh=self.mesh or [self.device],
                 )
             # In device modes the DFA still verifies the lanes the device
             # does not take (no 64-position automaton, oversize windows).
@@ -316,6 +328,7 @@ class GpuHybridSecretEngine:
                 ruleset=self.ruleset, compiled=compiled, device=self.device,
                 sieve="native", pipeline_depth=self.pipeline_depth, dedupe=dedupe,
                 program_table=program_table, aot_cache_dir=aot_cache_dir,
+                mesh=self.mesh or [self.device],
             )
             self._programs.stats = self.stats
 
@@ -348,17 +361,26 @@ class GpuHybridSecretEngine:
             return {"enabled": False}
         return self._programs.programs_snapshot()
 
+    def verify_devices(self) -> int:
+        """The device count the gate prices: the mesh's distinct devices,
+        else `capacity_hint()`."""
+        if self.mesh is not None:
+            return mesh_topology.distinct_device_count(self.mesh)
+        return mesh_topology.capacity_hint()
+
     def _resolve_verify(self, verify: str) -> tuple[str, dict]:
         """(verify mode, gate log record).  `auto` on a CUDA device prices
-        the fused profile, then the legacy stream, then falls to the host
-        DFA; on the CPU it takes the DFA (reason `no-device`).  The mesh
-        profile waits for the multi-GPU plane."""
+        the "mesh" profile at `verify_devices()` when that is more than one
+        device, else the fused profile, then the legacy stream, then falls
+        to the host DFA; on the CPU it takes the DFA (reason `no-device`)."""
         if verify != "auto":
             return verify, gatelog.record(requested=verify, backend=verify, reason="forced")
         if self.device.type != "cuda":
             return "dfa", gatelog.record(requested="auto", backend="dfa",
                                          reason="no-device")
-        terms = gate_terms(d2h_ratio=link_mod.FUSED_MASK_D2H_RATIO, profile="fused",
+        n_dev = self.verify_devices()
+        terms = gate_terms(d2h_ratio=link_mod.FUSED_MASK_D2H_RATIO,
+                           profile="mesh" if n_dev > 1 else "fused", devices=n_dev,
                            device=self.device)
         if terms["wide"]:
             verify = "fused"
@@ -367,7 +389,10 @@ class GpuHybridSecretEngine:
                          if link_mod.d2h_compaction_enabled() else 1.0)
             terms = gate_terms(d2h_ratio=d2h_ratio, device=self.device)
             verify = "device" if terms["wide"] else "dfa"
-        reason = "link-wide" if terms["wide"] else "link-narrow"
+        if terms["wide"] and terms["profile"] == "mesh":
+            reason = "mesh-wide"
+        else:
+            reason = "link-wide" if terms["wide"] else "link-narrow"
         return verify, record_gate("auto", verify, reason, terms)
 
     def _build_scan_tables(self) -> None:
@@ -764,11 +789,11 @@ def make_secret_engine(
     tensors (a warm start, no compile), and a miss compiles once and
     persists for the next process.  None (the default) leaves the registry
     out.  `aot_cache_dir` (in `kw`) is the executable cache the engine's
-    libraries load from.  `mesh` (A11) is not ported yet and raises
-    NotImplementedError."""
+    libraries load from.  `mesh` (a `mesh.topology.Mesh`, a list of devices,
+    or None for `topology.engine_mesh`'s) is the device path's: the device
+    engine's sieve and the hybrid's device verify split over its lanes; the
+    oracle ignores it, as the reference's does."""
     backend = {"tpu": "device", "cpu": "oracle"}.get(backend, backend)
-    if mesh is not None:
-        raise NotImplementedError("mesh engines are not ported yet (ROADMAP A11)")
     if backend == "oracle":
         if kw.get("program_table") is not None:
             raise ValueError(
@@ -783,7 +808,9 @@ def make_secret_engine(
     if backend in ("device", "native"):
         if backend == "native":
             kw["sieve"] = "native"
-        return GpuSecretEngine(ruleset=ruleset, config=config, device=device, **kw)
+        return GpuSecretEngine(ruleset=ruleset, config=config, device=device, mesh=mesh,
+                               **kw)
     if backend not in ("auto", "hybrid"):
         raise ValueError(f"unknown secret-engine backend: {backend!r}")
-    return GpuHybridSecretEngine(ruleset=ruleset, config=config, device=device, **kw)
+    return GpuHybridSecretEngine(ruleset=ruleset, config=config, device=device, mesh=mesh,
+                                 **kw)

@@ -42,6 +42,7 @@ import torch
 
 from trivy_tpu_torch.engine.grams import fold_byte
 from trivy_tpu_torch.engine.probes import _FREQ
+from trivy_tpu_torch.mesh.plan import Sharded
 
 # D2H compaction thresholds: tiny results fit one fetch anyway, and dense
 # results (bitmap says > this fraction of rows hit) pay for the extra
@@ -301,13 +302,31 @@ def _row_flags(out: torch.Tensor) -> torch.Tensor:
     return (nz.reshape(-1, 8) * w).sum(dim=1).to(torch.uint8)
 
 
-def fetch_rows_compact(out: torch.Tensor) -> tuple[np.ndarray, int, int]:
+def _demux_shards(out) -> np.ndarray:
+    """Host copy of a (possibly) sharded device result: each lane ships
+    only its own slice, and the host lays the slices at their global
+    indices.  Shard order is index order, so the buffer is byte-identical
+    to an unmeshed fetch; a plain tensor takes the plain fetch."""
+    if isinstance(out, Sharded):
+        return out.numpy()
+    return out.cpu().numpy()
+
+
+def fetch_rows_compact(out) -> tuple[np.ndarray, int, int]:
     """Fetch a device tensor whose leading axis is rows, compacting to the
     nonzero rows: (host array, raw_bytes, fetched_bytes).
 
     raw_bytes is what a plain full fetch moves; fetched_bytes counts
     everything that crossed the link (bitmap D2H + index H2D + gathered
-    rows D2H, or the full fetch when the result is small or dense)."""
+    rows D2H, or the full fetch when the result is small or dense).  A
+    row-sharded result compacts lane by lane, each lane fetching only its
+    rows, and the host joins them in row order."""
+    if isinstance(out, Sharded):
+        if out.axis != 0:
+            raise ValueError("compacted fetches take results sharded by rows")
+        parts = [fetch_rows_compact(s) for s in out.shards]
+        return (np.concatenate([p[0] for p in parts]), sum(p[1] for p in parts),
+                sum(p[2] for p in parts))
     shape = tuple(out.shape)
     t = shape[0]
     row_bytes = int(np.prod(shape[1:], dtype=np.int64)) * out.element_size()
@@ -339,8 +358,9 @@ def fetch_mask_packed(out: torch.Tensor, raw_bytes: int) -> tuple[np.ndarray, in
     `raw_bytes` is what the staged path's [Fp, R] uint8 candidate fetch
     would have moved for the same batch (the caller computes it), so the
     fetch accounting stays comparable across paths.  No bitmap round-trip:
-    the mask is already one bit per lane."""
-    packed = out.cpu().numpy()
+    the mask is already one bit per lane.  A sharded mask is fetched per
+    lane and demuxed in index order (`_demux_shards`)."""
+    packed = _demux_shards(out)
     return np.unpackbits(packed).astype(bool), int(raw_bytes), packed.nbytes
 
 

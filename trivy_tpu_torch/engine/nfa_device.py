@@ -32,11 +32,24 @@ The verdict is block-granular (a flag anywhere in a 32-byte block that
 overlaps the lane's window keeps it): an over-approximation that the exact
 confirm settles.  Rows and lane tables are fresh host arrays per dispatch,
 copied with a synchronous H2D copy, so no host buffer is reused while a DMA
-reads it.  The reference's mesh placement waits for the multi-GPU plane.
+reads it.
+
+**Mesh** (`mesh=`, the reference's group-axis sharding, `mesh/plan.py`
+"stream_bytes", "padded_classes", "vstack_rules"): the group axis of every
+dispatch splits into equal contiguous shards, one a lane, and K5 or K6
+launches once a lane on its slice against the rule tables replicated on
+its device.  A meshed stream takes `GROUP_BUCKETS` (at least 8 groups),
+and under a mesh every group bucket rounds up to a multiple of the lane
+count, so every dispatch splits, at any lane count.  The fused mode gives
+each lane its own lane table and `LaneIndex`: the dispatch's lanes whose
+rows lie in the lane's slice, rows rebased to it; each lane's keep bits
+are placed back at their lanes' positions, so the keep-mask comes out in
+global lane order, byte-identical to the unmeshed one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from collections import deque
@@ -49,6 +62,8 @@ from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from trivy_tpu_torch.engine import link as link_mod
 from trivy_tpu_torch.engine.pipeline import default_depth
 from trivy_tpu_torch.engine.redfa import compile_search_nfa64, compute_prefix_bounds
+from trivy_tpu_torch.mesh import plan as mesh_plan
+from trivy_tpu_torch.mesh import topology as mesh_topology
 from trivy_tpu_torch.obs import memwatch
 from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import trace as obs_trace
@@ -96,12 +111,15 @@ def _bits(word: int, m: int) -> np.ndarray:
 
 class GpuNfaVerifier:
     """Keep-mask for candidate lanes on a CUDA card (or the CPU, through
-    the kernels' plain versions, when `device="cpu"`)."""
+    the kernels' plain versions, when `device="cpu"`).  `mesh` (a `Mesh`
+    whose first lane is `device`, or a list of devices) splits each
+    dispatch's groups over its lanes (module docstring)."""
 
     def __init__(self, rules, trimmable=None, prefix_bounds=None, fused=False,
                  rule_stack=None, sieve_kernel_id="",
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh_topology.engine_mesh(self.device, mesh, auto=False)
         self.num_rules = len(rules)
         # Mutable: scan_batch_device_legacy flips it off for one retry.
         self.fused = bool(fused)
@@ -135,7 +153,7 @@ class GpuNfaVerifier:
             self.first[i] = _bits(int(nfa.first), m)
             self.last[i] = _bits(int(nfa.last), m)
             self.luts[i] = nfa.byte_class
-        self._tables = None
+        self._tables: dict[torch.device, NfaTables] = {}
         self._padded_s = 0.0
         self.stream_stats: dict = {}
         if rule_stack is not None:
@@ -159,21 +177,49 @@ class GpuNfaVerifier:
             if has[r] and self._nfas[r] is not None:
                 self._byte_tensor_cache[r] = (fol[r], acc[r], fst[r], lst[r])
 
-    def _device_tables(self) -> NfaTables:
+    def _shards(self, family: str, arr: np.ndarray) -> list[torch.Tensor]:
+        """Host array `arr` on the verifier's lanes: one tensor a lane, split
+        as the plan places `family`, or the whole on the verifier's device
+        without a mesh."""
+        t = torch.from_numpy(arr)
+        place = mesh_plan.sharding_for(self.mesh, family)
+        return [t.to(self.device)] if place is None else list(place.split(t).shards)
+
+    def _group_cap(self, groups: int, buckets: tuple[int, ...]) -> int:
+        """The group bucket a dispatch of `groups` groups takes, rounded up
+        to a multiple of the lane count so the group axis splits evenly."""
+        n = len(self._lanes())
+        g = next((b for b in buckets if groups <= b), buckets[-1])
+        return -(-g // n) * n
+
+    def _lanes(self) -> tuple[torch.device, ...]:
+        """The devices a dispatch splits over: the mesh's lanes, or the
+        verifier's device alone."""
+        return self.mesh.devices if self.mesh is not None else (self.device,)
+
+    def _device_tables(self, device: torch.device | None = None) -> NfaTables:
         """The padded path's resident per-rule words and K6 tables
-        (`NfaTables`), built once and ledgered in memwatch as "nfa-tensors"
-        for the verifier's life."""
-        if self._tables is None:
-            self._tables = NfaTables.build(self.follow, self.accept, self.first,
-                                           self.last, self.device)
-            memwatch.track("nfa-tensors", self._tables.nbytes,
-                           device=str(self.device), owner=self)
-        return self._tables
+        (`NfaTables`) on `device` (default the verifier's): built once a
+        device (the plan's replicated "vstack_rules") and ledgered in
+        memwatch as "nfa-tensors" for the verifier's life."""
+        dev = self.device if device is None else device
+        if dev not in self._tables:
+            if self._tables:
+                first = next(iter(self._tables.values()))
+                tables = dataclasses.replace(first, words=first.words.to(dev),
+                                             table=first.table.to(dev))
+            else:
+                tables = NfaTables.build(self.follow, self.accept, self.first,
+                                         self.last, dev)
+            self._tables[dev] = tables
+            memwatch.track("nfa-tensors", tables.nbytes, device=str(dev), owner=self)
+        return self._tables[dev]
 
     def warmup(self, aot_cache_dir: str | None = None) -> None:
         """Ship the resident tensors and, on a card, load the kernels (from
         the executable cache `aot_cache_dir`, else the default one)."""
-        self._device_tables()
+        for dev in dict.fromkeys(self._lanes()):
+            self._device_tables(dev)
         if self.device.type == "cuda":
             from trivy_tpu_torch.ops import _build
 
@@ -294,7 +340,11 @@ class GpuNfaVerifier:
         rows_buf: list[list[np.ndarray]] = [[] for _ in tiers]
         flushed = [0] * len(tiers)
         flush_rows = STREAM_GROUP_BUCKETS[-1] * LANES_PER_GROUP
+        # a meshed dispatch keeps at least 8 groups (rounded up to the lanes)
+        group_buckets = GROUP_BUCKETS if self.mesh is not None else STREAM_GROUP_BUCKETS
+        lanes_dev = self._lanes()
         stack = None
+        stacks: dict[torch.device, NfaStack] = {}  # the stack replicated a device
         in_flight: deque = deque()
         fetched: list[tuple] = []
 
@@ -309,28 +359,46 @@ class GpuNfaVerifier:
             for r, slot in rule_slot.items():
                 fol[slot], acc[slot], fst[slot], lst[slot] = self._rule_byte_tensors(r)
             stack = NfaStack.build(fol, acc, fst, lst, self.device)
-            mw.append(memwatch.track("verify-stream", stack.nbytes,
-                                     device=str(self.device)))
+            for dev in dict.fromkeys(lanes_dev):
+                stacks[dev] = stack if dev == self.device else dataclasses.replace(
+                    stack, words=stack.words.to(dev), table=stack.table.to(dev))
+                mw.append(memwatch.track("verify-stream", stack.nbytes, device=str(dev)))
 
         def _fetch_one():
             ent = in_flight.popleft()
             tf = time.perf_counter()
             if ent[0] == "fused":
-                # the d2h is the packed keep-mask; verdicts apply at once
-                _, lane_ids, out, raw_b = ent
+                # the d2h is the packed keep-mask, one per lane shard, each
+                # shard's bits placed back at its lanes; verdicts apply at once
+                _, lane_ids, parts, raw_b = ent
+                mask = np.zeros(len(lane_ids), dtype=bool)
+                got_b = 0
                 with obs_trace.span("verify.fetch", lanes=len(lane_ids)):
                     faults.fire("nfa.fetch")
-                    mask, raw_b, got_b = link_mod.fetch_mask_packed(out, raw_b)
-                keep[lane_ids[mask[: len(lane_ids)]]] = True
+                    for sel, out in parts:
+                        bits, _, got = link_mod.fetch_mask_packed(out, raw_b)
+                        got_b += got
+                        if sel is None:
+                            mask = bits[: len(lane_ids)]
+                        else:
+                            mask[sel] = bits[: len(sel)]
+                keep[lane_ids[mask]] = True
             else:
-                _, tier_, lo_, hi_, out = ent
+                _, tier_, lo_, hi_, outs = ent
+                raw_b = got_b = 0
+                shards = []
                 with obs_trace.span("verify.fetch", rows=hi_ - lo_):
                     faults.fire("nfa.fetch")
-                    if compact_fetch:
-                        packed, raw_b, got_b = link_mod.fetch_stream_packed(out)
-                    else:
-                        packed = out.cpu().numpy()
-                        raw_b = got_b = packed.nbytes
+                    for out in outs:  # one a lane shard, in row order
+                        if compact_fetch:
+                            part, raw, got = link_mod.fetch_stream_packed(out)
+                        else:
+                            part = out.cpu().numpy()
+                            raw = got = part.nbytes
+                        shards.append(part)
+                        raw_b += raw
+                        got_b += got
+                packed = shards[0] if len(shards) == 1 else np.concatenate(shards, axis=1)
                 fetched.append((tier_, lo_, hi_, packed))
             st["fetch_bytes_raw"] += raw_b
             st["fetch_bytes"] += got_b
@@ -338,9 +406,6 @@ class GpuNfaVerifier:
             st["fetch_map_s"] += dtf
             if in_flight:  # later dispatches ran while we waited
                 st["h2d_overlap_s"] += dtf
-
-        def _to_device(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(self.device)
 
         def _flush_range(tier, row_lo, row_hi):
             """Dispatch rows [row_lo, row_hi) of `tier` in group-bucket
@@ -357,8 +422,7 @@ class GpuNfaVerifier:
                 gi = row_lo
                 while gi < row_hi:
                     remaining = -(-(row_hi - gi) // LANES_PER_GROUP)
-                    gcap = next((g for g in STREAM_GROUP_BUCKETS if remaining <= g),
-                                STREAM_GROUP_BUCKETS[-1])
+                    gcap = self._group_cap(remaining, group_buckets)
                     lo = gi
                     hi = min(lo + gcap * LANES_PER_GROUP, row_hi)
                     gi = hi
@@ -388,22 +452,40 @@ class GpuNfaVerifier:
                             scan_mode == "auto" and est <= FUSED_ASSOC_BUDGET_BYTES
                         )
                         faults.fire("nfa.dispatch")
-                        rows_dev = _to_device(rows_arr)
-                        lanes = LaneIndex.build(table, len(rows_arr), lo_blocks,
-                                                stack.width, self.device)
+                        shards = self._shards("stream_bytes", rows_arr)
+                        parts = []
                         ph = obs_metrics.device_phase("verify.fused")
-                        out = nfa_stream_verdict(rows_dev, stack, lanes, assoc=assoc)
-                        ph.done(out)
+                        r0 = 0
+                        for rows_dev in shards:
+                            dev = rows_dev.device
+                            if len(shards) == 1:
+                                sel, sub = None, table
+                            else:
+                                # this lane's lanes, rows rebased to its slice
+                                rows_l = table[0, :n_l]
+                                sel = np.flatnonzero((rows_l >= r0)
+                                                     & (rows_l < r0 + len(rows_dev)))
+                                k = len(sel)
+                                sub = np.zeros((4, max(8, 1 << max(k - 1, 0).bit_length())),
+                                               np.int32)
+                                sub[:, :k] = table[:, sel]
+                                sub[0, :k] -= r0
+                            lanes = LaneIndex.build(sub, len(rows_dev), lo_blocks,
+                                                    stacks[dev].width, dev)
+                            parts.append((sel, nfa_stream_verdict(rows_dev, stacks[dev], lanes,
+                                                                  assoc=assoc)))
+                            r0 += len(rows_dev)
+                        ph.done([out for _, out in parts])
                         # what the legacy flag-map fetch would have moved
                         raw_b = -(-stack.rb // 8) * lo_blocks * gcap * LANES_PER_GROUP
-                        in_flight.append(("fused", lane_ids, out, raw_b))
+                        in_flight.append(("fused", lane_ids, parts, raw_b))
                     else:
                         faults.fire("nfa.dispatch")
-                        rows_dev = _to_device(rows_arr)
                         ph = obs_metrics.device_phase("verify-stream")
-                        out = nfa_stream(rows_dev, stack)
-                        ph.done(out)
-                        in_flight.append(("stream", tier, lo, hi, out))
+                        outs = [nfa_stream(rows_dev, stacks[rows_dev.device])
+                                for rows_dev in self._shards("stream_bytes", rows_arr)]
+                        ph.done(outs)
+                        in_flight.append(("stream", tier, lo, hi, outs))
                     st["dispatches"] += 1
                     while len(in_flight) > depth:
                         _fetch_one()
@@ -519,8 +601,7 @@ class GpuNfaVerifier:
         wlen = stop - start
         bucket = np.searchsorted(np.array(LEN_BUCKETS), wlen, side="left")
         order = lane_idx[np.lexsort((pairs[lane_idx, 1], bucket[lane_idx]))]
-        tables = self._device_tables()
-        in_flight: list[tuple[list[np.ndarray], torch.Tensor]] = []
+        in_flight: list[tuple[list[np.ndarray], list[torch.Tensor]]] = []
         pos = 0
         while pos < len(order):
             bk = bucket[order[pos]]
@@ -541,8 +622,7 @@ class GpuNfaVerifier:
                     gstart = i
             gi = 0
             while gi < len(groups):
-                gcap = next((g for g in GROUP_BUCKETS if len(groups) - gi <= g),
-                            GROUP_BUCKETS[-1])
+                gcap = self._group_cap(len(groups) - gi, GROUP_BUCKETS)
                 chunk = groups[gi : gi + gcap]
                 gi += gcap
                 classes = np.zeros((gcap, LANES_PER_GROUP, length), dtype=np.uint8)
@@ -556,11 +636,13 @@ class GpuNfaVerifier:
                             contents[int(pairs[li, 0])], dtype=np.uint8
                         )[start[li] : stop[li]]
                         classes[g, b, : len(data)] = lut[data]
-                out = nfa_padded(torch.from_numpy(classes).to(self.device),
-                                 torch.from_numpy(gids).to(self.device), tables)
-                in_flight.append((chunk, out))
-        for chunk, out in in_flight:
-            matched = out.cpu().numpy()
+                # the group axis splits over the lanes, one K6 launch a lane
+                outs = [nfa_padded(c, g, self._device_tables(c.device))
+                        for c, g in zip(self._shards("padded_classes", classes),
+                                        self._shards("padded_classes", gids))]
+                in_flight.append((chunk, outs))
+        for chunk, outs in in_flight:
+            matched = np.concatenate([o.cpu().numpy() for o in outs])
             for g, lane_arr in enumerate(chunk):
                 keep[lane_arr] = matched[g, : len(lane_arr)]
         self._padded_s += time.perf_counter() - t0

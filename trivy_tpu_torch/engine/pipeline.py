@@ -25,8 +25,10 @@ mostly-unchanged corpus ships only changed rows across the link.
 words, or the megakernel's verdict mask) device-resident under the same
 digest-keyed LRU discipline, ledgered in memwatch as "resident-rows".
 
-One device only: the reference's mesh staging (one staging lane per chip)
-waits for the multi-GPU plane.
+On a mesh (`mesh/`), `stage_rows` splits a chunk row-wise into one shard
+per lane, each staged by that lane's own `RowStager` (its side stream and
+pinned ring on its device), and ledgers each lane's real rows in the
+occupancy ledger and its bytes in memwatch.
 """
 
 
@@ -42,11 +44,15 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from trivy_tpu_torch.mesh import topology as mesh_topology
+from trivy_tpu_torch.mesh.plan import Sharded, lane_bounds, sharding_for
 from trivy_tpu_torch.obs import memwatch
 from trivy_tpu_torch.obs import trace as obs_trace
 
 DEFAULT_DEPTH = 2
 DEFAULT_RESIDENT_CHUNKS = 32
+# memwatch component of staged chunks, ledgered from stage to finish
+STAGING_COMPONENT = "pipeline-staging"
 
 
 def default_depth() -> int:
@@ -207,16 +213,95 @@ class RowStager:
         return dev, copied
 
 
-def wait_staged(rows: torch.Tensor, ready) -> torch.Tensor:
+def wait_staged(rows, ready):
     """Order the current stream after a staged chunk's copy and tell the
     caching allocator the rows are used there (`record_stream`), so their
     memory is not handed out again while its kernels still read it.  A CPU
-    chunk (`ready` None) passes through."""
+    chunk (`ready` None) passes through; a `Sharded` chunk waits lane by
+    lane on its tuple of events."""
+    if isinstance(rows, Sharded):
+        if ready is not None:
+            for shard, ev in zip(rows.shards, ready):
+                wait_staged(shard, ev)
+        return rows
     if ready is not None:
         stream = torch.cuda.current_stream(rows.device)
         stream.wait_event(ready)
         rows.record_stream(stream)
     return rows
+
+
+class StagingHandles:
+    """Release-once group over the per-lane memwatch handles of one staged
+    chunk: the pipeline's finish and cancel sites hold one handle per chunk
+    however many lanes it landed on."""
+
+    __slots__ = ("_handles",)
+
+    def __init__(self, handles):
+        self._handles = tuple(handles)
+
+    def release(self) -> None:
+        for h in self._handles:
+            h.release()
+        self._handles = ()
+
+
+def lane_stagers(mesh, device, depth: int) -> list[RowStager]:
+    """One `RowStager` per mesh lane (one for `device` without a mesh)."""
+    devices = mesh.devices if mesh is not None else (device,)
+    return [RowStager(d, depth) for d in devices]
+
+
+def stage_rows(buf: np.ndarray, stagers: list[RowStager], mesh=None,
+               real_rows: int | None = None):
+    """H2D-stage one packed row chunk; returns (rows, ready, handles).
+
+    Unmeshed: one copy through `stagers[0]`, exactly the staging the
+    pipeline always did.
+    Meshed: the chunk splits row-wise into one shard per lane, each staged
+    by its lane's stager (`stagers[i]`, from `lane_stagers`), so a lane's
+    copy overlaps the other lanes' work; `rows` is a `Sharded` laid out as
+    the plan's "coded_rows" and `ready` the lanes' events.  Each lane's
+    bytes are memwatch-ledgered under its tag as "pipeline-staging" (the
+    caller releases `handles` once the chunk is done with), and the
+    occupancy ledger records each lane's REAL row share (`real_rows` leaves
+    out bucket padding).  A chunk whose rows do not split evenly over the
+    lanes stages unsharded rather than fail."""
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    rows = buf.shape[0]
+    n = mesh_topology.mesh_device_count(mesh)
+    bounds = lane_bounds(rows, n) if n > 1 else None
+    if bounds is not None:
+        real_rows = rows if real_rows is None else real_rows
+        shards, events, handles = [], [], []
+        for (lo, hi), stager, tag in zip(bounds, stagers, mesh.tags):
+            part = buf[lo:hi]
+            dev, ready = stager.stage_rows(part)
+            shards.append(dev)
+            events.append(ready)
+            mesh_topology.record_occupancy(tag, max(0, min(hi, real_rows) - lo), part.nbytes)
+            handles.append(memwatch.track(STAGING_COMPONENT, part.nbytes, device=tag))
+        placed = Sharded(shards, sharding_for(mesh, "coded_rows").axis, mesh.tags)
+        ready = None if all(e is None for e in events) else tuple(events)
+        return placed, ready, StagingHandles(handles)
+    dev, ready = stagers[0].stage_rows(buf)
+    handle = memwatch.track(STAGING_COMPONENT, buf.nbytes, device=str(stagers[0].device))
+    return dev, ready, StagingHandles([handle])
+
+
+def shard_nbytes(value) -> dict[str, int]:
+    """Per-lane byte map of the `Sharded` tensors in `value` (a tensor or a
+    tuple of them); {} when nothing in it is sharded."""
+    out: dict[str, int] = {}
+    if isinstance(value, (tuple, list)):
+        for v in value:
+            for tag, nb in shard_nbytes(v).items():
+                out[tag] = out.get(tag, 0) + nb
+    elif isinstance(value, Sharded):
+        for tag, shard in zip(value.tags, value.shards):
+            out[tag] = out.get(tag, 0) + shard.nbytes
+    return out
 
 
 def _device_tag(value) -> str:
@@ -275,15 +360,20 @@ class ResidentChunkCache:
         self.hits += 1
         return val
 
-    def _track(self, value):
-        """Ledger one entry's bytes on the device its tensors live on; the
-        handle releases once.  (One device: the reference's per-shard
-        handles, `StagingHandles` and `shard_nbytes`, come back with the
-        multi-GPU plane.)"""
-        return memwatch.track(
-            self._component, memwatch.nbytes_of(value),
-            device=_device_tag(value), owner=self,
-        )
+    def _track(self, value) -> StagingHandles:
+        """Ledger one entry's bytes: sharded tensors get one handle per lane
+        (the layout the entry carries), anything else one handle on the
+        device its tensors live on."""
+        per_lane = shard_nbytes(value)
+        handles = [
+            memwatch.track(self._component, nb, device=tag, owner=self)
+            for tag, nb in sorted(per_lane.items())
+        ]
+        rest = memwatch.nbytes_of(value) - sum(per_lane.values())
+        if rest > 0 or not handles:
+            handles.append(memwatch.track(self._component, rest,
+                                          device=_device_tag(value), owner=self))
+        return StagingHandles(handles)
 
     def put(self, digest: str, value) -> None:
         if self.capacity == 0:

@@ -34,10 +34,19 @@ hands to the wrappers whole.  B5 reads `row_tables`: the distinct pairs'
 table over per-offset byte classes, and a gram -> pair index that expands
 the pair bits to gram order in the kernel; `row_consts` builds its
 `RowConsts`.
+
+**Meshed forms** (the twins of the reference's `make_sharded_pallas_sieve`,
+B1m, and `make_sharded_gram_sieve`, B5m): the row axis splits over the
+mesh's lanes, each lane runs the same hand kernel on its own rows against
+a replica of the constants on its device (`GramSieve.to`,
+`RowGramSieve.to`: one copy a distinct device), the link codec's unpack
+runs shard-local ahead of it, and the hit words come back as a `Sharded`
+in row order.  Each shard is one launch.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import numpy as np
@@ -45,6 +54,7 @@ import torch
 
 from trivy_tpu_torch.bytefreq import FREQ
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from trivy_tpu_torch.mesh.plan import Sharded, sharding_for
 
 DEFAULT_BLOCK_ROWS = 64
 WINDOW_BLOCK_ROWS = 128
@@ -534,6 +544,10 @@ class RowGramSieve:
         self.n_words = len(pmasks) // 32
         self.consts = row_consts(pmasks, pvals, self.device)
 
+    def to(self, device: str | torch.device) -> RowGramSieve:
+        """This sieve with its constants on `device` (`replica`)."""
+        return replica(self, device, ("consts",))
+
     def __call__(self, rows: torch.Tensor) -> torch.Tensor:
         if rows.device != self.device:
             raise ValueError(f"rows on {rows.device}, sieve on {self.device}")
@@ -579,6 +593,10 @@ class GramSieve:
         self._bitplane_consts = sieve_consts(bmasks, bvals, self.n_words,
                                              self.device)
 
+    def to(self, device: str | torch.device) -> GramSieve:
+        """This sieve with its constants on `device` (`replica`)."""
+        return replica(self, device, ("_window_consts", "_bitplane_consts"))
+
     def expand_bool(self, dist_bool: np.ndarray) -> np.ndarray:
         """[F, num_distinct] bool -> [F, G] bool in the caller's gram order."""
         if not len(self.gram_expand):
@@ -602,3 +620,72 @@ class GramSieve:
         else:
             out = gram_sieve_window(rows, self._window_consts, self.n_words)
         return out[:t] if pad else out
+
+
+# ---------------------------------------------------------------------------
+# Replicas and the meshed sieves
+# ---------------------------------------------------------------------------
+
+
+def consts_to(consts, device: torch.device):
+    """A constants tuple (`SieveConsts`, `RowConsts`, `LutConsts`) with its
+    tensors on `device`."""
+    return type(consts)(*(c.to(device) if isinstance(c, torch.Tensor) else c
+                          for c in consts))
+
+
+def replica(sieve, device: str | torch.device, fields: tuple[str, ...]):
+    """`sieve` itself on its own device, else a shallow copy whose constants
+    tuples `fields` live on `device`, made once a device and kept on
+    `sieve`: the plan's replicated constants, one copy a distinct device."""
+    device = resolve_device(device)
+    if device == sieve.device:
+        return sieve
+    reps = sieve.__dict__.setdefault("_replicas", {})
+    if device not in reps:
+        rep = copy.copy(sieve)
+        rep.__dict__["_replicas"] = {}
+        rep.device = device
+        for f in fields:
+            setattr(rep, f, consts_to(getattr(sieve, f), device))
+        reps[device] = rep
+    return reps[device]
+
+
+def shard_map(mesh, sieve, pre=None, family: str = "coded_rows"):
+    """`sieve` over `mesh`: a callable rows -> `Sharded` outputs, where rows
+    is a `Sharded` over the mesh's lanes (staged per lane) or a tensor,
+    split here per the plan's `family`.  Lane i runs `pre` (the codec's
+    unpack, or None) and then `sieve`'s replica on its device over its own
+    rows; nothing crosses between lanes."""
+    place = sharding_for(mesh, family)
+    replicas = place.replicate(sieve.to)
+
+    def sharded(rows) -> Sharded:
+        if not isinstance(rows, Sharded):
+            rows = place.split(rows)
+        if len(rows.shards) != mesh.size:
+            raise ValueError(f"{len(rows.shards)} shards for a mesh of {mesh.size} lanes")
+        outs = []
+        for shard in rows.shards:
+            x = pre(shard) if pre is not None else shard
+            outs.append(replicas[shard.device](x))
+        return Sharded(outs, rows.axis, rows.tags)
+
+    return sharded
+
+
+def make_sharded_pallas_sieve(mesh, sieve: GramSieve, pre=None):
+    """B1m, the twin of `make_sharded_pallas_sieve`
+    (`trivy_tpu/ops/gram_sieve_pallas.py:416`): K1 (K2 below 256 columns)
+    on each lane's rows, `pre` shard-local ahead of it; [T, Dw] words as a
+    `Sharded` in row order.  Callers size row batches to a multiple of
+    lanes x `block_rows` so every shard tiles into whole blocks."""
+    return shard_map(mesh, sieve, pre)
+
+
+def make_sharded_gram_sieve(mesh, sieve: RowGramSieve, unpack=None):
+    """B5m, the twin of `make_sharded_gram_sieve`
+    (`trivy_tpu/ops/gram_sieve.py:61`): B5 on each lane's rows against
+    replicated constants, `unpack` shard-local ahead of it."""
+    return shard_map(mesh, sieve, unpack)

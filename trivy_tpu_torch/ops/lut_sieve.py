@@ -16,7 +16,8 @@ The kernel reads the LUT over byte classes (`lut_tables`: bytes whose
 columns are equal at every offset share one row), 256 probes a pass; the
 plain version reads it as it is.  `lut_consts` builds both at once as one
 `LutConsts`, which `LutSieve` keeps on its device.  Words are int32 tensors
-holding the uint32 bit patterns.
+holding the uint32 bit patterns.  `make_sharded_sieve` is the meshed form
+(B6m): the tile axis split over the lanes, one launch a lane.
 """
 
 from __future__ import annotations
@@ -27,7 +28,13 @@ import numpy as np
 import torch
 
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from trivy_tpu_torch.ops.gram_sieve import LAUNCHES, as_int32_bits, byte_classes
+from trivy_tpu_torch.ops.gram_sieve import (
+    LAUNCHES,
+    as_int32_bits,
+    byte_classes,
+    replica,
+    shard_map,
+)
 
 SLICE_WORDS = 8  # probe words a kernel pass keeps: 256 probes
 PLAIN_ROWS = 64  # tiles the plain version sieves at once
@@ -302,7 +309,18 @@ class LutSieve:
         self.consts = lut_consts(lut, self.device)
         self.jmax, _, self.n_words = lut.shape
 
+    def to(self, device: str | torch.device) -> LutSieve:
+        """This sieve with its LUT on `device` (`gram_sieve.replica`)."""
+        return replica(self, device, ("consts",))
+
     def __call__(self, tiles: torch.Tensor) -> torch.Tensor:
         if tiles.device != self.device:
             raise ValueError(f"tiles on {tiles.device}, sieve on {self.device}")
         return lut_sieve(tiles, self.consts)
+
+
+def make_sharded_sieve(mesh, sieve: LutSieve):
+    """B6m, the twin of `make_sharded_sieve` (`trivy_tpu/ops/sieve.py:48`):
+    B6 on each lane's tiles against the LUT replicated per device; [T, Pw]
+    words as a `Sharded` in tile order."""
+    return shard_map(mesh, sieve)

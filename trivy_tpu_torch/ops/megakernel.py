@@ -43,6 +43,8 @@ import torch
 
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from trivy_tpu_torch.engine.link import unpack_symbols
+from trivy_tpu_torch.mesh.plan import Sharded, sharding_for
+from trivy_tpu_torch.mesh.topology import Mesh
 from trivy_tpu_torch.ops.gram_sieve import (
     DEFAULT_BLOCK_ROWS,
     LAUNCHES,
@@ -434,28 +436,29 @@ class MegaGramSieve:
 
 def make_sharded_megakernel(devices, mega: MegaGramSieve):
     """The megakernel over `len(devices)` equal row shards, the twin of the
-    reference's meshed megakernel: shard i runs K4 on its rows with
-    `base = i * rows_per_shard`, the int32 partial counts are summed on
+    reference's meshed megakernel: shard i runs K4 on its rows with `base` =
+    its first global row, the int32 partial counts are summed on
     `devices[0]` BEFORE any threshold, and the epilogue runs there.  The mask
     is byte-identical to the unsharded K3's at every shard count.  `devices`
-    may repeat one device (a split on one card)."""
-    devs = [resolve_device(d) for d in devices]
-    if not devs:
-        raise ValueError("make_sharded_megakernel needs at least one device")
+    (a `Mesh` or a device list) may repeat one device (a split on one card);
+    `coded` may be a tensor, split here, or a `Sharded` staged lane by lane."""
+    mesh = devices if isinstance(devices, Mesh) else Mesh(devices)
+    place = sharding_for(mesh, "coded_rows")
+    devs = mesh.devices
 
     def fused(coded, lo, hi, valid):
-        t = coded.shape[0]
-        if t % len(devs):
-            raise ValueError(f"rows {t} do not split into {len(devs)} shards")
-        per = t // len(devs)
+        if not isinstance(coded, Sharded):
+            coded = place.split(coded)
+        parts = list(coded.shards)
+        if len(parts) != len(devs):
+            raise ValueError(f"{len(parts)} shards for {len(devs)} devices")
         total = None
-        for i, dev in enumerate(devs):
-            base = torch.full((1, 1), i * per, dtype=torch.int32, device=dev)
-            part = mega.acc(
-                coded[i * per : (i + 1) * per].to(dev), lo.to(dev), hi.to(dev),
-                base,
-            ).to(devs[0])
-            total = part if total is None else total + part
+        start = 0
+        for part, dev in zip(parts, devs):
+            base = torch.full((1, 1), start, dtype=torch.int32, device=dev)
+            acc = mega.acc(part.contiguous(), lo.to(dev), hi.to(dev), base).to(devs[0])
+            total = acc if total is None else total + acc
+            start += part.shape[0]
         return mega.epilogue(total, valid.to(devs[0]))
 
     return fused

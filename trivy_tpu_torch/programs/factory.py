@@ -46,8 +46,9 @@ def make_program_engine(
     program-id-keyed warm path: the merged table under
     `programs/<table_id>/<digest>`, and each member program's own artifact
     warmed too, so a standalone engine for any member starts warm from the
-    same store.  `mesh` (A11) is not ported yet and raises
-    NotImplementedError."""
+    same store.  `mesh` (a `mesh.topology.Mesh`, a list of devices, or
+    None for `topology.engine_mesh`'s) passes through to `make_secret_engine`:
+    the device engine's sieve splits over its lanes."""
     if programs is None:
         programs = default_programs(config)
     table = (
