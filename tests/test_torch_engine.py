@@ -206,6 +206,17 @@ buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     cli.main(["fs", "--scanners", "secret", "--device", "cpu", "--rules-cache-dir", rules_dir,
               sys.argv[1]])
+from trivy_tpu_torch import serve, tenancy
+from trivy_tpu_torch.cache.store import MemoryCache
+from trivy_tpu_torch.rpc import client as rpc_client, server as rpc_server
+httpd, _ = rpc_server.start_background("localhost:0", MemoryCache(), device="cpu")
+resp = rpc_client.RpcClient(f"localhost:{httpd.server_address[1]}").scan_secrets(
+    [("a.env", b"t = ghp_" + b"Ab1" * 12 + b"\n")])
+verified = verified and resp["Secrets"][0]["Findings"][0]["RuleID"] == "github-pat"
+verified = verified and serve.BatchScheduler is httpd.scan_server.scheduler.__class__
+verified = verified and tenancy.ResidentRulesetPool is not None
+httpd.scan_server.scheduler.close()
+httpd.shutdown()
 raised = []
 if not torch.cuda.is_available():
     for make in (GpuSecretEngine, hybrid.make_secret_engine):
@@ -251,7 +262,9 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     or any trivy_tpu module, and its default device raises without a card
     (the device engine and `make_secret_engine`).  The mesh plane
     (`trivy_tpu_torch.mesh`) and meshed CPU engines, device and hybrid,
-    load no jax or trivy_tpu module either."""
+    load no jax or trivy_tpu module either, nor does the serving path
+    (`rpc.server`, `serve`, `tenancy`, `rpc.client`), which answers one
+    `ScanSecrets` request from a CPU server."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

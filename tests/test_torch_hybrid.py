@@ -340,8 +340,9 @@ def test_cli_secret_backend(tmp_path, tmp_path_factory, capsys, monkeypatch):
     monkeypatch.setenv("TRIVY_TPU_SECRET_BACKEND", "cpu")
     assert cli.main(["fs", "--device", "cpu", str(tmp_path)]) == 0
     assert json.loads(capsys.readouterr().out) == reports["auto"]
-    for backend, item in (("server", "A13"),):
-        with pytest.raises(SystemExit):
-            cli.main(["fs", "--device", "cpu", "--secret-backend", backend, str(tmp_path)])
-        assert item in capsys.readouterr().err
+    # the server backend needs an address (tests/test_torch_rules_push.py
+    # scans through a server)
+    with pytest.raises(SystemExit):
+        cli.main(["fs", "--device", "cpu", "--secret-backend", "server", str(tmp_path)])
+    assert "requires --server" in capsys.readouterr().err
     assert "jax" in sys.modules  # this test process holds both packages

@@ -10,8 +10,9 @@ ls       list cached artifacts: digest, rules, size, created, versions
 verify   prove a cached artifact is faithful: every tensor must equal a
          fresh compile exactly, and a warm-constructed engine must give
          byte-identical findings to a cold one on the builtin corpus
-
-`push` needs a server (ROADMAP A13) and is not ported.
+push     install a ruleset into a running server's registry by digest:
+         compile locally and upload the artifact (the server validates it
+         exactly as it would a local one), or `--compile-on-server`
 """
 
 from __future__ import annotations
@@ -109,6 +110,57 @@ def _verify(args) -> int:
     return 0
 
 
+def _push(args) -> int:
+    import json
+    import os
+
+    from trivy_tpu_torch.rpc.client import RpcClient, RpcError
+
+    server = getattr(args, "server", "") or ""
+    if not server:
+        print("rules push: --server is required", file=sys.stderr)
+        return 2
+    cfg_path = getattr(args, "secret_config", "") or ""
+    rules_yaml = ""
+    if cfg_path:
+        try:
+            with open(cfg_path, encoding="utf-8") as f:
+                rules_yaml = f.read()
+        except OSError as e:
+            print(f"rules push: cannot read {cfg_path}: {e}", file=sys.stderr)
+            return 2
+    client = RpcClient(server, getattr(args, "token", "") or "")
+    manifest = None
+    npz = None
+    if not getattr(args, "compile_on_server", False):
+        # Client-side compile (default): build into the local cache, then
+        # ship the artifact files so the server validates and installs
+        # without compiling.
+        ruleset = _ruleset(args)
+        cache_dir = _cache_dir(args)
+        art, source = rstore.get_or_compile(ruleset, cache_dir=cache_dir)
+        art_dir = os.path.join(cache_dir, art.digest)
+        try:
+            with open(os.path.join(art_dir, rstore.MANIFEST_JSON), encoding="utf-8") as f:
+                manifest = json.load(f)
+            with open(os.path.join(art_dir, rstore.ARTIFACT_NPZ), "rb") as f:
+                npz = f.read()
+        except OSError as e:
+            print(f"rules push: compiled {art.digest[:16]} ({source}) but cannot read "
+                  f"its files: {e}", file=sys.stderr)
+            return 1
+        print(f"compiled {art.digest[:16]} locally ({source}); uploading")
+    try:
+        resp = client.push_ruleset(rules_yaml=rules_yaml, manifest_json=manifest, npz=npz,
+                                   admit=not getattr(args, "no_admit", False))
+    except RpcError as e:
+        print(f"rules push FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"pushed {resp.get('RulesetDigest', '?')}  source={resp.get('Source', '?')}  "
+          f"resident={bool(resp.get('Resident'))}")
+    return 0
+
+
 def run_rules(args) -> int:
     cmd = getattr(args, "rules_command", None)
     if cmd == "compile":
@@ -117,6 +169,9 @@ def run_rules(args) -> int:
         return _ls(args)
     if cmd == "verify":
         return _verify(args)
-    print("usage: trivy_tpu_torch rules {compile,ls,verify} "
-          "[--secret-config ...] [--rules-cache-dir ...] [--device ...]", file=sys.stderr)
+    if cmd == "push":
+        return _push(args)
+    print("usage: trivy_tpu_torch rules {compile,ls,verify,push} "
+          "[--secret-config ...] [--rules-cache-dir ...] [--device ...] [--server ...]",
+          file=sys.stderr)
     return 2

@@ -1,7 +1,8 @@
 """Secret result data model.
 
 Copied from `trivy_tpu/ftypes.py` (`Line`, `Code`, `Layer`, `SecretFinding`,
-`Secret`), with `secret_to_json` (`trivy_tpu/atypes.py` `_secret_to_json`),
+`Secret`, and for the serving wire `ResultClass`, `ArtifactType`,
+`DetectedVulnerability`, `Result`, `Metadata`, `Report`), with `secret_to_json` (`trivy_tpu/atypes.py` `_secret_to_json`),
 `VERIFY_CORPUS` and `findings_fingerprint` (`trivy_tpu/registry/store.py`).
 Findings serialize into the same JSON shape Trivy emits
 (pkg/fanal/types/secret.go:1-20), so byte equality of fingerprints is the
@@ -12,7 +13,31 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
+from enum import Enum
 from typing import Any
+
+
+class ResultClass(str, Enum):
+    """Mirrors pkg/types/result.go result classes."""
+
+    OS_PKGS = "os-pkgs"
+    LANG_PKGS = "lang-pkgs"
+    CONFIG = "config"
+    SECRET = "secret"
+    LICENSE = "license"
+    LICENSE_FILE = "license-file"
+    CUSTOM = "custom"
+
+
+class ArtifactType(str, Enum):
+    """Mirrors pkg/fanal/types/artifact.go ArtifactType."""
+
+    CONTAINER_IMAGE = "container_image"
+    FILESYSTEM = "filesystem"
+    REPOSITORY = "repository"
+    CYCLONEDX = "cyclonedx"
+    SPDX = "spdx"
+    VM = "vm"
 
 
 @dataclass
@@ -118,6 +143,178 @@ class Secret:
 
     file_path: str = ""
     findings: list[SecretFinding] = field(default_factory=list)
+
+
+@dataclass
+class DetectedVulnerability:
+    """pkg/types/vulnerability.go DetectedVulnerability (subset)."""
+
+    vulnerability_id: str
+    pkg_name: str
+    installed_version: str
+    pkg_id: str = ""
+    fixed_version: str = ""
+    status: str = ""
+    severity: str = "UNKNOWN"
+    severity_source: str = ""
+    primary_url: str = ""
+    title: str = ""
+    description: str = ""
+    references: list[str] = field(default_factory=list)
+    layer: "Layer" = field(default_factory=lambda: Layer())
+
+    def to_json(self) -> dict[str, Any]:
+        out: dict[str, Any] = {
+            "VulnerabilityID": self.vulnerability_id,
+            "PkgName": self.pkg_name,
+            "InstalledVersion": self.installed_version,
+        }
+        if self.pkg_id:
+            out["PkgID"] = self.pkg_id
+        if self.fixed_version:
+            out["FixedVersion"] = self.fixed_version
+        if self.status:
+            out["Status"] = self.status
+        if not self.layer.empty():
+            out["Layer"] = self.layer.to_json()
+        if self.primary_url:
+            out["PrimaryURL"] = self.primary_url
+        if self.title:
+            out["Title"] = self.title
+        if self.description:
+            out["Description"] = self.description
+        out["Severity"] = self.severity
+        if self.severity_source:
+            out["SeveritySource"] = self.severity_source
+        if self.references:
+            out["References"] = self.references
+        return out
+
+    @classmethod
+    def from_json(cls, d: dict[str, Any]) -> "DetectedVulnerability":
+        layer = d.get("Layer") or {}
+        return cls(
+            vulnerability_id=d.get("VulnerabilityID", ""),
+            pkg_name=d.get("PkgName", ""),
+            installed_version=d.get("InstalledVersion", ""),
+            pkg_id=d.get("PkgID", ""),
+            fixed_version=d.get("FixedVersion", ""),
+            status=d.get("Status", ""),
+            severity=d.get("Severity", "UNKNOWN"),
+            severity_source=d.get("SeveritySource", ""),
+            primary_url=d.get("PrimaryURL", ""),
+            title=d.get("Title", ""),
+            description=d.get("Description", ""),
+            references=list(d.get("References") or []),
+            layer=Layer(
+                digest=layer.get("Digest", ""), diff_id=layer.get("DiffID", "")
+            ),
+        )
+
+
+@dataclass
+class Result:
+    """One result block in a report (pkg/types/result.go Result)."""
+
+    target: str
+    result_class: ResultClass
+    result_type: str = ""
+    secrets: list[SecretFinding] = field(default_factory=list)
+    vulnerabilities: list[Any] = field(default_factory=list)
+    misconfigurations: list[Any] = field(default_factory=list)
+    licenses: list[Any] = field(default_factory=list)
+    packages: list[Any] = field(default_factory=list)
+
+    def is_empty(self) -> bool:
+        return not (
+            self.secrets
+            or self.vulnerabilities
+            or self.misconfigurations
+            or self.licenses
+        )
+
+    def to_json(self) -> dict[str, Any]:
+        out: dict[str, Any] = {
+            "Target": self.target,
+            "Class": self.result_class.value,
+        }
+        if self.result_type:
+            out["Type"] = self.result_type
+        if self.packages:
+            out["Packages"] = [
+                p.to_json() if hasattr(p, "to_json") else p for p in self.packages
+            ]
+        if self.vulnerabilities:
+            out["Vulnerabilities"] = [
+                v.to_json() if hasattr(v, "to_json") else v
+                for v in self.vulnerabilities
+            ]
+        if self.misconfigurations:
+            out["Misconfigurations"] = [
+                m.to_json() if hasattr(m, "to_json") else m
+                for m in self.misconfigurations
+            ]
+        if self.secrets:
+            out["Secrets"] = [s.to_json() for s in self.secrets]
+        if self.licenses:
+            out["Licenses"] = [
+                l.to_json() if hasattr(l, "to_json") else l for l in self.licenses
+            ]
+        return out
+
+
+@dataclass
+class Metadata:
+    """Report metadata (pkg/types/report.go Metadata)."""
+
+    image_id: str = ""
+    diff_ids: list[str] = field(default_factory=list)
+    repo_tags: list[str] = field(default_factory=list)
+    repo_digests: list[str] = field(default_factory=list)
+    os_family: str = ""
+    os_name: str = ""
+
+    def to_json(self) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        if self.os_family:
+            out["OS"] = {"Family": self.os_family, "Name": self.os_name}
+        if self.image_id:
+            out["ImageID"] = self.image_id
+        if self.diff_ids:
+            out["DiffIDs"] = self.diff_ids
+        if self.repo_tags:
+            out["RepoTags"] = self.repo_tags
+        if self.repo_digests:
+            out["RepoDigests"] = self.repo_digests
+        return out
+
+
+SCHEMA_VERSION = 2  # pkg/types/report.go:11 SchemaVersion
+
+
+@dataclass
+class Report:
+    """Top-level scan report (pkg/types/report.go:13)."""
+
+    artifact_name: str
+    artifact_type: ArtifactType
+    results: list[Result] = field(default_factory=list)
+    metadata: Metadata = field(default_factory=Metadata)
+    schema_version: int = SCHEMA_VERSION
+    created_at: str = ""
+
+    def to_json(self) -> dict[str, Any]:
+        out: dict[str, Any] = {
+            "SchemaVersion": self.schema_version,
+        }
+        if self.created_at:
+            out["CreatedAt"] = self.created_at
+        out["ArtifactName"] = self.artifact_name
+        out["ArtifactType"] = self.artifact_type.value
+        out["Metadata"] = self.metadata.to_json()
+        if self.results:
+            out["Results"] = [r.to_json() for r in self.results]
+        return out
 
 
 def secret_to_json(s: Secret) -> dict[str, Any]:

@@ -1,12 +1,18 @@
-"""License finding types (pkg/fanal/types/license.go).
+"""License scanning types (pkg/fanal/types/license.go).
 
-A copy of what the license path reaches in `trivy_tpu/ltypes.py`: the
-category tables, `categorize` and `LicenseFinding`.
+Copied from `trivy_tpu/ltypes.py` (the port imports nothing from the JAX
+package): the category tables, `categorize`, `LicenseFinding` and
+`LicenseFile`, with the JSON forms the serving wire carries.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any
+
+LICENSE_TYPE_DPKG = "dpkg"
+LICENSE_TYPE_HEADER = "header"
+LICENSE_TYPE_FILE = "license-file"
 
 # license categories (pkg/licensing/category.go buckets)
 CATEGORY_FORBIDDEN = "forbidden"
@@ -79,4 +85,55 @@ class LicenseFinding:
             severity=severity,
             confidence=confidence,
             link=link,
+        )
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "Severity": self.severity,
+            "Category": self.category,
+            "PkgName": "",
+            "FilePath": "",
+            "Name": self.name,
+            "Confidence": round(self.confidence, 2),
+            "Link": self.link,
+        }
+
+    @classmethod
+    def from_json(cls, d: dict[str, Any]) -> "LicenseFinding":
+        return cls(
+            name=d.get("Name", ""),
+            category=d.get("Category", CATEGORY_UNKNOWN),
+            severity=d.get("Severity", "UNKNOWN"),
+            confidence=d.get("Confidence", 1.0),
+            link=d.get("Link", ""),
+        )
+
+
+@dataclass
+class LicenseFile:
+    """types.LicenseFile."""
+
+    license_type: str
+    file_path: str
+    pkg_name: str = ""
+    findings: list[LicenseFinding] = field(default_factory=list)
+    layer: Any = None
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "Type": self.license_type,
+            "FilePath": self.file_path,
+            "PkgName": self.pkg_name,
+            "Findings": [f.to_json() for f in self.findings],
+        }
+
+    @classmethod
+    def from_json(cls, d: dict[str, Any]) -> "LicenseFile":
+        return cls(
+            license_type=d.get("Type", ""),
+            file_path=d.get("FilePath", ""),
+            pkg_name=d.get("PkgName", ""),
+            findings=[
+                LicenseFinding.from_json(f) for f in (d.get("Findings") or [])
+            ],
         )

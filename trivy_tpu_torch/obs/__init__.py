@@ -1,11 +1,13 @@
 """Observability substrate of the port: span tracing (obs/trace.py), the
 counter/gauge/histogram registry with fenced per-kernel device phases
 (obs/metrics.py), the device-memory ledger (obs/memwatch.py: raw CUDA
-allocator stats + per-component attributed bytes), and the gate decision
-log (obs/gatelog.py).
+allocator stats + per-component attributed bytes), the gate decision
+log (obs/gatelog.py), and for the server per-method SLO burn rates
+(obs/slo.py), tenant-labelled families behind a cardinality governor
+(obs/tenantmetrics.py) and the breach-triggered flight recorder
+(obs/flight.py).
 
-Copied from `trivy_tpu/obs/`, reduced to the four modules the engines and
-their chunk pipeline use.  The engine wraps every stage in a span
+Copied from `trivy_tpu/obs/` (without the bench ledger, perfledger.py).  The engine wraps every stage in a span
 (`chunk.encode`, `chunk.h2d`, `chunk.exec`, `sieve.megakernel`,
 `chunk.fetch`, `verify`, `confirm`) and each device section in a
 `device_phase`, fenced on a CUDA event.
@@ -15,6 +17,22 @@ tracing was enabled (`TRIVY_TPU_TRACE=1` or `trace.enable()`), so the
 scan path pays one predicate per call site.
 """
 
-from trivy_tpu_torch.obs import gatelog, memwatch, metrics, trace
+from trivy_tpu_torch.obs import (
+    flight,
+    gatelog,
+    memwatch,
+    metrics,
+    slo,
+    tenantmetrics,
+    trace,
+)
 
-__all__ = ["gatelog", "memwatch", "metrics", "trace"]
+__all__ = [
+    "flight",
+    "gatelog",
+    "memwatch",
+    "metrics",
+    "slo",
+    "tenantmetrics",
+    "trace",
+]

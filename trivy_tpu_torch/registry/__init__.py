@@ -7,8 +7,8 @@ compiled sieve state serializes to one .npz + manifest JSON under
 JAX package reads and writes; the libraries the port builds (nvcc, g++)
 live in a never-trust executable cache (aotcache.py).  Artifacts are
 detected, never trusted: any schema/version/checksum mismatch falls back
-to a fresh compile.  `RulesetManager` (the serve layer's engine swap)
-waits for the server (ROADMAP A13).
+to a fresh compile.  `RulesetManager` (manager.py) is the serve layer's
+epoch-versioned engine swap, and `install_ruleset` the `rules push` seat.
 """
 
 from trivy_tpu_torch.registry.digest import (
@@ -17,12 +17,14 @@ from trivy_tpu_torch.registry.digest import (
     engine_digest,
     ruleset_digest,
 )
+from trivy_tpu_torch.registry.manager import RulesetManager
 from trivy_tpu_torch.registry.store import (
     CompiledArtifact,
     aot_warmup,
     compile_ruleset,
     default_cache_dir,
     get_or_compile,
+    install_ruleset,
     list_artifacts,
     load_artifact,
     resolve_rules_cache_dir,
@@ -31,6 +33,7 @@ from trivy_tpu_torch.registry.store import (
 
 __all__ = [
     "CompiledArtifact",
+    "RulesetManager",
     "aot_warmup",
     "canonical_ruleset_bytes",
     "compile_ruleset",
@@ -38,6 +41,7 @@ __all__ = [
     "default_ruleset_digest",
     "engine_digest",
     "get_or_compile",
+    "install_ruleset",
     "list_artifacts",
     "load_artifact",
     "resolve_rules_cache_dir",

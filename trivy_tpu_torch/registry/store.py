@@ -508,6 +508,66 @@ def load_ruleset_source(cache_dir: str, digest: str) -> RuleSet | None:
         return None
 
 
+def install_ruleset(
+    cache_dir: str,
+    rules_yaml: str = "",
+    manifest: dict | None = None,
+    npz: bytes | None = None,
+) -> tuple[str, str]:
+    """The `rules push` server seat (the twin of the reference's):
+    register a ruleset by source, adopt a client-compiled artifact when it
+    validates exactly like a local one would (`load_artifact`'s checks, so
+    an artifact either package compiled installs here), else compile
+    server-side (or warm-load a prior compile).  Returns (digest, source)
+    with source "pushed" | "warm" | "cold"."""
+    import tempfile
+
+    from trivy_tpu_torch.rules.model import build_ruleset, load_config
+
+    cfg = None
+    if rules_yaml.strip():
+        fd, tmp = tempfile.mkstemp(suffix=".yaml", prefix="trivy-push-")
+        try:
+            with os.fdopen(fd, "w", encoding="utf-8") as f:
+                f.write(rules_yaml)
+            cfg = load_config(tmp)
+        finally:
+            os.unlink(tmp)
+    ruleset = build_ruleset(cfg)
+    digest = ruleset_digest(ruleset)
+    save_ruleset_source(cache_dir, digest, rules_yaml)
+    if manifest is not None and npz is not None:
+        # Never-trust adoption: write the pushed files, then run them
+        # through the exact load_artifact gauntlet (digest pin, sha256,
+        # schema/version pins, link class map re-derivation).  A rejected
+        # push falls through to a server-side compile — a bad client can
+        # cost the server a compile, never a wrong artifact.
+        try:
+            if manifest.get("ruleset_digest") != digest:
+                raise ValueError(
+                    f"pushed manifest digest "
+                    f"{str(manifest.get('ruleset_digest'))[:16]!r} does not "
+                    f"match the YAML's digest {digest[:16]!r}"
+                )
+            dirp = os.path.join(cache_dir, digest)
+            os.makedirs(dirp, exist_ok=True)
+            _atomic_write(os.path.join(dirp, ARTIFACT_NPZ), npz)
+            _atomic_write(
+                os.path.join(dirp, MANIFEST_JSON),
+                json.dumps(manifest, indent=1, sort_keys=True).encode("utf-8"),
+            )
+            if load_artifact(cache_dir, digest) is None:
+                raise ValueError("pushed artifact failed validation")
+            return digest, "pushed"
+        except Exception as e:
+            logger.warning(
+                "pushed artifact for %s rejected (%s); compiling server-side",
+                digest[:16], e,
+            )
+    _, source = get_or_compile(ruleset, cache_dir=cache_dir)
+    return digest, source
+
+
 def list_artifacts(cache_dir: str | None = None) -> list[dict]:
     """Manifest summaries of every cache entry, newest first (the `rules ls`
     listing).  Unreadable entries are reported, not hidden."""
