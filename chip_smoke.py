@@ -117,14 +117,17 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             100,000-file monorepo (`bench_corpus.make_monorepo_corpus`,
             seed 11, ~405 MB) with every 250th file a packaged SPDX text
             (400 LICENSE files), through the scan programs: the device
-            program engine over all files (K1 staged over the merged
-            104-rule secret + license axis) and as 10 batches of 2,000 (K3,
+            program engine over the first 20,000 files in one batch (K1
+            staged over the merged 104-rule secret + license axis; all
+            100,000 would spend ~70 s in its license resolve) and as 10
+            batches of 2,000 (K3,
             mask_bytes 13), the default program engine (the hybrid's native
             program path, no kernel of ours) and a secret-only
             `make_secret_engine()` scan, counts zeroed before each and read
             after (K1 and K3 must move; the license classifier's product,
             B14, must run on the card).  Secret verdicts byte-identical
-            across the three, license verdicts equal across the program runs
+            across the three (on the files each ran), license verdicts equal
+            across the program runs
             and to the host decision on the default run's candidates, every
             planted file and 1,000 sampled others (verdict []); K1's last
             chunk and K3's last batch over the merged table, and K3 over the
@@ -204,6 +207,27 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             one direct `scan_batch` of the same files, with the card's name
             and power limit; every hybrid scan arms the STALL_S dump.
 
+15. runner (after `programs`) BASELINE config #5 through the command a user
+            types, `python -m trivy_tpu_torch fs --scanners secret,license`
+            (the artifact runner: walker, analyzers, local artifact and blob
+            cache, applier, filter, report writers), on `programs`' 100,000
+            files written to a temporary tree: in process with the default
+            hybrid (`-f json`; the fused K5 must launch unless the gate picks
+            another verify, which the line then names; B14 on the card; the
+            report's secrets equal to the oracle on every flagged file plus
+            2,000 sampled claimed files, its licenses to the host decision
+            on the 400 planted files and none elsewhere), with
+            `--secret-backend tpu` (K1 or K3 launched, the report
+            byte-identical), in a fresh process with `--profile-dir` and `-f
+            table` (its trace names a hand kernel, the host spans beside it,
+            the table's targets the JSON report's; wall seconds and peak
+            RSS), and with `--exit-code 1` (exit 1); each run's seconds,
+            files/s, MB/s and stage split (walk, claim, secret engine
+            build, read, secret, license, cache put + apply, filter, write)
+            from the host spans, beside the direct engine calls on the same
+            items, and the bare lstat and open + read of 10,000 sampled
+            tree files (the file system's own cost a file).
+
 A `stall:` line counts the hybrid and `auto` scans run with the STALL_S dump
 armed and those that passed it, phase `server`'s among them.
 
@@ -221,7 +245,8 @@ kernels alone from `torch.profiler`, which leaves out the host's launch
 work; the NFA kernels' `path_device_ms` sums their dispatches of that
 scan), the card's name and power limit, and
 the result line `{"ok": true, "device": {...}}`.  Each kernel's entry also
-carries `server_launches`, its launches in phase `server`'s runs.  Nothing
+carries `server_launches`, its launches in phase `server`'s runs, and
+`runner_launches`, its launches in phase `runner`'s in-process commands.  Nothing
 here imports JAX or the JAX package.
 """
 
@@ -269,6 +294,9 @@ PROGRAM_FILES = 100_000  # BASELINE config #5, `trivy fs --scanners secret,licen
 PROGRAM_SEED = 11  # bench_corpus.make_monorepo_corpus's default
 LICENSE_EVERY = 250  # every 250th file a packaged SPDX text: 400 LICENSE files
 PROGRAM_BATCHES = 10  # batches of SERVE_BATCH files through the device program engine
+# files of the device program engine's one-batch run: its license resolve
+# (~41% of monorepo files candidates) took ~70 s over all 100,000
+PROGRAM_DEVICE_FILES = 20_000
 PROGRAM_SAMPLED = 1_000  # non-candidates held to the host decision
 # Integer instructions of one K5 step (a byte of a lane, no live exception
 # position), counted in `cuobjdump -sass` of the sm_90a build: see PERF.md.
@@ -1850,19 +1878,21 @@ def kernel_parity(torch, name: str, fn, want) -> None:
           f"nonzero={int((want != 0).sum())} ms={event_ms(torch, fn, REPS):.4f}", flush=True)
 
 
-def programs_phase(np, torch, gs, mk, bench_corpus) -> None:
+def programs_phase(np, torch, gs, mk, items, planted: dict) -> None:
     """BASELINE config #5 (`trivy fs --scanners secret,license`) through the
     scan programs, on `program_corpus`'s 100,000 files: the device program
     engine (`make_program_engine(backend="device")`, the default table,
-    secret then license: K1 staged over the merged 104-rule axis) over all
-    files, then 10 batches of 2,000 files through the same engine (K3,
+    secret then license: K1 staged over the merged 104-rule axis) over the
+    first PROGRAM_DEVICE_FILES files in one batch, then 10 batches of 2,000
+    files through the same engine (K3,
     mask_bytes 13); the default program engine (`make_program_engine()`:
     the hybrid's native program path, no sieve kernel); a secret-only
     `make_secret_engine()` scan.  Each run zeroes the counts just before and
     reads them just after: K1 and K3 must move in theirs, and the license
     classifier's product (B14) must run on the card.  The secret verdicts
-    must be byte-identical across the three engines, the license verdicts
-    equal across the program runs (the batches' too) and equal to the host
+    must be byte-identical across the three engines (on the files each
+    ran), the license verdicts equal across the program runs (the batches'
+    too) and equal to the host
     decision (`decide_findings(device="cpu")`) on every file the default
     run's license slice marks a candidate, every planted LICENSE file and
     1,000 sampled others, whose verdict must be [].  Then K1's last chunk
@@ -1883,12 +1913,7 @@ def programs_phase(np, torch, gs, mk, bench_corpus) -> None:
         make_program_engine,
     )
 
-    t0 = time.perf_counter()
-    items, planted = program_corpus(bench_corpus)
     nbytes = sum(len(c) for _, c in items)
-    print(f"programs: corpus files={len(items)} MB={nbytes / 1e6:.3f} "
-          f"license_files={len(planted)} setup_seconds={time.perf_counter() - t0:.2f}",
-          flush=True)
     table = build_program_table(default_programs())
     # The license slice's candidate files of the default run, and the
     # product's calls on the card (B14 has no hand kernel to count them).
@@ -1919,8 +1944,9 @@ def programs_phase(np, torch, gs, mk, bench_corpus) -> None:
             fail("programs", "the megakernel is off on a CUDA device")
         dev._host_verifier()  # the claim-killer's tables, outside the timing
         dev._sieve_fn = k1 = _Recorder(dev._sieve_fn)
+        head = items[:PROGRAM_DEVICE_FILES]
         res_dev, launches, calls = program_run(
-            torch, gs, "make_program_engine(backend='device')", dev, [items], b14)
+            torch, gs, "make_program_engine(backend='device')", dev, [head], b14)
         if not launches["bitplane"] or launches["mega"] or not calls["calls"]:
             fail("programs", f"device run: launches {launches}, B14 calls {calls}: "
                  "expected K1 over the merged axis and the product on the card")
@@ -1937,7 +1963,7 @@ def programs_phase(np, torch, gs, mk, bench_corpus) -> None:
         b14_launches["batches"] = calls["calls"]
         n = PROGRAM_BATCHES * SERVE_BATCH
         if program_docs(res_b) != program_docs({k: v[:n] for k, v in res_dev.items()}):
-            fail("programs", "the batches' verdicts differ from the whole-corpus run's")
+            fail("programs", "the batches' verdicts differ from the one-batch run's")
         auto = make_program_engine(table, device=DEVICE)
         if not isinstance(auto, GpuHybridSecretEngine):
             fail("programs", f"make_program_engine() built {type(auto).__name__}")
@@ -1963,12 +1989,15 @@ def programs_phase(np, torch, gs, mk, bench_corpus) -> None:
           f"verify={solo.verify} files={len(items)} seconds={dt:.4f} "
           f"files_per_s={len(items) / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
           f"phases={json.dumps(solo.stats.phases())}", flush=True)
+    n = len(head)
     docs_dev, docs_auto = program_docs(res_dev), program_docs(res_auto)
+    docs_auto_head = program_docs({k: v[:n] for k, v in res_auto.items()})
     solo_doc = program_docs({"secret": secret_only, "license": []})[0]
-    if not docs_dev[0] == docs_auto[0] == solo_doc:
+    solo_head = program_docs({"secret": secret_only[:n], "license": []})[0]
+    if not (docs_auto[0] == solo_doc and docs_dev[0] == docs_auto_head[0] == solo_head):
         fail("programs", "secret verdicts differ between the program runs and the "
              "secret-only engine")
-    if docs_dev[1] != docs_auto[1]:
+    if docs_dev[1] != docs_auto_head[1]:
         fail("programs", "license verdicts differ between the two program runs")
     rest = np.setdiff1d(np.arange(len(items)), np.union1d(cands, list(planted)))
     rng = np.random.default_rng(SEED)
@@ -2050,6 +2079,361 @@ def programs_phase(np, torch, gs, mk, bench_corpus) -> None:
           f"max_abs_err={err:.3e} matches_equal={same} "
           f"launches={json.dumps(b14_launches)} (library call, no hand kernel)", flush=True)
     print(f"programs: card {card_line()}", flush=True)
+
+
+RUNNER_SAMPLED = 2_000  # claimed files without findings held to the oracle in phase runner
+RUNNER_FS_SAMPLE = 10_000  # tree files whose bare lstat and open + read phase runner times
+# the runner's host spans, in the order of its stages (commands/run.py and below)
+RUNNER_STAGES = (("walk", ("analyzer.walk",)), ("claim", ("analyzer.claim",)),
+                 ("read", ("analyzer.read",)), ("secret", ("analyze.secret",)),
+                 ("license", ("analyze.license-file",)),
+                 ("cache put+apply", ("cache.put", "cache.apply")), ("filter", ("filter",)),
+                 ("write", ("write",)))
+
+
+def write_tree(root: str, items) -> None:
+    """`items` as files under `root`, written from 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def write(item) -> None:
+        full = os.path.join(root, item[0])
+        os.makedirs(os.path.dirname(full), exist_ok=True)
+        with open(full, "wb") as f:
+            f.write(item[1])
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, items, chunksize=256))
+
+
+def stage_split(spans) -> dict:
+    """Seconds of each runner stage, summed over its host spans."""
+    total = {}
+    for rec in spans:
+        total[rec.name] = total.get(rec.name, 0.0) + rec.dur
+    out = {stage: round(sum(total.get(n, 0.0) for n in names), 4)
+           for stage, names in RUNNER_STAGES}
+    # the claim pass builds the secret engine: its own stage
+    out["engine build"] = round(total.get("secret.engine", 0.0), 4)
+    out["claim"] = round(out["claim"] - out["engine build"], 4)
+    out["scan"] = round(total.get("scan", 0.0), 4)
+    return out
+
+
+def runner_run(torch, gs, label: str, argv: list, b14: dict, calls: dict, nbytes: int,
+               n_files: int) -> dict:
+    """One in-process `python -m trivy_tpu_torch` command: counts (kernel
+    launches, B14's calls on the card, the engines' batches) zeroed just
+    before, read just after, host spans collected in process; prints the
+    run's line.  Returns the run's record."""
+    from trivy_tpu_torch import __main__ as cli
+    from trivy_tpu_torch.obs import trace as obs_trace
+
+    obs_trace.enable(ring=1 << 17)
+    obs_trace.clear()
+    torch.cuda.synchronize()
+    for k in gs.LAUNCHES:
+        gs.LAUNCHES[k] = 0
+    b14.update(calls=0, rows=0)
+    for v in calls.values():
+        v.clear()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in gs.LAUNCHES.items() if v}
+    split = stage_split(obs_trace.snapshot())
+    print(f"runner: {label} rc={rc} files={n_files} MB={nbytes / 1e6:.3f} seconds={dt:.4f} "
+          f"files_per_s={n_files / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
+          f"stages_s={json.dumps(split)} launches={json.dumps(launches)} "
+          f"b14_calls={b14['calls']} b14_rows={b14['rows']} "
+          f"secret_batches={len(calls['secret'])} license_batches={len(calls['license'])}",
+          flush=True)
+    return {"rc": rc, "seconds": dt, "launches": launches, "split": split,
+            "b14": dict(b14), "secret": list(calls["secret"]),
+            "license": list(calls["license"])}
+
+
+def runner_report_check(np, report: dict, secret_items, license_items, planted: dict) -> None:
+    """The report's Secrets against the port's oracle on every flagged file
+    plus RUNNER_SAMPLED other claimed files, and its license-file results
+    against the host decision (`decide_findings(device="cpu")`) on every
+    planted LICENSE file, every other claimed file with none."""
+    from trivy_tpu_torch.engine.oracle import OracleScanner
+    from trivy_tpu_torch.license.decide import decide_findings
+
+    results = report.get("Results", [])
+    secrets = {r["Target"]: r["Secrets"] for r in results if r["Class"] == "secret"}
+    licenses = {r["Target"]: r["Licenses"] for r in results if r["Class"] == "license-file"}
+    paths = [p for p, _ in secret_items]
+    if len(set(paths)) != len(paths) or not set(secrets) <= set(paths):
+        fail("runner", "the report's secret targets are not the claimed files")
+    flagged = [i for i, p in enumerate(paths) if p in secrets]
+    rest = np.setdiff1d(np.arange(len(paths)), flagged)
+    rng = np.random.default_rng(SEED)
+    sampled = rng.choice(rest, size=min(RUNNER_SAMPLED, len(rest)), replace=False)
+    oracle = OracleScanner()
+    for i in sorted(set(flagged) | {int(i) for i in sampled}):
+        path, content = secret_items[i]
+        want = [f.to_json() for f in oracle.scan(path, content).findings]
+        if secrets.get(path, []) != want:
+            fail("runner", f"{path}: the report's secrets differ from the oracle")
+    if not flagged:
+        fail("runner", "no secret findings: the planted secrets were missed")
+    lic_paths = [p for p, _ in license_items]
+    planted_paths = {f"third_party/pkg{i}/LICENSE" for i in planted}
+    if set(lic_paths) != planted_paths:
+        fail("runner", f"license-file claimed {len(lic_paths)} files, not the "
+             f"{len(planted_paths)} planted ones")
+    want = decide_findings([c.decode("utf-8", errors="replace") for _, c in license_items],
+                           device="cpu")
+    for (path, _), fs in zip(license_items, want):
+        if licenses.get(path, []) != [f.to_json() for f in fs]:
+            fail("runner", f"{path}: the report's licenses differ from the host decision")
+    if set(licenses) - planted_paths:
+        fail("runner", "a file other than the planted LICENSE files has a license")
+    own = sum(1 for i, name in planted.items()
+              if licenses.get(f"third_party/pkg{i}/LICENSE", [{}])[0].get("Name") == name)
+    print(f"runner: report checked: secret files={len(secrets)} equal to the oracle on "
+          f"{len(flagged)} flagged + {len(sampled)} sampled of {len(paths)} claimed; "
+          f"license files={len(licenses)} equal to the host decision on all "
+          f"{len(license_items)} claimed, planted classified as own id={own}/{len(planted)}",
+          flush=True)
+
+
+def runner_phase(np, torch, gs, items, planted: dict) -> dict:
+    """BASELINE config #5 through the command a user types, `python -m
+    trivy_tpu_torch fs --scanners secret,license` (the artifact runner,
+    `trivy_tpu_torch/commands/run.py`), on `program_corpus`'s 100,000 files
+    written to a temporary tree (removed at the end).  Runs, counts zeroed
+    just before each and read just after: (1) in process, `-f json -o` with
+    the default hybrid on the card: exit 0, the fused K5 launched (else the
+    line says which verify the gate chose and why), B14 on the card, the
+    report's secrets equal to the oracle on every flagged file plus 2,000
+    sampled claimed files and its licenses to the host decision on the 400
+    planted files; (2) the same with `--secret-backend tpu`: K1 or K3
+    launched (which and how often printed), the report byte-identical to
+    (1)'s; (3) a fresh process, `--secret-backend tpu --profile-dir D -f
+    table`: exit 0, its torch.profiler trace names a hand kernel, the host
+    spans beside it, the table's targets those of (2), its wall seconds and
+    peak RSS; (4) `--exit-code 1`: exit 1.  Then the direct engine calls on
+    the same items (`make_secret_engine().scan_batch` on what the secret
+    analyzer scanned, `make_program_engine([LicenseScanProgram()])
+    .scan_programs` on the LICENSE files).  Each run prints seconds,
+    files/s, MB/s and its stage split from the host spans.  Returns the
+    in-process runs' launches."""
+    import re
+    import resource
+    import shutil
+    import tempfile
+
+    from trivy_tpu_torch.analyzer import license as lic_analyzer
+    from trivy_tpu_torch.engine import hybrid
+    from trivy_tpu_torch.license import classifier as lc
+    from trivy_tpu_torch.programs import LicenseScanProgram, make_program_engine
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="smoke-runner-")
+    tree, rules = os.path.join(work, "tree"), os.path.join(work, "rules")
+    nbytes = sum(len(c) for _, c in items)
+    t0 = time.perf_counter()
+    write_tree(tree, items)
+    print(f"runner: tree files={len(items)} MB={nbytes / 1e6:.3f} "
+          f"license_files={len(planted)} write_seconds={time.perf_counter() - t0:.2f}",
+          flush=True)
+    calls = {"secret": [], "license": []}
+    b14 = {"calls": 0, "rows": 0}
+    engines = []
+    real_make, real_matmul = hybrid.make_secret_engine, lc.FullTextClassifier._matmul
+    real_lic_engine = lic_analyzer._device_engine
+
+    def make(**kw):
+        engine = real_make(**kw)
+        scan = engine.scan_batch
+
+        def recorded(batch):
+            calls["secret"].append(batch)
+            return scan(batch)
+
+        engine.scan_batch = recorded
+        engines.append(engine)
+        return engine
+
+    def lic_engine(device):
+        engine = real_lic_engine(device)
+        if not getattr(engine, "_smoke_recorded", False):
+            scan = engine.scan_programs
+
+            def recorded(batch, only=None):
+                calls["license"].append(batch)
+                return scan(batch, only=only)
+
+            engine.scan_programs, engine._smoke_recorded = recorded, True
+        return engine
+
+    def counted(self, fps):
+        if self.device.type == "cuda":
+            b14["calls"] += 1
+            b14["rows"] += len(fps)
+        return real_matmul(self, fps)
+
+    # the file system's own cost a file: lstat, then open + read, of a sample
+    rng = np.random.default_rng(SEED)
+    sample = [os.path.join(tree, items[i][0]) for i in
+              rng.choice(len(items), size=min(RUNNER_FS_SAMPLE, len(items)), replace=False)]
+    t0 = time.perf_counter()
+    for path in sample:
+        os.lstat(path)
+    stat_us = (time.perf_counter() - t0) / len(sample) * 1e6
+    t0 = time.perf_counter()
+    for path in sample:
+        with open(path, "rb") as f:
+            f.read()
+    read_us = (time.perf_counter() - t0) / len(sample) * 1e6
+    base = ["fs", "--scanners", "secret,license", "--rules-cache-dir", rules]
+    outs = {k: os.path.join(work, f"{k}.json") for k in ("default", "tpu")}
+    hybrid.make_secret_engine = make
+    lic_analyzer._device_engine = lic_engine
+    lc.FullTextClassifier._matmul = counted
+    try:
+        # warm-up on a few files: the registry filled, the libraries loaded
+        small = os.path.join(work, "small")
+        write_tree(small, items[:50] + [items[0]])
+        for extra in ([], ["--secret-backend", "tpu"]):
+            warm = base + extra + ["-o", os.path.join(work, "warm.txt"), small]
+            if runner_run(torch, gs, f"warm-up {extra}", warm, b14, calls, 0, 50)["rc"]:
+                fail("runner", "the warm-up run failed")
+        runs = {}
+        runs["default"] = runner_run(torch, gs, "fs --scanners secret,license -f json",
+                                     base + ["-f", "json", "-o", outs["default"], tree],
+                                     b14, calls, nbytes, len(items))
+        engine = engines[-1]
+        runs["tpu"] = runner_run(torch, gs, "fs --scanners secret,license --secret-backend "
+                                 "tpu -f json", base + ["--secret-backend", "tpu", "-f",
+                                                        "json", "-o", outs["tpu"], tree],
+                                 b14, calls, nbytes, len(items))
+        runs["exit_code"] = runner_run(torch, gs, "fs --scanners secret,license --exit-code 1",
+                                       base + ["--exit-code", "1", "-o",
+                                               os.path.join(work, "exit.txt"), tree],
+                                       b14, calls, nbytes, len(items))
+    finally:
+        hybrid.make_secret_engine, lc.FullTextClassifier._matmul = real_make, real_matmul
+        lic_analyzer._device_engine = real_lic_engine
+    if runs["default"]["rc"] or runs["tpu"]["rc"]:
+        fail("runner", f"exit codes {runs['default']['rc']}, {runs['tpu']['rc']}, not 0")
+    if runs["exit_code"]["rc"] != 1:
+        fail("runner", f"--exit-code 1 returned {runs['exit_code']['rc']}")
+    d = runs["default"]
+    if d["launches"].get("nfa_fused"):
+        print(f"runner: default run verify={engine.verify}: fused K5 launched "
+              f"{d['launches']['nfa_fused']} times, K6 {d['launches'].get('nfa_padded', 0)}",
+              flush=True)
+    else:
+        print(f"runner: default run verify={engine.verify} "
+              f"gate={json.dumps(getattr(engine, 'gate_decision', None), default=str)}: "
+              "the gate did not pick fused, no fused K5", flush=True)
+        if engine.verify == "fused":
+            fail("runner", "the default run verified fused but launched no fused K5")
+    for label in ("default", "tpu", "exit_code"):
+        if not runs[label]["b14"]["calls"]:
+            fail("runner", f"{label}: B14 did not run on the card")
+    t = runs["tpu"]["launches"]
+    k1, k3 = t.get("bitplane", 0), t.get("mega", 0)
+    if not (k1 or k3):
+        fail("runner", f"--secret-backend tpu launched neither K1 nor K3: {t}")
+    print(f"runner: --secret-backend tpu launched K1 (gram_sieve_bitplane) {k1} times, "
+          f"K3 (megakernel_mask) {k3} times", flush=True)
+    with open(outs["default"], "rb") as f:
+        default_doc = f.read()
+    with open(outs["tpu"], "rb") as f:
+        if f.read() != default_doc:
+            fail("runner", "the --secret-backend tpu report differs from the default's")
+    report = json.loads(default_doc)
+    per_file = {k: d["split"][k] / len(items) * 1e6 for k in ("walk", "claim", "read")}
+    print(f"runner: file system, {len(sample)} sampled tree files, bare: lstat {stat_us:.1f} us "
+          f"a file, open + read {read_us:.1f} us a file; the default run: walk "
+          f"{per_file['walk']:.1f}, claim {per_file['claim']:.1f}, read {per_file['read']:.1f} "
+          f"us a tree file", flush=True)
+    secret_items = [it for batch in d["secret"] for it in batch]
+    license_items = [it for batch in d["license"] for it in batch]
+    runner_report_check(np, report, secret_items, license_items, planted)
+
+    # (3) a fresh process with the profiler, the table format
+    prof = os.path.join(work, "profile")
+    table = os.path.join(work, "table.txt")
+    t0 = time.perf_counter()
+    with open(table, "wb") as out, open(os.path.join(work, "stderr.txt"), "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "trivy_tpu_torch", *base, "--secret-backend", "tpu",
+             "--profile-dir", prof, "-f", "table", tree],
+            stdout=out, stderr=err, cwd=os.path.dirname(os.path.abspath(__file__)))
+        _, status, usage = os.wait4(proc.pid, 0)
+    wall = time.perf_counter() - t0
+    rc = os.waitstatus_to_exitcode(status)
+    proc.returncode = rc
+    if rc:
+        with open(os.path.join(work, "stderr.txt")) as f:
+            sys.stderr.write(f.read()[-4000:])
+        fail("runner", f"the fresh process exited {rc}")
+    names = sorted(os.listdir(prof))
+    traces = [n for n in names if n.startswith("torch-trace-")]
+    hosts = [n for n in names if n.startswith("host_trace.")]
+    if len(traces) != 1 or len(hosts) != 1:
+        fail("runner", f"the profile dir holds {names}, not one trace and its host spans")
+    with open(os.path.join(prof, traces[0])) as f:
+        kernels = [e.get("name", "") for e in json.load(f).get("traceEvents", [])
+                   if e.get("cat") == "kernel"]
+    ours = {k: sum(k in n for n in kernels) for k in KERNEL_NAMES}
+    ours = {k: v for k, v in ours.items() if v}
+    if not ours:
+        fail("runner", f"the fresh process's trace names no hand kernel "
+             f"({len(kernels)} kernel events)")
+    with open(table) as f:
+        text = f.read()
+    shown = set(re.findall(r"^(.+) \((?:secrets|license-file)\)\n=+$", text, re.M))
+    want = {r["Target"] for r in report.get("Results", [])}
+    if shown != want:
+        fail("runner", f"the table lists {len(shown)} targets, the JSON report {len(want)}")
+    print(f"runner: fresh process `python -m trivy_tpu_torch fs --scanners secret,license "
+          f"--secret-backend tpu --profile-dir D -f table` rc={rc} wall_seconds={wall:.2f} "
+          f"files_per_s={len(items) / wall:.1f} peak_rss_MB={usage.ru_maxrss / 1024:.1f} "
+          f"(os.wait4 of the child; RUSAGE_CHILDREN so far "
+          f"{resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 1024:.1f}) "
+          f"trace kernel events={len(kernels)} named={json.dumps(ours)} "
+          f"host spans={hosts[0]} table targets={len(shown)} (= the JSON report's)",
+          flush=True)
+
+    # the direct engine calls on the same items
+    direct = {}
+    eng = real_make(device=DEVICE, rules_cache_dir=rules)
+    eng.scan_batch(secret_items[:20])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in d["secret"]:
+        eng.scan_batch(batch)
+    torch.cuda.synchronize()
+    direct["secret"] = time.perf_counter() - t0
+    lic_eng = make_program_engine([LicenseScanProgram()], device=DEVICE)
+    lic_eng.scan_programs(license_items[:4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in d["license"]:
+        lic_eng.scan_programs(batch)
+    torch.cuda.synchronize()
+    direct["license"] = time.perf_counter() - t0
+    secret_bytes = sum(len(c) for _, c in secret_items)
+    print(f"runner: direct make_secret_engine().scan_batch engine={type(eng).__name__} "
+          f"verify={eng.verify} files={len(secret_items)} MB={secret_bytes / 1e6:.3f} "
+          f"seconds={direct['secret']:.4f} files_per_s={len(secret_items) / direct['secret']:.1f} "
+          f"MB_per_s={secret_bytes / 1e6 / direct['secret']:.3f} (runner's secret analyzer "
+          f"{d['split']['secret']:.4f} s); direct make_program_engine([LicenseScanProgram()])"
+          f".scan_programs files={len(license_items)} seconds={direct['license']:.4f} "
+          f"(runner's license analyzer {d['split']['license']:.4f} s); runner default "
+          f"{d['seconds']:.4f} s against {direct['secret'] + direct['license']:.4f} s direct, "
+          f"gap {d['seconds'] - direct['secret'] - direct['license']:.4f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"runner: phase seconds={time.perf_counter() - t_phase:.2f} card {card_line()}",
+          flush=True)
+    return {label: runs[label]["launches"] for label in ("default", "tpu", "exit_code")}
 
 
 def to_cpu(torch, value):
@@ -2778,7 +3162,14 @@ def main(argv: list[str]) -> int:
                hybrid)
     served = server_phase(np, torch, gs, bench_corpus, hybrid, corpus, serve, card)
     del corpus, main_corpus, hybrid
-    programs_phase(np, torch, gs, mk, bench_corpus)
+    t0 = time.perf_counter()
+    items, planted = program_corpus(bench_corpus)
+    print(f"programs: corpus files={len(items)} MB={sum(len(c) for _, c in items) / 1e6:.3f} "
+          f"license_files={len(planted)} setup_seconds={time.perf_counter() - t0:.2f}",
+          flush=True)
+    programs_phase(np, torch, gs, mk, items, planted)
+    ran = runner_phase(np, torch, gs, items, planted)
+    del items
     if keep_path:
         torch.save({k: to_cpu(torch, v) for k, v in kept.items()}, keep_path)
         print(f"nfa, sieves: timed inputs kept in {keep_path}", flush=True)
@@ -2828,6 +3219,8 @@ def main(argv: list[str]) -> int:
                if k in report[kind]},
             # launches on phase `server`'s runs (counts zeroed before each)
             "server_launches": {run: n[kind] for run, n in served.items() if n.get(kind)},
+            # launches on phase `runner`'s in-process commands
+            "runner_launches": {run: n[kind] for run, n in ran.items() if n.get(kind)},
         }
         for kind in ("bitplane", "window", "rows", "lut", "mega", "mega_acc",
                      "mega_epilogue", "nfa_stream", "nfa_fused", "nfa_padded")

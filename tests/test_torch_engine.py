@@ -202,10 +202,15 @@ buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     verified = verified and cli.main(["rules", "ls", "--rules-cache-dir", rules_dir]) == 0
 verified = verified and cold.ruleset_digest[:16] in buf.getvalue()
+import os
+with open(os.path.join(sys.argv[1], "LICENSE"), "wb") as f:
+    f.write(mit)
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
-    cli.main(["fs", "--scanners", "secret", "--device", "cpu", "--rules-cache-dir", rules_dir,
-              sys.argv[1]])
+    cli.main(["fs", "--scanners", "secret,license", "--format", "json", "--device", "cpu",
+              "--rules-cache-dir", rules_dir, sys.argv[1]])
+lic_results = [r for r in json.loads(buf.getvalue())["Results"] if r["Class"] == "license-file"]
+verified = verified and lic_results[0]["Licenses"][0]["Name"] == "MIT"
 from trivy_tpu_torch import serve, tenancy
 from trivy_tpu_torch.cache.store import MemoryCache
 from trivy_tpu_torch.rpc import client as rpc_client, server as rpc_server
@@ -264,7 +269,9 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     (`trivy_tpu_torch.mesh`) and meshed CPU engines, device and hybrid,
     load no jax or trivy_tpu module either, nor does the serving path
     (`rpc.server`, `serve`, `tenancy`, `rpc.client`), which answers one
-    `ScanSecrets` request from a CPU server."""
+    `ScanSecrets` request from a CPU server, nor the artifact runner behind
+    `fs --scanners secret,license` (analyzers, artifact, cache, applier,
+    filter, report writers), which finds the tree's MIT license."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

@@ -331,14 +331,14 @@ def test_cli_secret_backend(tmp_path, tmp_path_factory, capsys, monkeypatch):
     _fixture_tree(tmp_path)
     reports = {}
     for backend in ("auto", "hybrid", "tpu", "cpu", "native"):
-        assert cli.main(["fs", "--scanners", "secret", "--device", "cpu",
+        assert cli.main(["fs", "--scanners", "secret", "--format", "json", "--device", "cpu",
                          "--secret-backend", backend, str(tmp_path)]) == 0
         reports[backend] = json.loads(capsys.readouterr().out)
     assert len({json.dumps(r, sort_keys=True) for r in reports.values()}) == 1
     assert {r["Target"] for r in reports["auto"]["Results"]} == {
         "src/config.env", "deploy/ci.yaml", "app/main.py"}
     monkeypatch.setenv("TRIVY_TPU_SECRET_BACKEND", "cpu")
-    assert cli.main(["fs", "--device", "cpu", str(tmp_path)]) == 0
+    assert cli.main(["fs", "--format", "json", "--device", "cpu", str(tmp_path)]) == 0
     assert json.loads(capsys.readouterr().out) == reports["auto"]
     # the server backend needs an address (tests/test_torch_rules_push.py
     # scans through a server)

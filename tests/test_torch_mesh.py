@@ -547,7 +547,7 @@ def test_cli_mesh_two_gives_the_unmeshed_report(tmp_path, monkeypatch, backend):
     def run(*extra):
         out = io.StringIO()
         with redirect_stdout(out):
-            assert cli.main(["fs", "--scanners", "secret", "--device", "cpu",
+            assert cli.main(["fs", "--scanners", "secret", "--format", "json", "--device", "cpu",
                              "--secret-backend", backend, "--rules-cache-dir", "off",
                              *extra, str(tmp_path)]) == 0
         return json.loads(out.getvalue())

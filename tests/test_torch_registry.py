@@ -581,7 +581,8 @@ def test_fs_rules_cache_dir_warm_equals_cold(tmp_path, capsys):
     cache = tmp_path / "rules"
     reports = []
     for flag in ("off", str(cache), str(cache)):
-        assert cli.main(["fs", "--device", "cpu", "--rules-cache-dir", flag, str(tree)]) == 0
+        assert cli.main(["fs", "--format", "json", "--device", "cpu", "--rules-cache-dir", flag,
+                         str(tree)]) == 0
         reports.append(capsys.readouterr().out)
         if flag == "off":
             assert not cache.exists()

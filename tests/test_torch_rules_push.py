@@ -163,8 +163,10 @@ def test_reload_swaps_at_a_batch_boundary_without_failed_tickets(server):
 def test_fs_server_backend_equals_local_fs(server, tmp_path, capsys):
     addr, _, _ = server
     _fixture_tree(tmp_path)
-    assert cli.main(["fs", "--device", "cpu", "--rules-cache-dir", "off", str(tmp_path)]) == 0
+    assert cli.main(["fs", "--format", "json", "--device", "cpu", "--rules-cache-dir", "off",
+                     str(tmp_path)]) == 0
     local = json.loads(capsys.readouterr().out)
-    assert cli.main(["fs", "--secret-backend", "server", "--server", addr, str(tmp_path)]) == 0
+    assert cli.main(["fs", "--format", "json", "--secret-backend", "server", "--server", addr,
+                     str(tmp_path)]) == 0
     remote = json.loads(capsys.readouterr().out)
     assert remote == local and local["Results"]

@@ -1,151 +1,303 @@
-"""`python -m trivy_tpu_torch fs --scanners secret [--secret-config F]
-[--format json] [--secret-backend auto|hybrid|tpu|cpu|native]
-[--device cuda|cpu] [--rules-cache-dir D] [--mesh N|NxM|auto|none]
-[--server ADDR [--token T]] <dir>`:
-a filesystem secret scan
-through the engine that `engine/hybrid.py` `make_secret_engine` builds for
-the backend (default `auto`: the hybrid engine, as `trivy_tpu`'s CLI),
-printed as Trivy's JSON report (SchemaVersion 2, one `Results[]` entry of
-Class "secret" per file with findings).  Like the reference, the backend's
-default comes from `TRIVY_TPU_SECRET_BACKEND`, and the engine starts from
-the compiled-rules registry (`--rules-cache-dir`, default
-`TRIVY_TPU_RULES_CACHE_DIR`, else `~/.cache/trivy-tpu/rulesets`; "off"
-compiles every start).  `--mesh` (default `TRIVY_TPU_MESH`) is validated
-and seated in `TRIVY_TPU_MESH`, where every engine's `topology.get_mesh()`
-reads it, as the reference's is; a bad spec exits 2.  With
-`--secret-backend server` the files go to a running server's batcher
-(`rpc/client.py` `RemoteSecretEngine`) and no engine is built here.
-`python -m trivy_tpu_torch rules compile|ls|verify|push`
-maintains the registry (`commands/rules.py`; `push` installs a ruleset into
-a running server).  `python -m trivy_tpu_torch server [--device cuda|cpu]
-...` runs the scan server (`rpc/server.py`: the cross-request batcher, its
+"""`python -m trivy_tpu_torch fs|rootfs|repository <target>`: a scan through
+the artifact runner (`commands/run.py`, the reference's `trivy_tpu/cli.py`
+scan commands): the walker, the analyzer group (secret, license-file,
+dpkg-license), the local artifact and its blob cache, the applier, result
+filtering and the report writers (`-f table|json|sarif`), with the
+reference's flags (`_add_scan_flags`), each bound to TRIVY_TPU_<FLAG> and
+to `--config trivy.yaml`, plus `--device` (default cuda; `--device cpu`
+runs the plain versions).  `--scanners` defaults to `secret` (the
+reference's `vuln,secret` waits for the vulnerability scanner, ROADMAP
+A13c).  The secret analyzer's engine is the one `engine/hybrid.py`
+`make_secret_engine` builds for `--secret-backend` (default `auto`: the
+hybrid engine), started from the compiled-rules registry
+(`--rules-cache-dir`, default `TRIVY_TPU_RULES_CACHE_DIR`, else
+`~/.cache/trivy-tpu/rulesets`; "off" compiles every start); with
+`--secret-backend server` the files go to a running server's batcher, and
+`--server` alone is client mode (the blob goes to the server's cache, the
+server applies it).  `--mesh` (default `TRIVY_TPU_MESH`) is validated and
+seated in `TRIVY_TPU_MESH`, where every engine's `topology.get_mesh()`
+reads it, as the reference's is; a bad spec exits 2.  A target, scanner,
+flag or format that waits for a ROADMAP item exits 2 naming it
+(`commands/run.py` `NOT_PORTED`), as do the `image`, `sbom` and `vm`
+commands.
+
+`python -m trivy_tpu_torch rules compile|ls|verify|push` maintains the
+registry (`commands/rules.py`; `push` installs a ruleset into a running
+server).  `python -m trivy_tpu_torch server [--device cuda|cpu] ...` runs
+the scan server (`rpc/server.py`: the cross-request batcher, its
 failure-domain ladder, tenancy, hot reload, the debug routes) with the
 reference's flags (`trivy_tpu/cli.py` `server`), on the card by default.
-What waits for a ROADMAP item is in `NOT_PORTED`.
-
-The walk keeps the reference secret analyzer's gates
-(`trivy_tpu/analyzer/secret.py`, pkg/fanal/analyzer/secret/secret.go:28-153):
-skip lists, the allow-path rules, the binary sniff, and `\\r` stripping.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
 
 from trivy_tpu_torch.device import DEFAULT_DEVICE
-from trivy_tpu_torch.rules.model import load_config
-
-SCHEMA_VERSION = 2
 
 # The reference CLI's backends (trivy_tpu/cli.py).
 SECRET_BACKENDS = ("auto", "hybrid", "tpu", "cpu", "native", "server")
-# What the port lacks of the reference CLI's secret scan and server, and
-# the ROADMAP item it waits for.
+# What the port lacks of the reference CLI's server, and the ROADMAP item
+# it waits for.
 NOT_PORTED = {"--fleet-config": "A13c", "--watch-config": "A13c"}
-
-# secret.go:28-42
-SKIP_FILES = {
-    "go.mod",
-    "go.sum",
-    "package-lock.json",
-    "yarn.lock",
-    "pnpm-lock.yaml",
-    "Pipfile.lock",
-    "Gemfile.lock",
+# The reference's scan flags whose feature waits for a ROADMAP item: they
+# parse as the reference's and, set, make the scan exit 2 naming the item.
+NOT_PORTED_FLAGS = {
+    "fleet-config": "A13c", "db-dir": "A13c", "db-repository": "A13c",
+    "java-db-repository": "A13c", "skip-db-update": "A13c", "list-all-pkgs": "A13c",
+    "ignore-policy": "A13d", "checks-bundle-repository": "A13d", "config-check": "A13d",
+    "compliance": "A13d", "module-dir": "A13d", "sbom-sources": "A13d",
+    "rekor-url": "A13d", "trace": "A13d", "insecure": "A13d", "username": "A13d",
+    "password": "A13d", "template": "A13d",
 }
-SKIP_DIRS = {".git", "node_modules"}
-SKIP_EXTS = {
-    ".jpg", ".png", ".gif", ".doc", ".pdf", ".bin", ".svg", ".socket",
-    ".deb", ".rpm", ".zip", ".gz", ".gzip", ".tar", ".pyc",
-}
+SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
 
-# Bytes the reference's control-byte heuristic accepts as text.
-_TEXT_BYTES = bytes(
-    b
-    for b in range(256)
-    if not (
-        b < 7 or b == 11 or (13 < b < 27) or (27 < b < 0x20) or b == 0x7F
+# Config-file layer (the viper config file, pkg/flag/*): values from
+# trivy.yaml (or --config FILE) sit under env vars, which sit under explicit
+# CLI flags — flag > env > config file > built-in default.
+_CONFIG_FILE: dict[str, object] = {}
+
+
+class ConfigFileError(ValueError):
+    pass
+
+
+def _load_config_file(argv) -> None:
+    """Pre-pass: find --config (default ./trivy.yaml) and flatten it.
+
+    Nested groups flatten with dashes ({"db": {"repository": R}} ->
+    "db-repository"), matching the reference's dotted config keys."""
+    global _CONFIG_FILE
+    _CONFIG_FILE = {}
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument(
+        "--config", default=os.environ.get("TRIVY_TPU_CONFIG", "trivy.yaml")
     )
-)
+    known, _ = pre.parse_known_args(argv)
+    if not os.path.exists(known.config):
+        return
+    import yaml
 
+    try:
+        with open(known.config, encoding="utf-8") as f:
+            doc = yaml.safe_load(f) or {}
+    except (OSError, yaml.YAMLError) as e:
+        # A broken config file must fail the run, not silently fall back to
+        # defaults (the reference's viper load is a hard error).
+        raise ConfigFileError(f"bad config file {known.config}: {e}") from e
+    flat: dict[str, object] = {}
 
-def is_binary(head: bytes) -> bool:
-    """utils.IsBinary control-byte heuristic over the first 300 bytes
-    (pkg/fanal/utils/utils.go:76-93)."""
-    return bool(head[:300].translate(None, _TEXT_BYTES))
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}{k}-", v)
+        else:
+            flat[prefix[:-1]] = node
 
-
-def _config_skip_paths(config_path: str) -> frozenset[str]:
-    """The secret config's basename and normalized relative path: the scan
-    skips the config file itself (secret.go:138)."""
-    if not config_path:
-        return frozenset()
-    norm = os.path.normpath(config_path).replace(os.sep, "/")
-    if norm.startswith("./"):
-        norm = norm[2:]
-    return frozenset({os.path.basename(config_path), norm})
-
-
-def collect(root: str, ruleset, config_path: str = "") -> list[tuple[str, bytes]]:
-    """(relative path, content) of every file the secret analyzer scans,
-    in walk order."""
-    cfg_skips = _config_skip_paths(config_path)
-    items = []
-    for dirpath, dirnames, filenames in os.walk(root):
-        dirnames[:] = sorted(d for d in dirnames if d not in SKIP_DIRS)
-        for fname in sorted(filenames):
-            full = os.path.join(dirpath, fname)
-            if not os.path.isfile(full) or os.path.islink(full):
-                continue
-            rel = os.path.relpath(full, root).replace(os.sep, "/")
-            if os.path.getsize(full) < 10 or fname in SKIP_FILES:
-                continue
-            if rel in cfg_skips or os.path.splitext(fname)[1] in SKIP_EXTS:
-                continue
-            if ruleset.allow_path(rel):
-                continue
-            with open(full, "rb") as f:
-                content = f.read()
-            if is_binary(content):
-                continue
-            items.append((rel, content.replace(b"\r", b"")))
-    return items
-
-
-def _report(target: str, secrets) -> dict:
-    results = [
-        {
-            "Target": s.file_path,
-            "Class": "secret",
-            "Secrets": [f.to_json() for f in s.findings],
-        }
-        for s in sorted(secrets, key=lambda s: s.file_path)
-        if s.findings
-    ]
-    out: dict = {
-        "SchemaVersion": SCHEMA_VERSION,
-        "ArtifactName": target,
-        "ArtifactType": "filesystem",
-        "Metadata": {},
-    }
-    if results:
-        out["Results"] = results
-    return out
+    walk("", doc if isinstance(doc, dict) else {})
+    _CONFIG_FILE = flat
 
 
 def _env_default(name: str, default):
-    """TRIVY_TPU_<NAME> when set, else `default` (the reference's
-    `_env_default` without its config file)."""
-    return os.environ.get(f"TRIVY_TPU_{name.upper().replace('-', '_')}", default)
+    """TRIVY_TPU_<NAME> when set, else the config file's value, else
+    `default`."""
+    env = os.environ.get(f"TRIVY_TPU_{name.upper().replace('-', '_')}")
+    if env is not None:
+        return env
+    val = _CONFIG_FILE.get(name)
+    if val is None:
+        return default
+    if isinstance(val, list):
+        return ",".join(str(v) for v in val)
+    return val
 
 
 def _env_num(name: str, default, kind=float):
     """`_env_default` parsed as `kind` (the reference's `_float_default`
     and `_int_default`)."""
-    return kind(_env_default(name, default))
+    val = _env_default(name, default)
+    try:
+        return kind(val)
+    except (TypeError, ValueError) as e:
+        raise ConfigFileError(
+            f"{name} must be a number, got {val!r} (env/config)"
+        ) from e
+
+
+def _opt_int_default(name: str) -> int | None:
+    """Like `_env_num` but with no built-in fallback: None means "flag
+    absent, let the engine pick its own default"."""
+    val = _env_default(name, None)
+    if val is None or val == "":
+        return None
+    return _env_num(name, val, int)
+
+
+def _bool_default(name: str, default: bool = False) -> bool:
+    val = _env_default(name, default)
+    if isinstance(val, bool):
+        return val
+    return str(val).strip().lower() in ("1", "true", "yes", "on")
+
+
+def _list_default(name: str) -> list[str]:
+    return [s for s in str(_env_default(name, "")).split(",") if s]
+
+
+def _parse_duration(s) -> float:
+    """"300", "300s", "5m", "1h30m" -> seconds (flag.DurationFlag)."""
+    if isinstance(s, (int, float)):
+        return float(s)
+    total = 0.0
+    num = ""
+    units = {"s": 1, "m": 60, "h": 3600}
+    for ch in str(s).strip():
+        if ch.isdigit() or ch == ".":
+            num += ch
+        elif ch in units and num:
+            total += float(num) * units[ch]
+            num = ""
+        else:
+            raise ValueError(f"bad duration: {s!r}")
+    if num:
+        total += float(num)
+    return total
+
+
+def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str) -> None:
+    """The reference's scan flags (`trivy_tpu/cli.py` `_add_scan_flags`),
+    plus `--device`.  Flags whose feature waits for a ROADMAP item parse as
+    the reference's do and make the run exit 2 naming the item."""
+    p.add_argument("target")
+    p.add_argument(
+        "--scanners", default=_env_default("scanners", default_scanners),
+        help="comma-separated: secret,license (vuln: ROADMAP A13c, "
+        "misconfig: A13d)",
+    )
+    p.add_argument("--severity", default=_env_default("severity", ",".join(SEVERITIES)),
+                   help="comma-separated severities to report")
+    p.add_argument("-f", "--format", default=_env_default("format", "table"),
+                   help="table (default), json or sarif")
+    p.add_argument("-o", "--output", default=_env_default("output", ""))
+    p.add_argument("--exit-code", type=int, default=_env_num("exit-code", 0, int))
+    for flag in ("skip-files", "skip-dirs"):
+        p.add_argument(f"--{flag}", action="append", default=_list_default(flag))
+    p.add_argument(
+        "--file-patterns", action="append", default=_list_default("file-patterns"),
+        help="analyzer file-name override, repeatable: type:regex "
+        "(e.g. secret:.*\\.conf)",
+    )
+    p.add_argument("--secret-config",
+                   default=_env_default("secret-config", "trivy-secret.yaml"))
+    p.add_argument(
+        "--secret-backend", choices=SECRET_BACKENDS,
+        default=_env_default("secret-backend", "auto"),
+        help="auto = hybrid (host pre-sieve + verify on the device + confirm), "
+        "tpu = the all-device sieve engine, native = the device engine over "
+        "the C++ host row sieve, cpu = oracle engine, server = ship raw "
+        "items to the scan server's batcher (requires --server)",
+    )
+    p.add_argument("--device", default=_env_default("device", DEFAULT_DEVICE),
+                   help="where the engines run: cuda (default) or cpu")
+    p.add_argument("--ruleset", default=_env_default("ruleset", ""),
+                   help="with --secret-backend server: digest of a pushed ruleset")
+    p.add_argument(
+        "--rules-cache-dir", default=_env_default("rules-cache-dir", ""),
+        help="compiled-ruleset registry directory (default "
+        "~/.cache/trivy-tpu/rulesets; 'off' disables warm starts)",
+    )
+    p.add_argument("--pipeline-depth", type=int, default=_opt_int_default("pipeline-depth"),
+                   help="chunks staged ahead in the device upload pipeline")
+    p.add_argument("--resident-chunks", type=int,
+                   default=_opt_int_default("resident-chunks"),
+                   help="device-resident chunk LRU capacity: repeated chunks "
+                   "skip the host-device link (default 32)")
+    p.add_argument(
+        "--mesh", default=_env_default("mesh", ""),
+        help="device mesh for data-parallel scans: N or NxM devices, 'auto' "
+        "(mesh only on a host with several cards), 'none' to force "
+        "single-device (default auto; TRIVY_TPU_MESH)",
+    )
+    p.add_argument("--ignorefile", default=_env_default("ignorefile", ".trivyignore"))
+    for flag in ("debug", "quiet", "no-color"):
+        p.add_argument(f"--{flag}", *(["-q"] if flag == "quiet" else []),
+                       action="store_true", default=_bool_default(flag))
+    p.add_argument("--profile-dir", default=_env_default("profile-dir", ""),
+                   help="write a torch.profiler trace of the scan (CUDA kernels "
+                   "on a card) and the host spans to this directory")
+    p.add_argument("--trace-out", default=_env_default("trace-out", ""),
+                   help="write host span timeline (Chrome-trace JSON) to this path")
+    p.add_argument("--explain", action="store_true", default=_bool_default("explain"),
+                   help="with --secret-backend server: print each batch's "
+                   "per-phase timing breakdown after the scan")
+    p.add_argument("--log-format", choices=("console", "json"),
+                   default=_env_default("log-format", "console"))
+    p.add_argument("--cache-dir", default=_env_default("cache-dir", ""))
+    p.add_argument("--cache-backend", default=_env_default("cache-backend", "memory"),
+                   help="memory | fs (redis and s3: ROADMAP A13c)")
+    p.add_argument("--cache-ttl", type=int, default=_env_num("cache-ttl", 0, int))
+    p.add_argument("--server", default=_env_default("server", ""),
+                   help="server address (client mode)")
+    p.add_argument("--token", default=_env_default("token", ""), help="server auth token")
+    p.add_argument("--server-wire", default=_env_default("server-wire", "json"),
+                   choices=["json", "protobuf"],
+                   help="Twirp wire format for client mode (protobuf: ROADMAP A13c)")
+    p.add_argument("--vex", default=_env_default("vex", ""),
+                   help="OpenVEX/CycloneDX/CSAF VEX document")
+    p.add_argument("--include-non-failures", action="store_true",
+                   default=_bool_default("include-non-failures"))
+    p.add_argument("--timeout", default=_env_default("timeout", "5m"),
+                   help="scan timeout, e.g. 300s / 5m / 1h (default 5m)")
+    p.add_argument("--config", default=os.environ.get("TRIVY_TPU_CONFIG", "trivy.yaml"),
+                   help="YAML config file merged under flags and env vars")
+    for flag in NOT_PORTED_FLAGS:
+        if flag in ("config-check", "sbom-sources"):
+            p.add_argument(f"--{flag}", action="append", default=_list_default(flag))
+        elif flag in ("list-all-pkgs", "skip-db-update", "trace", "insecure"):
+            p.add_argument(f"--{flag}", action="store_true", default=_bool_default(flag))
+        else:
+            p.add_argument(f"--{flag}", default=_env_default(flag, ""))
+
+
+def _options_from_args(args: argparse.Namespace):
+    from trivy_tpu_torch.commands.run import Options
+
+    return Options(
+        target=args.target,
+        scanners=[s for s in args.scanners.split(",") if s],
+        severities=[s for s in args.severity.upper().split(",") if s],
+        format=args.format,
+        output=args.output,
+        exit_code=args.exit_code,
+        cache_dir=args.cache_dir,
+        cache_backend=args.cache_backend,
+        cache_ttl=args.cache_ttl,
+        skip_files=args.skip_files,
+        skip_dirs=args.skip_dirs,
+        file_patterns=list(args.file_patterns),
+        secret_config=args.secret_config,
+        secret_backend=args.secret_backend,
+        ruleset_select=args.ruleset,
+        rules_cache_dir=args.rules_cache_dir,
+        pipeline_depth=args.pipeline_depth,
+        resident_chunks=args.resident_chunks,
+        ignore_file=args.ignorefile if os.path.exists(args.ignorefile) else "",
+        server_addr=args.server,
+        server_wire=args.server_wire,
+        token=args.token,
+        vex_path=args.vex,
+        include_non_failures=args.include_non_failures,
+        timeout=_parse_duration(args.timeout),
+        profile_dir=args.profile_dir,
+        trace_out=args.trace_out,
+        explain=args.explain,
+        device=args.device,
+        branch=getattr(args, "branch", ""),
+        tag=getattr(args, "tag", ""),
+        commit=getattr(args, "commit", ""),
+    )
 
 
 def _server_parser(sub) -> None:
@@ -266,28 +418,34 @@ def _run_server(args) -> int:
     return 0
 
 
-def main(argv: list[str] | None = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    from trivy_tpu_torch.commands.run import (
+        TARGET_FILESYSTEM,
+        TARGET_IMAGE,
+        TARGET_REPOSITORY,
+        TARGET_ROOTFS,
+        TARGET_SBOM,
+        TARGET_VM,
+    )
+
     parser = argparse.ArgumentParser(prog="trivy_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    fs = sub.add_parser("fs", help="scan a local directory for secrets")
-    fs.add_argument("--scanners", default="secret")
-    fs.add_argument("--secret-config", default="")
-    fs.add_argument("-f", "--format", default="json", choices=["json"])
-    fs.add_argument("--secret-backend", choices=SECRET_BACKENDS,
-                    default=_env_default("secret-backend", "auto"))
-    fs.add_argument("--device", default=DEFAULT_DEVICE)
-    fs.add_argument("--rules-cache-dir", default=_env_default("rules-cache-dir", ""),
-                    help="compiled-ruleset registry directory (default "
-                    "~/.cache/trivy-tpu/rulesets; 'off' disables warm starts)")
-    fs.add_argument("--mesh", default=_env_default("mesh", ""),
-                    help="device mesh for data-parallel scans: N or NxM devices, "
-                    "'auto' (mesh only on a host with several cards), 'none' to "
-                    "force single-device (default auto; TRIVY_TPU_MESH)")
-    fs.add_argument("--server", default=_env_default("server", ""),
-                    help="server address for --secret-backend server")
-    fs.add_argument("--token", default=_env_default("token", ""),
-                    help="server auth token")
-    fs.add_argument("target")
+    # --scanners defaults to secret everywhere: the reference's vuln waits
+    # for ROADMAP A13c (README "Deliberate differences")
+    for name, aliases, kind, text in (
+        ("fs", [], TARGET_FILESYSTEM, "scan a local filesystem"),
+        ("rootfs", [], TARGET_ROOTFS, "scan an unpacked root filesystem"),
+        ("repository", ["repo"], TARGET_REPOSITORY, "scan a git repository"),
+        ("image", [], TARGET_IMAGE, "scan a container image (ROADMAP A13d)"),
+        ("sbom", [], TARGET_SBOM, "scan an SBOM (ROADMAP A13d)"),
+        ("vm", [], TARGET_VM, "scan a VM disk image (ROADMAP A13d)"),
+    ):
+        p = sub.add_parser(name, aliases=aliases, help=text)
+        _add_scan_flags(p, "secret")
+        if kind == TARGET_REPOSITORY:
+            for flag in ("branch", "tag", "commit"):
+                p.add_argument(f"--{flag}", default="")
+        p.set_defaults(kind=kind)
     _server_parser(sub)
     rules = sub.add_parser("rules", help="manage the compiled-ruleset registry")
     rules_sub = rules.add_subparsers(dest="rules_command")
@@ -315,7 +473,18 @@ def main(argv: list[str] | None = None) -> int:
             cmd.add_argument("--warmup", action="store_true",
                              help="also build or load every kernel library a device "
                              "engine launches and, on a card, launch its sieve once a bucket")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    raw = list(argv) if argv is not None else sys.argv[1:]
+    try:
+        _load_config_file(raw)  # must precede build_parser (flag defaults)
+        parser = build_parser()
+    except ConfigFileError as e:
+        print(f"trivy-tpu: {e}", file=sys.stderr)
+        return 2
+    args = parser.parse_args(raw)
     if getattr(args, "mesh", ""):
         # validated here, so a typo'd spec is a usage error, not a mid-scan
         # ValueError; seated where every engine's get_mesh() reads it
@@ -333,31 +502,39 @@ def main(argv: list[str] | None = None) -> int:
         return run_rules(args)
     if args.command == "server":
         return _run_server(args)
-    scanners = {s.strip() for s in args.scanners.split(",") if s.strip()}
-    if scanners != {"secret"}:
-        parser.error("only --scanners secret is supported")
-    from trivy_tpu_torch.rules.model import build_ruleset
+    return _run_scan(parser, args)
 
-    ruleset = build_ruleset(load_config(args.secret_config))
-    if args.secret_backend == "server":
-        if not args.server:
-            parser.error("--secret-backend server requires --server")
-        from trivy_tpu_torch.rpc.client import RemoteSecretEngine
 
-        engine = RemoteSecretEngine(args.server, args.token)
-    else:
-        from trivy_tpu_torch.engine.hybrid import make_secret_engine
-        from trivy_tpu_torch.registry.store import resolve_rules_cache_dir
+def _run_scan(parser, args) -> int:
+    from trivy_tpu_torch.commands.run import (
+        CacheConfigError,
+        NotPortedError,
+        OptionsError,
+        run,
+    )
+    from trivy_tpu_torch.deadline import ScanTimeoutError
+    from trivy_tpu_torch.log import setup as setup_logging
 
-        engine = make_secret_engine(ruleset=ruleset, backend=args.secret_backend,
-                                    device=args.device,
-                                    rules_cache_dir=resolve_rules_cache_dir(
-                                        args.rules_cache_dir))
-    items = collect(args.target, ruleset, args.secret_config)
-    secrets = engine.scan_batch(items)
-    json.dump(_report(args.target, secrets), sys.stdout, indent=2)
-    sys.stdout.write("\n")
-    return 0
+    setup_logging(debug=args.debug, quiet=args.quiet, no_color=args.no_color,
+                  log_format=args.log_format)
+    if args.secret_backend == "server" and not args.server:
+        parser.error("--secret-backend server requires --server")
+    try:
+        options = _options_from_args(args)
+    except ValueError as e:  # e.g. a malformed --timeout duration
+        print(f"trivy-tpu: {e}", file=sys.stderr)
+        return 2
+    try:
+        for flag, item in NOT_PORTED_FLAGS.items():
+            if getattr(args, flag.replace("-", "_")):
+                raise NotPortedError(f"--{flag} is not ported yet (ROADMAP {item})")
+        return run(options, args.kind)
+    except (CacheConfigError, OptionsError, NotPortedError, ScanTimeoutError) as e:
+        # a cache spec, a malformed --file-patterns, a target, flag or
+        # format that waits for a ROADMAP item, a timeout (cli.py:1224-1240);
+        # anything else (an engine that fails) propagates
+        print(f"trivy-tpu: {e}", file=sys.stderr)
+        return 2
 
 
 if __name__ == "__main__":

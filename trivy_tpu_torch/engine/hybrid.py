@@ -244,7 +244,9 @@ class GpuHybridSecretEngine:
     multi-program: `scan_programs`, `programs_snapshot`, and `scan_batch`
     through the secret program (module docstring).  `mesh` (a `Mesh` whose
     first lane is `device`, or a list of devices; default
-    `topology.engine_mesh`'s) is the device verify's (module docstring)."""
+    `topology.engine_mesh`'s) is the device verify's (module docstring).
+    `resident_chunks` is the resident-chunk capacity of the program engine
+    it composes (the reference hands it to its device-engine base)."""
 
     def __init__(
         self,
@@ -261,6 +263,7 @@ class GpuHybridSecretEngine:
         program_table=None,
         aot_cache_dir: str | None = None,
         mesh=None,
+        resident_chunks: int | None = None,
     ):
         if verify not in VERIFY_MODES:
             raise ValueError(f"unknown verify mode: {verify!r}")
@@ -327,6 +330,7 @@ class GpuHybridSecretEngine:
             self._programs = GpuSecretEngine(
                 ruleset=self.ruleset, compiled=compiled, device=self.device,
                 sieve="native", pipeline_depth=self.pipeline_depth, dedupe=dedupe,
+                resident_chunks=resident_chunks,
                 program_table=program_table, aot_cache_dir=aot_cache_dir,
                 mesh=self.mesh or [self.device],
             )

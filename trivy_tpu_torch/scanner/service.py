@@ -8,6 +8,7 @@ RPC client driver (trivy_tpu/rpc/client.py) forwards the same call over HTTP.
 
 Copied from `trivy_tpu/scanner/service.py`; the port imports nothing
 from the JAX package, so it keeps its own copy of this jax-free module.
+The local driver's apply runs under the host span `cache.apply`.
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ class LocalDriver(Driver):
 
     def scan(self, target, artifact_id, blob_ids, options):
         from trivy_tpu_torch import deadline
+        from trivy_tpu_torch.obs import trace as obs_trace
 
         if SCANNER_VULN in options.scanners or getattr(
             options, "list_all_packages", False
@@ -90,7 +92,8 @@ class LocalDriver(Driver):
                 "(ROADMAP A13c)"
             )
         deadline.check()
-        detail = Applier(self.cache).apply_layers(artifact_id, blob_ids)
+        with obs_trace.span("cache.apply"):
+            detail = Applier(self.cache).apply_layers(artifact_id, blob_ids)
         results: list[Result] = []
 
         deadline.check()
