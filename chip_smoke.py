@@ -227,6 +227,26 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             from the host spans, beside the direct engine calls on the same
             items, and the bare lstat and open + read of 10,000 sampled
             tree files (the file system's own cost a file).
+16. vuln   (after `runner`, on its tree) the reference's default command
+            `python -m trivy_tpu_torch fs <tree> --db-dir D` (scanners
+            vuln,secret) over the 100,000 files plus a seeded deps/ subtree
+            of ~400 manifests (npm, poetry, pip, go.mod, Cargo.lock,
+            gradle.lockfile; ~150,000 package entries), over a JSON DB of
+            ~300,000 advisories with ~3% of the entries planted vulnerable:
+            the fused K5 must launch unless the gate picks another verify,
+            which the line then names; the secrets equal to the oracle on
+            every flagged file plus 2,000 sampled claimed files; the
+            vulnerabilities equal to the planted set.  Then `rootfs
+            --list-all-pkgs` of a Debian 12 root (1,500 packages) and an
+            Alpine 3.19 root (100): their planted sets, every package
+            listed, no kernel (`rootfs` scans `vuln` only, as in the
+            reference); a port server with `--db-dir` and `fs --server`
+            over deps/ plus 5,000 tree files, equal to the local report;
+            and the first run again with `--skip-db-update`,
+            byte-identical.  Each run's seconds, files/s, MB/s, stage split
+            (walk, claim, engine build, read, secret, package analyzers,
+            cache put + apply, DB load, vuln detect, filter, write),
+            packages seen and DB load seconds.
 
 A `stall:` line counts the hybrid and `auto` scans run with the STALL_S dump
 armed and those that passed it, phase `server`'s among them.
@@ -246,8 +266,9 @@ work; the NFA kernels' `path_device_ms` sums their dispatches of that
 scan), the card's name and power limit, and
 the result line `{"ok": true, "device": {...}}`.  Each kernel's entry also
 carries `server_launches`, its launches in phase `server`'s runs, and
-`runner_launches`, its launches in phase `runner`'s in-process commands.  Nothing
-here imports JAX or the JAX package.
+`runner_launches` and `vuln_launches`, its launches in phase `runner`'s and
+phase `vuln`'s in-process commands.  Nothing here imports JAX or the JAX
+package.
 """
 
 from __future__ import annotations
@@ -2153,20 +2174,17 @@ def runner_run(torch, gs, label: str, argv: list, b14: dict, calls: dict, nbytes
             "license": list(calls["license"])}
 
 
-def runner_report_check(np, report: dict, secret_items, license_items, planted: dict) -> None:
+def secrets_check(np, phase: str, report: dict, secret_items) -> tuple:
     """The report's Secrets against the port's oracle on every flagged file
-    plus RUNNER_SAMPLED other claimed files, and its license-file results
-    against the host decision (`decide_findings(device="cpu")`) on every
-    planted LICENSE file, every other claimed file with none."""
+    plus RUNNER_SAMPLED other claimed files.  Returns (secret files,
+    flagged, sampled)."""
     from trivy_tpu_torch.engine.oracle import OracleScanner
-    from trivy_tpu_torch.license.decide import decide_findings
 
     results = report.get("Results", [])
     secrets = {r["Target"]: r["Secrets"] for r in results if r["Class"] == "secret"}
-    licenses = {r["Target"]: r["Licenses"] for r in results if r["Class"] == "license-file"}
     paths = [p for p, _ in secret_items]
     if len(set(paths)) != len(paths) or not set(secrets) <= set(paths):
-        fail("runner", "the report's secret targets are not the claimed files")
+        fail(phase, "the report's secret targets are not the claimed files")
     flagged = [i for i, p in enumerate(paths) if p in secrets]
     rest = np.setdiff1d(np.arange(len(paths)), flagged)
     rng = np.random.default_rng(SEED)
@@ -2176,9 +2194,22 @@ def runner_report_check(np, report: dict, secret_items, license_items, planted: 
         path, content = secret_items[i]
         want = [f.to_json() for f in oracle.scan(path, content).findings]
         if secrets.get(path, []) != want:
-            fail("runner", f"{path}: the report's secrets differ from the oracle")
+            fail(phase, f"{path}: the report's secrets differ from the oracle")
     if not flagged:
-        fail("runner", "no secret findings: the planted secrets were missed")
+        fail(phase, "no secret findings: the planted secrets were missed")
+    return len(secrets), len(flagged), len(sampled)
+
+
+def runner_report_check(np, report: dict, secret_items, license_items, planted: dict) -> None:
+    """The report's Secrets against the port's oracle (`secrets_check`), and
+    its license-file results against the host decision
+    (`decide_findings(device="cpu")`) on every planted LICENSE file, every
+    other claimed file with none."""
+    from trivy_tpu_torch.license.decide import decide_findings
+
+    n_secret, n_flagged, n_sampled = secrets_check(np, "runner", report, secret_items)
+    licenses = {r["Target"]: r["Licenses"] for r in report.get("Results", [])
+                if r["Class"] == "license-file"}
     lic_paths = [p for p, _ in license_items]
     planted_paths = {f"third_party/pkg{i}/LICENSE" for i in planted}
     if set(lic_paths) != planted_paths:
@@ -2193,14 +2224,14 @@ def runner_report_check(np, report: dict, secret_items, license_items, planted: 
         fail("runner", "a file other than the planted LICENSE files has a license")
     own = sum(1 for i, name in planted.items()
               if licenses.get(f"third_party/pkg{i}/LICENSE", [{}])[0].get("Name") == name)
-    print(f"runner: report checked: secret files={len(secrets)} equal to the oracle on "
-          f"{len(flagged)} flagged + {len(sampled)} sampled of {len(paths)} claimed; "
+    print(f"runner: report checked: secret files={n_secret} equal to the oracle on "
+          f"{n_flagged} flagged + {n_sampled} sampled of {len(secret_items)} claimed; "
           f"license files={len(licenses)} equal to the host decision on all "
           f"{len(license_items)} claimed, planted classified as own id={own}/{len(planted)}",
           flush=True)
 
 
-def runner_phase(np, torch, gs, items, planted: dict) -> dict:
+def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
     """BASELINE config #5 through the command a user types, `python -m
     trivy_tpu_torch fs --scanners secret,license` (the artifact runner,
     `trivy_tpu_torch/commands/run.py`), on `program_corpus`'s 100,000 files
@@ -2219,12 +2250,11 @@ def runner_phase(np, torch, gs, items, planted: dict) -> dict:
     the same items (`make_secret_engine().scan_batch` on what the secret
     analyzer scanned, `make_program_engine([LicenseScanProgram()])
     .scan_programs` on the LICENSE files).  Each run prints seconds,
-    files/s, MB/s and its stage split from the host spans.  Returns the
-    in-process runs' launches."""
+    files/s, MB/s and its stage split from the host spans.  The tree is
+    written to `work/tree` and left there for phase `vuln`; the caller
+    removes `work`.  Returns the in-process runs' launches."""
     import re
     import resource
-    import shutil
-    import tempfile
 
     from trivy_tpu_torch.analyzer import license as lic_analyzer
     from trivy_tpu_torch.engine import hybrid
@@ -2232,7 +2262,6 @@ def runner_phase(np, torch, gs, items, planted: dict) -> dict:
     from trivy_tpu_torch.programs import LicenseScanProgram, make_program_engine
 
     t_phase = time.perf_counter()
-    work = tempfile.mkdtemp(prefix="smoke-runner-")
     tree, rules = os.path.join(work, "tree"), os.path.join(work, "rules")
     nbytes = sum(len(c) for _, c in items)
     t0 = time.perf_counter()
@@ -2430,10 +2459,427 @@ def runner_phase(np, torch, gs, items, planted: dict) -> dict:
           f"(runner's license analyzer {d['split']['license']:.4f} s); runner default "
           f"{d['seconds']:.4f} s against {direct['secret'] + direct['license']:.4f} s direct, "
           f"gap {d['seconds'] - direct['secret'] - direct['license']:.4f} s", flush=True)
-    shutil.rmtree(work, ignore_errors=True)
     print(f"runner: phase seconds={time.perf_counter() - t_phase:.2f} card {card_line()}",
           flush=True)
     return {label: runs[label]["launches"] for label in ("default", "tpu", "exit_code")}
+
+
+VULN_SEED = 13
+# manifests of the deps/ subtree: kind -> (count, entries low, entries high)
+VULN_MANIFESTS = {"npm": (100, 200, 1800), "poetry": (60, 20, 300), "pip": (60, 20, 300),
+                  "gomod": (60, 20, 300), "cargo": (60, 20, 300), "gradle": (60, 20, 300)}
+# each manifest kind's DB bucket, and the names a bucket's packages take
+VULN_BUCKETS = {"npm": "npm", "poetry": "pip", "pip": "pip", "gomod": "go", "cargo": "cargo",
+                "gradle": "maven"}
+VULN_POOLS = {"npm": 12_000, "pip": 3_000, "go": 3_000, "cargo": 3_000, "maven": 3_000}
+VULN_DEBIAN_PKGS = 1_500  # Debian 12 rootfs, var/lib/dpkg/status
+VULN_ALPINE_PKGS = 100  # Alpine 3.19 rootfs, lib/apk/db/installed
+VULN_MANIFEST_RATE = 0.03  # manifest entries made vulnerable
+VULN_OS_RATE = 0.05  # OS packages made vulnerable
+VULN_UNRELATED = 4  # unrelated names in the DB for each name the trees use
+VULN_SERVER_FILES = 5_000  # runner tree files beside deps/ in the client/server run
+VULN_STAGES = RUNNER_STAGES[:4] + (
+    ("package analyzers", ("artifact.post",)),
+    ("cache put+apply", ("cache.put", "cache.apply")),
+    ("db load", ("db.open", "db.load")),
+    ("vuln detect", ("scan.vuln",)),
+    ("filter", ("filter",)), ("write", ("write",)))
+
+
+def pkg_name(bucket: str, i: int) -> str:
+    """The i-th package name of a bucket, in its ecosystem's shape."""
+    return {"npm": f"@smoke{i % 40}/ui-kit-{i}" if i % 7 == 0 else f"smoke-lib-{i}",
+            "pip": f"smoke-py-{i}", "go": f"github.com/smoke{i % 50}/mod-{i}",
+            "cargo": f"smoke-crate-{i}", "maven": f"org.smoke{i % 30}:artifact-{i}",
+            "debian 12": f"libsmoke{i}", "alpine 3.19": f"smoke-apk-{i}"}[bucket]
+
+
+def write_manifest(kind: str, entries) -> tuple[str, bytes]:
+    """(file name, content) of a manifest of `kind` listing (name, version)."""
+    if kind == "npm":
+        packages = {"": {"name": "smoke-app", "version": "1.0.0"}}
+        packages.update({f"node_modules/{n}": {"version": v} for n, v in entries})
+        return "package-lock.json", json.dumps(
+            {"name": "smoke-app", "lockfileVersion": 3, "packages": packages}).encode()
+    if kind == "poetry":
+        return "poetry.lock", "".join(
+            f'[[package]]\nname = "{n}"\nversion = "{v}"\n\n' for n, v in entries).encode()
+    if kind == "pip":
+        return "requirements.txt", "".join(f"{n}=={v}\n" for n, v in entries).encode()
+    if kind == "gomod":
+        return "go.mod", ("module example.com/smoke\n\nrequire (\n" + "".join(
+            f"\t{n} v{v}\n" for n, v in entries) + ")\n").encode()
+    if kind == "cargo":
+        return "Cargo.lock", "".join(
+            f'[[package]]\nname = "{n}"\nversion = "{v}"\n\n' for n, v in entries).encode()
+    return "gradle.lockfile", ("# Gradle lockfile\n" + "".join(
+        f"{n}:{v}=compileClasspath,runtimeClasspath\n" for n, v in entries)
+        + "empty=annotationProcessor\n").encode()
+
+
+def vuln_fixture(np, work: str) -> dict:
+    """The deps/ manifests, the two OS roots and the DB (JSON buckets,
+    `db/vulndb.py` `build_db`), made from VULN_SEED.  The planted truth is
+    recorded as the advisories are written: {(Target, PkgName,
+    InstalledVersion, VulnerabilityID)} for the manifests and for each
+    root, never from the detectors."""
+    from trivy_tpu_torch.db.vulndb import build_db
+
+    rng = np.random.default_rng(VULN_SEED)
+
+    def version(n: int):
+        return [f"{a}.{b}.{c}" for a, b, c in zip(rng.integers(1, 20, n),
+                                                  rng.integers(0, 30, n),
+                                                  rng.integers(0, 50, n))]
+
+    # the manifests: (bucket, relative path, [(name, version)])
+    manifests, used = [], {b: set() for b in VULN_POOLS}
+    for kind, (count, lo, hi) in VULN_MANIFESTS.items():
+        bucket = VULN_BUCKETS[kind]
+        for j in range(count):
+            n = int(rng.integers(lo, hi + 1))
+            ids = rng.choice(VULN_POOLS[bucket], size=n, replace=False)
+            entries = list(zip((pkg_name(bucket, int(i)) for i in ids), version(n)))
+            used[bucket].update(name for name, _ in entries)
+            name, content = write_manifest(kind, entries)
+            path = f"deps/{kind}/p{j:03d}/{name}"
+            manifests.append((bucket, path, entries, content))
+    # the vulnerable (bucket, name, version) triples, drawn per entry
+    vulnerable = set()
+    for bucket, _, entries, _ in manifests:
+        hit = rng.random(len(entries)) < VULN_MANIFEST_RATE
+        vulnerable.update((bucket, n, v) for (n, v), h in zip(entries, hit) if h)
+
+    # the OS roots: Debian 12 (dpkg) and Alpine 3.19 (apk)
+    roots = {}
+    for bucket, count in (("debian 12", VULN_DEBIAN_PKGS), ("alpine 3.19", VULN_ALPINE_PKGS)):
+        rel = rng.integers(1, 9, count)
+        pkgs = [(pkg_name(bucket, i), v, int(r)) for i, (v, r) in
+                enumerate(zip(version(count), rel))]
+        hit = rng.random(count) < VULN_OS_RATE
+        if bucket == "debian 12":
+            files = {"etc/os-release": b'PRETTY_NAME="Debian GNU/Linux 12 (bookworm)"\n'
+                                       b'ID=debian\nVERSION_ID="12"\n',
+                     "etc/debian_version": b"12.5\n",
+                     "var/lib/dpkg/status": "".join(
+                         f"Package: {n}\nStatus: install ok installed\nArchitecture: amd64\n"
+                         f"Version: {v}-{r}\n\n" for n, v, r in pkgs).encode()}
+            installed = [(n, f"{v}-{r}", f"{v}-{r + 1}") for n, v, r in pkgs]
+            label = "debian 12.5"
+        else:
+            files = {"etc/os-release": b"ID=alpine\nVERSION_ID=3.19.1\n",
+                     "lib/apk/db/installed": "".join(
+                         f"P:{n}\nV:{v}-r{r}\nA:x86_64\nL:MIT\no:{n}\n\n"
+                         for n, v, r in pkgs).encode()}
+            installed = [(n, f"{v}-r{r}", f"{v}-r{r + 1}") for n, v, r in pkgs]
+            label = "alpine 3.19.1"
+        root = os.path.join(work, "roots", bucket.split()[0])
+        for rel_path, content in files.items():
+            full = os.path.join(root, rel_path)
+            os.makedirs(os.path.dirname(full), exist_ok=True)
+            with open(full, "wb") as f:
+                f.write(content)
+        roots[bucket] = {"root": root, "target": f"{root} ({label})", "installed": installed,
+                         "hit": [bool(h) for h in hit], "planted": set()}
+
+    # the DB: every name the trees use and VULN_UNRELATED times as many
+    # others, 1-4 advisories a name; a vulnerable entry's advisory covers its
+    # version and no other installed version of the name, the others none
+    data: dict = {}
+    planted_lang: dict = {}
+    n_adv = 0
+    for bucket in VULN_POOLS:
+        names = sorted(used[bucket])
+        names += [f"{pkg_name(bucket, VULN_POOLS[bucket] + i)}" for i in
+                  range(len(names) * VULN_UNRELATED)]
+        vul_versions: dict = {}
+        for b, n, v in vulnerable:
+            if b == bucket:
+                vul_versions.setdefault(n, []).append(v)
+        counts = rng.integers(1, 5, len(names))
+        advs = {}
+        for name, k in zip(names, counts):
+            out = []
+            for v in sorted(vul_versions.get(name, [])):
+                a, b_, c = v.split(".")
+                vid = f"SMOKE-{bucket.upper()}-{n_adv:06d}"
+                n_adv += 1
+                out.append({"VulnerabilityID": vid, "Severity": "HIGH",
+                            "VulnerableVersions": f">={v}, <{a}.{b_}.{int(c) + 1}",
+                            "FixedVersion": f"{a}.{b_}.{int(c) + 1}"})
+                planted_lang[(bucket, name, v)] = planted_lang.get((bucket, name, v), []) + [vid]
+            while len(out) < k:
+                out.append({"VulnerabilityID": f"SMOKE-{bucket.upper()}-{n_adv:06d}",
+                            "Severity": "LOW", "VulnerableVersions": ">=999.0.0",
+                            "FixedVersion": "999.0.0"})
+                n_adv += 1
+            advs[name] = out
+        data[bucket] = advs
+    for bucket, r in roots.items():
+        names = [n for n, _, _ in r["installed"]]
+        fixed = {n: f for (n, _, f), h in zip(r["installed"], r["hit"]) if h}
+        names += [pkg_name(bucket, len(names) + i) for i in range(len(names) * VULN_UNRELATED)]
+        advs = {}
+        for name, k in zip(names, rng.integers(1, 5, len(names))):
+            out = []
+            if name in fixed:
+                out.append({"VulnerabilityID": f"SMOKE-OS-{n_adv:06d}", "Severity": "HIGH",
+                            "FixedVersion": fixed[name]})
+                n_adv += 1
+            while len(out) < k:
+                out.append({"VulnerabilityID": f"SMOKE-OS-{n_adv:06d}", "Severity": "LOW",
+                            "FixedVersion": "0.0.1-r0" if bucket.startswith("alpine")
+                            else "0.0.1-1"})
+                n_adv += 1
+            advs[name] = out
+        data[bucket] = advs
+        r["planted"] = {(r["target"], n, inst, adv["VulnerabilityID"])
+                        for (n, inst, _), h in zip(r["installed"], r["hit"]) if h
+                        for adv in advs[n][:1]}
+    db = os.path.join(work, "db")
+    build_db(db, data)
+    with open(os.path.join(db, "metadata.json"), "w") as f:
+        json.dump({"Version": 2, "NextUpdate": "2999-01-01T00:00:00Z",
+                   "UpdatedAt": "2026-01-01T00:00:00Z"}, f)
+    planted = {(path, n, v, vid) for bucket, path, entries, _ in manifests
+               for n, v in entries for vid in planted_lang.get((bucket, n, v), [])}
+    n_entries = sum(len(e) for _, _, e, _ in manifests)
+    return {"manifests": [(path, content) for _, path, _, content in manifests],
+            "entries": n_entries, "planted": planted, "roots": roots, "db": db,
+            "advisories": n_adv, "names": sum(len(v) for v in data.values())}
+
+
+def vuln_rows(report: dict, classes=("lang-pkgs", "os-pkgs")) -> set:
+    return {(r["Target"], v["PkgName"], v["InstalledVersion"], v["VulnerabilityID"])
+            for r in report.get("Results", []) if r["Class"] in classes
+            for v in r.get("Vulnerabilities", [])}
+
+
+def vuln_run(torch, gs, label: str, argv: list, calls: dict, seen: list, nbytes: int,
+             n_files: int) -> dict:
+    """One in-process `python -m trivy_tpu_torch` command of phase `vuln`:
+    kernel launch counts and the recorded secret batches and detected
+    package sets zeroed just before, read just after; prints the run's
+    line with its stage split (VULN_STAGES) from the host spans."""
+    from trivy_tpu_torch import __main__ as cli
+    from trivy_tpu_torch.obs import trace as obs_trace
+
+    obs_trace.enable(ring=1 << 17)
+    obs_trace.clear()
+    torch.cuda.synchronize()
+    for k in gs.LAUNCHES:
+        gs.LAUNCHES[k] = 0
+    calls["secret"].clear()
+    seen.clear()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in gs.LAUNCHES.items() if v}
+    spans = obs_trace.snapshot()
+    total: dict = {}
+    for rec in spans:
+        total[rec.name] = total.get(rec.name, 0.0) + rec.dur
+    split = {stage: sum(total.get(n, 0.0) for n in names) for stage, names in VULN_STAGES}
+    split["package analyzers"] += sum(v for k, v in total.items() if k.startswith("analyze.")
+                                      and k not in ("analyze.secret", "analyze.license-file"))
+    split["vuln detect"] -= total.get("db.load", 0.0)
+    split["engine build"] = total.get("secret.engine", 0.0)
+    split["claim"] -= split["engine build"]
+    split["scan"] = total.get("scan", 0.0)
+    split = {k: round(v, 4) for k, v in split.items()}
+    packages = sum(p for p, _ in seen)
+    print(f"vuln: {label} rc={rc} files={n_files} MB={nbytes / 1e6:.3f} seconds={dt:.4f} "
+          f"files_per_s={n_files / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
+          f"stages_s={json.dumps(split)} db_load_s={split['db load']} packages_seen={packages} "
+          f"launches={json.dumps(launches)} secret_batches={len(calls['secret'])}", flush=True)
+    return {"rc": rc, "seconds": dt, "launches": launches, "split": split,
+            "packages": packages, "secret": list(calls["secret"])}
+
+
+def vuln_phase(np, torch, gs, items, work: str) -> dict:
+    """The reference's default scan, `python -m trivy_tpu_torch fs <tree>
+    --db-dir D` (`--scanners vuln,secret`), over phase `runner`'s
+    100,000-file tree (`work/tree`, removed by the caller) with a seeded
+    deps/ subtree of ~400 manifests beside it (npm lockfiles v3 of
+    200-1,800 packages, poetry.lock, requirements.txt, go.mod, Cargo.lock,
+    gradle.lockfile: ~150,000 package entries), over a JSON DB of every
+    name they use and 4x as many others (~300,000 advisories, buckets
+    debian 12, alpine 3.19, npm, pip, go, cargo, maven) with ~3% of the
+    entries planted vulnerable (`vuln_fixture`).  Runs, counts zeroed just
+    before each: (1) `fs -f json` in process: exit 0, the fused K5
+    launched (else the line names the gate's choice), the secrets equal to
+    the oracle on every flagged file plus 2,000 sampled claimed files, the
+    vulnerabilities equal to the planted set; (2) `rootfs --list-all-pkgs`
+    of a Debian 12 root (1,500 dpkg packages) and an Alpine 3.19 root (100
+    apk packages): the OS vulnerabilities equal to their planted sets, all
+    packages listed, no kernel launched (the reference's `rootfs` scans
+    `vuln` only); (3) a port server with `--db-dir` on the card and `fs
+    --server` over deps/ plus VULN_SERVER_FILES tree files: the report
+    equal to a local `fs` of the same subtree; (4) run (1) again with
+    `--skip-db-update`: the report byte-identical.  Each run prints its
+    seconds, files/s, MB/s, stage split, DB load seconds and packages seen.
+    Returns the runs' launches."""
+    import shutil
+
+    from trivy_tpu_torch.cache.store import MemoryCache
+    from trivy_tpu_torch.engine import hybrid
+    from trivy_tpu_torch.rpc import server as port_server
+    from trivy_tpu_torch.scanner import vuln as vuln_scanner
+
+    t_phase = time.perf_counter()
+    tree, rules, cache = (os.path.join(work, d) for d in ("tree", "rules", "vuln-cache"))
+    t0 = time.perf_counter()
+    fx = vuln_fixture(np, work)
+    write_tree(tree, fx["manifests"])
+    db_files = sorted(os.listdir(fx["db"]))
+    db_mb = sum(os.path.getsize(os.path.join(fx["db"], f)) for f in db_files) / 1e6
+    print(f"vuln: fixture manifests={len(fx['manifests'])} entries={fx['entries']} "
+          f"planted={len(fx['planted'])} debian={len(fx['roots']['debian 12']['installed'])} "
+          f"(planted {len(fx['roots']['debian 12']['planted'])}) "
+          f"alpine={len(fx['roots']['alpine 3.19']['installed'])} "
+          f"(planted {len(fx['roots']['alpine 3.19']['planted'])}) DB names={fx['names']} "
+          f"advisories={fx['advisories']} files={len(db_files)} MB={db_mb:.3f} "
+          f"setup_seconds={time.perf_counter() - t0:.2f}", flush=True)
+    n_files = len(items) + len(fx["manifests"])
+    nbytes = sum(len(c) for _, c in items) + sum(len(c) for _, c in fx["manifests"])
+    calls, seen, engines = {"secret": []}, [], []
+    real_make, real_detect = hybrid.make_secret_engine, vuln_scanner.VulnerabilityScanner.detect
+
+    def make(**kw):
+        engine = real_make(**kw)
+        scan = engine.scan_batch
+
+        def recorded(batch):
+            calls["secret"].append(batch)
+            return scan(batch)
+
+        engine.scan_batch = recorded
+        engines.append(engine)
+        return engine
+
+    def detect(self, target, detail, options):
+        seen.append((len(detail.packages) + sum(len(a.packages) for a in detail.applications),
+                     len(detail.applications)))
+        return real_detect(self, target, detail, options)
+
+    base = ["--rules-cache-dir", rules, "--db-dir", fx["db"], "--cache-dir", cache]
+    outs = {k: os.path.join(work, f"vuln-{k}.json") for k in ("fs", "skip", "server", "local")}
+    runs = {}
+    hybrid.make_secret_engine = make
+    vuln_scanner.VulnerabilityScanner.detect = detect
+    try:
+        runs["fs"] = vuln_run(torch, gs, "fs --db-dir D -f json (default scanners vuln,secret)",
+                              ["fs", *base, "-f", "json", "-o", outs["fs"], tree], calls, seen,
+                              nbytes, n_files)
+        engine = engines[-1]
+        fs_secret = runs["fs"]["secret"]
+        for name, r in fx["roots"].items():
+            runs[name] = vuln_run(torch, gs, f"rootfs --list-all-pkgs ({name}, default scanners "
+                                  "vuln: no kernel runs)",
+                                  ["rootfs", *base, "--list-all-pkgs", "-f", "json", "-o",
+                                   os.path.join(work, f"vuln-{name.split()[0]}.json"),
+                                   r["root"]], calls, seen, 0, 2)
+        # (3) the client/server run over deps/ and the first tree files
+        sub = os.path.join(work, "vuln-sub")
+        shutil.copytree(os.path.join(tree, "deps"), os.path.join(sub, "deps"))
+        write_tree(sub, items[:VULN_SERVER_FILES])
+        sub_files = VULN_SERVER_FILES + len(fx["manifests"])
+        sub_bytes = (sum(len(c) for _, c in items[:VULN_SERVER_FILES])
+                     + sum(len(c) for _, c in fx["manifests"]))
+        httpd, _ = port_server.start_background("localhost:0", MemoryCache(), db_dir=fx["db"],
+                                                device=DEVICE)
+        try:
+            addr = server_addr(httpd)
+            runs["server"] = vuln_run(torch, gs, f"fs --server (server --db-dir D on the card) "
+                                      f"over deps/ + {VULN_SERVER_FILES} tree files",
+                                      ["fs", "--server", addr, "--rules-cache-dir", rules,
+                                       "--cache-dir", cache, "-f", "json", "-o",
+                                       outs["server"], sub], calls, seen, sub_bytes, sub_files)
+        finally:
+            httpd.scan_server.scheduler.close()
+            httpd.shutdown()
+            httpd.server_close()
+        runs["local"] = vuln_run(torch, gs, "fs --db-dir D over the same subtree",
+                                 ["fs", *base, "-f", "json", "-o", outs["local"], sub], calls,
+                                 seen, sub_bytes, sub_files)
+        runs["skip"] = vuln_run(torch, gs, "fs --db-dir D --skip-db-update -f json",
+                                ["fs", *base, "--skip-db-update", "-f", "json", "-o",
+                                 outs["skip"], tree], calls, seen, nbytes, n_files)
+    finally:
+        hybrid.make_secret_engine = real_make
+        vuln_scanner.VulnerabilityScanner.detect = real_detect
+    bad = {k: r["rc"] for k, r in runs.items() if r["rc"]}
+    if bad:
+        fail("vuln", f"exit codes {bad}, not 0")
+
+    # (1) the default scan: the kernels, the secrets, the vulnerabilities
+    d = runs["fs"]
+    if d["launches"].get("nfa_fused"):
+        print(f"vuln: fs run verify={engine.verify}: fused K5 launched "
+              f"{d['launches']['nfa_fused']} times, K6 {d['launches'].get('nfa_padded', 0)}",
+              flush=True)
+    else:
+        print(f"vuln: fs run verify={engine.verify} "
+              f"gate={json.dumps(getattr(engine, 'gate_decision', None), default=str)}: "
+              "the gate did not pick fused, no fused K5", flush=True)
+        if engine.verify == "fused":
+            fail("vuln", "the fs run verified fused but launched no fused K5")
+    with open(outs["fs"], "rb") as f:
+        fs_doc = f.read()
+    report = json.loads(fs_doc)
+    secret_items = [it for batch in fs_secret for it in batch]
+    n_secret, n_flagged, n_sampled = secrets_check(np, "vuln", report, secret_items)
+    got = vuln_rows(report)
+    if got != fx["planted"]:
+        fail("vuln", f"the fs run's vulnerabilities differ from the planted set: "
+             f"{len(got - fx['planted'])} extra, {len(fx['planted'] - got)} missed")
+    apps = [r for r in report["Results"] if r["Class"] == "lang-pkgs"]
+    if any(not r["Target"].startswith("deps/") for r in apps):
+        fail("vuln", "a vulnerable application outside deps/")
+    print(f"vuln: fs report checked: secret files={n_secret} equal to the oracle on "
+          f"{n_flagged} flagged + {n_sampled} sampled of {len(secret_items)} claimed; "
+          f"vulnerabilities={len(got)} in {len(apps)} manifests equal to the planted set; "
+          f"packages seen={d['packages']}", flush=True)
+
+    # (2) the roots
+    for name, r in fx["roots"].items():
+        with open(os.path.join(work, f"vuln-{name.split()[0]}.json")) as f:
+            doc = json.load(f)
+        os_results = [x for x in doc["Results"] if x["Class"] == "os-pkgs"]
+        got = vuln_rows(doc)
+        if got != r["planted"] or len(os_results) != 1:
+            fail("vuln", f"rootfs {name}: vulnerabilities differ from the planted set "
+                 f"({len(got)} against {len(r['planted'])})")
+        listed = len(os_results[0].get("Packages", []))
+        if listed != len(r["installed"]):
+            fail("vuln", f"rootfs {name}: {listed} packages listed, not {len(r['installed'])}")
+        if runs[name]["launches"]:
+            fail("vuln", f"rootfs {name} launched {runs[name]['launches']}")
+        print(f"vuln: rootfs {name} checked: vulnerabilities={len(got)} equal to the planted "
+              f"set, packages listed={listed}, kernel launches none (scanners vuln)",
+              flush=True)
+
+    # (3) client/server against local
+    with open(outs["server"]) as f:
+        served = json.load(f)
+    with open(outs["local"]) as f:
+        local = json.load(f)
+    if served != local:
+        fail("vuln", "the fs --server report differs from the local fs report")
+    if not vuln_rows(served) or not any(x["Class"] == "secret" for x in served["Results"]):
+        fail("vuln", "the client/server report holds no vulnerabilities or no secrets")
+    print(f"vuln: fs --server report equal to the local one: results="
+          f"{len(served['Results'])} vulnerabilities={len(vuln_rows(served))}", flush=True)
+
+    # (4) --skip-db-update
+    with open(outs["skip"], "rb") as f:
+        if f.read() != fs_doc:
+            fail("vuln", "the --skip-db-update report differs from the fs run's")
+    print("vuln: fs --skip-db-update report byte-identical to the fs run's", flush=True)
+    print(f"vuln: phase seconds={time.perf_counter() - t_phase:.2f} card {card_line()}",
+          flush=True)
+    return {label: runs[label]["launches"] for label in ("fs", "server", "local", "skip")}
 
 
 def to_cpu(torch, value):
@@ -3168,7 +3614,15 @@ def main(argv: list[str]) -> int:
           f"license_files={len(planted)} setup_seconds={time.perf_counter() - t0:.2f}",
           flush=True)
     programs_phase(np, torch, gs, mk, items, planted)
-    ran = runner_phase(np, torch, gs, items, planted)
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="smoke-runner-")
+    try:
+        ran = runner_phase(np, torch, gs, items, planted, work)
+        vulned = vuln_phase(np, torch, gs, items, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     del items
     if keep_path:
         torch.save({k: to_cpu(torch, v) for k, v in kept.items()}, keep_path)
@@ -3221,6 +3675,8 @@ def main(argv: list[str]) -> int:
             "server_launches": {run: n[kind] for run, n in served.items() if n.get(kind)},
             # launches on phase `runner`'s in-process commands
             "runner_launches": {run: n[kind] for run, n in ran.items() if n.get(kind)},
+            # launches on phase `vuln`'s in-process commands
+            "vuln_launches": {run: n[kind] for run, n in vulned.items() if n.get(kind)},
         }
         for kind in ("bitplane", "window", "rows", "lut", "mega", "mega_acc",
                      "mega_epilogue", "nfa_stream", "nfa_fused", "nfa_padded")

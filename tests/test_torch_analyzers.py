@@ -5,8 +5,9 @@ CPU, against the reference modules they were copied from:
   `trivy_tpu/walker/fs.py` on one tree;
 * the claim pass: `SecretAnalyzer.required_batch` and `required` on a mixed
   path list (skip dirs, files and extensions, the secret config, allow
-  paths, short files) and the group's claims for the secret, license-file
-  and dpkg-license analyzers, with `--file-patterns`;
+  paths, short files) and the group's claims for every analyzer the port
+  registers (all of the reference's but its misconfig analyzers), with
+  `--file-patterns`;
 * `_byte_bounded`: the twin of the reference's
   `test_big_file_memory.py::test_big_entries_slice_alone`;
 * the license analyzer: its program engine kept one per device, its
@@ -46,6 +47,11 @@ from trivy_tpu_torch.license.classifier import FullTextClassifier
 from trivy_tpu_torch.result import filter as flt
 from trivy_tpu_torch.rules.model import build_ruleset
 from trivy_tpu_torch.walker import fs as walker
+
+# The reference's misconfig analyzers, which the port does not have (ROADMAP
+# A13d).
+MISCONFIG_TYPES = {"dockerfile", "config-json", "config-toml", "kubernetes", "terraform",
+                   "helm", "terraform-module"}
 
 PATHS = [
     ("src/app/config.env", 120), ("tiny.txt", 9), ("go.sum", 400), ("a/go.mod", 400),
@@ -156,15 +162,40 @@ def test_group_claims_equal_the_reference(patterns):
         want = [p for (p, _), v in zip(PATHS, verdicts)
                 if v or ref_group._file_pattern_match(atype, p)]
         assert paths == want, atype
-    assert set(got) == {"secret", "license-file", "dpkg-license"}
+    assert set(got) == set(ref_types) - MISCONFIG_TYPES
 
 
 def test_registry_holds_the_ported_analyzers():
+    """Every analyzer of the reference but its misconfig ones, in the
+    reference's order, which fixes the order of applications in a report.
+    A registry's order is the order its modules were first imported in, so
+    both groups are built in a fresh interpreter."""
+    import subprocess
+    import sys
+
+    code = (
+        "import json\n"
+        "from trivy_tpu.analyzer import core as r\n"
+        "from trivy_tpu_torch.analyzer import core as p\n"
+        "out = {}\n"
+        "for name, g in (('ref', r.AnalyzerGroup(r.AnalyzerOptions(disabled_analyzers=['secret']))),\n"
+        "                ('port', p.AnalyzerGroup(p.AnalyzerOptions(disabled_analyzers=['secret'],\n"
+        "                                                           device='cpu')))):\n"
+        "    out[name] = [[a.type() for a in g.analyzers], [a.type() for a in g.post_analyzers]]\n"
+        "print(json.dumps(out))\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                          text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=repo, JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for i in (0, 1):
+        assert got["port"][i] == [t for t in got["ref"][i] if t not in MISCONFIG_TYPES]
+    assert "secret" not in got["port"][0] and "npm" in got["port"][1]
     group = core.AnalyzerGroup(core.AnalyzerOptions(
         disabled_analyzers=["secret"], device="cpu"))
-    assert [a.type() for a in group.analyzers] == ["license-file", "dpkg-license"]
     assert group.analyzer_versions()["secret"] == 0
-    assert group.post_analyzers == [] and group.post_analyze().is_empty()
+    assert group.post_analyze().is_empty()
 
 
 def _fentry(path: str, size: int):

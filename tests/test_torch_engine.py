@@ -211,10 +211,26 @@ with contextlib.redirect_stdout(buf):
               "--rules-cache-dir", rules_dir, sys.argv[1]])
 lic_results = [r for r in json.loads(buf.getvalue())["Results"] if r["Class"] == "license-file"]
 verified = verified and lic_results[0]["Licenses"][0]["Name"] == "MIT"
+from trivy_tpu_torch.db.vulndb import build_db
+db_dir = sys.argv[1] + "-db"
+build_db(db_dir, {"npm": {"lodash": [{"VulnerabilityID": "CVE-X",
+                                      "VulnerableVersions": "<4.17.21"}]}})
+with open(os.path.join(sys.argv[1], "package-lock.json"), "w") as f:
+    json.dump({"lockfileVersion": 3, "packages": {"node_modules/lodash": {"version": "4.17.20"}}},
+              f)
+vuln_buf = io.StringIO()
+with contextlib.redirect_stdout(vuln_buf):
+    cli.main(["fs", "--format", "json", "--device", "cpu", "--rules-cache-dir", rules_dir,
+              "--db-dir", db_dir, "--list-all-pkgs", sys.argv[1]])
+vuln_doc = json.loads(vuln_buf.getvalue())
+verified = verified and [v["VulnerabilityID"] for r in vuln_doc["Results"]
+                         for v in r.get("Vulnerabilities", [])] == ["CVE-X"]
+verified = verified and any(r.get("Secrets") for r in vuln_doc["Results"])
 from trivy_tpu_torch import serve, tenancy
 from trivy_tpu_torch.cache.store import MemoryCache
 from trivy_tpu_torch.rpc import client as rpc_client, server as rpc_server
-httpd, _ = rpc_server.start_background("localhost:0", MemoryCache(), device="cpu")
+httpd, _ = rpc_server.start_background("localhost:0", MemoryCache(), db_dir=db_dir,
+                                       device="cpu")
 resp = rpc_client.RpcClient(f"localhost:{httpd.server_address[1]}").scan_secrets(
     [("a.env", b"t = ghp_" + b"Ab1" * 12 + b"\n")])
 verified = verified and resp["Secrets"][0]["Findings"][0]["RuleID"] == "github-pat"
@@ -271,7 +287,10 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     (`rpc.server`, `serve`, `tenancy`, `rpc.client`), which answers one
     `ScanSecrets` request from a CPU server, nor the artifact runner behind
     `fs --scanners secret,license` (analyzers, artifact, cache, applier,
-    filter, report writers), which finds the tree's MIT license."""
+    filter, report writers), which finds the tree's MIT license, nor the
+    vulnerability scanner behind `fs` with the default scanners over a
+    local `--db-dir` (package analyzers, DB readers, detectors), which
+    finds the planted npm advisory, nor a server over that DB."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

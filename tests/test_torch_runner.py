@@ -386,7 +386,7 @@ def test_resident_chunks_zero_changes_resident_hits_not_findings(small):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--scanners", "vuln"], "A13c"),
+    (["--java-db-repository", "example.invalid/java-db"], "A13c"),
     (["--scanners", "secret,misconfig"], "A13d"),
     (["--db-repository", "example.invalid/db"], "A13c"),
     (["--fleet-config", "fleet.yaml"], "A13c"),
@@ -395,7 +395,7 @@ def test_resident_chunks_zero_changes_resident_hits_not_findings(small):
     (["--config-check", "checks"], "A13d"),
     (["--module-dir", "mods"], "A13d"),
     (["--sbom-sources", "rekor"], "A13d"),
-    (["--list-all-pkgs"], "A13c"),
+    (["--trace"], "A13d"),
     (["--insecure"], "A13d"),
     (["--format", "cyclonedx"], "A13d"),
     (["--format", "template", "--template", "x"], "A13d"),

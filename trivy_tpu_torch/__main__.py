@@ -1,16 +1,18 @@
 """`python -m trivy_tpu_torch fs|rootfs|repository <target>`: a scan through
 the artifact runner (`commands/run.py`, the reference's `trivy_tpu/cli.py`
 scan commands): the walker, the analyzer group (secret, license-file,
-dpkg-license), the local artifact and its blob cache, the applier, result
-filtering and the report writers (`-f table|json|sarif`), with the
-reference's flags (`_add_scan_flags`), each bound to TRIVY_TPU_<FLAG> and
-to `--config trivy.yaml`, plus `--device` (default cuda; `--device cpu`
-runs the plain versions).  `--scanners` defaults to `secret` (the
-reference's `vuln,secret` waits for the vulnerability scanner, ROADMAP
-A13c).  The secret analyzer's engine is the one `engine/hybrid.py`
-`make_secret_engine` builds for `--secret-backend` (default `auto`: the
-hybrid engine), started from the compiled-rules registry
-(`--rules-cache-dir`, default `TRIVY_TPU_RULES_CACHE_DIR`, else
+dpkg-license and the package analyzers), the local artifact and its blob
+cache, the applier, the vulnerability scanner over a local DB (`--db-dir`,
+else `<--cache-dir>/db`; no DB means no vulnerabilities, as in the
+reference), result filtering and the report writers
+(`-f table|json|sarif`), with the reference's flags (`_add_scan_flags`),
+each bound to TRIVY_TPU_<FLAG> and to `--config trivy.yaml`, plus
+`--device` (default cuda; `--device cpu` runs the plain versions).
+`--scanners` defaults to the reference's: `vuln,secret` for `fs` and
+`repo`, `vuln` for `rootfs`.  The secret analyzer's engine is the one
+`engine/hybrid.py` `make_secret_engine` builds for `--secret-backend`
+(default `auto`: the hybrid engine), started from the compiled-rules
+registry (`--rules-cache-dir`, default `TRIVY_TPU_RULES_CACHE_DIR`, else
 `~/.cache/trivy-tpu/rulesets`; "off" compiles every start); with
 `--secret-backend server` the files go to a running server's batcher, and
 `--server` alone is client mode (the blob goes to the server's cache, the
@@ -45,8 +47,7 @@ NOT_PORTED = {"--fleet-config": "A13c", "--watch-config": "A13c"}
 # The reference's scan flags whose feature waits for a ROADMAP item: they
 # parse as the reference's and, set, make the scan exit 2 naming the item.
 NOT_PORTED_FLAGS = {
-    "fleet-config": "A13c", "db-dir": "A13c", "db-repository": "A13c",
-    "java-db-repository": "A13c", "skip-db-update": "A13c", "list-all-pkgs": "A13c",
+    "fleet-config": "A13c", "db-repository": "A13c", "java-db-repository": "A13c",
     "ignore-policy": "A13d", "checks-bundle-repository": "A13d", "config-check": "A13d",
     "compliance": "A13d", "module-dir": "A13d", "sbom-sources": "A13d",
     "rekor-url": "A13d", "trace": "A13d", "insecure": "A13d", "username": "A13d",
@@ -173,8 +174,7 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str) -> None:
     p.add_argument("target")
     p.add_argument(
         "--scanners", default=_env_default("scanners", default_scanners),
-        help="comma-separated: secret,license (vuln: ROADMAP A13c, "
-        "misconfig: A13d)",
+        help="comma-separated: vuln,secret,license (misconfig: ROADMAP A13d)",
     )
     p.add_argument("--severity", default=_env_default("severity", ",".join(SEVERITIES)),
                    help="comma-separated severities to report")
@@ -244,6 +244,12 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str) -> None:
     p.add_argument("--server-wire", default=_env_default("server-wire", "json"),
                    choices=["json", "protobuf"],
                    help="Twirp wire format for client mode (protobuf: ROADMAP A13c)")
+    p.add_argument("--db-dir", default=_env_default("db-dir", ""),
+                   help="vulnerability DB directory (default <cache-dir>/db)")
+    p.add_argument("--list-all-pkgs", action="store_true",
+                   default=_bool_default("list-all-pkgs"))
+    p.add_argument("--skip-db-update", action="store_true",
+                   default=_bool_default("skip-db-update"))
     p.add_argument("--vex", default=_env_default("vex", ""),
                    help="OpenVEX/CycloneDX/CSAF VEX document")
     p.add_argument("--include-non-failures", action="store_true",
@@ -255,7 +261,7 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str) -> None:
     for flag in NOT_PORTED_FLAGS:
         if flag in ("config-check", "sbom-sources"):
             p.add_argument(f"--{flag}", action="append", default=_list_default(flag))
-        elif flag in ("list-all-pkgs", "skip-db-update", "trace", "insecure"):
+        elif flag in ("trace", "insecure"):
             p.add_argument(f"--{flag}", action="store_true", default=_bool_default(flag))
         else:
             p.add_argument(f"--{flag}", default=_env_default(flag, ""))
@@ -287,6 +293,9 @@ def _options_from_args(args: argparse.Namespace):
         server_addr=args.server,
         server_wire=args.server_wire,
         token=args.token,
+        db_dir=args.db_dir,
+        list_all_packages=args.list_all_pkgs,
+        skip_db_update=args.skip_db_update,
         vex_path=args.vex,
         include_non_failures=args.include_non_failures,
         timeout=_parse_duration(args.timeout),
@@ -430,18 +439,19 @@ def build_parser() -> argparse.ArgumentParser:
 
     parser = argparse.ArgumentParser(prog="trivy_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    # --scanners defaults to secret everywhere: the reference's vuln waits
-    # for ROADMAP A13c (README "Deliberate differences")
-    for name, aliases, kind, text in (
-        ("fs", [], TARGET_FILESYSTEM, "scan a local filesystem"),
-        ("rootfs", [], TARGET_ROOTFS, "scan an unpacked root filesystem"),
-        ("repository", ["repo"], TARGET_REPOSITORY, "scan a git repository"),
-        ("image", [], TARGET_IMAGE, "scan a container image (ROADMAP A13d)"),
-        ("sbom", [], TARGET_SBOM, "scan an SBOM (ROADMAP A13d)"),
-        ("vm", [], TARGET_VM, "scan a VM disk image (ROADMAP A13d)"),
+    # --scanners defaults to the reference's (trivy_tpu/cli.py build_parser)
+    for name, aliases, kind, scanners, text in (
+        ("fs", [], TARGET_FILESYSTEM, "vuln,secret", "scan a local filesystem"),
+        ("rootfs", [], TARGET_ROOTFS, "vuln", "scan an unpacked root filesystem"),
+        ("repository", ["repo"], TARGET_REPOSITORY, "vuln,secret",
+         "scan a git repository"),
+        ("image", [], TARGET_IMAGE, "vuln,secret",
+         "scan a container image (ROADMAP A13d)"),
+        ("sbom", [], TARGET_SBOM, "vuln", "scan an SBOM (ROADMAP A13d)"),
+        ("vm", [], TARGET_VM, "vuln,secret", "scan a VM disk image (ROADMAP A13d)"),
     ):
         p = sub.add_parser(name, aliases=aliases, help=text)
-        _add_scan_flags(p, "secret")
+        _add_scan_flags(p, scanners)
         if kind == TARGET_REPOSITORY:
             for flag in ("branch", "tag", "commit"):
                 p.add_argument(f"--{flag}", default="")
@@ -512,6 +522,7 @@ def _run_scan(parser, args) -> int:
         OptionsError,
         run,
     )
+    from trivy_tpu_torch.db.client import DBError
     from trivy_tpu_torch.deadline import ScanTimeoutError
     from trivy_tpu_torch.log import setup as setup_logging
 
@@ -529,9 +540,11 @@ def _run_scan(parser, args) -> int:
             if getattr(args, flag.replace("-", "_")):
                 raise NotPortedError(f"--{flag} is not ported yet (ROADMAP {item})")
         return run(options, args.kind)
-    except (CacheConfigError, OptionsError, NotPortedError, ScanTimeoutError) as e:
+    except (CacheConfigError, OptionsError, NotPortedError, ScanTimeoutError,
+            DBError) as e:
         # a cache spec, a malformed --file-patterns, a target, flag or
-        # format that waits for a ROADMAP item, a timeout (cli.py:1224-1240);
+        # format that waits for a ROADMAP item, a timeout, a DB that
+        # --skip-db-update refuses (cli.py:1224-1240);
         # anything else (an engine that fails) propagates
         print(f"trivy-tpu: {e}", file=sys.stderr)
         return 2

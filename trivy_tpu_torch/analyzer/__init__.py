@@ -1,5 +1,6 @@
-"""Analyzer plugin layer (a copy of `trivy_tpu/analyzer/`: the group and
-the secret and license analyzers; the rest wait for ROADMAP A13c/A13d)."""
+"""Analyzer plugin layer (a copy of `trivy_tpu/analyzer/`: the group, the
+secret and license analyzers and the package analyzers; the misconfig
+`config` analyzers wait for ROADMAP A13d)."""
 
 from trivy_tpu_torch.analyzer.core import (
     AnalysisInput,

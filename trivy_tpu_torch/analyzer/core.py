@@ -13,13 +13,15 @@ JAX package.  `AnalyzerOptions` and `SecretScannerOption` gain `device`
 (default "cuda"), where the analyzers' engines run.  Left out: the module
 manager's extension analyzers, `--sbom-sources`, the unused `parallel` and
 the per-layer `disabled` seam (the image path, ROADMAP A13d).  The builtin
-registry holds the analyzers ported so far (secret, license-file,
-dpkg-license); the rest wait for ROADMAP A13c/A13d.  Unlike the reference,
-a failing batch
+registry holds every analyzer of the reference but its misconfig `config`
+analyzers (ROADMAP A13d): secret, license-file, dpkg-license, the OS and
+language package analyzers, binaries, embedded SBOMs, `executable`, the
+Red Hat build info and python-pkg.  Unlike the reference, a failing batch
 analyzer (the secret and license-file analyzers, whose engines run the
 card's kernels) fails the scan instead of logging a warning and dropping
 its files: a quiet clean report would hide the card.  Per-file analyzers
-keep the reference's per-file tolerance.
+keep the reference's per-file tolerance.  Each analyzer's files run under
+the host span `analyze.<type>`.
 """
 
 from __future__ import annotations
@@ -256,8 +258,19 @@ def registered_analyzers() -> list[Callable[[], Analyzer]]:
 
 def _ensure_builtin_registered() -> None:
     # Import modules whose import side-effect registers analyzers (mirrors the
-    # reference's `_ "…/analyzer/all"` blank imports): the ones ported so far.
+    # reference's `_ "…/analyzer/all"` blank imports), in the reference's
+    # order, which fixes the order of applications in a report; the
+    # reference's `config` (misconfig, ROADMAP A13d) is left out.
+    from trivy_tpu_torch.analyzer import binary as _binary  # noqa: F401
+    from trivy_tpu_torch.analyzer import java as _java  # noqa: F401
+    from trivy_tpu_torch.analyzer import lang as _lang  # noqa: F401
+    from trivy_tpu_torch.analyzer import lang_extra as _lang_extra  # noqa: F401
     from trivy_tpu_torch.analyzer import license as _license  # noqa: F401
+    from trivy_tpu_torch.analyzer import misc as _misc  # noqa: F401
+    from trivy_tpu_torch.analyzer import os_release as _os  # noqa: F401
+    from trivy_tpu_torch.analyzer import pkg_apk as _apk  # noqa: F401
+    from trivy_tpu_torch.analyzer import pkg_dpkg as _dpkg  # noqa: F401
+    from trivy_tpu_torch.analyzer import pkg_rpm as _rpm  # noqa: F401
     from trivy_tpu_torch.analyzer import secret as _secret  # noqa: F401
 
 
@@ -352,23 +365,29 @@ class AnalyzerGroup:
                     with obs_trace.span(f"analyze.{a.type()}", files=len(inputs)):
                         result.merge(a.analyze_batch(inputs))
             else:
-                for entry in batch:
-                    inputs = _read_inputs(dir, [entry])
-                    if not inputs:
-                        continue
-                    try:
-                        result.merge(a.analyze(inputs[0]))
-                    except Exception:
-                        # One malformed file must not abort the scan
-                        # (analyzer.go:415-417 tolerates per-file errors).
-                        logger.warning(
-                            "analyzer %s failed on %s",
-                            a.type(),
-                            entry.path,
-                            exc_info=True,
-                        )
+                with obs_trace.span(f"analyze.{a.type()}", files=len(batch)):
+                    self._analyze_each(a, dir, batch, result)
         result.sort()
         return result
+
+    @staticmethod
+    def _analyze_each(a: Analyzer, dir: str, batch: list[FileEntry],
+                      result: AnalysisResult) -> None:
+        for entry in batch:
+            inputs = _read_inputs(dir, [entry])
+            if not inputs:
+                continue
+            try:
+                result.merge(a.analyze(inputs[0]))
+            except Exception:
+                # One malformed file must not abort the scan
+                # (analyzer.go:415-417 tolerates per-file errors).
+                logger.warning(
+                    "analyzer %s failed on %s",
+                    a.type(),
+                    entry.path,
+                    exc_info=True,
+                )
 
     def _claim(self, entries: list[FileEntry], claims: dict[int, list[FileEntry]]) -> None:
         """The claim pass: each analyzer's claimed entries into `claims`,

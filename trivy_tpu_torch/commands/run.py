@@ -14,10 +14,12 @@ adds host spans (`artifact.scan`, `filter`, `write`, and the analyzer's and
 artifact's) for the stage split of a run.  `Options` keeps the knobs the
 port honours; a target, scanner or format that waits for another ROADMAP
 item raises `NotPortedError` before the scan starts (`_check_ported`): the
-vulnerability scanner and the protobuf wire (A13c), misconfig, the SBOM and
-template formats and the `image`, `sbom` and `vm` targets (A13d).  The flags
-of the reference that wait for an item are refused by the CLI
-(`__main__.NOT_PORTED_FLAGS`).
+protobuf wire (A13c), misconfig, the SBOM and template formats and the
+`image`, `sbom` and `vm` targets (A13d).  The flags of the reference that
+wait for an item are refused by the CLI (`__main__.NOT_PORTED_FLAGS`): the
+DB downloads (`--db-repository`, `--java-db-repository`) among them, so the
+vulnerability scanner reads a local DB (`--db-dir`, else
+`<--cache-dir>/db`), under the host span `scan.vuln`.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ TARGET_VM = "vm"
 # Targets and scanners of the reference the port lacks, and the ROADMAP item
 # each waits for.
 NOT_PORTED_TARGETS = {TARGET_IMAGE: "A13d", TARGET_SBOM: "A13d", TARGET_VM: "A13d"}
-NOT_PORTED_SCANNERS = {"vuln": "A13c", "misconfig": "A13d"}
+NOT_PORTED_SCANNERS = {"misconfig": "A13d"}
 
 
 class CacheConfigError(ValueError):
@@ -95,6 +97,9 @@ class Options:
     server_addr: str = ""  # non-empty => client mode (remote driver)
     server_wire: str = "json"  # Twirp wire format: json (protobuf: A13c)
     token: str = ""
+    db_dir: str = ""  # vulnerability DB directory (trivy-db analogue)
+    list_all_packages: bool = False
+    skip_db_update: bool = False
     vex_path: str = ""  # --vex document
     include_non_failures: bool = False
     timeout: float = 300.0  # --timeout seconds (reference default 5m)
@@ -182,6 +187,23 @@ def _analyzer_options(options: Options) -> AnalyzerOptions:
         disabled.append("secret")
     if "license" not in options.scanners:
         disabled.extend(["license-file", "dpkg-license"])
+    # The reference's misconfig analyzers (ROADMAP A13d): the port has none,
+    # but a disabled type keys the blob cache (`analyzer_versions`) as it
+    # does there.
+    disabled.extend(
+        [
+            "dockerfile",
+            "kubernetes",
+            "terraform",
+            "config-json",
+            "config-toml",
+            "helm",
+            "terraform-module",
+        ]
+    )
+    # Executable digesting only serves Rekor lookups (--sbom-sources rekor,
+    # ROADMAP A13d); disabled here, it stays out of the blob cache key.
+    disabled.append("executable")
     return AnalyzerOptions(
         disabled_analyzers=disabled,
         secret_scanner_option=SecretScannerOption(
@@ -238,8 +260,32 @@ def _build_scanner(options: Options, target_kind: str, cache: ArtifactCache) -> 
             timeout_s=options.timeout,
         )
     else:
-        driver = LocalDriver(cache)
+        driver = LocalDriver(cache, vuln_detector=_init_vuln_scanner(options))
     return Scanner(artifact=artifact, driver=driver)
+
+
+def _init_vuln_scanner(options: Options):
+    """operation.DownloadDB analogue (operation.go:114) over a local DB:
+    with --skip-db-update, check the DB's metadata as the reference does
+    (a missing or old-schema DB is a `DBError`), then open the DB.  The
+    download waits for ROADMAP A13c."""
+    from trivy_tpu_torch.scanner.vuln import init_vuln_scanner
+
+    if options.skip_db_update:
+        from trivy_tpu_torch.db.client import DBClient
+
+        # Resolve the directory the same way init_vuln_scanner will.
+        db_dir = options.db_dir or (
+            os.path.join(options.cache_dir, "db")
+            if options.cache_dir
+            else os.path.expanduser("~/.cache/trivy-tpu/db")
+        )
+        options.db_dir = db_dir  # the scanner must open the same directory
+        DBClient(db_dir=db_dir).ensure(skip=True)
+    from trivy_tpu_torch.obs import trace as obs_trace
+
+    with obs_trace.span("db.open"):
+        return init_vuln_scanner(options.db_dir, options.cache_dir)
 
 
 def run(options: Options, target_kind: str) -> int:
@@ -378,7 +424,12 @@ def _run_inner(options: Options, target_kind: str) -> int:
         cache = init_cache(options)
         scanner = _build_scanner(options, target_kind, cache)
         with obs_trace.span("artifact.scan"):
-            report = scanner.scan_artifact(ScanOptions(scanners=list(options.scanners)))
+            report = scanner.scan_artifact(
+                ScanOptions(
+                    scanners=list(options.scanners),
+                    list_all_packages=options.list_all_packages,
+                )
+            )
         with obs_trace.span("filter"):
             report = filter_report(
                 report,

@@ -33,9 +33,11 @@ JAX package), over the port's engines: `ScanServer`, `serve` and
 `mesh`, the default factory builds `make_secret_engine(device=, mesh=)`,
 and `/admin/profile/start|stop` holds one `torch.profiler.profile` window
 whose Chrome trace lands in the ProfileDir beside the host span ring.
-What the port lacks answers as the reference does without it, or raises
-naming its ROADMAP item: the vulnerability detectors, fleet and watch
-planes and the protobuf wire wait for A13c.
+The scanner service detects vulnerabilities over the local DB in
+`db_dir` (else `<cache_dir>/db`), as the reference's does.  What the port
+lacks answers as the reference does without it, or raises naming its
+ROADMAP item: the fleet and watch planes and the protobuf wire wait for
+A13c.
 """
 
 from __future__ import annotations
@@ -83,7 +85,7 @@ TOKEN_HEADER = "Trivy-Tpu-Token"
 
 # What the port's server refuses, and the ROADMAP item it waits for (the
 # protobuf wire, A13c too, gets the reference's 415 in the handler).
-NOT_PORTED = {"fleet": "A13c", "watch": "A13c", "the vulnerability DB": "A13c"}
+NOT_PORTED = {"fleet": "A13c", "watch": "A13c"}
 
 
 def _not_ported(what: str) -> ValueError:
@@ -148,8 +150,8 @@ class ScanServer:
             raise _not_ported("fleet")
         if watch_config:
             raise _not_ported("watch")
-        if db_dir:
-            raise _not_ported("the vulnerability DB")
+        from trivy_tpu_torch.scanner.vuln import init_vuln_scanner
+
         self.cache = cache
         self.token = token
         # Fleet result cache (cache/results.py): per-blob verdicts the
@@ -174,7 +176,9 @@ class ScanServer:
         # shared no-op handle per track() call site when off, nothing
         # extra per scanned byte.
         obs_memwatch.enable()
-        self.driver = LocalDriver(cache)
+        self.driver = LocalDriver(
+            cache, vuln_detector=init_vuln_scanner(db_dir, cache_dir)
+        )
         self.serve_config = serve_config or ServeConfig()
         # Ruleset provenance: the secret-config path the default engine
         # factory (and SIGHUP restage) reads, and the registry cache dir a

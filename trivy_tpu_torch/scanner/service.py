@@ -8,7 +8,9 @@ RPC client driver (trivy_tpu/rpc/client.py) forwards the same call over HTTP.
 
 Copied from `trivy_tpu/scanner/service.py`; the port imports nothing
 from the JAX package, so it keeps its own copy of this jax-free module.
-The local driver's apply runs under the host span `cache.apply`.
+The local driver's apply runs under the host span `cache.apply`, its
+vulnerability detection (or the DB-less package inventory) under
+`scan.vuln`.
 """
 
 from __future__ import annotations
@@ -74,29 +76,34 @@ class Driver:
 
 @dataclass
 class LocalDriver(Driver):
-    """pkg/scanner/local/scan.go Scanner, without a vulnerability
-    detector: the vulnerability DB and detectors wait for ROADMAP A13c, so
-    a request for vulnerability or package results raises."""
+    """pkg/scanner/local/scan.go Scanner."""
 
     cache: ArtifactCache
+    vuln_detector: object | None = None  # scanner/vuln.py VulnerabilityScanner
 
     def scan(self, target, artifact_id, blob_ids, options):
         from trivy_tpu_torch import deadline
         from trivy_tpu_torch.obs import trace as obs_trace
 
-        if SCANNER_VULN in options.scanners or getattr(
-            options, "list_all_packages", False
-        ):
-            raise ValueError(
-                "vulnerability and package results are not ported yet "
-                "(ROADMAP A13c)"
-            )
         deadline.check()
         with obs_trace.span("cache.apply"):
             detail = Applier(self.cache).apply_layers(artifact_id, blob_ids)
         results: list[Result] = []
 
         deadline.check()
+        if SCANNER_VULN in options.scanners and self.vuln_detector is not None:
+            with obs_trace.span("scan.vuln"):
+                results.extend(
+                    self.vuln_detector.detect(target, detail, options)  # type: ignore[attr-defined]
+                )
+        elif getattr(options, "list_all_packages", False):
+            # No vulnerability DB, but the caller wants the package
+            # inventory (SBOM formats, --list-all-pkgs): emit the package
+            # results without detection — SBOM generation must not require
+            # a DB download (run.go format handling).
+            with obs_trace.span("scan.vuln"):
+                results.extend(self._packages_to_results(target, detail, options))
+
         if SCANNER_SECRET in options.scanners:
             results.extend(self._secrets_to_results(detail))
 
@@ -115,6 +122,25 @@ class LocalDriver(Driver):
         )
 
         return results, detail.os
+
+    @staticmethod
+    def _packages_to_results(target, detail, options) -> list[Result]:
+        """Package inventory rows with no vulnerabilities (DB-less SBOM);
+        same shapes and pkg_types gating as VulnerabilityScanner.detect."""
+        from trivy_tpu_torch.scanner.vuln import (
+            has_os_pkgs,
+            lang_pkgs_result,
+            os_pkgs_result,
+        )
+
+        pkg_types = getattr(options, "pkg_types", ["os", "library"])
+        out: list[Result] = []
+        if "os" in pkg_types and has_os_pkgs(detail):
+            out.append(os_pkgs_result(target, detail, [], detail.packages))
+        if "library" in pkg_types:
+            for app in detail.applications:
+                out.append(lang_pkgs_result(app, [], app.packages))
+        return out
 
     @staticmethod
     def _secrets_to_results(detail) -> list[Result]:
