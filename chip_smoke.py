@@ -221,7 +221,7 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             byte-identical), in a fresh process with `--profile-dir` and `-f
             table` (its trace names a hand kernel, the host spans beside it,
             the table's targets the JSON report's; wall seconds and peak
-            RSS), and with `--exit-code 1` (exit 1); each run's seconds,
+            RSS sampled from /proc), and with `--exit-code 1` on 51 files (exit 1); each run's seconds,
             files/s, MB/s and stage split (walk, claim, secret engine
             build, read, secret, license, cache put + apply, filter, write)
             from the host spans, beside the direct engine calls on the same
@@ -242,11 +242,34 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             listed, no kernel (`rootfs` scans `vuln` only, as in the
             reference); a port server with `--db-dir` and `fs --server`
             over deps/ plus 5,000 tree files, equal to the local report;
-            and the first run again with `--skip-db-update`,
+            and that local run again with `--skip-db-update`,
             byte-identical.  Each run's seconds, files/s, MB/s, stage split
             (walk, claim, engine build, read, secret, package analyzers,
             cache put + apply, DB load, vuln detect, filter, write),
             packages seen and DB load seconds.
+
+17. image  (after `vuln`, on its fixture and `runner`'s items) container
+            images through `python -m trivy_tpu_torch image`: an 8-layer,
+            ~530 MB image (a Debian 12 base layer whose planted secret must
+            not be reported, deps/, the 100,000 runner files in quarters,
+            the C2 fixture's 99 MiB file and a github-pat, whiteouts and an
+            opaque directory; an AWS key in the config's `Env`) as a docker
+            archive and, from an in-process registry, as `localhost:P/app:1`
+            (the report equal but for the name), again on its warm fs cache
+            (no layer analysed, no launch), in a fresh process pulling the DB
+            and a Java index with `--db-repository` and
+            `--java-db-repository` (its peak RSS), a 5,000-file OCI layout
+            with `--secret-backend tpu --scanners secret,license` (K1, B14),
+            `-f cyclonedx` and `sbom` of it, and `--sbom-sources oci` on a
+            referrer SBOM (no layer walked); secrets equal to phase `vuln`'s
+            plus the L6 and config ones and to the oracle, vulnerabilities
+            exactly the planted set less the whited-out manifest's, the
+            archive and registry runs verified fused, the fused K5 and K6
+            launched and the flag-writing K5 not; a fresh process holding the C2 image alone
+            grows its RSS by at most 5x the file from the engine's
+            construction to the end of `inspect`.  Each run's seconds,
+            files/s, MB/s and stage split (pull, layer walk, claim, read,
+            secret, license, package analyzers, DB, detect, cache, write).
 
 A `stall:` line counts the hybrid and `auto` scans run with the STALL_S dump
 armed and those that passed it, phase `server`'s among them.
@@ -266,8 +289,8 @@ work; the NFA kernels' `path_device_ms` sums their dispatches of that
 scan), the card's name and power limit, and
 the result line `{"ok": true, "device": {...}}`.  Each kernel's entry also
 carries `server_launches`, its launches in phase `server`'s runs, and
-`runner_launches` and `vuln_launches`, its launches in phase `runner`'s and
-phase `vuln`'s in-process commands.  Nothing here imports JAX or the JAX
+`runner_launches`, `vuln_launches` and `image_launches`, its launches in
+phase `runner`'s, phase `vuln`'s and phase `image`'s in-process commands.  Nothing here imports JAX or the JAX
 package.
 """
 
@@ -2231,6 +2254,44 @@ def runner_report_check(np, report: dict, secret_items, license_items, planted: 
           flush=True)
 
 
+def fresh_process(cmd: list, work: str, label: str, phase: str) -> tuple[str, float, float]:
+    """Run `cmd` as a fresh process from the repository root, its standard
+    output and error into `work`/`label`.out and .err; returns its standard
+    output, wall seconds and its peak resident MiB, sampled from
+    /proc/<pid>/statm every 10 ms (`os.wait4`'s `ru_maxrss` is no measure of
+    the child here: it carries the smoke's own size at the fork)."""
+    import threading
+
+    out_path, err_path = (os.path.join(work, f"{label}.{k}") for k in ("out", "err"))
+    page = os.sysconf("SC_PAGE_SIZE")
+    peak, done = [0.0], threading.Event()
+    t0 = time.perf_counter()
+    with open(out_path, "wb") as out, open(err_path, "wb") as err:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+
+        def sample() -> None:
+            while not done.wait(0.01):
+                try:
+                    with open(f"/proc/{proc.pid}/statm") as f:
+                        peak[0] = max(peak[0], int(f.read().split()[1]) * page / (1 << 20))
+                except (OSError, ValueError, IndexError):
+                    return
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        proc.wait()
+        done.set()
+        sampler.join()
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        with open(err_path) as f:
+            sys.stderr.write(f.read()[-4000:])
+        fail(phase, f"the fresh process ({label}) exited {proc.returncode}")
+    with open(out_path) as f:
+        return f.read(), wall, peak[0]
+
+
 def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
     """BASELINE config #5 through the command a user types, `python -m
     trivy_tpu_torch fs --scanners secret,license` (the artifact runner,
@@ -2246,7 +2307,9 @@ def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
     (1)'s; (3) a fresh process, `--secret-backend tpu --profile-dir D -f
     table`: exit 0, its torch.profiler trace names a hand kernel, the host
     spans beside it, the table's targets those of (2), its wall seconds and
-    peak RSS; (4) `--exit-code 1`: exit 1.  Then the direct engine calls on
+    peak RSS; (4) `--exit-code 1` on the warm-up tree (51 files, cut from
+    the whole tree to keep the smoke's length with phase `image` added):
+    exit 1.  Then the direct engine calls on
     the same items (`make_secret_engine().scan_batch` on what the secret
     analyzer scanned, `make_program_engine([LicenseScanProgram()])
     .scan_programs` on the LICENSE files).  Each run prints seconds,
@@ -2254,7 +2317,6 @@ def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
     written to `work/tree` and left there for phase `vuln`; the caller
     removes `work`.  Returns the in-process runs' launches."""
     import re
-    import resource
 
     from trivy_tpu_torch.analyzer import license as lic_analyzer
     from trivy_tpu_torch.engine import hybrid
@@ -2340,10 +2402,11 @@ def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
                                  "tpu -f json", base + ["--secret-backend", "tpu", "-f",
                                                         "json", "-o", outs["tpu"], tree],
                                  b14, calls, nbytes, len(items))
-        runs["exit_code"] = runner_run(torch, gs, "fs --scanners secret,license --exit-code 1",
+        runs["exit_code"] = runner_run(torch, gs, "fs --scanners secret,license --exit-code 1 "
+                                       "(the warm-up tree)",
                                        base + ["--exit-code", "1", "-o",
-                                               os.path.join(work, "exit.txt"), tree],
-                                       b14, calls, nbytes, len(items))
+                                               os.path.join(work, "exit.txt"), small],
+                                       b14, calls, 0, 51)
     finally:
         hybrid.make_secret_engine, lc.FullTextClassifier._matmul = real_make, real_matmul
         lic_analyzer._device_engine = real_lic_engine
@@ -2388,21 +2451,9 @@ def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
 
     # (3) a fresh process with the profiler, the table format
     prof = os.path.join(work, "profile")
-    table = os.path.join(work, "table.txt")
-    t0 = time.perf_counter()
-    with open(table, "wb") as out, open(os.path.join(work, "stderr.txt"), "wb") as err:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "trivy_tpu_torch", *base, "--secret-backend", "tpu",
-             "--profile-dir", prof, "-f", "table", tree],
-            stdout=out, stderr=err, cwd=os.path.dirname(os.path.abspath(__file__)))
-        _, status, usage = os.wait4(proc.pid, 0)
-    wall = time.perf_counter() - t0
-    rc = os.waitstatus_to_exitcode(status)
-    proc.returncode = rc
-    if rc:
-        with open(os.path.join(work, "stderr.txt")) as f:
-            sys.stderr.write(f.read()[-4000:])
-        fail("runner", f"the fresh process exited {rc}")
+    text, wall, rss = fresh_process(
+        [sys.executable, "-m", "trivy_tpu_torch", *base, "--secret-backend", "tpu",
+         "--profile-dir", prof, "-f", "table", tree], work, "table", "runner")
     names = sorted(os.listdir(prof))
     traces = [n for n in names if n.startswith("torch-trace-")]
     hosts = [n for n in names if n.startswith("host_trace.")]
@@ -2416,17 +2467,14 @@ def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
     if not ours:
         fail("runner", f"the fresh process's trace names no hand kernel "
              f"({len(kernels)} kernel events)")
-    with open(table) as f:
-        text = f.read()
     shown = set(re.findall(r"^(.+) \((?:secrets|license-file)\)\n=+$", text, re.M))
     want = {r["Target"] for r in report.get("Results", [])}
     if shown != want:
         fail("runner", f"the table lists {len(shown)} targets, the JSON report {len(want)}")
     print(f"runner: fresh process `python -m trivy_tpu_torch fs --scanners secret,license "
-          f"--secret-backend tpu --profile-dir D -f table` rc={rc} wall_seconds={wall:.2f} "
-          f"files_per_s={len(items) / wall:.1f} peak_rss_MB={usage.ru_maxrss / 1024:.1f} "
-          f"(os.wait4 of the child; RUSAGE_CHILDREN so far "
-          f"{resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 1024:.1f}) "
+          f"--secret-backend tpu --profile-dir D -f table` rc=0 wall_seconds={wall:.2f} "
+          f"files_per_s={len(items) / wall:.1f} peak_resident_MiB={rss:.1f} (sampled every "
+          f"10 ms) "
           f"trace kernel events={len(kernels)} named={json.dumps(ours)} "
           f"host spans={hosts[0]} table targets={len(shown)} (= the JSON report's)",
           flush=True)
@@ -2580,6 +2628,7 @@ def vuln_fixture(np, work: str) -> dict:
             with open(full, "wb") as f:
                 f.write(content)
         roots[bucket] = {"root": root, "target": f"{root} ({label})", "installed": installed,
+                         "files": files,
                          "hit": [bool(h) for h in hit], "planted": set()}
 
     # the DB: every name the trees use and VULN_UNRELATED times as many
@@ -2716,10 +2765,12 @@ def vuln_phase(np, torch, gs, items, work: str) -> dict:
     packages listed, no kernel launched (the reference's `rootfs` scans
     `vuln` only); (3) a port server with `--db-dir` on the card and `fs
     --server` over deps/ plus VULN_SERVER_FILES tree files: the report
-    equal to a local `fs` of the same subtree; (4) run (1) again with
-    `--skip-db-update`: the report byte-identical.  Each run prints its
+    equal to a local `fs` of the same subtree; (4) that local run again with
+    `--skip-db-update`: the report byte-identical (the subtree, not the
+    whole tree, keeps the smoke's length with phase `image` added).  Each run prints its
     seconds, files/s, MB/s, stage split, DB load seconds and packages seen.
-    Returns the runs' launches."""
+    Returns the runs' launches, and the fixture and run (1)'s report for
+    phase `image`."""
     import shutil
 
     from trivy_tpu_torch.cache.store import MemoryCache
@@ -2803,9 +2854,10 @@ def vuln_phase(np, torch, gs, items, work: str) -> dict:
         runs["local"] = vuln_run(torch, gs, "fs --db-dir D over the same subtree",
                                  ["fs", *base, "-f", "json", "-o", outs["local"], sub], calls,
                                  seen, sub_bytes, sub_files)
-        runs["skip"] = vuln_run(torch, gs, "fs --db-dir D --skip-db-update -f json",
-                                ["fs", *base, "--skip-db-update", "-f", "json", "-o",
-                                 outs["skip"], tree], calls, seen, nbytes, n_files)
+        runs["skip"] = vuln_run(torch, gs, "fs --db-dir D --skip-db-update -f json over the "
+                                "same subtree", ["fs", *base, "--skip-db-update", "-f", "json",
+                                                 "-o", outs["skip"], sub], calls, seen,
+                                sub_bytes, sub_files)
     finally:
         hybrid.make_secret_engine = real_make
         vuln_scanner.VulnerabilityScanner.detect = real_detect
@@ -2873,13 +2925,453 @@ def vuln_phase(np, torch, gs, items, work: str) -> dict:
           f"{len(served['Results'])} vulnerabilities={len(vuln_rows(served))}", flush=True)
 
     # (4) --skip-db-update
-    with open(outs["skip"], "rb") as f:
-        if f.read() != fs_doc:
-            fail("vuln", "the --skip-db-update report differs from the fs run's")
-    print("vuln: fs --skip-db-update report byte-identical to the fs run's", flush=True)
+    with open(outs["skip"], "rb") as f, open(outs["local"], "rb") as g:
+        if f.read() != g.read():
+            fail("vuln", "the --skip-db-update report differs from the local subtree run's")
+    print("vuln: fs --skip-db-update report byte-identical to the local subtree run's",
+          flush=True)
     print(f"vuln: phase seconds={time.perf_counter() - t_phase:.2f} card {card_line()}",
           flush=True)
-    return {label: runs[label]["launches"] for label in ("fs", "server", "local", "skip")}
+    return ({label: runs[label]["launches"] for label in ("fs", "server", "local", "skip")},
+            {"fx": fx, "report": report})
+
+
+IMAGE_WHITEOUTS = 50  # L2 files with secrets that the last layer deletes (their secrets stay)
+IMAGE_SMALL_FILES = 5_000  # files of the one-layer OCI image scanned with --secret-backend tpu
+IMAGE_ENV_KEY = "AKIA" + "SMOKEIMAGEQ7KEY2"  # the AWS key planted in the config's Env
+IMAGE_BASE_SECRET = b'deploy_token = "ghp_' + b"K" * 36 + b'"\n'  # in the base layer: skipped
+IMAGE_RSS_FACTOR = 5  # RSS growth of inspect over the C2 image, in file sizes
+# the image path's host spans, in the order of its stages
+IMAGE_STAGES = (("pull", ("image.pull", "layer.open")),
+                ("layer walk", ("layer.walk", "analyzer.walk")),
+                ("claim", ("analyzer.claim",)), ("read", ("analyzer.read",)),
+                ("secret", ("analyze.secret", "image.config")),
+                ("license", ("analyze.license-file",)),
+                ("package analyzers", ("artifact.post",)),
+                ("DB", ("db.pull", "javadb.pull", "db.open", "db.load")),
+                ("detect", ("scan.vuln",)),
+                ("cache", ("cache.put", "cache.apply")), ("write", ("filter", "write")))
+
+
+def tar_gz_dir(src: str, path: str) -> None:
+    import tarfile
+
+    with tarfile.open(path, "w:gz", compresslevel=1) as tf:
+        for name in sorted(os.listdir(src)):
+            tf.add(os.path.join(src, name), arcname=name)
+
+
+def image_run(torch, gs, label: str, argv: list, calls: dict, b14: dict, nbytes: int,
+              n_files: int) -> dict:
+    """One in-process `python -m trivy_tpu_torch image|sbom` command of
+    phase `image`: kernel launches, B14's calls and the engines' batches
+    zeroed just before, read just after; prints the run's line with its
+    stage split (IMAGE_STAGES) and the layers it analysed and walked, from
+    the host spans."""
+    from trivy_tpu_torch import __main__ as cli
+    from trivy_tpu_torch.obs import trace as obs_trace
+
+    obs_trace.enable(ring=1 << 17)
+    obs_trace.clear()
+    torch.cuda.synchronize()
+    for k in gs.LAUNCHES:
+        gs.LAUNCHES[k] = 0
+    b14.update(calls=0, rows=0)
+    for v in calls.values():
+        v.clear()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in gs.LAUNCHES.items() if v}
+    total: dict = {}
+    count: dict = {}
+    for rec in obs_trace.snapshot():
+        total[rec.name] = total.get(rec.name, 0.0) + rec.dur
+        count[rec.name] = count.get(rec.name, 0) + 1
+    split = {stage: sum(total.get(n, 0.0) for n in names) for stage, names in IMAGE_STAGES}
+    split["package analyzers"] += sum(v for k, v in total.items() if k.startswith("analyze.")
+                                      and k not in ("analyze.secret", "analyze.license-file"))
+    split["detect"] -= total.get("db.load", 0.0)
+    split["engine build"] = total.get("secret.engine", 0.0)
+    split["claim"] -= split["engine build"]
+    split["scan"] = total.get("scan", 0.0)
+    split = {k: round(v, 4) for k, v in split.items()}
+    layers, walks = count.get("image.layer", 0), count.get("layer.walk", 0)
+    print(f"image: {label} rc={rc} files={n_files} MB={nbytes / 1e6:.3f} seconds={dt:.4f} "
+          f"files_per_s={n_files / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
+          f"stages_s={json.dumps(split)} layers_analysed={layers} layer_walks={walks} "
+          f"launches={json.dumps(launches)} b14_calls={b14['calls']} "
+          f"secret_batches={len(calls['secret'])}", flush=True)
+    return {"rc": rc, "seconds": dt, "launches": launches, "split": split, "layers": layers,
+            "walks": walks, "b14": dict(b14), "secret": list(calls["secret"])}
+
+
+def image_secret_rows(report: dict) -> dict:
+    """{Target: findings without the layer} of a report's secret results."""
+    return {r["Target"]: [{k: v for k, v in s.items() if k != "Layer"} for s in r["Secrets"]]
+            for r in report.get("Results", []) if r["Class"] == "secret"}
+
+
+def image_phase(np, torch, gs, items, planted: dict, vuln: dict, work: str) -> dict:
+    """Container images (`python -m trivy_tpu_torch image`).  The image
+    `app:1`, 8 layers built from phase `vuln`'s fixture and phase `runner`'s
+    items in memory, no second walk of the disk: L0 the Debian 12 root
+    (1,500 dpkg packages, 5% planted) and a planted secret, the base (its
+    history puts a `CMD` after it, so its secret is not scanned); L1 the
+    ~400 manifests of deps/; L2-L5 the 100,000 runner files in quarters;
+    L6 the C2 fixture's 99 MiB `opt/big/huge.c` and a github-pat; L7
+    whiteouts of IMAGE_WHITEOUTS L2 files with secrets (their secrets stay)
+    and of one deps manifest with planted vulnerabilities (its packages go)
+    and an opaque marker over the directory of an L3 file with a secret;
+    the config's `Env` holds an AWS key.  It is written as an OCI layout and
+    as a docker archive and served, with phase `vuln`'s DB and a Java index
+    as OCI artifacts, by an in-process registry.  Runs, counts zeroed just
+    before each, `--db-dir` and a fresh `--cache-dir` unless stated: (1)
+    `image --input app.tar` (vuln,secret); (2) `image localhost:P/app:1
+    --insecure` over an fs cache, its report equal to (1)'s but for the
+    artifact's name and metadata; (3) (2) again on its warm cache: no layer
+    analysed, no launch, the same report; (4) a fresh process, `image
+    --input app.tar --db-repository localhost:P/trivy-db:2
+    --java-db-repository localhost:P/trivy-java-db:1 --insecure` with no
+    `--db-dir`: its vulnerabilities equal (1)'s; its peak RSS; (5) a
+    one-layer OCI image of IMAGE_SMALL_FILES runner files, `--secret-backend
+    tpu --scanners secret,license` (K1, B14); (6) (2)'s image `-f
+    cyclonedx` on (2)'s warm cache, then `sbom` of it: the image's
+    vulnerabilities; (7) `--sbom-sources oci` with that SBOM planted as the
+    image's OCI referrer: no layer walked, no launch, the SBOM's
+    vulnerabilities.  Checks: (1)'s secrets equal phase `vuln`'s report on
+    the runner files (with the image's leading "/") plus the L6 github-pat
+    and the config's key (the oracle's findings), without the base secret;
+    the oracle on every flagged file plus 2,000 sampled claimed ones; its
+    vulnerabilities exactly the planted set less the whited-out manifest's;
+    in (1) and in (2), the engine that run built verified fused, and the
+    fused K5 and K6 launched and the flag-writing K5 did not; and a fresh process holding the C2 image alone (L6) grows its RSS
+    from the engine's construction to the end of `inspect` by at most
+    IMAGE_RSS_FACTOR times the file's size.  Each run prints its seconds,
+    files/s, MB/s and stage split (pull, layer walk, claim, read, secret,
+    license, package analyzers, DB, detect, cache, write, engine build).
+    Returns the in-process runs' launches."""
+    import hashlib
+
+    from trivy_tpu_torch.db.client import MEDIA_TYPE
+    from trivy_tpu_torch.engine import hybrid
+    from trivy_tpu_torch.engine.oracle import OracleScanner
+    from trivy_tpu_torch.image import fixtures as imfx
+    from trivy_tpu_torch.javadb import JAVA_DB_MEDIA_TYPE, build_javadb
+    from trivy_tpu_torch.license import classifier as lc
+
+    t_phase = time.perf_counter()
+    fx, fs_report = vuln["fx"], vuln["report"]
+    img, rules = os.path.join(work, "image"), os.path.join(work, "rules")
+    os.makedirs(img)
+
+    # -- the image, its small sibling and the artifacts -----------------------------
+    t0 = time.perf_counter()
+    tree_secrets = image_secret_rows(fs_report)
+    quarter = (len(items) + 3) // 4
+    quarters = [items[i * quarter:(i + 1) * quarter] for i in range(4)]
+    l2_secret = sorted(p for p, _ in quarters[0] if p in tree_secrets)
+    l3_secret = sorted(p for p, _ in quarters[1] if p in tree_secrets)
+    if len(l2_secret) < IMAGE_WHITEOUTS or not l3_secret:
+        fail("image", f"{len(l2_secret)} L2 and {len(l3_secret)} L3 files with secrets")
+    whited = l2_secret[:IMAGE_WHITEOUTS]
+    opaque_dir = os.path.dirname(l3_secret[0])
+    gone_manifest = sorted({t for t, _, _, _ in fx["planted"]})[0]
+    base_files = sorted(fx["roots"]["debian 12"]["files"].items())
+    base_files.append(("etc/base-credentials.conf", IMAGE_BASE_SECRET))
+    big = [("opt/big/huge.c", imfx.big_file()), ("opt/big/leak.conf", imfx.BIG_PAT)]
+    specs = [(base_files, (), ()), (fx["manifests"], (), ())] + [(q, (), ()) for q in quarters]
+    specs += [(big, (), ()), ([("etc/motd", b"built by the smoke\n")],
+                              whited + [gone_manifest], [opaque_dir])]
+    layer_files = []
+    for i, (files, wh, opq) in enumerate(specs):
+        path = os.path.join(img, f"layer{i}.tar")
+        layer_files.append((path, imfx.write_layer(path, files, wh, opq)))
+    history = [{"created_by": "/bin/sh -c #(nop) ADD file:debian12 in / "},
+               {"created_by": '/bin/sh -c #(nop)  CMD ["bash"]', "empty_layer": True},
+               {"created_by": "/bin/sh -c #(nop) COPY dir:deps in /deps "}]
+    history += [{"created_by": f"/bin/sh -c #(nop) COPY dir:part{q} in / "} for q in range(4)]
+    history += [{"created_by": "/bin/sh -c #(nop) COPY file:huge in /opt/big "},
+                {"created_by": "/bin/sh -c rm -rf stale files"},
+                {"created_by": '/bin/sh -c #(nop)  CMD ["/app/run"]', "empty_layer": True}]
+    base_config = {"architecture": "amd64", "os": "linux", "created": "2026-01-01T00:00:00Z",
+                   "config": {"Env": ["PATH=/usr/bin", f"AWS_ACCESS_KEY_ID={IMAGE_ENV_KEY}"],
+                              "Cmd": ["/app/run"]}, "history": history}
+    config = dict(base_config, rootfs={"type": "layers",
+                                       "diff_ids": [d for _, d in layer_files]})
+    oci = imfx.write_oci_layout(os.path.join(img, "layout"), [p for p, _ in layer_files],
+                                config)
+    blob_paths = [os.path.join(oci["blobs"], d.split(":")[1]) for _, d in layer_files]
+    archive = os.path.join(img, "app.tar")
+    imfx.write_docker_archive(archive, blob_paths, config, ("app:1",))
+    big_layer = blob_paths[6]
+    small_tar = os.path.join(img, "small.tar")
+    small_root = os.path.join(img, "small")
+    small_diff = imfx.write_layer(small_tar, items[:IMAGE_SMALL_FILES])
+    imfx.write_oci_layout(small_root, [small_tar], {
+        "architecture": "amd64", "os": "linux",
+        "rootfs": {"type": "layers", "diff_ids": [small_diff]}})
+    db_tgz, java_dir, java_tgz = (os.path.join(img, n) for n in ("db.tgz", "java", "java.tgz"))
+    tar_gz_dir(fx["db"], db_tgz)
+    build_javadb(java_dir, {"00" * 20: "org.smoke:none:1.0"})
+    tar_gz_dir(java_dir, java_tgz)
+    referrers: dict = {}
+    repos = {
+        "app": {"manifests": {"1": oci["manifest"], oci["digest"]: oci["manifest"]},
+                "blobs": {}, "blob_dir": oci["blobs"]},
+        "trivy-db": {"manifests": {"2": imfx.artifact_manifest(MEDIA_TYPE, db_tgz)},
+                     "blobs": {}, "blob_dir": img},
+        "trivy-java-db": {"manifests": {"1": imfx.artifact_manifest(JAVA_DB_MEDIA_TYPE,
+                                                                    java_tgz)},
+                          "blobs": {}, "blob_dir": img},
+    }
+    for name in (db_tgz, java_tgz):  # the artifact blobs, under their hex digests
+        os.link(name, os.path.join(img, imfx.file_digest(name).split(":")[1]))
+    sizes = [os.path.getsize(p) for p in blob_paths]
+    n_files = sum(len(f) for f, _, _ in specs)
+    nbytes = sum(len(c) for f, _, _ in specs for _, c in f)
+    print(f"image: app:1 layers={len(sizes)} layer_MB={[round(s / 1e6, 3) for s in sizes]} "
+          f"image_MB={sum(sizes) / 1e6:.3f} files={n_files} whiteouts={len(whited) + 1} "
+          f"opaque={opaque_dir} small_files={IMAGE_SMALL_FILES} "
+          f"build_seconds={time.perf_counter() - t0:.2f}", flush=True)
+
+    # -- the runs ------------------------------------------------------------------------
+    calls, b14, engines = {"secret": []}, {"calls": 0, "rows": 0}, []
+    real_make, real_matmul = hybrid.make_secret_engine, lc.FullTextClassifier._matmul
+
+    def make(**kw):
+        engine = real_make(**kw)
+        scan = engine.scan_batch
+
+        def recorded(batch):
+            calls["secret"].append(batch)
+            return scan(batch)
+
+        engine.scan_batch = recorded
+        engines.append(engine)
+        return engine
+
+    def counted(self, fps):
+        if self.device.type == "cuda":
+            b14["calls"] += 1
+            b14["rows"] += len(fps)
+        return real_matmul(self, fps)
+
+    httpd = imfx.serve_registry(repos, referrers)
+    addr = server_addr(httpd)
+    ref = f"{addr}/app:1"
+    caches = {k: os.path.join(img, f"cache-{k}") for k in ("archive", "ref", "small", "oci")}
+    outs = {k: os.path.join(img, f"{k}.json") for k in
+            ("archive", "ref", "warm", "fresh", "small", "sbom", "oci")}
+    bom = os.path.join(img, "bom.cdx.json")
+    base = ["--rules-cache-dir", rules, "--db-dir", fx["db"]]
+    runs: dict = {}
+    hybrid.make_secret_engine = make
+    lc.FullTextClassifier._matmul = counted
+    try:
+        runs["archive"] = image_run(
+            torch, gs, "image --input app.tar (docker archive; vuln,secret)",
+            ["image", *base, "--cache-dir", caches["archive"], "-f", "json", "-o",
+             outs["archive"], "--input", archive], calls, b14, nbytes, n_files)
+        built = {"archive": engines[-1] if engines else None}
+        archive_secret = runs["archive"]["secret"]
+        fs_cache = ["--cache-backend", "fs", "--cache-dir", caches["ref"]]
+        n_built = len(engines)
+        runs["ref"] = image_run(torch, gs, "image localhost:P/app:1 --insecure (registry, fs "
+                                "cache)", ["image", *base, *fs_cache, "--insecure", "-f", "json",
+                                           "-o", outs["ref"], ref], calls, b14, nbytes, n_files)
+        built["ref"] = engines[-1] if len(engines) > n_built else None
+        runs["warm"] = image_run(torch, gs, "image localhost:P/app:1 --insecure (warm fs cache)",
+                                 ["image", *base, *fs_cache, "--insecure", "-f", "json", "-o",
+                                  outs["warm"], ref], calls, b14, nbytes, n_files)
+        small_bytes = sum(len(c) for _, c in items[:IMAGE_SMALL_FILES])
+        runs["small"] = image_run(
+            torch, gs, f"image --input <OCI layout of {IMAGE_SMALL_FILES} files> "
+            "--secret-backend tpu --scanners secret,license",
+            ["image", "--rules-cache-dir", rules, "--cache-dir", caches["small"],
+             "--secret-backend", "tpu", "--scanners", "secret,license", "-f", "json", "-o",
+             outs["small"], "--input", small_root], calls, b14, small_bytes,
+            IMAGE_SMALL_FILES)
+        runs["cyclonedx"] = image_run(torch, gs, "image localhost:P/app:1 -f cyclonedx (warm)",
+                                      ["image", *base, *fs_cache, "--insecure", "-f",
+                                       "cyclonedx", "-o", bom, ref], calls, b14, nbytes,
+                                      n_files)
+        runs["sbom"] = image_run(torch, gs, "sbom <its CycloneDX>",
+                                 ["sbom", *base, "--cache-dir", caches["small"], "-f", "json",
+                                  "-o", outs["sbom"], bom], calls, b14, 0, 1)
+        with open(bom, "rb") as f:
+            bom_bytes = f.read()
+        sbom_manifest = json.dumps({
+            "schemaVersion": 2, "mediaType": "application/vnd.oci.image.manifest.v1+json",
+            "artifactType": "application/vnd.cyclonedx+json",
+            "layers": [{"mediaType": "application/vnd.cyclonedx+json",
+                        "digest": "sha256:" + hashlib.sha256(bom_bytes).hexdigest(),
+                        "size": len(bom_bytes)}]}).encode()
+        sbom_digest = "sha256:" + hashlib.sha256(sbom_manifest).hexdigest()
+        repos["app"]["blobs"]["sha256:" + hashlib.sha256(bom_bytes).hexdigest()] = bom_bytes
+        repos["app"]["manifests"][sbom_digest] = sbom_manifest
+        referrers[oci["digest"]] = {
+            "schemaVersion": 2, "mediaType": "application/vnd.oci.image.index.v1+json",
+            "manifests": [{"mediaType": "application/vnd.oci.image.manifest.v1+json",
+                           "artifactType": "application/vnd.cyclonedx+json",
+                           "digest": sbom_digest, "size": len(sbom_manifest)}]}
+        runs["oci"] = image_run(torch, gs, "image localhost:P/app:1 --sbom-sources oci "
+                                "(referrer SBOM)", ["image", *base, "--cache-dir", caches["oci"],
+                                                    "--insecure", "--sbom-sources", "oci", "-f",
+                                                    "json", "-o", outs["oci"], ref],
+                                calls, b14, 0, 0)
+        # (4) a fresh process pulling both DBs
+        fresh = os.path.join(img, "cache-fresh")
+        _, wall, rss = fresh_process(
+            [sys.executable, "-m", "trivy_tpu_torch", "image", "--rules-cache-dir", rules,
+             "--cache-dir", fresh, "--db-repository", f"{addr}/trivy-db:2",
+             "--java-db-repository", f"{addr}/trivy-java-db:1", "--insecure", "-f", "json",
+             "-o", outs["fresh"], "--input", archive], img, "fresh", "image")
+        print(f"image: fresh process `python -m trivy_tpu_torch image --input app.tar "
+              f"--db-repository localhost:P/trivy-db:2 --java-db-repository "
+              f"localhost:P/trivy-java-db:1 --insecure` rc=0 wall_seconds={wall:.2f} "
+              f"files_per_s={n_files / wall:.1f} peak_resident_MiB={rss:.1f} (sampled every 10 "
+              f"ms) pulled "
+              f"DB files={len(os.listdir(os.path.join(fresh, 'db')))} Java index files="
+              f"{len(os.listdir(os.path.join(fresh, 'db', 'java-db')))}", flush=True)
+        # the C2 image alone in a fresh process: RSS from the engine to inspect's end
+        out, wall, _ = fresh_process([sys.executable, "-m", "trivy_tpu_torch.image.fixtures",
+                                      "--layer", big_layer, "--device", DEVICE,
+                                      "--rules-cache-dir", rules], img, "rss", "image")
+        rss = json.loads(out.strip().splitlines()[-1])
+    finally:
+        hybrid.make_secret_engine, lc.FullTextClassifier._matmul = real_make, real_matmul
+        httpd.shutdown()
+        httpd.server_close()
+    bad = {k: r["rc"] for k, r in runs.items() if r["rc"]}
+    if bad:
+        fail("image", f"exit codes {bad}, not 0")
+    docs = {}
+    for k in ("archive", "ref", "warm", "fresh", "small", "sbom", "oci"):
+        with open(outs[k]) as f:
+            docs[k] = json.load(f)
+
+    # (1) secrets, vulnerabilities, kernels
+    a = docs["archive"]
+    oracle = OracleScanner()
+    config_item = ("config.json", json.dumps(config, indent=0, sort_keys=True).encode())
+    want = {"/" + t: s for t, s in tree_secrets.items()}
+    for path, content in (("/opt/big/leak.conf", imfx.BIG_PAT), config_item):
+        want[path] = [f.to_json() for f in oracle.scan(path, content).findings]
+    got = image_secret_rows(a)
+    if got != want:
+        fail("image", f"the secrets differ from the expected set: {len(set(got) - set(want))} "
+             f"extra, {len(set(want) - set(got))} missed, "
+             f"{sum(got[t] != want[t] for t in set(got) & set(want))} changed")
+    if "/etc/base-credentials.conf" in got or not all("/" + p in got for p in whited):
+        fail("image", "the base layer's secret was reported or a whited-out secret was lost")
+    items_seen = [it for batch in archive_secret for it in batch]
+    if any(p == "/etc/base-credentials.conf" for p, _ in items_seen):
+        fail("image", "the base layer's files reached the secret engine")
+    n_secret, n_flagged, n_sampled = secrets_check(np, "image", {"Results": [
+        {"Target": t, "Class": "secret", "Secrets": f} for t, f in got.items()]}, items_seen)
+    want_vulns = {v for v in fx["planted"] if v[0] != gone_manifest}
+    os_target = f"{archive} (debian 12.5)"
+    want_vulns |= {(os_target, n, i, v) for _, n, i, v in fx["roots"]["debian 12"]["planted"]}
+    got_vulns = vuln_rows(a)
+    if got_vulns != want_vulns:
+        fail("image", f"the vulnerabilities differ from the planted set: "
+             f"{len(got_vulns - want_vulns)} extra, {len(want_vulns - got_vulns)} missed")
+    # each default run's own engine: its gate must pick fused on the card,
+    # and then the fused K5 and K6 launch and the flag-writing K5 does not
+    for label in ("archive", "ref"):
+        engine, launches = built[label], runs[label]["launches"]
+        if engine is None:
+            fail("image", f"the {label} run built no secret engine")
+        print(f"image: {label} run verify={engine.verify} "
+              f"gate={json.dumps(getattr(engine, 'gate_decision', None), default=str)}: "
+              f"fused K5 {launches.get('nfa_fused', 0)}, K6 {launches.get('nfa_padded', 0)}, "
+              f"K5 {launches.get('nfa_stream', 0)}", flush=True)
+        if (engine.verify != "fused" or not launches.get("nfa_fused")
+                or not launches.get("nfa_padded") or launches.get("nfa_stream")):
+            fail("image", f"the {label} run: verify={engine.verify} launches {launches}: "
+                 "expected fused, the fused K5 and K6, and no K5")
+    print(f"image: archive report checked: secret files={n_secret} (equal to phase vuln's "
+          f"{len(tree_secrets)} with the leading '/', the L6 github-pat and the config's key; "
+          f"the base layer's secret not reported, the {len(whited)} whited-out files' kept) "
+          f"equal to the oracle on {n_flagged} flagged + {n_sampled} sampled of "
+          f"{len(items_seen)} claimed; vulnerabilities={len(got_vulns)} equal to the planted "
+          f"set less {gone_manifest}'s; launches={json.dumps(runs['archive']['launches'])}",
+          flush=True)
+
+    # (2)-(4) the registry, the warm cache, the fresh process
+    def renamed(doc, name):
+        return json.loads(json.dumps(doc["Results"]).replace(json.dumps(name)[1:-1], "@"))
+
+    if renamed(docs["ref"], ref) != renamed(a, archive):
+        fail("image", "the registry run's results differ from the archive run's")
+    if docs["ref"]["Metadata"]["ImageID"] != a["Metadata"]["ImageID"]:
+        fail("image", "the registry run's image ID differs from the archive's")
+    w = runs["warm"]
+    if docs["warm"] != docs["ref"] or w["layers"] or w["launches"] or w["secret"]:
+        fail("image", f"the warm run analysed {w['layers']} layers, launched {w['launches']}, "
+             f"scanned {len(w['secret'])} batches or changed the report")
+    if vuln_rows(docs["fresh"]) != got_vulns:
+        fail("image", "the fresh process's vulnerabilities (pulled DB) differ from run 1's")
+    print(f"image: registry run equal to the archive run but for the name; warm run analysed "
+          f"0 layers, launched nothing, report equal; fresh process's vulnerabilities (DB and "
+          f"Java index pulled over OCI) equal run 1's ({len(got_vulns)})", flush=True)
+
+    # (5) the small image through K1 and B14
+    s = runs["small"]
+    if not s["launches"].get("bitplane") or not s["b14"]["calls"]:
+        fail("image", f"--secret-backend tpu launched {s['launches']}, B14 calls "
+             f"{s['b14']['calls']}: K1 and B14 must run")
+    small_want = {"/" + p: tree_secrets[p] for p, _ in items[:IMAGE_SMALL_FILES]
+                  if p in tree_secrets}
+    small_got = image_secret_rows(docs["small"])
+    lic = {r["Target"].lstrip("/") for r in docs["small"]["Results"]
+           if r["Class"] == "license-file"}
+    lic_want = {f"third_party/pkg{i}/LICENSE" for i in planted if i < IMAGE_SMALL_FILES}
+    if small_got != small_want or lic != lic_want:
+        fail("image", f"the small image's secrets ({len(small_got)}) or licenses ({len(lic)}) "
+             f"differ from phase vuln's ({len(small_want)}) and the planted ({len(lic_want)})")
+    print(f"image: small image (--secret-backend tpu) secrets={len(small_got)} equal to "
+          f"phase vuln's, licenses={len(lic)} equal to the planted, K1 launches="
+          f"{s['launches'].get('bitplane')} B14 calls={s['b14']['calls']}", flush=True)
+
+    # (6) the SBOM round trip, (7) the referrer SBOM
+    def pkg_vulns(doc):
+        return {v[1:] for v in vuln_rows(doc)}
+
+    if pkg_vulns(docs["sbom"]) != pkg_vulns(a) or docs["sbom"]["ArtifactType"] != "cyclonedx":
+        fail("image", f"sbom of the image's CycloneDX found {len(pkg_vulns(docs['sbom']))} "
+             f"vulnerabilities, not the image's {len(pkg_vulns(a))}")
+    o = runs["oci"]
+    if o["walks"] or o["layers"] or o["launches"] or o["secret"]:
+        fail("image", f"--sbom-sources oci walked {o['walks']} layers, launched "
+             f"{o['launches']} or scanned {len(o['secret'])} batches")
+    if docs["oci"]["ArtifactType"] != "cyclonedx" or pkg_vulns(docs["oci"]) != pkg_vulns(a):
+        fail("image", "--sbom-sources oci did not report the referrer SBOM's vulnerabilities")
+    print(f"image: sbom of the image's CycloneDX ({len(bom_bytes) / 1e6:.3f} MB) found its "
+          f"{len(pkg_vulns(a))} vulnerabilities; --sbom-sources oci took the referrer SBOM: "
+          f"layers walked 0, launches none, vulnerabilities equal", flush=True)
+
+    # the C2 image's RSS
+    growth = rss["peak_mib"] - rss["base_mib"]
+    limit = IMAGE_RSS_FACTOR * imfx.BIG_SIZE / (1 << 20)
+    if (growth > limit or rss["secrets"] != ["/opt/big/leak.conf"]
+            or rss["device"].split(":")[0] != DEVICE):
+        fail("image", f"the C2 image: {json.dumps(rss)}, growth {growth:.1f} MiB against "
+             f"{limit:.1f}")
+    print(f"image: C2 image ({imfx.BIG_SIZE / (1 << 20):.0f} MiB opt/big/huge.c + a "
+          f"github-pat, one layer) in a fresh process, engine {rss['engine']} on "
+          f"{rss['device']}: resident {rss['base_mib']:.1f} MiB after the engine's "
+          f"construction and warm-up, peak {rss['peak_mib']:.1f} MiB during inspect (sampled "
+          f"every 5 ms), {rss['after_mib']:.1f} at its end, growth {growth:.1f} MiB (limit "
+          f"{limit:.1f}: {IMAGE_RSS_FACTOR}x the file); resident at its start "
+          f"{rss['start_mib']:.1f} MiB, VmHWM {rss['hwm_mib']} MiB (null: /proc has none); "
+          f"wall {wall:.2f} s", flush=True)
+    print(f"image: phase seconds={time.perf_counter() - t_phase:.2f} card {card_line()}",
+          flush=True)
+    return {label: runs[label]["launches"] for label in ("archive", "ref", "small")}
+
 
 
 def to_cpu(torch, value):
@@ -3620,7 +4112,9 @@ def main(argv: list[str]) -> int:
     work = tempfile.mkdtemp(prefix="smoke-runner-")
     try:
         ran = runner_phase(np, torch, gs, items, planted, work)
-        vulned = vuln_phase(np, torch, gs, items, work)
+        vulned, vuln_ctx = vuln_phase(np, torch, gs, items, work)
+        imaged = image_phase(np, torch, gs, items, planted, vuln_ctx, work)
+        del vuln_ctx
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del items
@@ -3677,6 +4171,8 @@ def main(argv: list[str]) -> int:
             "runner_launches": {run: n[kind] for run, n in ran.items() if n.get(kind)},
             # launches on phase `vuln`'s in-process commands
             "vuln_launches": {run: n[kind] for run, n in vulned.items() if n.get(kind)},
+            # launches on phase `image`'s in-process commands
+            "image_launches": {run: n[kind] for run, n in imaged.items() if n.get(kind)},
         }
         for kind in ("bitplane", "window", "rows", "lut", "mega", "mega_acc",
                      "mega_epilogue", "nfa_stream", "nfa_fused", "nfa_padded")

@@ -226,6 +226,43 @@ vuln_doc = json.loads(vuln_buf.getvalue())
 verified = verified and [v["VulnerabilityID"] for r in vuln_doc["Results"]
                          for v in r.get("Vulnerabilities", [])] == ["CVE-X"]
 verified = verified and any(r.get("Secrets") for r in vuln_doc["Results"])
+import hashlib, tarfile
+from trivy_tpu_torch import oci
+from trivy_tpu_torch.image import registry
+layer = io.BytesIO()
+with tarfile.open(fileobj=layer, mode="w") as tf:
+    for name in ("package-lock.json", "src/config.env"):
+        with open(os.path.join(sys.argv[1], name), "rb") as f:
+            data = f.read()
+        info = tarfile.TarInfo("app/" + name)
+        info.size = len(data)
+        tf.addfile(info, io.BytesIO(data))
+layer = layer.getvalue()
+config = json.dumps({"architecture": "amd64", "os": "linux", "rootfs": {
+    "type": "layers", "diff_ids": ["sha256:" + hashlib.sha256(layer).hexdigest()]}}).encode()
+archive = sys.argv[1] + "-image.tar"
+with tarfile.open(archive, "w") as tf:
+    for name, data in (("config.json", config), ("layer.tar", layer), ("manifest.json", json.dumps(
+            [{"Config": "config.json", "RepoTags": ["iso:1"], "Layers": ["layer.tar"]}]).encode())):
+        info = tarfile.TarInfo(name)
+        info.size = len(data)
+        tf.addfile(info, io.BytesIO(data))
+bom = sys.argv[1] + "-bom.json"
+image_buf = io.StringIO()
+with contextlib.redirect_stdout(image_buf):
+    cli.main(["image", "--format", "json", "--device", "cpu", "--rules-cache-dir", rules_dir,
+              "--db-dir", db_dir, "--input", archive])
+    cli.main(["image", "--format", "cyclonedx", "-o", bom, "--device", "cpu", "--rules-cache-dir",
+              rules_dir, "--db-dir", db_dir, "--input", archive])
+image_doc = json.loads(image_buf.getvalue())
+verified = verified and image_doc["ArtifactType"] == "container_image"
+verified = verified and any(r.get("Secrets") for r in image_doc["Results"])
+sbom_buf = io.StringIO()
+with contextlib.redirect_stdout(sbom_buf):
+    cli.main(["sbom", "--format", "json", "--device", "cpu", "--db-dir", db_dir, bom])
+for doc in (image_doc, json.loads(sbom_buf.getvalue())):
+    verified = verified and [v["VulnerabilityID"] for r in doc["Results"]
+                             for v in r.get("Vulnerabilities", [])] == ["CVE-X"]
 from trivy_tpu_torch import serve, tenancy
 from trivy_tpu_torch.cache.store import MemoryCache
 from trivy_tpu_torch.rpc import client as rpc_client, server as rpc_server
@@ -290,7 +327,10 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     filter, report writers), which finds the tree's MIT license, nor the
     vulnerability scanner behind `fs` with the default scanners over a
     local `--db-dir` (package analyzers, DB readers, detectors), which
-    finds the planted npm advisory, nor a server over that DB."""
+    finds the planted npm advisory, nor a server over that DB, nor the
+    image path (`image --input` of a docker archive of those files, the
+    registry client and the OCI artifact puller imported) nor `sbom` over
+    its `-f cyclonedx` output, which find the same advisory."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

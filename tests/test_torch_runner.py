@@ -386,9 +386,9 @@ def test_resident_chunks_zero_changes_resident_hits_not_findings(small):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--java-db-repository", "example.invalid/java-db"], "A13c"),
+    (["--rekor-url", "http://rekor.invalid"], "A13d"),
     (["--scanners", "secret,misconfig"], "A13d"),
-    (["--db-repository", "example.invalid/db"], "A13c"),
+    (["--checks-bundle-repository", "example.invalid/checks"], "A13d"),
     (["--fleet-config", "fleet.yaml"], "A13c"),
     (["--ignore-policy", "p.rego"], "A13d"),
     (["--compliance", "docker-cis"], "A13d"),
@@ -396,9 +396,9 @@ def test_resident_chunks_zero_changes_resident_hits_not_findings(small):
     (["--module-dir", "mods"], "A13d"),
     (["--sbom-sources", "rekor"], "A13d"),
     (["--trace"], "A13d"),
-    (["--insecure"], "A13d"),
-    (["--format", "cyclonedx"], "A13d"),
-    (["--format", "template", "--template", "x"], "A13d"),
+    (["--cache-backend", "s3://bucket/prefix"], "A13c"),
+    (["--scanners", "misconfig"], "A13d"),
+    (["--sbom-sources", "oci", "--sbom-sources", "rekor"], "A13d"),
     (["--cache-backend", "redis://localhost:1"], "A13c"),
     (["--server-wire", "protobuf", "--server", "localhost:1"], "A13c"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v).lstrip("-"))
@@ -408,9 +408,11 @@ def test_not_ported_exits_2_naming_its_item(small, argv, item):
     assert f"ROADMAP {item}" in err
 
 
-@pytest.mark.parametrize("kind", ["image", "sbom", "vm"])
-def test_targets_not_ported_exit_2(small, kind):
-    rc, _, err = _run(cli.main, [kind, "--device", "cpu", str(small)])
+@pytest.mark.parametrize("argv", [["image", "--scanners", "misconfig"],
+                                  ["sbom", "--sbom-sources", "rekor"], ["vm"]],
+                         ids=lambda argv: "_".join(argv).replace("--", ""))
+def test_targets_not_ported_exit_2(small, argv):
+    rc, _, err = _run(cli.main, [argv[0], "--device", "cpu", *argv[1:], str(small)])
     assert rc == 2 and "ROADMAP A13d" in err
 
 

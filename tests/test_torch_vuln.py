@@ -351,11 +351,18 @@ def test_db_update_gate_equals_the_reference(tmp_path, case):
             with pytest.raises(ref_client.DBError) as r:
                 ref_client.DBClient(str(tmp_path), clock=lambda: NOW).ensure(skip=skip)
             assert str(e.value) == str(r.value)
-    # the download is not ported: a DB that needs one fails naming the item
-    c = client.DBClient(str(tmp_path), clock=lambda: NOW)
-    if _outcome(c.needs_update, False) is True:
-        with pytest.raises(client.DBError, match="A13c"):
-            c.ensure()
+    # a DB that needs one is downloaded, as the reference's is (the pull
+    # itself, over OCI, is held to the reference in test_torch_oci_db.py;
+    # here `download` is recorded, so nothing is fetched)
+    pulls = []
+    for mod in (client, ref_client):
+        c = mod.DBClient(str(tmp_path), clock=lambda: NOW)
+        c.download = lambda mod=mod: pulls.append(mod.__name__)
+        if _outcome(c.needs_update, False) is True:
+            assert c.ensure() is True
+    assert pulls in ([], ["trivy_tpu_torch.db.client", "trivy_tpu.db.client"])
+    assert bool(pulls) == (_outcome(client.DBClient(str(tmp_path), clock=lambda: NOW)
+                                    .needs_update, False) is True)
 
 
 # -- the detectors -------------------------------------------------------------------

@@ -5,11 +5,18 @@ dpkg-license and the package analyzers), the local artifact and its blob
 cache, the applier, the vulnerability scanner over a local DB (`--db-dir`,
 else `<--cache-dir>/db`; no DB means no vulnerabilities, as in the
 reference), result filtering and the report writers
-(`-f table|json|sarif`), with the reference's flags (`_add_scan_flags`),
+(`-f table|json|sarif|cyclonedx|spdx|spdx-json|template|github|cosign-vuln`),
+with the reference's flags (`_add_scan_flags`),
 each bound to TRIVY_TPU_<FLAG> and to `--config trivy.yaml`, plus
 `--device` (default cuda; `--device cpu` runs the plain versions).
-`--scanners` defaults to the reference's: `vuln,secret` for `fs` and
-`repo`, `vuln` for `rootfs`.  The secret analyzer's engine is the one
+`--scanners` defaults to the reference's: `vuln,secret` for `fs`, `repo`
+and `image`, `vuln` for `rootfs` and `sbom`.  `image [--input PATH | REF]`
+scans a docker archive, an OCI layout, or an image resolved through the
+docker, containerd, podman and registry sources (`--insecure`,
+`--username`, `--password`; `--sbom-sources oci` takes a referrer SBOM
+instead of walking the layers); `sbom PATH` scans a CycloneDX or SPDX
+document.  `--db-repository` and `--java-db-repository` pull the DBs over
+OCI before the scan.  The secret analyzer's engine is the one
 `engine/hybrid.py` `make_secret_engine` builds for `--secret-backend`
 (default `auto`: the hybrid engine), started from the compiled-rules
 registry (`--rules-cache-dir`, default `TRIVY_TPU_RULES_CACHE_DIR`, else
@@ -20,8 +27,7 @@ server applies it).  `--mesh` (default `TRIVY_TPU_MESH`) is validated and
 seated in `TRIVY_TPU_MESH`, where every engine's `topology.get_mesh()`
 reads it, as the reference's is; a bad spec exits 2.  A target, scanner,
 flag or format that waits for a ROADMAP item exits 2 naming it
-(`commands/run.py` `NOT_PORTED`), as do the `image`, `sbom` and `vm`
-commands.
+(`commands/run.py` `NOT_PORTED`), as does the `vm` command.
 
 `python -m trivy_tpu_torch rules compile|ls|verify|push` maintains the
 registry (`commands/rules.py`; `push` installs a ruleset into a running
@@ -47,11 +53,9 @@ NOT_PORTED = {"--fleet-config": "A13c", "--watch-config": "A13c"}
 # The reference's scan flags whose feature waits for a ROADMAP item: they
 # parse as the reference's and, set, make the scan exit 2 naming the item.
 NOT_PORTED_FLAGS = {
-    "fleet-config": "A13c", "db-repository": "A13c", "java-db-repository": "A13c",
-    "ignore-policy": "A13d", "checks-bundle-repository": "A13d", "config-check": "A13d",
-    "compliance": "A13d", "module-dir": "A13d", "sbom-sources": "A13d",
-    "rekor-url": "A13d", "trace": "A13d", "insecure": "A13d", "username": "A13d",
-    "password": "A13d", "template": "A13d",
+    "fleet-config": "A13c", "ignore-policy": "A13d", "checks-bundle-repository": "A13d",
+    "config-check": "A13d", "compliance": "A13d", "module-dir": "A13d",
+    "rekor-url": "A13d", "trace": "A13d",
 }
 SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
 
@@ -167,11 +171,12 @@ def _parse_duration(s) -> float:
     return total
 
 
-def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str) -> None:
+def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
+                    target_nargs: str | None = None) -> None:
     """The reference's scan flags (`trivy_tpu/cli.py` `_add_scan_flags`),
     plus `--device`.  Flags whose feature waits for a ROADMAP item parse as
     the reference's do and make the run exit 2 naming the item."""
-    p.add_argument("target")
+    p.add_argument("target", nargs=target_nargs)
     p.add_argument(
         "--scanners", default=_env_default("scanners", default_scanners),
         help="comma-separated: vuln,secret,license (misconfig: ROADMAP A13d)",
@@ -179,7 +184,8 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str) -> None:
     p.add_argument("--severity", default=_env_default("severity", ",".join(SEVERITIES)),
                    help="comma-separated severities to report")
     p.add_argument("-f", "--format", default=_env_default("format", "table"),
-                   help="table (default), json or sarif")
+                   help="table (default), json, sarif, cyclonedx, spdx, spdx-json, "
+                   "template, github or cosign-vuln")
     p.add_argument("-o", "--output", default=_env_default("output", ""))
     p.add_argument("--exit-code", type=int, default=_env_num("exit-code", 0, int))
     for flag in ("skip-files", "skip-dirs"):
@@ -258,10 +264,24 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str) -> None:
                    help="scan timeout, e.g. 300s / 5m / 1h (default 5m)")
     p.add_argument("--config", default=os.environ.get("TRIVY_TPU_CONFIG", "trivy.yaml"),
                    help="YAML config file merged under flags and env vars")
+    p.add_argument("--template", default=_env_default("template", ""),
+                   help="template for -f template (@FILE reads it from a file)")
+    p.add_argument("--db-repository", default=_env_default("db-repository", ""),
+                   help="OCI reference to pull the vulnerability DB from")
+    p.add_argument("--java-db-repository", default=_env_default("java-db-repository", ""),
+                   help="OCI reference to pull the Java index DB from")
+    p.add_argument("--sbom-sources", action="append", default=_list_default("sbom-sources"),
+                   help="external SBOM sources: oci (rekor: ROADMAP A13d)")
+    p.add_argument("--insecure", action="store_true", default=_bool_default("insecure"),
+                   help="allow plain-http registry access (images and DB pulls)")
+    p.add_argument("--username", default=_env_default("username", ""),
+                   help="private registry username (TRIVY_TPU_USERNAME)")
+    p.add_argument("--password", default=_env_default("password", ""),
+                   help="private registry password (prefer the env var)")
     for flag in NOT_PORTED_FLAGS:
-        if flag in ("config-check", "sbom-sources"):
+        if flag == "config-check":
             p.add_argument(f"--{flag}", action="append", default=_list_default(flag))
-        elif flag in ("trace", "insecure"):
+        elif flag == "trace":
             p.add_argument(f"--{flag}", action="store_true", default=_bool_default(flag))
         else:
             p.add_argument(f"--{flag}", default=_env_default(flag, ""))
@@ -271,7 +291,7 @@ def _options_from_args(args: argparse.Namespace):
     from trivy_tpu_torch.commands.run import Options
 
     return Options(
-        target=args.target,
+        target=getattr(args, "input", "") or args.target,
         scanners=[s for s in args.scanners.split(",") if s],
         severities=[s for s in args.severity.upper().split(",") if s],
         format=args.format,
@@ -303,6 +323,13 @@ def _options_from_args(args: argparse.Namespace):
         trace_out=args.trace_out,
         explain=args.explain,
         device=args.device,
+        template=args.template,
+        sbom_sources=list(args.sbom_sources),
+        insecure_registry=args.insecure,
+        username=args.username,
+        password=args.password,
+        db_repository=args.db_repository,
+        java_db_repository=args.java_db_repository,
         branch=getattr(args, "branch", ""),
         tag=getattr(args, "tag", ""),
         commit=getattr(args, "commit", ""),
@@ -446,12 +473,16 @@ def build_parser() -> argparse.ArgumentParser:
         ("repository", ["repo"], TARGET_REPOSITORY, "vuln,secret",
          "scan a git repository"),
         ("image", [], TARGET_IMAGE, "vuln,secret",
-         "scan a container image (ROADMAP A13d)"),
-        ("sbom", [], TARGET_SBOM, "vuln", "scan an SBOM (ROADMAP A13d)"),
+         "scan a container image: an archive, an OCI layout or a reference"),
+        ("sbom", [], TARGET_SBOM, "vuln", "scan an SBOM (CycloneDX/SPDX JSON)"),
         ("vm", [], TARGET_VM, "vuln,secret", "scan a VM disk image (ROADMAP A13d)"),
     ):
         p = sub.add_parser(name, aliases=aliases, help=text)
-        _add_scan_flags(p, scanners)
+        # `image --input PATH` needs no positional target
+        _add_scan_flags(p, scanners, "?" if kind == TARGET_IMAGE else None)
+        if kind == TARGET_IMAGE:
+            p.add_argument("--input", default="",
+                           help="tar archive path (docker save / OCI layout)")
         if kind == TARGET_REPOSITORY:
             for flag in ("branch", "tag", "commit"):
                 p.add_argument(f"--{flag}", default="")
@@ -524,12 +555,15 @@ def _run_scan(parser, args) -> int:
     )
     from trivy_tpu_torch.db.client import DBError
     from trivy_tpu_torch.deadline import ScanTimeoutError
+    from trivy_tpu_torch.image.registry import RegistryError
     from trivy_tpu_torch.log import setup as setup_logging
 
     setup_logging(debug=args.debug, quiet=args.quiet, no_color=args.no_color,
                   log_format=args.log_format)
     if args.secret_backend == "server" and not args.server:
         parser.error("--secret-backend server requires --server")
+    if not (args.target or getattr(args, "input", "")):
+        parser.error("the following arguments are required: target (or --input)")
     try:
         options = _options_from_args(args)
     except ValueError as e:  # e.g. a malformed --timeout duration
@@ -541,10 +575,11 @@ def _run_scan(parser, args) -> int:
                 raise NotPortedError(f"--{flag} is not ported yet (ROADMAP {item})")
         return run(options, args.kind)
     except (CacheConfigError, OptionsError, NotPortedError, ScanTimeoutError,
-            DBError) as e:
+            DBError, RegistryError) as e:
         # a cache spec, a malformed --file-patterns, a target, flag or
-        # format that waits for a ROADMAP item, a timeout, a DB that
-        # --skip-db-update refuses (cli.py:1224-1240);
+        # source that waits for a ROADMAP item, a timeout, a DB that
+        # --skip-db-update refuses, an image or DB no source could serve
+        # (cli.py:1224-1240);
         # anything else (an engine that fails) propagates
         print(f"trivy-tpu: {e}", file=sys.stderr)
         return 2

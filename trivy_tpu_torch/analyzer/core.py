@@ -11,8 +11,11 @@ input instead of file-at-a-time calls.
 Copied from `trivy_tpu/analyzer/core.py`; the port imports nothing from the
 JAX package.  `AnalyzerOptions` and `SecretScannerOption` gain `device`
 (default "cuda"), where the analyzers' engines run.  Left out: the module
-manager's extension analyzers, `--sbom-sources`, the unused `parallel` and
-the per-layer `disabled` seam (the image path, ROADMAP A13d).  The builtin
+manager's extension analyzers (ROADMAP A13d), the unused `parallel` and
+`cache_key_extra`, which only the rekor SBOM source sets (ROADMAP A13d;
+the reference hashes it into the image keys, where "" adds nothing).
+`analyze_entries` keeps the reference's per-layer `disabled` seam (an
+image's base layers skip the secret analyzer).  The builtin
 registry holds every analyzer of the reference but its misconfig `config`
 analyzers (ROADMAP A13d): secret, license-file, dpkg-license, the OS and
 language package analyzers, binaries, embedded SBOMs, `executable`, the
@@ -57,6 +60,7 @@ class AnalyzerOptions:
     disabled_analyzers: list[str] = field(default_factory=list)
     secret_scanner_option: "SecretScannerOption" = None  # type: ignore[assignment]
     file_patterns: dict[str, list[re.Pattern[str]]] = field(default_factory=dict)
+    sbom_sources: list = field(default_factory=list)  # --sbom-sources
     # Where the analyzers' engines run ("cuda" raises without a card).
     device: str = DEFAULT_DEVICE
 
@@ -335,9 +339,16 @@ class AnalyzerGroup:
         return result
 
     def analyze_entries(
-        self, dir: str, entries: Iterable[FileEntry]
+        self,
+        dir: str,
+        entries: Iterable[FileEntry],
+        disabled: set[str] | None = None,
     ) -> AnalysisResult:
-        """Claim pass + batched dispatch (replaces AnalyzeFile fan-out)."""
+        """Claim pass + batched dispatch (replaces AnalyzeFile fan-out).
+
+        `disabled`: analyzer types suppressed for THIS call only — the
+        per-layer disabling seam (base layers skip secret scanning,
+        image.go:209-213)."""
         from trivy_tpu_torch import deadline
         from trivy_tpu_torch.obs import trace as obs_trace
 
@@ -345,7 +356,7 @@ class AnalyzerGroup:
         with obs_trace.span("analyzer.walk"):
             entries = list(entries)  # metadata + lazy openers only
         with obs_trace.span("analyzer.claim", files=len(entries)):
-            self._claim(entries, claims)
+            self._claim(entries, claims, disabled)
         result = AnalysisResult()
         for i, a in enumerate(self.analyzers):
             deadline.check()
@@ -389,21 +400,27 @@ class AnalyzerGroup:
                     exc_info=True,
                 )
 
-    def _claim(self, entries: list[FileEntry], claims: dict[int, list[FileEntry]]) -> None:
+    def _claim(self, entries: list[FileEntry], claims: dict[int, list[FileEntry]],
+               disabled: set[str] | None = None) -> None:
         """The claim pass: each analyzer's claimed entries into `claims`,
-        each post-analyzer's files into its composite FS."""
+        each post-analyzer's files into its composite FS; the `disabled`
+        types claim nothing."""
         from trivy_tpu_torch import deadline
 
         # Analyzers exposing required_batch (the secret analyzer: batched
         # allow-path regex) answer the claim pass for all entries at once.
         batch_req: dict[int, list[bool]] = {}
         for i, a in enumerate(self.analyzers):
+            if disabled and a.type() in disabled:
+                continue
             rb = getattr(a, "required_batch", None)
             if rb is not None:
                 batch_req[i] = rb([(e.path, e.size) for e in entries])
         for k, entry in enumerate(entries):
             deadline.check()
             for i, a in enumerate(self.analyzers):
+                if disabled and a.type() in disabled:
+                    continue
                 br = batch_req.get(i)
                 if self._file_pattern_match(a.type(), entry.path) or (
                     br[k]
@@ -412,6 +429,8 @@ class AnalyzerGroup:
                 ):
                     claims[i].append(entry)
             for j, p in enumerate(self.post_analyzers):
+                if disabled and p.type() in disabled:
+                    continue
                 if not (
                     self._file_pattern_match(p.type(), entry.path)
                     or p.required(entry.path, entry.size, entry.mode)

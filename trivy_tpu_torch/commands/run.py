@@ -12,14 +12,18 @@ scan (CPU ops of every thread and, on a card, CUDA kernels), exported as a
 Chrome trace into the directory with the host spans beside it.  The port
 adds host spans (`artifact.scan`, `filter`, `write`, and the analyzer's and
 artifact's) for the stage split of a run.  `Options` keeps the knobs the
-port honours; a target, scanner or format that waits for another ROADMAP
+port honours; a target, scanner or source that waits for another ROADMAP
 item raises `NotPortedError` before the scan starts (`_check_ported`): the
-protobuf wire (A13c), misconfig, the SBOM and template formats and the
-`image`, `sbom` and `vm` targets (A13d).  The flags of the reference that
-wait for an item are refused by the CLI (`__main__.NOT_PORTED_FLAGS`): the
-DB downloads (`--db-repository`, `--java-db-repository`) among them, so the
-vulnerability scanner reads a local DB (`--db-dir`, else
-`<--cache-dir>/db`), under the host span `scan.vuln`.
+protobuf wire (A13c), misconfig, `--sbom-sources rekor` and the `vm`
+target (A13d).  The flags of the reference that wait for an item are
+refused by the CLI (`__main__.NOT_PORTED_FLAGS`).  The `image` target
+resolves an archive path, an OCI layout or a reference through the
+daemon -> containerd -> podman -> registry chain (`image.resolve_image`,
+under the host span `image.pull`); the `sbom` target decodes a CycloneDX
+or SPDX document.  The vulnerability scanner reads a local DB (`--db-dir`,
+else `<--cache-dir>/db`), pulled first from `--db-repository` and
+`--java-db-repository` when they are set (the spans `db.pull`,
+`javadb.pull`), under the host span `scan.vuln`.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from trivy_tpu_torch.cache.store import ArtifactCache
 from trivy_tpu_torch.deadline import ScanTimeoutError
 from trivy_tpu_torch.device import DEFAULT_DEVICE
 from trivy_tpu_torch.ftypes import ArtifactType, Report
-from trivy_tpu_torch.report.writer import FormatNotPorted, check_format, write_report
+from trivy_tpu_torch.report.writer import check_format, write_report
 from trivy_tpu_torch.result.filter import SEVERITIES, FilterOptions, filter_report
 from trivy_tpu_torch.scanner.service import LocalDriver, Scanner, ScanOptions
 from trivy_tpu_torch.walker.fs import WalkOption
@@ -47,8 +51,9 @@ TARGET_VM = "vm"
 
 # Targets and scanners of the reference the port lacks, and the ROADMAP item
 # each waits for.
-NOT_PORTED_TARGETS = {TARGET_IMAGE: "A13d", TARGET_SBOM: "A13d", TARGET_VM: "A13d"}
+NOT_PORTED_TARGETS = {TARGET_VM: "A13d"}
 NOT_PORTED_SCANNERS = {"misconfig": "A13d"}
+NOT_PORTED_SBOM_SOURCES = {"rekor": "A13d"}
 
 
 class CacheConfigError(ValueError):
@@ -100,6 +105,13 @@ class Options:
     db_dir: str = ""  # vulnerability DB directory (trivy-db analogue)
     list_all_packages: bool = False
     skip_db_update: bool = False
+    template: str = ""  # --template for --format template
+    sbom_sources: list[str] = field(default_factory=list)  # --sbom-sources (oci)
+    insecure_registry: bool = False  # plain-http registry pulls
+    username: str = ""  # private-registry basic/bearer credentials
+    password: str = ""
+    db_repository: str = ""  # OCI ref for the vuln DB (--db-repository)
+    java_db_repository: str = ""  # OCI ref for the Java index DB
     vex_path: str = ""  # --vex document
     include_non_failures: bool = False
     timeout: float = 300.0  # --timeout seconds (reference default 5m)
@@ -115,7 +127,8 @@ class Options:
 
 def _check_ported(options: Options, target_kind: str) -> None:
     """Raise NotPortedError naming the ROADMAP item for the first target,
-    scanner, wire or format the port lacks."""
+    scanner, SBOM source or wire the port lacks; OptionsError for an
+    unknown format."""
     if target_kind in NOT_PORTED_TARGETS:
         raise NotPortedError(
             f"{target_kind}: not ported yet (ROADMAP {NOT_PORTED_TARGETS[target_kind]})"
@@ -126,14 +139,18 @@ def _check_ported(options: Options, target_kind: str) -> None:
                 f"--scanners {scanner} is not ported yet "
                 f"(ROADMAP {NOT_PORTED_SCANNERS[scanner]})"
             )
+    for source in options.sbom_sources:
+        if source in NOT_PORTED_SBOM_SOURCES:
+            raise NotPortedError(
+                f"--sbom-sources {source} is not ported yet "
+                f"(ROADMAP {NOT_PORTED_SBOM_SOURCES[source]})"
+            )
     if options.server_wire != "json":
         raise NotPortedError(
             f"--server-wire {options.server_wire} is not ported yet (ROADMAP A13c)"
         )
     try:
         check_format(options.format)
-    except FormatNotPorted as e:
-        raise NotPortedError(str(e)) from None
     except ValueError as e:
         raise OptionsError(str(e)) from None
 
@@ -220,6 +237,7 @@ def _analyzer_options(options: Options) -> AnalyzerOptions:
             device=options.device,
         ),
         file_patterns=_parse_file_patterns(options.file_patterns),
+        sbom_sources=list(options.sbom_sources),
         device=options.device,
     )
 
@@ -237,6 +255,33 @@ def _build_scanner(options: Options, target_kind: str, cache: ArtifactCache) -> 
             walk_option=walk_option,
             artifact_type=ArtifactType.FILESYSTEM,
         )
+    elif target_kind == TARGET_IMAGE:
+        from trivy_tpu_torch.artifact.image import ImageArtifact
+
+        source = None
+        if not os.path.exists(options.target):
+            # Not an archive path: resolve through the daemon -> containerd
+            # -> podman -> registry chain (image.go:26).
+            from trivy_tpu_torch.image import resolve_image
+            from trivy_tpu_torch.obs import trace as obs_trace
+
+            with obs_trace.span("image.pull"):
+                source = resolve_image(
+                    options.target,
+                    insecure_registry=options.insecure_registry,
+                    username=options.username,
+                    password=options.password,
+                )
+        artifact = ImageArtifact(
+            options.target,
+            cache,
+            analyzer_options=_analyzer_options(options),
+            source=source,
+        )
+    elif target_kind == TARGET_SBOM:
+        from trivy_tpu_torch.artifact.sbom import SbomArtifact
+
+        artifact = SbomArtifact(options.target, cache)
     elif target_kind == TARGET_REPOSITORY:
         from trivy_tpu_torch.artifact.repo import RepositoryArtifact
 
@@ -265,25 +310,48 @@ def _build_scanner(options: Options, target_kind: str, cache: ArtifactCache) -> 
 
 
 def _init_vuln_scanner(options: Options):
-    """operation.DownloadDB analogue (operation.go:114) over a local DB:
-    with --skip-db-update, check the DB's metadata as the reference does
-    (a missing or old-schema DB is a `DBError`), then open the DB.  The
-    download waits for ROADMAP A13c."""
+    """operation.DownloadDB analogue (operation.go:114): gate on NeedsUpdate,
+    pull the OCI-distributed DB when stale (`--db-repository`; with
+    --skip-db-update, check the local DB's metadata as the reference does:
+    a missing or old-schema DB is a `DBError`), pull the Java index
+    (`--java-db-repository`), then open the local DB."""
+    from trivy_tpu_torch.obs import trace as obs_trace
     from trivy_tpu_torch.scanner.vuln import init_vuln_scanner
 
-    if options.skip_db_update:
-        from trivy_tpu_torch.db.client import DBClient
+    if options.db_repository or options.skip_db_update:
+        from trivy_tpu_torch.db.client import DEFAULT_REPOSITORY, DBClient
 
-        # Resolve the directory the same way init_vuln_scanner will.
+        # Resolve the directory the same way init_vuln_scanner will, so
+        # --db-repository with only --cache-dir downloads into the dir the
+        # scanner then opens.
         db_dir = options.db_dir or (
             os.path.join(options.cache_dir, "db")
             if options.cache_dir
             else os.path.expanduser("~/.cache/trivy-tpu/db")
         )
         options.db_dir = db_dir  # the scanner must open the same directory
-        DBClient(db_dir=db_dir).ensure(skip=True)
-    from trivy_tpu_torch.obs import trace as obs_trace
+        with obs_trace.span("db.pull"):
+            DBClient(
+                db_dir=db_dir,
+                repository=options.db_repository or DEFAULT_REPOSITORY,
+                insecure=options.insecure_registry,
+            ).ensure(skip=options.skip_db_update)
+    if options.java_db_repository:
+        from trivy_tpu_torch import javadb
 
+        jdir = os.path.join(
+            options.db_dir
+            or options.cache_dir
+            or os.path.expanduser("~/.cache/trivy-tpu"),
+            "java-db",
+        )
+        with obs_trace.span("javadb.pull"):
+            javadb.ensure_javadb(
+                jdir,
+                repository=options.java_db_repository,
+                insecure=options.insecure_registry,
+            )
+        javadb.set_default_javadb_dir(jdir)
     with obs_trace.span("db.open"):
         return init_vuln_scanner(options.db_dir, options.cache_dir)
 
@@ -419,6 +487,15 @@ def _run_inner(options: Options, target_kind: str) -> int:
     from trivy_tpu_torch import deadline as _dl
     from trivy_tpu_torch.obs import trace as obs_trace
 
+    if options.format in ("cyclonedx", "spdx", "spdx-json"):
+        # SBOM outputs list every package (run.go format handling).
+        options.list_all_packages = True
+    if options.format == "template" and not options.template:
+        print(
+            "trivy-tpu: '--format template' requires '--template'",
+            file=sys.stderr,
+        )
+        return 2
     cache = None
     try:
         cache = init_cache(options)
@@ -450,11 +527,15 @@ def _run_inner(options: Options, target_kind: str) -> int:
 
 
 def _write(report: Report, options: Options) -> None:
+    template = options.template
+    if template.startswith("@"):  # template.go `@/path/to/tpl` form
+        with open(template[1:], encoding="utf-8") as f:
+            template = f.read()
     if options.output:
         with open(options.output, "w", encoding="utf-8") as f:
-            write_report(report, options.format, f)
+            write_report(report, options.format, f, template=template)
     else:
-        write_report(report, options.format, sys.stdout)
+        write_report(report, options.format, sys.stdout, template=template)
 
 
 def _exit_code(report: Report, options: Options) -> int:

@@ -15,18 +15,19 @@ format is not; fixture DBs build with `build_db_archive` (the pkg/dbtest
 pattern).
 
 Copied from `trivy_tpu/db/client.py`; the port imports nothing from the
-JAX package.  It keeps the update gate (`Metadata`, `needs_update`, the
-one-hour throttle, `ensure(skip=True)`), which `--skip-db-update` needs.
-The download over OCI and `build_db_archive` wait for ROADMAP A13c:
-`download` raises `DBError` naming it.
+JAX package, so it keeps its own copy of this jax-free module: the update
+gate, the download over OCI (`oci.py`, through the image path's registry
+client) and `build_db_archive`.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import io
 import json
 import logging
 import os
+import tarfile
 from dataclasses import dataclass, field
 
 SCHEMA_VERSION = 2
@@ -140,11 +141,40 @@ class DBClient:
         return False
 
     def download(self) -> None:
-        """db.go:153 Download: the pull over OCI waits for ROADMAP A13c."""
-        raise DBError(
-            "the vulnerability DB download is not ported yet (ROADMAP A13c); "
-            "pass --db-dir with a local DB"
+        """db.go:153 Download: drop stale metadata, pull the OCI layer,
+        extract, stamp DownloadedAt."""
+        from trivy_tpu_torch.oci import OciArtifact
+
+        try:
+            os.unlink(self._meta_path)
+        except OSError:
+            pass
+        os.makedirs(self.db_dir, exist_ok=True)
+        art = OciArtifact(self.repository, insecure=self.insecure)
+        extracted: set[str] = set()
+        with art.download_layer(MEDIA_TYPE) as blob:
+            with tarfile.open(fileobj=blob, mode="r:*") as tf:
+                for member in tf.getmembers():
+                    if not member.isfile() or ".." in member.name:
+                        continue
+                    name = os.path.basename(member.name)
+                    extracted.add(name)
+                    with open(os.path.join(self.db_dir, name), "wb") as out:
+                        out.write(tf.extractfile(member).read())
+        # A pre-existing trivy.db takes priority in load_db; if this
+        # artifact did not ship one, drop the stale copy so the fresh
+        # bucket files are what scans actually read.
+        if "trivy.db" not in extracted:
+            try:
+                os.unlink(os.path.join(self.db_dir, "trivy.db"))
+            except OSError:
+                pass
+        meta = self.metadata() or Metadata(version=SCHEMA_VERSION)
+        meta.downloaded_at = (
+            self._now().isoformat().replace("+00:00", "Z")
         )
+        with open(self._meta_path, "w", encoding="utf-8") as f:
+            json.dump(meta.to_json(), f)
 
     def ensure(self, skip: bool = False) -> bool:
         """Download when needed; returns True when a download happened."""
@@ -154,3 +184,35 @@ class DBClient:
             return True
         return False
 
+
+def build_db_archive(
+    buckets: dict[str, dict], next_update: str = "", updated_at: str = ""
+) -> bytes:
+    """Build a DB artifact layer from source buckets (the pkg/dbtest
+    fixture-DB pattern): {source: {pkg_name: [advisory dicts]}} ->
+    tar.gz bytes containing <source>.json files + metadata.json."""
+    import gzip
+
+    from trivy_tpu_torch.db.vulndb import _bucket_file
+
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tf:
+
+        def add(name: str, data: bytes) -> None:
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+
+        for source, packages in buckets.items():
+            add(_bucket_file(source), json.dumps(packages).encode())
+        add(
+            "metadata.json",
+            json.dumps(
+                Metadata(
+                    version=SCHEMA_VERSION,
+                    next_update=next_update,
+                    updated_at=updated_at,
+                ).to_json()
+            ).encode(),
+        )
+    return gzip.compress(buf.getvalue())

@@ -616,6 +616,12 @@ class GpuHybridSecretEngine:
             self._finish_device(items, np.concatenate(dev_lanes), results)
         return results  # type: ignore[return-value]
 
+    def scan(self, file_path: str, content: bytes) -> Secret:
+        """One file as a one-item batch: the reference hybrid inherits this
+        from its device-engine base (`GpuSecretEngine.scan` here); the
+        image config's secret scan calls it."""
+        return self.scan_batch([(file_path, content)])[0]
+
     def scan_batch_host(self, items: list[tuple[str, bytes]]) -> list[Secret]:
         """Re-run with the device verifier out of the loop: every lane
         verifies on the host DFA (byte-identical: both verifiers clip alike

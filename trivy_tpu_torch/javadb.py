@@ -8,9 +8,10 @@ metadata.json DownloadedAt stamp (the reference's javadb client updates
 once per day, client.go).
 
 Copied from `trivy_tpu/javadb.py`; the port imports nothing from the JAX
-package.  It reads a local index (JSON shards or `trivy-java.db`) from
-`set_default_javadb_dir` or `TRIVY_TPU_JAVA_DB_DIR`; `download_javadb` and
-`ensure_javadb` (`--java-db-repository`) wait for ROADMAP A13c.
+package, so it keeps its own copy of this jax-free module.  The index is
+read from `set_default_javadb_dir`, else `TRIVY_TPU_JAVA_DB_DIR`;
+`--java-db-repository` pulls it over OCI (`download_javadb`,
+`ensure_javadb`).
 """
 
 from __future__ import annotations
@@ -136,3 +137,62 @@ def build_javadb(db_dir: str, entries: dict[str, str]) -> None:
         ) as f:
             json.dump(data, f)
 
+
+def download_javadb(
+    db_dir: str,
+    repository: str = DEFAULT_JAVA_DB_REPOSITORY,
+    insecure: bool = False,
+) -> None:
+    """javadb client.go Download: pull the OCI layer and extract shards."""
+    import datetime
+    import tarfile
+
+    from trivy_tpu_torch.oci import OciArtifact
+
+    os.makedirs(db_dir, exist_ok=True)
+    art = OciArtifact(repository, insecure=insecure)
+    extracted: set[str] = set()
+    with art.download_layer(JAVA_DB_MEDIA_TYPE) as blob:
+        with tarfile.open(fileobj=blob, mode="r:*") as tf:
+            for member in tf.getmembers():
+                if not member.isfile() or ".." in member.name:
+                    continue
+                name = os.path.basename(member.name)
+                extracted.add(name)
+                with open(os.path.join(db_dir, name), "wb") as out:
+                    out.write(tf.extractfile(member).read())
+    # open_default_javadb prefers trivy-java.db; a shard-only refresh must
+    # not leave a stale SQLite index shadowing it (db/client.py contract).
+    if "trivy-java.db" not in extracted:
+        try:
+            os.unlink(os.path.join(db_dir, "trivy-java.db"))
+        except OSError:
+            pass
+    stamp = datetime.datetime.now(datetime.timezone.utc).isoformat()
+    with open(os.path.join(db_dir, "metadata.json"), "w", encoding="utf-8") as f:
+        json.dump({"DownloadedAt": stamp}, f)
+
+
+def ensure_javadb(
+    db_dir: str,
+    repository: str = DEFAULT_JAVA_DB_REPOSITORY,
+    insecure: bool = False,
+    max_age_hours: float = 24.0,
+) -> bool:
+    """Download unless the local copy is younger than `max_age_hours` (the
+    reference's javadb updates once a day).  Returns True on download."""
+    import datetime
+
+    from trivy_tpu_torch.db.client import _parse_time
+
+    meta_path = os.path.join(db_dir, "metadata.json")
+    try:
+        with open(meta_path, encoding="utf-8") as f:
+            stamp = json.load(f).get("DownloadedAt", "")
+        age = datetime.datetime.now(datetime.timezone.utc) - _parse_time(stamp)
+        if stamp and age < datetime.timedelta(hours=max_age_hours):
+            return False
+    except (OSError, ValueError):
+        pass
+    download_javadb(db_dir, repository, insecure)
+    return True

@@ -2,6 +2,7 @@
 
 Copied from `trivy_tpu/purl.py`; the port imports nothing
 from the JAX package, so it keeps its own copy of this jax-free module.
+`OS_PURL_TYPES` is the port's: its SBOM decoders' OS package types.
 """
 
 from __future__ import annotations
@@ -44,6 +45,10 @@ _PURL_TYPES = {
     "dpkg": "deb",
     "rpm": "rpm",
 }
+
+# purl types of OS packages (an SBOM decoder also takes the document's OS
+# family, the type the encoders write for OS packages)
+OS_PURL_TYPES = frozenset({"apk", "deb", "rpm"})
 
 # purl type -> (app type, version-compare flavor)
 PURL_TO_APP = {

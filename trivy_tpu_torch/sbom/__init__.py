@@ -6,9 +6,9 @@ counts as an SBOM or how it parses.
 
 Copied from `trivy_tpu/sbom/__init__.py` with `cyclonedx.py` and
 `spdx.py`, whole; the port imports nothing from the JAX package.  The
-port reads SBOMs (the embedded-SBOM analyzer, `analyzer/misc.py`); the
-encoders, the `-f cyclonedx|spdx|spdx-json` writers and the `sbom`
-target wait for ROADMAP A13d and are not wired.
+decoders serve the embedded-SBOM analyzer (`analyzer/misc.py`), the `sbom`
+target (`artifact/sbom.py`) and the image path's referrer SBOM; the
+encoders serve `-f cyclonedx|spdx|spdx-json` (`report/writer.py`).
 """
 
 from __future__ import annotations

@@ -2,6 +2,11 @@
 
 Copied from `trivy_tpu/sbom/cyclonedx.py`; the port imports nothing
 from the JAX package, so it keeps its own copy of this jax-free module.
+One repair: the encoder writes an OS package's purl with the OS family as
+its type (`pkg:debian/...`, as the reference's does), which the
+reference's decoder read as an application of that type, so `sbom` over
+its own output lost the OS packages; the port's decoder reads a purl
+whose type is the document's operating-system component as an OS package.
 """
 
 from __future__ import annotations
@@ -11,7 +16,7 @@ from typing import Any
 from trivy_tpu_torch import __version__
 from trivy_tpu_torch.atypes import Application, ArtifactDetail, OS, Package
 from trivy_tpu_torch.ftypes import Report
-from trivy_tpu_torch.purl import PURL_TO_APP, package_url, parse_purl
+from trivy_tpu_torch.purl import OS_PURL_TYPES, PURL_TO_APP, package_url, parse_purl
 
 SPEC_VERSION = "1.5"
 
@@ -78,6 +83,8 @@ def decode(bom: dict[str, Any]) -> ArtifactDetail:
     """CycloneDX BOM -> ArtifactDetail (the sbom artifact input)."""
     apps: dict[str, Application] = {}
     detail = ArtifactDetail()
+    os_types = OS_PURL_TYPES | {c.get("name", "") for c in bom.get("components") or []
+                                if c.get("type") == "operating-system"}
     for comp in bom.get("components") or []:
         if comp.get("type") == "operating-system":
             continue  # handled below as detail.os, not a package
@@ -87,7 +94,7 @@ def decode(bom: dict[str, Any]) -> ArtifactDetail:
             name, version = comp.get("name", ""), comp.get("version", "")
         if not name or not version:
             continue
-        if ptype in ("apk", "deb", "rpm"):
+        if ptype in os_types:
             detail.packages.append(
                 Package(id=f"{name}@{version}", name=name, version=version)
             )

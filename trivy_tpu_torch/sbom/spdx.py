@@ -2,6 +2,8 @@
 
 Copied from `trivy_tpu/sbom/spdx.py`; the port imports nothing
 from the JAX package, so it keeps its own copy of this jax-free module.
+`decode` reads a purl whose type is the document's operating-system
+element as an OS package (the repair `sbom/cyclonedx.py` describes).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Any
 from trivy_tpu_torch import __version__
 from trivy_tpu_torch.atypes import Application, ArtifactDetail, OS, Package
 from trivy_tpu_torch.ftypes import Report, ResultClass
-from trivy_tpu_torch.purl import PURL_TO_APP, package_url, parse_purl
+from trivy_tpu_torch.purl import OS_PURL_TYPES, PURL_TO_APP, package_url, parse_purl
 
 # Deterministic namespace derivation (instead of the reference's random
 # uuid): same artifact + creation time -> same DocumentNamespace, so
@@ -209,6 +211,8 @@ def decode_tag_value(text: str) -> ArtifactDetail:
 def decode(doc: dict[str, Any]) -> ArtifactDetail:
     detail = ArtifactDetail()
     apps: dict[str, Application] = {}
+    os_types = OS_PURL_TYPES | {p.get("name", "") for p in doc.get("packages") or []
+                                if p.get("primaryPackagePurpose") == "OPERATING-SYSTEM"}
     for pkg in doc.get("packages") or []:
         if pkg.get("primaryPackagePurpose") == "OPERATING-SYSTEM":
             detail.os = OS(
@@ -224,7 +228,7 @@ def decode(doc: dict[str, Any]) -> ArtifactDetail:
             name, version = pkg.get("name", ""), pkg.get("versionInfo", "")
         if not name or not version or name == doc.get("name"):
             continue
-        if ptype in ("apk", "deb", "rpm"):
+        if ptype in os_types:
             detail.packages.append(
                 Package(id=f"{name}@{version}", name=name, version=version)
             )
