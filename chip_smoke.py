@@ -271,6 +271,31 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             files/s, MB/s and stage split (pull, layer walk, claim, read,
             secret, license, package analyzers, DB, detect, cache, write).
 
+18. remote (after `server`) the remote planes on the card, counts zeroed
+            before each run and read after.  Fleet: two in-process port
+            servers, members a and b of one fleet file, each over its own
+            default engine; `fs --secret-backend server --fleet-config F` over
+            REMOTE_FILES hit-dense files written to a tree, cold, warm and
+            with the serving member drained (503 on `/readyz`, the router
+            spills to the other): one member's engine scans each run (its
+            engine totals and launches printed), the fused K5 launches, the
+            three reports equal, the secrets equal to the oracle on every
+            flagged file plus REMOTE_SAMPLED claimed files and to a direct
+            `scan_batch`, and `/debug/fleet` counts an affinity hit.  Watch:
+            a server with a watch config polling an in-process registry
+            for `team/app`, its result cache over `--cache-backend redis://`
+            against a RESP server of this script: the first poll scans the
+            three novel layers through the scheduler (launches > 0) and
+            the stream holds the oracle's findings on them, a re-pushed
+            manifest dispatches nothing, a tag with one changed layer
+            scans that layer only, and `/admin/ruleset/reload` with a
+            secret-config disabling a found rule sweeps exactly the blobs
+            verdicted before, the stream reporting those findings removed.
+            Wire: `fs --server ADDR` over the fleet's tree with
+            `--server-wire json` and `protobuf`, the reports byte-equal; a
+            machine without protoc or the protobuf runtime prints which
+            it lacks and skips this run.
+
 A `stall:` line counts the hybrid and `auto` scans run with the STALL_S dump
 armed and those that passed it, phase `server`'s among them.
 
@@ -288,7 +313,8 @@ kernels alone from `torch.profiler`, which leaves out the host's launch
 work; the NFA kernels' `path_device_ms` sums their dispatches of that
 scan), the card's name and power limit, and
 the result line `{"ok": true, "device": {...}}`.  Each kernel's entry also
-carries `server_launches`, its launches in phase `server`'s runs, and
+carries `server_launches`, its launches in phase `server`'s runs,
+`remote_launches`, its launches in phase `remote`'s runs, and
 `runner_launches`, `vuln_launches` and `image_launches`, its launches in
 phase `runner`'s, phase `vuln`'s and phase `image`'s in-process commands.  Nothing here imports JAX or the JAX
 package.
@@ -2197,10 +2223,11 @@ def runner_run(torch, gs, label: str, argv: list, b14: dict, calls: dict, nbytes
             "license": list(calls["license"])}
 
 
-def secrets_check(np, phase: str, report: dict, secret_items) -> tuple:
+def secrets_check(np, phase: str, report: dict, secret_items,
+                  n_sampled: int = RUNNER_SAMPLED) -> tuple:
     """The report's Secrets against the port's oracle on every flagged file
-    plus RUNNER_SAMPLED other claimed files.  Returns (secret files,
-    flagged, sampled)."""
+    plus `n_sampled` other claimed files.  Returns (secret files, flagged,
+    sampled)."""
     from trivy_tpu_torch.engine.oracle import OracleScanner
 
     results = report.get("Results", [])
@@ -2211,7 +2238,7 @@ def secrets_check(np, phase: str, report: dict, secret_items) -> tuple:
     flagged = [i for i, p in enumerate(paths) if p in secrets]
     rest = np.setdiff1d(np.arange(len(paths)), flagged)
     rng = np.random.default_rng(SEED)
-    sampled = rng.choice(rest, size=min(RUNNER_SAMPLED, len(rest)), replace=False)
+    sampled = rng.choice(rest, size=min(n_sampled, len(rest)), replace=False)
     oracle = OracleScanner()
     for i in sorted(set(flagged) | {int(i) for i in sampled}):
         path, content = secret_items[i]
@@ -3986,6 +4013,418 @@ def server_phase(np, torch, gs, bench_corpus, hybrid: dict, corpus, serve: dict,
     return {"default": run["launches"], "device": dev["launches"], "split": sp["launches"]}
 
 
+REMOTE_FILES = 4_000  # hit-dense files through the two-member fleet and the wire runs
+REMOTE_SAMPLED = 500  # claimed files without findings held to the oracle in phase remote
+# The watched image: a 2 MiB base layer of digits (no keyword), an app
+# layer of WATCH_LAYER_FILES hit-dense files (its rules' hint windows span
+# more than the device verify's 32 KiB, so its lanes verify on the host),
+# and a config layer of hit-dense files under WATCH_CONFIG_BYTES of tar,
+# whose lanes fit the device verify
+WATCH_BASE_BYTES = 2 << 20
+WATCH_LAYER_FILES = 400
+WATCH_CONFIG_BYTES = 28 << 10
+
+
+def serve_resp():
+    """A small in-process RESP server (the commands the redis cache tier
+    sends: PING, AUTH, SELECT, GET, SET [EX], EXISTS, DEL, SCAN) over a
+    dict, on 127.0.0.1.  Returns (server, redis URL, store)."""
+    import socketserver
+    import threading
+
+    store: dict = {}
+    lock = threading.Lock()
+
+    class Handler(socketserver.StreamRequestHandler):
+        def command(self):
+            line = self.rfile.readline()
+            if not line:
+                return None
+            parts = []
+            for _ in range(int(line[1:])):
+                n = int(self.rfile.readline()[1:])
+                parts.append(self.rfile.read(n + 2)[:-2])
+            return parts
+
+        def handle(self):
+            while (cmd := self.command()) is not None:
+                name, args = cmd[0].upper(), cmd[1:]
+                with lock:
+                    if name in (b"PING", b"AUTH", b"SELECT"):
+                        out = b"+PONG\r\n" if name == b"PING" else b"+OK\r\n"
+                    elif name == b"SET":
+                        store[args[0]] = args[1]
+                        out = b"+OK\r\n"
+                    elif name == b"GET":
+                        val = store.get(args[0])
+                        out = b"$-1\r\n" if val is None else b"$%d\r\n%s\r\n" % (len(val), val)
+                    elif name in (b"EXISTS", b"DEL"):
+                        hits = [k for k in args if k in store]
+                        if name == b"DEL":
+                            for k in hits:
+                                del store[k]
+                        out = b":%d\r\n" % len(hits)
+                    elif name == b"SCAN":
+                        keys = [k for k in store if k.startswith(b"fanal::")]
+                        out = b"*2\r\n$1\r\n0\r\n*%d\r\n" % len(keys) + b"".join(
+                            b"$%d\r\n%s\r\n" % (len(k), k) for k in keys)
+                    else:
+                        out = b"-ERR unknown command\r\n"
+                self.wfile.write(out)
+
+    srv = socketserver.ThreadingTCPServer(("127.0.0.1", 0), Handler)
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"redis://127.0.0.1:{srv.server_address[1]}", store
+
+
+def free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def remote_run(torch, gs, label: str, fn, card: str) -> tuple:
+    """One run of phase `remote`: counts zeroed just before `fn()`, read
+    just after.  Returns (fn's result, the launches, seconds)."""
+    torch.cuda.synchronize()
+    for k in gs.LAUNCHES:
+        gs.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in gs.LAUNCHES.items() if v}
+    print(f"remote: {label} seconds={dt:.4f} launches={json.dumps(launches)} card={card}",
+          flush=True)
+    return out, launches, dt
+
+
+def remote_cli(argv: list) -> dict:
+    """`python -m trivy_tpu_torch` in process; the report (`-f json` on
+    stdout) parsed."""
+    import contextlib
+    import io
+
+    from trivy_tpu_torch import __main__ as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail("remote", f"{argv[:4]}... exited {rc}")
+    return out.getvalue()
+
+
+def fleet_runs(np, torch, gs, items, tmp: str, card: str) -> dict:
+    """Two in-process port servers on the card, members a and b of one
+    fleet file, each over its own default engine; `fs --secret-backend
+    server --fleet-config F` over `items` written to a tree, cold, warm (an
+    affinity hit), then with the serving member drained.  Returns ({run:
+    launches}, the tree)."""
+    from trivy_tpu_torch.cache.store import MemoryCache
+    from trivy_tpu_torch.engine.hybrid import make_secret_engine
+    from trivy_tpu_torch.rpc.client import RemoteSecretEngine
+    from trivy_tpu_torch.rpc.server import ServeConfig, start_background
+
+    tree = os.path.join(tmp, "tree")
+    write_tree(tree, items)
+    ports = free_ports(2)
+    fleet = os.path.join(tmp, "fleet.yaml")
+    with open(fleet, "w") as f:
+        json.dump({"fleet": {"members": [{"name": n, "endpoint": f"localhost:{p}"}
+                                         for n, p in zip("ab", ports)]}}, f)
+    members = {}
+    for name, port in zip("ab", ports):
+        httpd, _ = start_background(f"localhost:{port}", MemoryCache(), device=DEVICE,
+                                    serve_config=ServeConfig(batch_window_ms=2.0),
+                                    fleet_config=fleet, fleet_member=name)
+        members[name] = httpd
+    sent: list = []
+    original = RemoteSecretEngine.scan_batch
+
+    def recording(self, batch):
+        sent.extend(batch)
+        return original(self, batch)
+
+    argv = ["fs", "--scanners", "secret", "--secret-backend", "server", "--fleet-config",
+            fleet, "-f", "json", tree]
+    runs, docs = {}, {}
+    RemoteSecretEngine.scan_batch = recording
+    try:
+        for label in ("fleet", "fleet_warm", "fleet_drained"):
+            if label == "fleet_drained":
+                serving = moved
+                drained = members[serving[0]]
+                drained.scan_server.draining = True
+                code, _ = http_get(server_addr(drained), "/readyz")
+                if code != 503:
+                    fail("remote", f"a drained member's /readyz answered {code}")
+            sent.clear()
+            before = {n: engine_totals(h) for n, h in members.items()}
+            report, launches, dt = remote_run(torch, gs, f"{label} files={len(items)}",
+                                              lambda: json.loads(remote_cli(argv)), card)
+            runs[label] = launches
+            docs[label] = report
+            moved = []
+            for name, httpd in members.items():
+                eng = {k: round(v - before[name][k], 4)
+                       for k, v in engine_totals(httpd).items()}
+                if eng["sieve_s"] or eng["verify_s"]:
+                    moved.append(name)
+                print(f"remote: {label} member={name} engine={json.dumps(eng)}", flush=True)
+            if len(moved) != 1 or (label == "fleet_drained" and moved == serving):
+                fail("remote", f"{label}: members that scanned {moved}")
+            # one member's engine scanned the whole run: its launches are the run's
+            print(f"remote: {label} member={moved[0]} launches={json.dumps(launches)}",
+                  flush=True)
+            if not launches.get("nfa_fused") and not launches.get("nfa_stream"):
+                fail("remote", f"{label}: no NFA verify kernel launched on the members")
+            n_secret, n_flagged, n_sampled = secrets_check(np, "remote", report, list(sent),
+                                                           REMOTE_SAMPLED)
+            print(f"remote: {label} secrets equal to the oracle on {n_flagged} flagged + "
+                  f"{n_sampled} sampled of {len(sent)} claimed files", flush=True)
+        if not docs["fleet"] == docs["fleet_warm"] == docs["fleet_drained"]:
+            fail("remote", "the fleet's three reports differ")
+        engine = make_secret_engine(device=DEVICE)
+        direct = {s.file_path: [f.to_json() for f in s.findings]
+                  for s in engine.scan_batch(list(sent)) if s.findings}
+        got = {r["Target"]: r["Secrets"] for r in docs["fleet"].get("Results", [])
+               if r["Class"] == "secret"}
+        if direct != got:
+            fail("remote", "the fleet's findings differ from a direct scan_batch")
+        affinity = {}
+        for name, httpd in members.items():
+            rep = json.loads(http_get(server_addr(httpd), "/debug/fleet")[1])
+            affinity[name] = rep["affinity"]
+        if not sum(a["hits"] for a in affinity.values()):
+            fail("remote", f"/debug/fleet shows no affinity hit: {affinity}")
+        print(f"remote: fleet equal_findings=True (drained member {serving[0]}, direct "
+              f"scan_batch equal) affinity={json.dumps(affinity)}", flush=True)
+    finally:
+        RemoteSecretEngine.scan_batch = original
+        for httpd in members.values():
+            httpd.scan_server.scheduler.close()
+            httpd.shutdown()
+            httpd.server_close()
+    return runs, tree
+
+
+def wire_runs(torch, gs, tree: str, card: str) -> dict:
+    """`fs --server ADDR` over the fleet's tree against one port server,
+    `--server-wire json` and `protobuf`: the reports byte-equal.  Skipped
+    with a line naming what the machine lacks when it has no protoc or no
+    protobuf runtime."""
+    import importlib.util
+    import shutil
+
+    from trivy_tpu_torch.cache.store import MemoryCache
+    from trivy_tpu_torch.rpc import protowire
+    from trivy_tpu_torch.rpc.server import start_background
+
+    missing = [name for name, ok in (
+        ("protoc", shutil.which("protoc")),
+        ("google.protobuf", importlib.util.find_spec("google.protobuf"))) if not ok]
+    if missing or not protowire.available():
+        print(f"remote: protobuf wire not run: this machine lacks "
+              f"{' and '.join(missing) or 'a working protoc build'}", flush=True)
+        return {}
+    httpd, _ = start_background("localhost:0", MemoryCache(), device=DEVICE)
+    runs, reports = {}, {}
+    try:
+        for wire in ("json", "protobuf"):
+            reports[wire], runs[f"wire_{wire}"], _ = remote_run(
+                torch, gs, f"wire_{wire}", lambda wire=wire: remote_cli(
+                    ["fs", "--scanners", "secret", "--server", server_addr(httpd),
+                     "--server-wire", wire, "-f", "json", tree]), card)
+    finally:
+        httpd.scan_server.scheduler.close()
+        httpd.shutdown()
+        httpd.server_close()
+    if reports["json"] != reports["protobuf"] or '"Secrets"' not in reports["json"]:
+        fail("remote", "the protobuf report is not byte-equal to the JSON report")
+    print("remote: protobuf report byte-equal to the JSON report", flush=True)
+    return runs
+
+
+def watch_layers(np, items, changed: bool = False) -> list:
+    """The watched image's base, app and config layer tars (module
+    constants above); `changed` takes the config layer's files from
+    further on in `items`."""
+    from trivy_tpu_torch.image import fixtures
+
+    digits = np.random.default_rng(SEED).integers(48, 58, WATCH_BASE_BYTES, dtype=np.uint8)
+    n = WATCH_LAYER_FILES
+    config, i = {}, n + (40 if changed else 0)
+    while len(fixtures.layer_tar({**config, items[i][0]: items[i][1]})) <= WATCH_CONFIG_BYTES:
+        config[items[i][0]] = items[i][1]
+        i += 1
+    return [fixtures.layer_tar({"usr/lib/libbase.so": digits.tobytes()}),
+            fixtures.layer_tar(dict(items[:n])), fixtures.layer_tar(config)]
+
+
+def watch_runs(np, torch, gs, items, tmp: str, card: str) -> dict:
+    """A port server on the card with a watch config that polls an
+    in-process registry for `team/app`, its result cache over the redis
+    tier (a RESP server of this script): the first poll scans the three
+    novel layers through the scheduler, a re-pushed manifest dispatches
+    nothing, a tag with one changed layer scans that layer only, and a
+    reload with a changed secret-config sweeps exactly the blobs verdicted
+    before.  Returns {run: launches}."""
+    from trivy_tpu_torch.cache import build_cache
+    from trivy_tpu_torch.cache.results import ScanResultCache, content_digest
+    from trivy_tpu_torch.engine.oracle import OracleScanner
+    from trivy_tpu_torch.image import fixtures
+    from trivy_tpu_torch.rpc.client import RpcClient
+    from trivy_tpu_torch.rpc.server import ServeConfig, start_background
+    from trivy_tpu_torch.watch.config import SourceConfig, StreamConfig, WatchConfig
+
+    resp, redis_url, store = serve_resp()
+    repos: dict = {}
+    registry = fixtures.serve_registry(repos)
+    addr = f"localhost:{registry.server_address[1]}"
+
+    def push(tag: str, layers: list) -> None:
+        manifest, blobs, digest = fixtures.oci_blobs(layers, {"architecture": "amd64",
+                                                              "os": "linux"})
+        spec = repos.setdefault("team/app", {"manifests": {}, "blobs": {}})
+        spec["blobs"].update(blobs)
+        spec["manifests"][digest] = spec["manifests"][tag] = manifest
+
+    jsonl = os.path.join(tmp, "deltas.jsonl")
+    cfg = WatchConfig(sources=(SourceConfig(kind="registry", reference=f"{addr}/team/app",
+                                            insecure=True),),
+                      stream=StreamConfig(jsonl_path=jsonl), poll_interval_s=3600.0)
+    cache = build_cache(redis_url)
+    httpd, _ = start_background("localhost:0", cache, result_cache=ScanResultCache(cache),
+                                watch_config=cfg, rules_cache_dir=os.path.join(tmp, "rules"),
+                                device=DEVICE, serve_config=ServeConfig(batch_window_ms=0.0))
+    srv = httpd.scan_server
+    planner, sweeper = srv.watch.planner, srv.watch.sweeper
+    scanned: list = []
+    for part in (planner, sweeper):
+        def record(*args, fn=part.scan_fn):
+            scanned.extend(d for d, _ in args[0])
+            return fn(*args)
+        part.scan_fn = record
+    oracle = OracleScanner()
+
+    def deltas() -> list:
+        with open(jsonl) as f:
+            return [json.loads(ln) for ln in f]
+
+    runs = {}
+    try:
+        first = watch_layers(np, items)
+        push("v1", first)
+        for label, tag, layers, want in (("watch_first", None, None, 3),
+                                         ("watch_repush", "v2", first, 0),
+                                         ("watch_changed", "v3", watch_layers(np, items, True),
+                                          1)):
+            if tag:
+                push(tag, layers)
+            scanned.clear()
+            cycle, runs[label], _ = remote_run(torch, gs, label, srv.watch.poll_once, card)
+            if cycle["dispatched"] != want or cycle["errors"] or len(scanned) != want:
+                fail("remote", f"{label}: cycle {cycle}, {len(scanned)} blobs scanned, "
+                     f"want {want}")
+            if label == "watch_changed" and scanned != [content_digest(layers[2])]:
+                fail("remote", "watch_changed: the scanned blob is not the changed layer")
+            if want and not runs[label]:
+                fail("remote", f"{label}: the novel layers launched no kernel")
+            print(f"remote: {label} cycle={json.dumps(cycle)}", flush=True)
+        blobs = {content_digest(b): b for b in first + watch_layers(np, items, True)}
+        found = {}
+        for d in deltas():
+            found.setdefault(d["blob"], []).extend(d["added"])
+        for digest, data in blobs.items():
+            want = [f.to_json() for f in oracle.scan(digest, data).findings]
+            if sorted(json.dumps(f, sort_keys=True) for f in found.get(digest, [])) != \
+                    sorted(json.dumps(f, sort_keys=True) for f in want):
+                fail("remote", f"the stream's findings on {digest[:19]} differ from the oracle")
+        rules = sorted({f["RuleID"] for fs in found.values() for f in fs})
+        if not rules:
+            fail("remote", "the watched layers carry no finding")
+        old = srv.scheduler.active_ruleset_digest()
+        indexed = srv.result_cache.indexed_blobs(old)
+        conf = os.path.join(tmp, "secret.yaml")
+        with open(conf, "w") as f:
+            f.write(f"disable-rules:\n  - {rules[0]}\n")
+        n_deltas = len(deltas())
+        scanned.clear()
+        sweeps = sweeper.snapshot()["sweeps_total"]
+
+        def reload_and_sweep():
+            RpcClient(server_addr(httpd)).call("/admin/ruleset/reload",
+                                               {"SecretConfigPath": conf})
+            deadline = time.monotonic() + 120
+            while True:
+                snap = sweeper.snapshot()
+                if snap["sweeps_total"] > sweeps and snap["progress"]["state"] == "done":
+                    return snap["progress"]
+                if time.monotonic() > deadline:
+                    fail("remote", f"the sweep did not end: {snap}")
+                time.sleep(0.05)
+
+        sweep, runs["watch_sweep"], _ = remote_run(torch, gs, "watch_sweep", reload_and_sweep,
+                                                   card)
+        if sorted(scanned) != sorted(indexed) or sweep["touched"] != len(indexed) \
+                or sweep["failures"] or len(indexed) != len(blobs):
+            fail("remote", f"the sweep touched {sorted(scanned)}, not the invalidated "
+                 f"{sorted(indexed)}: {sweep}")
+        removed = {d["blob"]: d["removed"] for d in deltas()[n_deltas:]}
+        want = {b: [f for f in fs if f["RuleID"] == rules[0]] for b, fs in found.items()}
+        want = {b: fs for b, fs in want.items() if fs}
+        if removed != want:
+            fail("remote", f"the stream's sweep records are not the removed {rules[0]} "
+                 f"findings")
+        if not cache.flush():
+            fail("remote", "the redis tier's write-behind queue did not drain")
+        keys = sum(k.startswith(b"fanal::") for k in store)
+        if not keys:
+            fail("remote", "the redis tier holds no verdict")
+        print(f"remote: watch sweep touched={sweep['touched']} of {len(indexed)} invalidated "
+              f"blobs, disabled {rules[0]}: {sum(map(len, removed.values()))} findings removed "
+              f"on {len(removed)} blobs; redis keys={keys}", flush=True)
+    finally:
+        srv.watch.close()
+        srv.scheduler.close()
+        httpd.shutdown()
+        httpd.server_close()
+        cache.close()
+        for server in (registry, resp):
+            server.shutdown()
+            server.server_close()
+    return runs
+
+
+def remote_phase(np, torch, gs, corpus, card: str) -> dict:
+    """The remote planes on the card (phase `remote`): the fleet, the watch
+    plane over the redis tier, and the protobuf wire.  Returns {run:
+    launches} for the kernels line."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke-remote-")
+    try:
+        items = corpus[:REMOTE_FILES]
+        runs, tree = fleet_runs(np, torch, gs, items, tmp, card)
+        runs.update(watch_runs(np, torch, gs, items, tmp, card))
+        runs.update(wire_runs(torch, gs, tree, card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"remote: phase seconds={time.perf_counter() - t_phase:.2f} card={card}", flush=True)
+    return runs
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--registry-start"] and len(argv) == 2:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4099,6 +4538,7 @@ def main(argv: list[str]) -> int:
     mesh_phase(np, torch, gs, main_corpus, main_doc, k1_launches, corpus, serve, variants,
                hybrid)
     served = server_phase(np, torch, gs, bench_corpus, hybrid, corpus, serve, card)
+    remote = remote_phase(np, torch, gs, hybrid["corpus"], card)
     del corpus, main_corpus, hybrid
     t0 = time.perf_counter()
     items, planted = program_corpus(bench_corpus)
@@ -4167,6 +4607,8 @@ def main(argv: list[str]) -> int:
                if k in report[kind]},
             # launches on phase `server`'s runs (counts zeroed before each)
             "server_launches": {run: n[kind] for run, n in served.items() if n.get(kind)},
+            # launches on phase `remote`'s runs (counts zeroed before each)
+            "remote_launches": {run: n[kind] for run, n in remote.items() if n.get(kind)},
             # launches on phase `runner`'s in-process commands
             "runner_launches": {run: n[kind] for run, n in ran.items() if n.get(kind)},
             # launches on phase `vuln`'s in-process commands

@@ -275,6 +275,20 @@ verified = verified and serve.BatchScheduler is httpd.scan_server.scheduler.__cl
 verified = verified and tenancy.ResidentRulesetPool is not None
 httpd.scan_server.scheduler.close()
 httpd.shutdown()
+from trivy_tpu_torch import fleet, watch
+from trivy_tpu_torch.cache import redis, s3
+from trivy_tpu_torch.commands import watch as watch_cmd
+from trivy_tpu_torch.rpc import protowire
+members = [fleet.Member("a", "h:1"), fleet.Member("b", "h:2")]
+verified = verified and fleet.primary("default", members).name in ("a", "b")
+verified = verified and fleet.FleetRouter is not None and watch_cmd.run_watch is not None
+verified = verified and watch.parse_watch_config(
+    {"sources": [{"type": "feed", "path": "f"}]}).poll_interval_s > 0
+verified = verified and redis.RedisCache is not None and s3.S3Cache is not None
+if protowire.available():
+    pb = protowire.scan_response_to_pb({"Results": [{"Target": "t", "Class": "secret"}]})
+    verified = verified and protowire.scan_response_from_pb(
+        type(pb).FromString(pb.SerializeToString()))["Results"][0]["Target"] == "t"
 raised = []
 if not torch.cuda.is_available():
     for make in (GpuSecretEngine, hybrid.make_secret_engine):
@@ -330,7 +344,9 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     finds the planted npm advisory, nor a server over that DB, nor the
     image path (`image --input` of a docker archive of those files, the
     registry client and the OCI artifact puller imported) nor `sbom` over
-    its `-f cyclonedx` output, which find the same advisory."""
+    its `-f cyclonedx` output, which find the same advisory, nor the
+    remote planes (`fleet`, `watch`, the `watch` command, `rpc.protowire`
+    with a protobuf round trip, `cache.redis`, `cache.s3`)."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

@@ -20,8 +20,9 @@ Every report is compared as a whole JSON document, as
 `tests/test_torch_engine.py::test_cli_matches_jax_cli` does.  Then what
 only the port has: `--profile-dir` (a torch.profiler trace and the host
 spans), `--trace-out`'s stage spans, `--resident-chunks`, the flags and
-targets that exit 2 naming their ROADMAP item, and `--device cuda` by
-default.
+targets that exit 2 naming their ROADMAP item, the remote flags
+(`--fleet-config`, `--cache-backend redis://…|s3://…`, `--server-wire
+protobuf`) against the reference CLI, and `--device cuda` by default.
 
 Tolerance: exact.
 """
@@ -389,23 +390,104 @@ def test_resident_chunks_zero_changes_resident_hits_not_findings(small):
     (["--rekor-url", "http://rekor.invalid"], "A13d"),
     (["--scanners", "secret,misconfig"], "A13d"),
     (["--checks-bundle-repository", "example.invalid/checks"], "A13d"),
-    (["--fleet-config", "fleet.yaml"], "A13c"),
     (["--ignore-policy", "p.rego"], "A13d"),
     (["--compliance", "docker-cis"], "A13d"),
     (["--config-check", "checks"], "A13d"),
     (["--module-dir", "mods"], "A13d"),
     (["--sbom-sources", "rekor"], "A13d"),
     (["--trace"], "A13d"),
-    (["--cache-backend", "s3://bucket/prefix"], "A13c"),
     (["--scanners", "misconfig"], "A13d"),
     (["--sbom-sources", "oci", "--sbom-sources", "rekor"], "A13d"),
-    (["--cache-backend", "redis://localhost:1"], "A13c"),
-    (["--server-wire", "protobuf", "--server", "localhost:1"], "A13c"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v).lstrip("-"))
 def test_not_ported_exits_2_naming_its_item(small, argv, item):
     rc, out, err = _run(cli.main, ["fs", "--device", "cpu", *argv, str(small)])
     assert rc == 2 and out == ""
     assert f"ROADMAP {item}" in err
+
+
+@pytest.fixture(scope="module")
+def remote_planes(tmp_path_factory):
+    """What the remote flags reach, one for each package: a server (its
+    engine the oracle backend) named by a one-member fleet file, a redis
+    fake and an s3 fake (the reference test's, each over a store of its
+    own)."""
+    import socketserver
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import test_cache_backends as ref_cb
+    from trivy_tpu.cache.store import MemoryCache as RefMemoryCache
+    from trivy_tpu.engine.oracle import OracleScanner as RefOracle
+    from trivy_tpu.rpc import server as ref_server
+    from trivy_tpu_torch.cache.store import MemoryCache
+    from trivy_tpu_torch.engine.oracle import OracleScanner
+    from trivy_tpu_torch.rpc import server as port_server
+
+    class Batch:
+        def __init__(self, oracle):
+            self.oracle, self.ruleset = oracle, oracle.ruleset
+
+        def scan_batch(self, items):
+            return [self.oracle.scan(path, content) for path, content in items]
+
+    tmp = tmp_path_factory.mktemp("remote")
+    closers, planes = [], {}
+    for name, srv, cache, oracle, kw in (
+            ("port", port_server, MemoryCache, OracleScanner, {"device": "cpu"}),
+            ("ref", ref_server, RefMemoryCache, RefOracle, {})):
+        httpd, _ = srv.start_background("localhost:0", cache(),
+                                        secret_engine_factory=lambda o=oracle: Batch(o()),
+                                        serve_config=srv.ServeConfig(batch_window_ms=0.0),
+                                        **kw)
+        addr = f"localhost:{httpd.server_address[1]}"
+        fleet = tmp / f"{name}-fleet.yaml"
+        fleet.write_text(json.dumps({"members": [{"name": "a", "endpoint": addr}]}))
+        redis = socketserver.ThreadingTCPServer(
+            ("127.0.0.1", 0), type("Redis", (ref_cb._MiniRedisHandler,), {"store": {}}))
+        redis.daemon_threads = True
+        s3 = ThreadingHTTPServer(
+            ("127.0.0.1", 0), type("S3", (ref_cb._MiniS3,), {"objects": {}, "auth_headers": []}))
+        for server in (redis, s3):
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+        closers += [httpd, redis, s3]
+        planes[name] = {"addr": addr, "fleet": str(fleet),
+                        "redis": f"redis://127.0.0.1:{redis.server_address[1]}",
+                        "s3": f"http://127.0.0.1:{s3.server_address[1]}"}
+    try:
+        yield planes
+    finally:
+        for server in closers:
+            if hasattr(server, "scan_server"):
+                server.scan_server.scheduler.close()
+            server.shutdown()
+            server.server_close()
+
+
+@pytest.mark.parametrize("flag", ["fleet-config", "cache-backend-s3", "cache-backend-redis",
+                                  "server-wire-protobuf"])
+def test_remote_flags_scan_like_the_reference(small, remote_planes, flag, monkeypatch):
+    """The flags that once exited 2 scan: the port's report with each is
+    the reference CLI's, each package over its own server, fleet file and
+    cache fakes."""
+    for k, v in (("AWS_ACCESS_KEY_ID", "AKIATEST"), ("AWS_SECRET_ACCESS_KEY", "testsecret"),
+                 ("AWS_REGION", "us-east-1")):
+        monkeypatch.setenv(k, v)
+    docs = {}
+    for name, main, extra in (("port", cli.main, ["--device", "cpu"]),
+                              ("ref", ref_cli.main, [])):
+        plane = remote_planes[name]
+        argv = {
+            "fleet-config": ["--secret-backend", "server", "--fleet-config", plane["fleet"]],
+            "cache-backend-s3": ["--cache-backend", "s3://bucket/prefix"],
+            "cache-backend-redis": ["--cache-backend", plane["redis"]],
+            "server-wire-protobuf": ["--server", plane["addr"], "--server-wire", "protobuf"],
+        }[flag]
+        monkeypatch.setenv("AWS_ENDPOINT_URL", plane["s3"])
+        rc, out, err = _run(main, ["fs", *extra, "--scanners", "secret", "-f", "json",
+                                   *argv, str(small)])
+        assert rc == 0, err[-2000:]
+        docs[name] = json.loads(out)
+    assert docs["port"] == docs["ref"] and docs["port"]["Results"]
 
 
 @pytest.mark.parametrize("argv", [["image", "--scanners", "misconfig"],

@@ -7,7 +7,7 @@ reference's (`trivy_tpu/rpc/server.py`), both in-process on free ports.
   servers (no timing field is asked for: no Explain);
 * the cache routes and `Scan` over a pushed blob answer alike;
 * every debug route, `/healthz`, `/readyz`, `/version` and `/metrics`
-  answer; the protobuf content type gets the reference's 415;
+  answer; protobuf bodies get the reference's answers;
 * the profile window (`/admin/profile/start|stop`, `torch.profiler`)
   writes a Chrome trace on the CPU.
 
@@ -161,12 +161,24 @@ def test_every_debug_route_answers(servers):
                    "trivy_tpu_mesh_devices 1", "trivy_tpu_build_info"):
         assert family in metrics, family
     assert _get(addr, "/nope")[0] == 404
-    req = urllib.request.Request(
-        f"http://{addr}/twirp/trivy.cache.v1.Cache/PutBlob", data=b"\x00",
-        headers={"Content-Type": "application/protobuf"})
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        urllib.request.urlopen(req)
-    assert ei.value.code == 415 and b"protobuf wire unavailable" in ei.value.read()
+    # The protobuf content type: a malformed body, ScanSecrets (JSON-only)
+    # and a valid DeleteBlobs get the reference server's answers.
+    answers = {}
+    for name in ("port", "reference"):
+        answers[name] = []
+        for path, body in (("/twirp/trivy.cache.v1.Cache/PutBlob", b"\x00"),
+                           ("/twirp/trivy.scanner.v1.Scanner/ScanSecrets", b""),
+                           ("/twirp/trivy.cache.v1.Cache/DeleteBlobs", b"\x0a\x03abc")):
+            req = urllib.request.Request(
+                f"http://{addrs[name]}{path}", data=body,
+                headers={"Content-Type": "application/protobuf"})
+            try:
+                with urllib.request.urlopen(req) as resp:
+                    answers[name].append((resp.status, resp.read()))
+            except urllib.error.HTTPError as e:
+                answers[name].append((e.code, e.read()))
+    assert answers["port"] == answers["reference"]
+    assert [code for code, _ in answers["port"]] == [500, 415, 200]
 
 
 def test_profile_window_writes_a_trace_on_the_cpu(servers):
@@ -186,13 +198,36 @@ def test_profile_window_writes_a_trace_on_the_cpu(servers):
     assert trace["traceEvents"]
 
 
-def test_not_ported_options_raise():
-    for kw, item in (({"fleet_config": "fleet.yaml"}, "fleet"),
-                     ({"watch_config": "watch.yaml"}, "watch")):
-        with pytest.raises(ValueError, match=f"{item} is not ported yet .ROADMAP A13c"):
-            port_server.ScanServer(MemoryCache(), device="cpu", **kw)
-    with pytest.raises(RpcError, match="A13c"):
-        RpcClient("localhost:1", wire="protobuf").call("/x", {})
+def test_remote_options_build_a_server(servers, tmp_path):
+    """The options that once raised build a server: a fleet member with a
+    watch plane (over a result cache), and a protobuf client's calls
+    answer as the reference server's."""
+    from trivy_tpu.rpc.client import RpcClient as RefRpcClient
+    from trivy_tpu_torch.cache.results import ScanResultCache
+
+    fleet = tmp_path / "fleet.yaml"
+    fleet.write_text(json.dumps({"members": [{"name": "a", "endpoint": "localhost:1"},
+                                             {"name": "b", "endpoint": "localhost:2"}]}))
+    feed = tmp_path / "feed.jsonl"
+    feed.write_text("")
+    watch = tmp_path / "watch.yaml"
+    watch.write_text(json.dumps({"sources": [{"type": "feed", "path": str(feed)}]}))
+    cache = MemoryCache()
+    srv = port_server.ScanServer(cache, device="cpu", fleet_config=str(fleet),
+                                 fleet_member="b", watch_config=str(watch),
+                                 result_cache=ScanResultCache(cache))
+    try:
+        assert srv.fleet.name == "b" and srv.fleet_report()["self"] == "b"
+        assert srv.watch_report()["enabled"] is True
+    finally:
+        srv.watch.close()
+        srv.scheduler.close()
+    addrs, _, _ = servers
+    path = "/twirp/trivy.cache.v1.Cache/MissingBlobs"
+    req = {"ArtifactID": "sha256:none", "BlobIDs": ["sha256:b1"]}
+    got = RpcClient(addrs["port"], wire="protobuf").call(path, req)
+    assert got == RefRpcClient(addrs["reference"], wire="protobuf").call(path, req)
+    assert got == {"MissingArtifact": True, "MissingBlobIDs": ["sha256:b1"]}
 
 
 def test_cli_server_on_the_cpu_only_when_asked():

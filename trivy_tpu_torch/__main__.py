@@ -33,8 +33,14 @@ flag or format that waits for a ROADMAP item exits 2 naming it
 registry (`commands/rules.py`; `push` installs a ruleset into a running
 server).  `python -m trivy_tpu_torch server [--device cuda|cpu] ...` runs
 the scan server (`rpc/server.py`: the cross-request batcher, its
-failure-domain ladder, tenancy, hot reload, the debug routes) with the
-reference's flags (`trivy_tpu/cli.py` `server`), on the card by default.
+failure-domain ladder, tenancy, hot reload, the debug routes, the fleet
+plane under `--fleet-config`/`--fleet-member`, the watch plane under
+`--watch-config`) with the reference's flags (`trivy_tpu/cli.py`
+`server`), on the card by default.  `python -m trivy_tpu_torch watch
+--watch-config F [--once]` runs the watch plane on a local engine
+(`commands/watch.py`).  Scans take `--fleet-config` (the secret batches
+route across a fleet), `--server-wire protobuf` and the remote cache
+tiers (`--cache-backend redis://…|s3://…`).
 """
 
 from __future__ import annotations
@@ -47,13 +53,10 @@ from trivy_tpu_torch.device import DEFAULT_DEVICE
 
 # The reference CLI's backends (trivy_tpu/cli.py).
 SECRET_BACKENDS = ("auto", "hybrid", "tpu", "cpu", "native", "server")
-# What the port lacks of the reference CLI's server, and the ROADMAP item
-# it waits for.
-NOT_PORTED = {"--fleet-config": "A13c", "--watch-config": "A13c"}
 # The reference's scan flags whose feature waits for a ROADMAP item: they
 # parse as the reference's and, set, make the scan exit 2 naming the item.
 NOT_PORTED_FLAGS = {
-    "fleet-config": "A13c", "ignore-policy": "A13d", "checks-bundle-repository": "A13d",
+    "ignore-policy": "A13d", "checks-bundle-repository": "A13d",
     "config-check": "A13d", "compliance": "A13d", "module-dir": "A13d",
     "rekor-url": "A13d", "trace": "A13d",
 }
@@ -203,7 +206,8 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
         help="auto = hybrid (host pre-sieve + verify on the device + confirm), "
         "tpu = the all-device sieve engine, native = the device engine over "
         "the C++ host row sieve, cpu = oracle engine, server = ship raw "
-        "items to the scan server's batcher (requires --server)",
+        "items to the scan server's batcher (requires --server or "
+        "--fleet-config)",
     )
     p.add_argument("--device", default=_env_default("device", DEFAULT_DEVICE),
                    help="where the engines run: cuda (default) or cpu")
@@ -242,14 +246,18 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
                    default=_env_default("log-format", "console"))
     p.add_argument("--cache-dir", default=_env_default("cache-dir", ""))
     p.add_argument("--cache-backend", default=_env_default("cache-backend", "memory"),
-                   help="memory | fs (redis and s3: ROADMAP A13c)")
+                   help="memory | fs | redis://… | s3://…")
     p.add_argument("--cache-ttl", type=int, default=_env_num("cache-ttl", 0, int))
     p.add_argument("--server", default=_env_default("server", ""),
                    help="server address (client mode)")
+    p.add_argument("--fleet-config", default=_env_default("fleet-config", ""),
+                   help="fleet member YAML (client mode): route scans across the "
+                   "fleet by ruleset digest with health-aware failover instead of "
+                   "pinning to one --server address")
     p.add_argument("--token", default=_env_default("token", ""), help="server auth token")
     p.add_argument("--server-wire", default=_env_default("server-wire", "json"),
                    choices=["json", "protobuf"],
-                   help="Twirp wire format for client mode (protobuf: ROADMAP A13c)")
+                   help="Twirp wire format for client mode")
     p.add_argument("--db-dir", default=_env_default("db-dir", ""),
                    help="vulnerability DB directory (default <cache-dir>/db)")
     p.add_argument("--list-all-pkgs", action="store_true",
@@ -311,6 +319,7 @@ def _options_from_args(args: argparse.Namespace):
         resident_chunks=args.resident_chunks,
         ignore_file=args.ignorefile if os.path.exists(args.ignorefile) else "",
         server_addr=args.server,
+        fleet_config=args.fleet_config,
         server_wire=args.server_wire,
         token=args.token,
         db_dir=args.db_dir,
@@ -387,6 +396,14 @@ def _server_parser(sub) -> None:
     p.add_argument("--pipeline-depth", type=int,
                    default=int(pipeline_depth) if pipeline_depth else None,
                    help="chunks staged ahead in the server engine's pipeline")
+    p.add_argument("--resident-chunks", type=int,
+                   default=_opt_int_default("resident-chunks"),
+                   help="device-resident chunk LRU capacity for the server "
+                   "engine (default 32; TRIVY_TPU_RESIDENT_CHUNKS)")
+    p.add_argument("--log-format", choices=("console", "json"),
+                   default=_env_default("log-format", "console"),
+                   help="log line format: console (default) or one JSON object "
+                   "per line with trace_id correlation")
     for flag, text in (
         ("slo-config", "YAML per-method latency/error objectives"),
         ("flight-out", "append flight-recorder breach records to this JSONL file"),
@@ -398,12 +415,44 @@ def _server_parser(sub) -> None:
          "'none' (TRIVY_TPU_MESH)"),
         ("profile-dir", "default output directory for POST /admin/profile/start "
          "windows (torch.profiler trace + host spans)"),
-        ("fleet-config", f"fleet member YAML (not ported: ROADMAP "
-         f"{NOT_PORTED['--fleet-config']})"),
-        ("watch-config", f"continuous-scanning plane YAML (not ported: ROADMAP "
-         f"{NOT_PORTED['--watch-config']})"),
+        ("fleet-config", "fleet member YAML shared by every host in the fleet; "
+         "turns on GET /debug/fleet, X-Trivy-Fleet-* response headers and "
+         "affinity accounting"),
+        ("fleet-member", "which member of --fleet-config THIS process answers as "
+         "(overrides the YAML's `self:`)"),
+        ("watch-config", "continuous-scanning plane YAML (event sources + "
+         "verdict-delta stream); requires --cache-backend (GET /debug/watch)"),
     ):
         p.add_argument(f"--{flag}", default=_env_default(flag, ""), help=text)
+
+
+def _watch_parser(sub) -> None:
+    """`watch`: the reference's flags (trivy_tpu/cli.py), plus `--device`
+    for the local engine."""
+    p = sub.add_parser(
+        "watch", help="continuously scan registry/feed changes with a local engine"
+    )
+    p.add_argument("--watch-config", default=_env_default("watch-config", ""),
+                   help="watch-plane YAML: event sources, poll interval, "
+                   "verdict-delta stream sinks (required)")
+    p.add_argument("--once", action="store_true", default=_bool_default("once"),
+                   help="run one poll cycle, print the JSON summary, and exit")
+    p.add_argument("--cache-dir", default=_env_default("cache-dir", ""))
+    p.add_argument("--cache-backend", default=_env_default("cache-backend", ""),
+                   help="result-cache backend: memory | fs | redis://… | s3://… "
+                   "('' = fs when --cache-dir is set, else memory)")
+    p.add_argument("--cache-ttl", type=int, default=_env_num("cache-ttl", 0, int),
+                   help="remote cache tier entry TTL seconds (redis/s3 backends)")
+    p.add_argument("--secret-config", default=_env_default("secret-config", ""),
+                   help="secret-config YAML the local engine scans with")
+    p.add_argument("--rules-cache-dir", default=_env_default("rules-cache-dir", ""),
+                   help="compiled-ruleset registry directory (default "
+                   "~/.cache/trivy-tpu/rulesets; 'off' disables warm starts)")
+    p.add_argument("--device", default=_env_default("device", DEFAULT_DEVICE),
+                   help="where the local engine runs: cuda (default) or cpu")
+    p.add_argument("--log-format", choices=("console", "json"),
+                   default=_env_default("log-format", "console"))
+    p.add_argument("--debug", action="store_true", default=_bool_default("debug"))
 
 
 def _run_server(args) -> int:
@@ -440,15 +489,17 @@ def _run_server(args) -> int:
             secret_config=args.secret_config,
             rules_cache_dir=resolve_rules_cache_dir(args.rules_cache_dir),
             pipeline_depth=args.pipeline_depth,
+            resident_chunks=args.resident_chunks,
             profile_dir=args.profile_dir,
             slo_config=args.slo_config,
             flight_out=args.flight_out,
             flight_out_max_mb=args.flight_out_max_mb,
             fleet_config=args.fleet_config,
+            fleet_member=args.fleet_member,
             watch_config=args.watch_config,
             device=args.device,
         )
-    except ValueError as e:  # a flag the port lacks, or a bad cache spec
+    except ValueError as e:  # a bad cache spec, or a watch without a cache
         print(f"trivy-tpu: {e}", file=sys.stderr)
         return 2
     return 0
@@ -488,6 +539,7 @@ def build_parser() -> argparse.ArgumentParser:
                 p.add_argument(f"--{flag}", default="")
         p.set_defaults(kind=kind)
     _server_parser(sub)
+    _watch_parser(sub)
     rules = sub.add_parser("rules", help="manage the compiled-ruleset registry")
     rules_sub = rules.add_subparsers(dest="rules_command")
     for name, text in (("compile", "compile a secret-config into the cache"),
@@ -526,6 +578,11 @@ def main(argv: list[str] | None = None) -> int:
         print(f"trivy-tpu: {e}", file=sys.stderr)
         return 2
     args = parser.parse_args(raw)
+    from trivy_tpu_torch.log import setup as setup_logging
+
+    setup_logging(debug=getattr(args, "debug", False), quiet=getattr(args, "quiet", False),
+                  no_color=getattr(args, "no_color", False),
+                  log_format=getattr(args, "log_format", "console"))
     if getattr(args, "mesh", ""):
         # validated here, so a typo'd spec is a usage error, not a mid-scan
         # ValueError; seated where every engine's get_mesh() reads it
@@ -543,6 +600,10 @@ def main(argv: list[str] | None = None) -> int:
         return run_rules(args)
     if args.command == "server":
         return _run_server(args)
+    if args.command == "watch":
+        from trivy_tpu_torch.commands.watch import run_watch
+
+        return run_watch(args)
     return _run_scan(parser, args)
 
 
@@ -553,15 +614,14 @@ def _run_scan(parser, args) -> int:
         OptionsError,
         run,
     )
+    from trivy_tpu_torch.cache.redis import RedisError
+    from trivy_tpu_torch.cache.s3 import S3Error
     from trivy_tpu_torch.db.client import DBError
     from trivy_tpu_torch.deadline import ScanTimeoutError
     from trivy_tpu_torch.image.registry import RegistryError
-    from trivy_tpu_torch.log import setup as setup_logging
 
-    setup_logging(debug=args.debug, quiet=args.quiet, no_color=args.no_color,
-                  log_format=args.log_format)
-    if args.secret_backend == "server" and not args.server:
-        parser.error("--secret-backend server requires --server")
+    if args.secret_backend == "server" and not (args.server or args.fleet_config):
+        parser.error("--secret-backend server requires --server or --fleet-config")
     if not (args.target or getattr(args, "input", "")):
         parser.error("the following arguments are required: target (or --input)")
     try:
@@ -575,11 +635,11 @@ def _run_scan(parser, args) -> int:
                 raise NotPortedError(f"--{flag} is not ported yet (ROADMAP {item})")
         return run(options, args.kind)
     except (CacheConfigError, OptionsError, NotPortedError, ScanTimeoutError,
-            DBError, RegistryError) as e:
+            DBError, RegistryError, RedisError, S3Error) as e:
         # a cache spec, a malformed --file-patterns, a target, flag or
         # source that waits for a ROADMAP item, a timeout, a DB that
-        # --skip-db-update refuses, an image or DB no source could serve
-        # (cli.py:1224-1240);
+        # --skip-db-update refuses, an image or DB no source could serve,
+        # a remote cache tier that fails (cli.py:1224-1240);
         # anything else (an engine that fails) propagates
         print(f"trivy-tpu: {e}", file=sys.stderr)
         return 2

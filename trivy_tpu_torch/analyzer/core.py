@@ -82,6 +82,10 @@ class SecretScannerOption:
     # backend == "server": where the engine lives and how to authenticate.
     server_addr: str = ""
     server_token: str = ""
+    # backend == "server": fleet member YAML (--fleet-config).  Non-empty
+    # routes every batch through a digest-affine FleetRouter over the
+    # member table instead of pinning to server_addr — trivy_tpu_torch/fleet/.
+    fleet_config: str = ""
     # Forwarded as the request TimeoutMs so server-side tickets inherit the
     # client's --timeout.  0 = unbounded.
     timeout_s: float = 0.0

@@ -9,7 +9,8 @@ packed batch.
 Copied from `trivy_tpu/analyzer/secret.py`; the port imports nothing from
 the JAX package.  The engine is the port's `make_secret_engine` on the
 scanner option's `device` (default "cuda"), or `RemoteSecretEngine` for
-`--secret-backend server` (fleet routing waits for ROADMAP A13c).  The
+`--secret-backend server` (one `--server`, or a `fleet.FleetRouter` over
+the `--fleet-config` member table).  The
 claim pass keeps the reference's per-file gate loop for every corpus: its
 joined-needle fast path and the batched allow-path regex give the same
 verdicts and are left out.
@@ -128,14 +129,36 @@ class SecretAnalyzer(BatchAnalyzer):
             # concurrent client processes share one device batch.
             from trivy_tpu_torch.rpc.client import RemoteSecretEngine
 
-            if not opt.server_addr:
-                raise ValueError("--secret-backend server requires --server")
+            if not opt.server_addr and not opt.fleet_config:
+                raise ValueError(
+                    "--secret-backend server requires --server "
+                    "or --fleet-config"
+                )
+            router = None
+            if opt.fleet_config:
+                # Fleet mode: batches route across the member table by
+                # ruleset digest with health-aware failover instead of
+                # pinning to one address.
+                from trivy_tpu_torch.fleet import FleetRouter
+                from trivy_tpu_torch.fleet.membership import (
+                    FleetMembership,
+                    load_fleet_config,
+                )
+
+                router = FleetRouter(
+                    FleetMembership.from_config(
+                        load_fleet_config(opt.fleet_config)
+                    ),
+                    token=opt.server_token,
+                    timeout_s=opt.timeout_s or 300.0,
+                )
             return RemoteSecretEngine(
                 opt.server_addr,
                 token=opt.server_token,
                 timeout_s=opt.timeout_s,
                 ruleset_select=opt.ruleset_select,
                 explain=opt.explain,
+                router=router,
             )
         # All local backends go through the factory, which maps the CLI
         # aliases (cpu/tpu/native) and — when the registry is on —

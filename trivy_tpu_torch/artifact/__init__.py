@@ -1,5 +1,6 @@
-"""Artifacts (a copy of `trivy_tpu/artifact/`: local filesystem and git
-repository; image, sbom and vm wait for ROADMAP A13d)."""
+"""Artifacts (a copy of `trivy_tpu/artifact/`): the local filesystem here,
+the git repository, the container image and the SBOM in their modules;
+vm waits for ROADMAP A13d."""
 
 from trivy_tpu_torch.artifact.local import LocalArtifact
 

@@ -1,7 +1,7 @@
 """The artifact and result cache planes, copied from `trivy_tpu/cache/`
 (the port imports nothing from the JAX package): memory and FS stores,
-the tiered chain and the fleet result cache.  The remote redis and s3
-tiers wait for ROADMAP A13c.
+the tiered chain, the fleet result cache, and the remote redis and s3
+tiers (`cache/redis.py`, `cache/s3.py`, standard library only).
 """
 
 from trivy_tpu_torch.cache.store import ArtifactCache, FSCache, MemoryCache
@@ -14,15 +14,29 @@ def build_cache(
 ) -> ArtifactCache:
     """Construct the artifact-cache chain a backend spec names — the ONE
     place the CLI scan path and the server agree on what `--cache-backend`
-    means.  "" picks FS when a cache dir exists, else memory.  Raises
-    ValueError on an unknown spec and on the remote specs (redis://,
-    s3://) the port lacks (callers wrap it in their own error type)."""
-    if backend.startswith(("redis://", "rediss://", "s3://")):
-        # The remote tiers (cache/redis.py, cache/s3.py) wait for ROADMAP
-        # A13c; the local chain below is the whole port for now.
-        raise ValueError(
-            f"cache backend {backend!r} is not ported yet (ROADMAP A13c)"
+    means.  Remote specs (redis://, s3://) sit behind local tiers (memory
+    always, FS when a cache dir is configured): reads promote inward,
+    remote writes ride the write-behind thread, and remote errors degrade
+    to the local tiers instead of failing the scan.  "" picks FS when a
+    cache dir exists, else memory.  Raises ValueError on an unknown spec
+    (callers wrap it in their own error type)."""
+    if backend.startswith(("redis://", "rediss://")):
+        from trivy_tpu_torch.cache.redis import RedisCache
+
+        local: list[ArtifactCache] = [MemoryCache()]
+        if cache_dir:
+            local.append(FSCache(cache_dir))
+        return TieredCache(
+            local
+            + [RedisCache(backend, ttl_seconds=ttl_seconds, timeout=5.0)]
         )
+    if backend.startswith("s3://"):
+        from trivy_tpu_torch.cache.s3 import S3Cache
+
+        local = [MemoryCache()]
+        if cache_dir:
+            local.append(FSCache(cache_dir))
+        return TieredCache(local + [S3Cache(backend, timeout=10.0)])
     if backend == "fs":
         if not cache_dir:
             raise ValueError("cache backend 'fs' requires a cache dir")

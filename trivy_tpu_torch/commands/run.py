@@ -13,9 +13,10 @@ Chrome trace into the directory with the host spans beside it.  The port
 adds host spans (`artifact.scan`, `filter`, `write`, and the analyzer's and
 artifact's) for the stage split of a run.  `Options` keeps the knobs the
 port honours; a target, scanner or source that waits for another ROADMAP
-item raises `NotPortedError` before the scan starts (`_check_ported`): the
-protobuf wire (A13c), misconfig, `--sbom-sources rekor` and the `vm`
-target (A13d).  The flags of the reference that wait for an item are
+item raises `NotPortedError` before the scan starts (`_check_ported`):
+misconfig, `--sbom-sources rekor` and the `vm` target (A13d).  Client
+mode speaks either Twirp wire (`--server-wire json|protobuf`), and
+`--fleet-config` routes the secret analyzer's batches across a fleet.  The flags of the reference that wait for an item are
 refused by the CLI (`__main__.NOT_PORTED_FLAGS`).  The `image` target
 resolves an archive path, an OCI layout or a reference through the
 daemon -> containerd -> podman -> registry chain (`image.resolve_image`,
@@ -100,7 +101,10 @@ class Options:
     resident_chunks: int | None = None
     ignore_file: str = ""
     server_addr: str = ""  # non-empty => client mode (remote driver)
-    server_wire: str = "json"  # Twirp wire format: json (protobuf: A13c)
+    # --fleet-config: member YAML for digest-affine multi-host routing
+    # of ScanSecrets batches ("" = single --server endpoint).
+    fleet_config: str = ""
+    server_wire: str = "json"  # Twirp wire format: json | protobuf
     token: str = ""
     db_dir: str = ""  # vulnerability DB directory (trivy-db analogue)
     list_all_packages: bool = False
@@ -127,8 +131,8 @@ class Options:
 
 def _check_ported(options: Options, target_kind: str) -> None:
     """Raise NotPortedError naming the ROADMAP item for the first target,
-    scanner, SBOM source or wire the port lacks; OptionsError for an
-    unknown format."""
+    scanner or SBOM source the port lacks; OptionsError for an unknown
+    format."""
     if target_kind in NOT_PORTED_TARGETS:
         raise NotPortedError(
             f"{target_kind}: not ported yet (ROADMAP {NOT_PORTED_TARGETS[target_kind]})"
@@ -145,10 +149,6 @@ def _check_ported(options: Options, target_kind: str) -> None:
                 f"--sbom-sources {source} is not ported yet "
                 f"(ROADMAP {NOT_PORTED_SBOM_SOURCES[source]})"
             )
-    if options.server_wire != "json":
-        raise NotPortedError(
-            f"--server-wire {options.server_wire} is not ported yet (ROADMAP A13c)"
-        )
     try:
         check_format(options.format)
     except ValueError as e:
@@ -228,6 +228,7 @@ def _analyzer_options(options: Options) -> AnalyzerOptions:
             backend=options.secret_backend,
             ruleset_select=options.ruleset_select,
             server_addr=options.server_addr,
+            fleet_config=options.fleet_config,
             server_token=options.token,
             timeout_s=options.timeout,
             rules_cache_dir=options.rules_cache_dir,

@@ -10,8 +10,8 @@ Layout: <db_dir>/metadata.json + <db_dir>/<source-bucket>.json where a source
 bucket is e.g. "alpine 3.15", "debian 11", "npm", "pip".
 
 Copied from `trivy_tpu/db/vulndb.py`; the port imports nothing from the
-JAX package, so it keeps its own copy of this jax-free module.  The port
-reads a local DB only: the OCI download waits for ROADMAP A13c.  A JSON
+JAX package, so it keeps its own copy of this jax-free module.  The DB's
+OCI pull is `db/client.py`'s; this module reads the local copy.  A JSON
 bucket's load runs under the host span `db.load`.
 """
 

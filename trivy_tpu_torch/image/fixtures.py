@@ -179,8 +179,9 @@ def serve_registry(repos: dict, referrers: dict | None = None) -> ThreadingHTTPS
     127.0.0.1: `repos` maps a repository to {"manifests": {tag or digest:
     bytes}, "blobs": {digest: bytes}, "blob_dir": a directory whose files
     are named by their hex digests, streamed}; `referrers` maps a subject
-    digest to its OCI index.  Both may change while it serves.  Returns
-    the server; `shutdown()` and `server_close()` stop it."""
+    digest to its OCI index.  Both may change while it serves.
+    `tags/list` lists a repository's manifest keys that are not digests.
+    Returns the server; `shutdown()` and `server_close()` stop it."""
     referrers = {} if referrers is None else referrers
 
     class Handler(BaseHTTPRequestHandler):
@@ -202,6 +203,9 @@ def serve_registry(repos: dict, referrers: dict | None = None) -> ThreadingHTTPS
             body = None
             if kind == "manifests":
                 body = spec.get("manifests", {}).get(ref)
+            elif kind == "tags" and ref == "list":
+                tags = [t for t in spec.get("manifests", {}) if ":" not in t]
+                body = json.dumps({"name": repo, "tags": sorted(tags)}).encode()
             elif kind == "referrers" and ref in referrers:
                 body = json.dumps(referrers[ref]).encode()
             elif kind == "blobs":

@@ -106,6 +106,12 @@ class RulesetManager:
             return self._active_digest
 
     @property
+    def staged_digest(self) -> str:
+        """The digest staged for the next batch boundary ("" when none)."""
+        with self._lock:
+            return self._staged[1] if self._staged is not None else ""
+
+    @property
     def epoch(self) -> int:
         with self._lock:
             return self._epoch

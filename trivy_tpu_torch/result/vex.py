@@ -6,15 +6,15 @@ the scanned product (csaf.go:26-83: CVE match -> product_status range ->
 product-tree purl match).
 
 Copied from `trivy_tpu/result/vex.py`; the port imports nothing from the
-JAX package.  It keeps its own copy of `trivy_tpu/purl.py` `package_url`
-(purl.py itself waits for ROADMAP A13d).
+JAX package.  Products' purls come from the port's `purl.package_url`.
 """
 
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from urllib.parse import quote
+
+from trivy_tpu_torch.purl import package_url
 
 SUPPRESS_STATUSES = {"not_affected", "fixed"}
 
@@ -182,57 +182,3 @@ def apply_vex(report, vex: VexDocument) -> None:
                 kept.append(v)
         result.vulnerabilities = kept
 
-
-# trivy_tpu/purl.py _PURL_TYPES: trivy package type -> purl type.
-_PURL_TYPES = {
-    "npm": "npm",
-    "yarn": "npm",
-    "pnpm": "npm",
-    "pip": "pypi",
-    "pipenv": "pypi",
-    "poetry": "pypi",
-    "gomod": "golang",
-    "cargo": "cargo",
-    "composer": "composer",
-    "bundler": "gem",
-    "nuget": "nuget",
-    "dotnet-core": "nuget",
-    "packages-props": "nuget",
-    "julia": "julia",
-    "pom": "maven",
-    "gradle": "maven",
-    "jar": "maven",
-    "war": "maven",
-    "gobinary": "golang",
-    "rustbinary": "cargo",
-    "python-pkg": "pypi",
-    "node-pkg": "npm",
-    "gemspec": "gem",
-    "pub": "pub",
-    "hex": "hex",
-    "conan": "conan",
-    "swift": "swift",
-    "cocoapods": "cocoapods",
-    "conda-pkg": "conda",
-    "conda-environment": "conda",
-    "apk": "apk",
-    "dpkg": "deb",
-    "rpm": "rpm",
-}
-
-
-def package_url(
-    pkg_type: str, name: str, version: str, namespace: str = ""
-) -> str:
-    ptype = _PURL_TYPES.get(pkg_type, pkg_type)
-    if ptype == "maven" and ":" in name and not namespace:
-        # Maven package names are group:artifact (purl.go:198-203); the
-        # group becomes the purl namespace.
-        namespace, _, name = name.rpartition(":")
-    if "/" in name and not namespace:
-        namespace, _, name = name.rpartition("/")
-    parts = ["pkg:" + ptype]
-    if namespace:
-        parts.append(quote(namespace, safe="/"))
-    parts.append(quote(name, safe=""))
-    return "/".join(parts) + "@" + quote(version, safe="")

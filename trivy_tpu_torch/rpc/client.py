@@ -22,10 +22,10 @@ reconnect-and-resend; anything that fails mid-exchange poisons the
 framing and drops the socket, so the next attempt starts clean.
 
 Copied from `trivy_tpu/rpc/client.py` (the port imports nothing from the
-JAX package): `RpcClient`, its retry budget, `RemoteDriver`,
-`RemoteSecretEngine` and `RemoteCache`.  The protobuf wire
-(`rpc/protowire.py`) and the fleet router wait for ROADMAP A13c: a client
-asked for either raises.
+JAX package): `RpcClient` over the JSON and protobuf wires
+(`rpc/protowire.py`), its retry budget, `RemoteDriver`,
+`RemoteSecretEngine` (one endpoint, or a `fleet.FleetRouter`) and
+`RemoteCache`.
 """
 
 from __future__ import annotations
@@ -181,8 +181,9 @@ class RpcClient:
     addr: str  # host:port
     token: str = ""
     headers: dict[str, str] = field(default_factory=dict)
-    # "json": the port speaks the JSON Twirp wire only; "protobuf" waits
-    # for ROADMAP A13c and raises at the first call.
+    # "json" (default) or "protobuf": the two Twirp wire formats.  The
+    # protobuf wire is byte-compatible with the reference's Go client
+    # (rpc/{scanner,cache}/service.proto field numbers).
     wire: str = "json"
     max_retries: int = MAX_RETRIES
     timeout_s: float = 300.0  # per-attempt socket timeout
@@ -279,12 +280,16 @@ class RpcClient:
 
     def call(self, path: str, payload: dict) -> dict:
         url = f"{self._base_url()}{path}"
-        if self.wire != "json":
-            raise RpcError(
-                f"{self.wire} wire is not ported yet (ROADMAP A13c)"
-            )
-        body = json.dumps(payload).encode()
-        ctype = "application/json"
+        if self.wire == "protobuf":
+            from trivy_tpu_torch.rpc import protowire
+
+            if not protowire.available():
+                raise RpcError("protobuf wire unavailable (no protoc/runtime)")
+            body = protowire.encode_request(path, payload)
+            ctype = "application/protobuf"
+        else:
+            body = json.dumps(payload).encode()
+            ctype = "application/json"
         last: Exception | None = None
         attempts = max(1, self.max_retries)
         _BUDGET.note_request()
@@ -307,6 +312,10 @@ class RpcClient:
                     self.last_response_headers = rhdrs
                     self.last_error_status = 0
                     self.last_error_retry_after = None
+                    if self.wire == "protobuf":
+                        from trivy_tpu_torch.rpc import protowire
+
+                        return protowire.decode_response(path, raw)
                     return json.loads(raw)
                 if status in (429, 503):
                     # Backpressure (queue full / client cap / draining):
@@ -413,7 +422,7 @@ class RemoteDriver(Driver):
 
     addr: str
     token: str = ""
-    wire: str = "json"  # "protobuf" waits for ROADMAP A13c
+    wire: str = "json"  # or "protobuf" (reference Go client wire)
     # Client --timeout forwarded so the SERVER arms the same deadline
     # (rpc/server.py _arm_deadline): a server-side scan is bounded even
     # when the client dies mid-request.  0 = unbounded (legacy).
@@ -497,10 +506,14 @@ class RemoteSecretEngine:
         client_id: str = "",
         ruleset_select: str = "",
         explain: bool = False,
+        router=None,
     ):
-        # The reference's fleet router seat (`router=`) waits for ROADMAP
-        # A13c: one endpoint.
-        self.client = RpcClient(addr, token)
+        # The fleet seam (trivy_tpu_torch/fleet/): a FleetRouter is
+        # RpcClient-compatible on the scan path (scan_secrets, .headers,
+        # .last_response_headers) and replaces the single-endpoint
+        # client — requests then follow digest-affine routing with
+        # health-aware spillover instead of pinning to `addr`.
+        self.client = router if router is not None else RpcClient(addr, token)
         self.timeout_s = timeout_s
         self.client_id = client_id
         # Digest of a pushed ruleset every batch should scan under ("" =

@@ -34,10 +34,10 @@ JAX package), over the port's engines: `ScanServer`, `serve` and
 and `/admin/profile/start|stop` holds one `torch.profiler.profile` window
 whose Chrome trace lands in the ProfileDir beside the host span ring.
 The scanner service detects vulnerabilities over the local DB in
-`db_dir` (else `<cache_dir>/db`), as the reference's does.  What the port
-lacks answers as the reference does without it, or raises naming its
-ROADMAP item: the fleet and watch planes and the protobuf wire wait for
-A13c.
+`db_dir` (else `<cache_dir>/db`), as the reference's does.  The fleet
+plane (`fleet_config`, `fleet_member`), the watch plane (`watch_config`,
+its scans through the scheduler onto the server's engines) and the
+protobuf wire (`rpc/protowire.py`) are the reference's.
 """
 
 from __future__ import annotations
@@ -83,15 +83,6 @@ from trivy_tpu_torch.serve import (
 
 TOKEN_HEADER = "Trivy-Tpu-Token"
 
-# What the port's server refuses, and the ROADMAP item it waits for (the
-# protobuf wire, A13c too, gets the reference's 415 in the handler).
-NOT_PORTED = {"fleet": "A13c", "watch": "A13c"}
-
-
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP {NOT_PORTED[what]})")
-
-
 class _Metrics:
     """RPC request families on the server's shared registry.  Latency is a
     per-method HISTOGRAM (the totals-only rendering this replaces could
@@ -136,20 +127,18 @@ class ScanServer:
         secret_engine_factory=None, secret_config: str = "",
         rules_cache_dir: str | None = None,
         pipeline_depth: int | None = None,
+        resident_chunks: int | None = None,
         profile_dir: str = "",
         slo_config: str = "",
         flight_out: str = "",
         flight_out_max_mb: float = obs_flight.DEFAULT_OUT_MAX_MB,
         result_cache: ScanResultCache | None = None,
         fleet_config=None,
+        fleet_member: str = "",
         watch_config=None,
         device: str = DEFAULT_DEVICE,
         mesh=None,
     ):
-        if fleet_config:
-            raise _not_ported("fleet")
-        if watch_config:
-            raise _not_ported("watch")
         from trivy_tpu_torch.scanner.vuln import init_vuln_scanner
 
         self.cache = cache
@@ -166,6 +155,26 @@ class ScanServer:
         # its first request.
         self.device = resolve_device(device)
         self.mesh = mesh
+        # Fleet plane (trivy_tpu_torch/fleet/): this host's identity inside a
+        # multi-host fleet.  `fleet_config` is a YAML path or an already
+        # parsed FleetConfig; `fleet_member` names which member THIS
+        # process answers as (overriding the YAML's `self:`, so one
+        # shared file serves the whole fleet).  None/"" = not fleeted:
+        # no fleet headers, /debug/fleet answers {"enabled": false}.
+        self.fleet = None
+        if fleet_config:
+            from trivy_tpu_torch.fleet.membership import (
+                FleetConfig,
+                FleetSelf,
+                load_fleet_config,
+            )
+
+            cfg = (
+                fleet_config
+                if isinstance(fleet_config, FleetConfig)
+                else load_fleet_config(str(fleet_config))
+            )
+            self.fleet = FleetSelf(cfg, self_name=fleet_member)
         # One registry per server: _Metrics' request families and the
         # scheduler's serve/engine families render as one /metrics body.
         self.registry = obs_metrics.Registry()
@@ -188,6 +197,7 @@ class ScanServer:
         # Link tuning the default factory forwards to every engine it
         # builds, including hot-reload replacements (None = engine default).
         self.pipeline_depth = pipeline_depth
+        self.resident_chunks = resident_chunks
         self._config_digest: str | None = None
         self.scheduler = BatchScheduler(
             secret_engine_factory or self._build_engine,
@@ -228,10 +238,20 @@ class ScanServer:
             # economics), so a latency incident shows whether the fleet
             # cache was cold or a remote tier was eating its error budget.
             cache_fn=self.cache_report,
+            # ... and the fleet posture (member identity, affinity
+            # economics), so a breach on a fleeted host names which
+            # member it was and whether its traffic was affine.
+            fleet_fn=(
+                self.fleet.brief if self.fleet is not None else None
+            ),
         )
         # The scheduler captures deadline expiries itself (at expiry time,
         # when the snapshot still shows the queue that starved the ticket).
         self.scheduler.flight = self.flight
+        # ... and its snapshot() gains a fleet block the same way the
+        # flight recorder does (None = unfleeted, block omitted).
+        if self.fleet is not None:
+            self.scheduler.fleet = self.fleet.brief
         # Hybrid-gate decision audit + per-kernel device-phase sections:
         # both sources are process-level (engines are built on scheduler /
         # reload threads and own no registry), so collect hooks fold them
@@ -296,6 +316,65 @@ class ScanServer:
         # bytes, peak, pressure) rebuilt from the process-global ledger at
         # each scrape — same seat as the gate/device-phase hooks above.
         obs_memwatch.register_collectors(self.registry)
+        # Fleet families (fleeted hosts only): the member-count gauge,
+        # per-outcome affinity counters folded by delta from FleetSelf's
+        # tallies, and the routing-decision counters from the process
+        # decision ring (non-empty only when this process also runs a
+        # FleetRouter — e.g. embedded clients and tests).
+        if self.fleet is not None:
+            self._m_fleet_members = self.registry.gauge(
+                "trivy_tpu_fleet_members",
+                "member count of the configured fleet",
+            )
+            self._m_fleet_affinity = self.registry.counter(
+                "trivy_tpu_fleet_affinity_total",
+                "scan requests on this host by digest-affinity outcome",
+                ("outcome",),
+            )
+            self._m_fleet_route = self.registry.counter(
+                "trivy_tpu_fleet_route_total",
+                "fleet routing decisions by member and reason "
+                "(this process's router, when it runs one)",
+                ("member", "reason"),
+            )
+            self._fleet_aff_exported = {"hit": 0, "miss": 0}
+            self._fleet_route_exported: dict[tuple[str, str], int] = {}
+            self.registry.add_collect_hook(self._collect_fleet)
+        # Continuous-scanning plane (trivy_tpu_torch/watch/): event sources +
+        # delta planner + re-verification sweeper + verdict-delta stream.
+        # `watch_config` is a YAML path or a parsed WatchConfig; requires
+        # the result cache (novelty probes ARE the plane's economics).
+        # None = off: /debug/watch answers {"enabled": false}.  The poll
+        # loop does NOT start here — serve() owns that (in-process test
+        # servers drive poll_once() directly).
+        self.watch = None
+        if watch_config:
+            if self.result_cache is None:
+                raise ValueError(
+                    "watch config requires the result cache "
+                    "(start with --cache-backend)"
+                )
+            from trivy_tpu_torch.watch import (
+                WatchConfig,
+                build_watch_service,
+                load_watch_config,
+            )
+
+            wcfg = (
+                watch_config
+                if isinstance(watch_config, WatchConfig)
+                else load_watch_config(str(watch_config))
+            )
+            self.watch = build_watch_service(
+                wcfg,
+                self.result_cache,
+                scan_fn=self._watch_scan,
+                ruleset_digest_fn=self.ruleset_digest,
+                artifact_cache=self.cache,
+                flight=self.flight,
+                sweep_scan_fn=self._watch_sweep_scan,
+            )
+            self.watch.register_collectors(self.registry)
         self.draining = False  # SIGTERM: reject new work with 503
         # Live-profiling window (POST /admin/profile/start|stop): default
         # output dir from --profile-dir, overridable per start request.
@@ -308,6 +387,8 @@ class ScanServer:
         kw: dict = {"device": self.device, "mesh": self.mesh}
         if self.pipeline_depth is not None:
             kw["pipeline_depth"] = self.pipeline_depth
+        if self.resident_chunks is not None:
+            kw["resident_chunks"] = self.resident_chunks
         return kw
 
     def _build_engine(self):
@@ -419,6 +500,14 @@ class ScanServer:
         if digest and digest == self.ruleset_digest():
             digest = ""
         explain = bool(req.get("Explain") or req.get("_explain"))
+        # Fleet affinity: sample residency BEFORE submitting (the scan
+        # itself warms the digest — arrival order is what the router's
+        # placement quality is measured by).
+        fleet_hint = (
+            self._fleet_resident_hint(digest)
+            if self.fleet is not None
+            else False
+        )
         fut = self.scheduler.submit(
             items,
             client_id=str(req.get("ClientID") or req.get("_client") or ""),
@@ -459,13 +548,53 @@ class ScanServer:
             # Per-phase breakdown the dispatch attached (same timing the
             # span tree carries); only the asking request pays the bytes.
             out["Explain"] = getattr(secrets, "explain", None) or {}
+        if self.fleet is not None:
+            # Attribute the completed scan and stash the outcome for the
+            # handler's X-Trivy-Fleet-Affinity header (popped before the
+            # body ships — underscore keys never reach the wire).
+            out["_FleetAffinity"] = self.fleet.note_scan(
+                digest, resident_hint=fleet_hint
+            )
         return out
 
+    # -- watch plane ------------------------------------------------------
+
+    def _watch_scan(self, items: list[tuple[str, bytes]]) -> list:
+        """The watch planner's scan seam: novel blobs ride the normal
+        scheduler path (same batching, admission, result-cache puts as
+        any client's ScanSecrets) under the default ruleset lane."""
+        return self.scheduler.submit(items, client_id="watch").result(
+            timeout=300.0
+        )
+
+    def _watch_sweep_scan(
+        self, items: list[tuple[str, bytes]], ruleset_digest: str
+    ) -> list:
+        """The sweeper's scan seam: re-verdicts must run under the NEW
+        ruleset's lane.  The server's own active digest collapses to the
+        default lane (the scan_secrets convention: pinning what already
+        runs costs no residency slot), and so does the digest a reload
+        staged for that lane: the lane swaps it in at its next batch, and
+        the pool could not load it (a reloaded secret-config is in no
+        registry).  The reference sends the staged digest to the pool,
+        which refuses it, so its sweeps after a reload fail."""
+        digest = ruleset_digest
+        if digest and digest in (
+            self.ruleset_digest(), self.scheduler.manager.staged_digest
+        ):
+            digest = ""
+        return self.scheduler.submit(
+            items, client_id="watch", ruleset_digest=digest
+        ).result(timeout=300.0)
+
     def watch_report(self) -> dict:
-        """GET /debug/watch: the continuous-scanning plane's posture.  The
-        port has no watch plane yet (ROADMAP A13c): the reference's
-        unwatched body."""
-        return {"enabled": False}
+        """GET /debug/watch: the continuous-scanning plane's posture —
+        per-source poll/dedupe stats and lag, planner hit economics,
+        sweep progress, stream/webhook delivery counters.  A sane body
+        when unwatched: enabled=false."""
+        if self.watch is None:
+            return {"enabled": False}
+        return self.watch.snapshot()
 
     # -- ruleset registry -------------------------------------------------
 
@@ -476,13 +605,15 @@ class ScanServer:
         batch boundary on the scheduler's owner thread; in-flight requests
         finish on the old ruleset.  On a watching server, a digest change
         also schedules the re-verification sweep (the old digest's cached
-        verdicts are now stale — exactly those, nothing else; the port has
-        no watch plane yet, ROADMAP A13c)."""
+        verdicts are now stale — exactly those, nothing else)."""
         path = (req or {}).get("SecretConfigPath", "")
         if path:
             self.secret_config = path
             self._config_digest = None
+        old_digest = self.scheduler.active_ruleset_digest()
         digest = self.scheduler.reload()
+        if self.watch is not None:
+            self.watch.schedule_sweep(old_digest, digest)
         return {
             "RulesetDigest": digest,
             "Epoch": self.scheduler.ruleset_epoch(),
@@ -660,10 +791,56 @@ class ScanServer:
         rep["enabled"] = True
         return rep
 
+    def _collect_fleet(self) -> None:
+        """Registry collect hook (fleeted hosts only): refresh the member
+        gauge and fold FleetSelf's affinity tallies plus the process's
+        routing-decision tallies into counters by delta.  All labels are
+        bounded enums — outcome is hit/miss, member names come from the
+        static fleet config, reasons from the decisions module's enum —
+        so GL007's governor requirement does not apply."""
+        from trivy_tpu_torch.fleet import decisions as fleet_decisions
+
+        self._m_fleet_members.set(len(self.fleet.config.members))
+        aff = self.fleet.affinity()
+        for outcome, total in (("hit", aff["hits"]), ("miss", aff["misses"])):
+            delta = total - self._fleet_aff_exported[outcome]
+            if delta > 0:
+                self._m_fleet_affinity.labels(  # graftlint: ignore[GL007]
+                    outcome=outcome
+                ).inc(delta)
+                self._fleet_aff_exported[outcome] = total
+        for (member, reason), total in fleet_decisions.tallies().items():
+            key = (member, reason)
+            delta = total - self._fleet_route_exported.get(key, 0)
+            if delta > 0:
+                self._m_fleet_route.labels(  # graftlint: ignore[GL007]
+                    member=member, reason=reason
+                ).inc(delta)
+                self._fleet_route_exported[key] = total
+
     def fleet_report(self, probe: bool = False) -> dict:
-        """GET /debug/fleet: this host's fleet posture.  The port has no
-        fleet plane yet (ROADMAP A13c): the reference's unfleeted body."""
-        return {"enabled": False}
+        """GET /debug/fleet: this host's fleet posture — membership table
+        with live peer health (actively refreshed when `probe`), this
+        member's identity, its resident-digest history, and affinity
+        economics.  A sane body on an unfleeted host: enabled=false."""
+        if self.fleet is None:
+            return {"enabled": False}
+        rep = self.fleet.report(probe=probe)
+        rep["enabled"] = True
+        return rep
+
+    def _fleet_resident_hint(self, digest: str) -> bool:
+        """Was `digest`'s engine already warm on this host BEFORE the
+        current request (pool-resident, or the active default engine for
+        the default lane)?  Feeds FleetSelf.note_scan: a router that
+        sends warm traffic where warmth lives scores affinity hits."""
+        if digest:
+            pool = self.scheduler.pool
+            if pool is None:
+                return False
+            return any(d == digest for d, _, _ in pool.residents())
+        # "" = the default lane: warm once the default engine exists.
+        return bool(self.scheduler.active_ruleset_digest())
 
     def _collect_device_phases(self) -> None:
         """Registry collect hook: drain pending fenced per-kernel samples
@@ -837,6 +1014,13 @@ class ScanServer:
         if req.get("Admit", True) and pool is not None:
             pool.ensure(digest)
             resident = True
+        if self.watch is not None:
+            # A pushed ruleset supersedes the currently active one for
+            # the watch plane: re-verify the active digest's cached
+            # verdicts under the pushed digest's lane.
+            self.watch.schedule_sweep(
+                self.scheduler.active_ruleset_digest(), digest
+            )
         return {
             "RulesetDigest": digest,
             "Source": source,
@@ -937,6 +1121,13 @@ def _make_handler(server: ScanServer):
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            if server.fleet is not None:
+                # Every response from a fleeted host names which member
+                # answered — the router's ground truth for attribution
+                # (and a human's, when curling through a balancer).
+                self.send_header(
+                    "X-Trivy-Fleet-Member", server.fleet.name
+                )
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
             self.end_headers()
@@ -1197,15 +1388,33 @@ def _make_handler(server: ScanServer):
             proto_mode = ctype.split(";")[0].strip() in (
                 "application/protobuf", "application/x-protobuf",
             )
-            if proto_mode:
-                # The protobuf wire (rpc/protowire.py) waits for ROADMAP
-                # A13c: the reference's answers when it is unavailable.
-                if method == "scan_secrets":
-                    send(415, {"error": "ScanSecrets is JSON-only"})
-                else:
-                    send(415, {"error": "protobuf wire unavailable"})
-                return
             try:
+                if proto_mode:
+                    from trivy_tpu_torch.rpc import protowire
+
+                    if method == "scan_secrets":
+                        send(415, {"error": "ScanSecrets is JSON-only"})
+                        return
+                    if not protowire.available():
+                        send(415, {"error": "protobuf wire unavailable"})
+                        return
+                    req = protowire.decode_request(method, raw)
+                    with obs_trace.span(
+                        f"rpc.{method}", trace_id=trace_id or None
+                    ):
+                        out = getattr(server, method)(req)
+                    data = protowire.encode_response(method, out)
+                    observe(200)
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/protobuf")
+                    if method == "scan":
+                        self.send_header(
+                            "X-Trivy-Ruleset", server.ruleset_digest()
+                        )
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                    return
                 req = json.loads(raw or b"{}")
                 if method == "scan_secrets":
                     if "_client" not in req:
@@ -1237,7 +1446,13 @@ def _make_handler(server: ScanServer):
                 if method in ("scan", "scan_secrets"):
                     # Every scan response states which ruleset produced it.
                     dig = out.get("RulesetDigest") or server.ruleset_digest()
-                    send(200, out, {"X-Trivy-Ruleset": dig})
+                    hdrs = {"X-Trivy-Ruleset": dig}
+                    # ... and, on a fleeted host, whether the digest was
+                    # already warm here (the router's affinity signal).
+                    affinity = out.pop("_FleetAffinity", "")
+                    if affinity:
+                        hdrs["X-Trivy-Fleet-Affinity"] = affinity
+                    send(200, out, hdrs)
                 else:
                     send(200, out)
             except AdmissionError as e:
@@ -1288,12 +1503,14 @@ def make_http_server(
     secret_config: str = "",
     rules_cache_dir: str | None = None,
     pipeline_depth: int | None = None,
+    resident_chunks: int | None = None,
     profile_dir: str = "",
     slo_config: str = "",
     flight_out: str = "",
     flight_out_max_mb: float = obs_flight.DEFAULT_OUT_MAX_MB,
     result_cache: ScanResultCache | None = None,
     fleet_config=None,
+    fleet_member: str = "",
     watch_config=None,
     device: str = DEFAULT_DEVICE,
     mesh=None,
@@ -1306,12 +1523,14 @@ def make_http_server(
         secret_config=secret_config,
         rules_cache_dir=rules_cache_dir,
         pipeline_depth=pipeline_depth,
+        resident_chunks=resident_chunks,
         profile_dir=profile_dir,
         slo_config=slo_config,
         flight_out=flight_out,
         flight_out_max_mb=flight_out_max_mb,
         result_cache=result_cache,
         fleet_config=fleet_config,
+        fleet_member=fleet_member,
         watch_config=watch_config,
         device=device,
         mesh=mesh,
@@ -1332,6 +1551,7 @@ def serve(
     secret_config: str = "",
     rules_cache_dir: str | None = None,
     pipeline_depth: int | None = None,
+    resident_chunks: int | None = None,
     profile_dir: str = "",
     slo_config: str = "",
     flight_out: str = "",
@@ -1339,6 +1559,7 @@ def serve(
     cache_backend: str = "",
     cache_ttl: int = 0,
     fleet_config: str = "",
+    fleet_member: str = "",
     watch_config: str = "",
     device: str = DEFAULT_DEVICE,
 ) -> None:
@@ -1361,17 +1582,25 @@ def serve(
     # device.  Unset keeps the seed behavior (no result caching).
     cache = build_cache(cache_backend, cache_dir, cache_ttl)
     result_cache = ScanResultCache(cache) if cache_backend else None
+    if watch_config and result_cache is None:
+        raise ValueError(
+            "--watch-config requires --cache-backend: the delta planner "
+            "probes the result cache to prove blobs novel"
+        )
     httpd = make_http_server(
         addr, cache, token, db_dir, cache_dir, serve_config=serve_config,
         secret_config=secret_config, rules_cache_dir=rules_cache_dir,
-        pipeline_depth=pipeline_depth,
+        pipeline_depth=pipeline_depth, resident_chunks=resident_chunks,
         profile_dir=profile_dir, slo_config=slo_config,
         flight_out=flight_out, flight_out_max_mb=flight_out_max_mb,
         result_cache=result_cache,
-        fleet_config=fleet_config, watch_config=watch_config or None,
+        fleet_config=fleet_config, fleet_member=fleet_member,
+        watch_config=watch_config or None,
         device=device,
     )
     scan_server: ScanServer = httpd.scan_server
+    if scan_server.watch is not None:
+        scan_server.watch.start()
 
     def _drain_and_stop() -> None:
         scan_server.draining = True
@@ -1401,6 +1630,8 @@ def serve(
     except KeyboardInterrupt:
         pass
     finally:
+        if scan_server.watch is not None:
+            scan_server.watch.close()
         scan_server.scheduler.close()
         httpd.server_close()
 
@@ -1411,7 +1642,8 @@ def start_background(
     secret_config: str = "", rules_cache_dir: str | None = None,
     profile_dir: str = "", slo_config: str = "", flight_out: str = "",
     result_cache: ScanResultCache | None = None,
-    fleet_config=None, watch_config=None,
+    fleet_config=None, fleet_member: str = "",
+    watch_config=None,
     device: str = DEFAULT_DEVICE, mesh=None,
 ) -> tuple[ThreadingHTTPServer, threading.Thread]:
     """In-process server for tests (the §4 'multi-node without a cluster'
@@ -1427,6 +1659,7 @@ def start_background(
         flight_out=flight_out,
         result_cache=result_cache,
         fleet_config=fleet_config,
+        fleet_member=fleet_member,
         watch_config=watch_config,
         device=device,
         mesh=mesh,

@@ -548,10 +548,18 @@ class BatchScheduler:
         # Partial hits shrink the ticket to its misses before any queue
         # accounting sees it; demux re-interleaves at dispatch.  The key
         # digest must be knowable WITHOUT building an engine: digest lanes
-        # carry it, the default lane reads the manager's active digest
-        # ("" until the first cold dispatch installs one — cold behavior).
+        # carry it, the default lane reads the digest its next batch runs
+        # under: a staged reload's, else the manager's active digest (""
+        # until the first cold dispatch installs one — cold behavior).
+        # The reference probes the active digest even with a reload
+        # staged, so warm traffic keeps the old verdicts and never
+        # dispatches the batch that would swap the new ruleset in.
         if self.result_cache is not None and ticket.items:
-            key_digest = ruleset_digest or self.manager.active_digest
+            key_digest = (
+                ruleset_digest
+                or self.manager.staged_digest
+                or self.manager.active_digest
+            )
             if key_digest:
                 hits, misses = self._probe_result_cache(
                     ticket.items, key_digest

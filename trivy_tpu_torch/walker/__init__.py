@@ -1,5 +1,5 @@
-"""Filesystem walker (a copy of `trivy_tpu/walker/`; the layer-tar walker
-waits for the image path, ROADMAP A13d)."""
+"""Walkers (a copy of `trivy_tpu/walker/`): the filesystem walker here,
+the image layers' tar walker in `walker/layer_tar.py`."""
 
 from trivy_tpu_torch.walker.fs import FSWalker, WalkOption, skip_path
 
