@@ -210,13 +210,14 @@ prints no result.  Phases, one line each (any failure exits non-zero):
 15. runner (after `programs`) BASELINE config #5 through the command a user
             types, `python -m trivy_tpu_torch fs --scanners secret,license`
             (the artifact runner: walker, analyzers, local artifact and blob
-            cache, applier, filter, report writers), on `programs`' 100,000
-            files written to a temporary tree: in process with the default
-            hybrid (`-f json`; the fused K5 must launch unless the gate picks
-            another verify, which the line then names; B14 on the card; the
+            cache, applier, filter, report writers), on the first 25,000
+            of `programs`' files (RUNNER_FILES) written to a temporary
+            tree: in process with the default hybrid (`-f json`; the fused
+            K5 must launch unless the gate picks another verify, which the
+            line then names; B14 on the card; the
             report's secrets equal to the oracle on every flagged file plus
             2,000 sampled claimed files, its licenses to the host decision
-            on the 400 planted files and none elsewhere), with
+            on the 100 planted files and none elsewhere), with
             `--secret-backend tpu` (K1 or K3 launched, the report
             byte-identical), in a fresh process with `--profile-dir` and `-f
             table` (its trace names a hand kernel, the host spans beside it,
@@ -229,7 +230,7 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             tree files (the file system's own cost a file).
 16. vuln   (after `runner`, on its tree) the reference's default command
             `python -m trivy_tpu_torch fs <tree> --db-dir D` (scanners
-            vuln,secret) over the 100,000 files plus a seeded deps/ subtree
+            vuln,secret) over the 25,000 files plus a seeded deps/ subtree
             of ~400 manifests (npm, poetry, pip, go.mod, Cargo.lock,
             gradle.lockfile; ~150,000 package entries), over a JSON DB of
             ~300,000 advisories with ~3% of the entries planted vulnerable:
@@ -249,9 +250,9 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             packages seen and DB load seconds.
 
 17. image  (after `vuln`, on its fixture and `runner`'s items) container
-            images through `python -m trivy_tpu_torch image`: an 8-layer,
-            ~530 MB image (a Debian 12 base layer whose planted secret must
-            not be reported, deps/, the 100,000 runner files in quarters,
+            images through `python -m trivy_tpu_torch image`: an 8-layer
+            image (a Debian 12 base layer whose planted secret must
+            not be reported, deps/, the 25,000 runner files in quarters,
             the C2 fixture's 99 MiB file and a github-pat, whiteouts and an
             opaque directory; an AWS key in the config's `Env`) as a docker
             archive and, from an in-process registry, as `localhost:P/app:1`
@@ -295,6 +296,31 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             `--server-wire json` and `protobuf`, the reports byte-equal; a
             machine without protoc or the protobuf runtime prints which
             it lacks and skips this run.
+19. misconfig (after `remote`) the misconfiguration scanner, counts zeroed
+            before each run and read after: `fs --scanners misconfig,secret
+            --config-check D` in process over REMOTE_FILES hit-dense files
+            plus `trivy_tpu_torch/iac/fixtures.py` `iac_tree()`'s ~1,350
+            IaC files (60 Terraform root modules with tfvars and a local
+            child module, 400 manifests, a fifth of them two documents, 150
+            Dockerfiles, 150 CloudFormation templates in YAML and JSON, 4
+            Helm charts, 50 ARM templates and 50 TOML files that the custom
+            check in D reads), each built from the failing or the passing
+            fixture of a known check: every planted failing check reported
+            on its file and no passing fixture reporting its check, the
+            failures equal to a direct `IacScanner` pass with the helm and
+            terraform-module post-analyzers' results laid over it, the
+            secrets equal to the oracle on every flagged file plus 2,000
+            sampled claimed files, the fused K5 launched unless the gate
+            picks another verify, which the line then names.  Then `config`
+            over the IaC subtree alone (no secret engine built, no launch,
+            the fs run's misconfigurations), and `image --input` of a
+            3-layer docker archive whose config history trips 7 Dockerfile
+            checks, cold and warm on an fs cache (the config blob carries
+            them, equal to `scan_config_misconfig`; the warm run analyses no
+            layer and launches nothing).  Each run's seconds, files/s, MB/s
+            and stage split (walk, claim, engine build, read, secret,
+            misconfig analyze, post-analyzers, cache put + apply, filter,
+            write) from the host spans.
 
 A `stall:` line counts the hybrid and `auto` scans run with the STALL_S dump
 armed and those that passed it, phase `server`'s among them.
@@ -314,7 +340,8 @@ work; the NFA kernels' `path_device_ms` sums their dispatches of that
 scan), the card's name and power limit, and
 the result line `{"ok": true, "device": {...}}`.  Each kernel's entry also
 carries `server_launches`, its launches in phase `server`'s runs,
-`remote_launches`, its launches in phase `remote`'s runs, and
+`remote_launches` and `misconfig_launches`, its launches in phase
+`remote`'s and phase `misconfig`'s runs, and
 `runner_launches`, `vuln_launches` and `image_launches`, its launches in
 phase `runner`'s, phase `vuln`'s and phase `image`'s in-process commands.  Nothing here imports JAX or the JAX
 package.
@@ -368,6 +395,9 @@ PROGRAM_BATCHES = 10  # batches of SERVE_BATCH files through the device program 
 # (~41% of monorepo files candidates) took ~70 s over all 100,000
 PROGRAM_DEVICE_FILES = 20_000
 PROGRAM_SAMPLED = 1_000  # non-candidates held to the host decision
+# files of the corpus the runner-size phases (`runner`, `vuln`, `image`)
+# write and scan: a quarter of `programs`', to keep the smoke in its limit
+RUNNER_FILES = 25_000
 # Integer instructions of one K5 step (a byte of a lane, no live exception
 # position), counted in `cuobjdump -sass` of the sm_90a build: see PERF.md.
 K5_STEP_INSTRUCTIONS = 18
@@ -2322,13 +2352,14 @@ def fresh_process(cmd: list, work: str, label: str, phase: str) -> tuple[str, fl
 def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
     """BASELINE config #5 through the command a user types, `python -m
     trivy_tpu_torch fs --scanners secret,license` (the artifact runner,
-    `trivy_tpu_torch/commands/run.py`), on `program_corpus`'s 100,000 files
-    written to a temporary tree (removed at the end).  Runs, counts zeroed
+    `trivy_tpu_torch/commands/run.py`), on the first RUNNER_FILES of
+    `program_corpus`'s files written to a temporary tree (removed at the
+    end).  Runs, counts zeroed
     just before each and read just after: (1) in process, `-f json -o` with
     the default hybrid on the card: exit 0, the fused K5 launched (else the
     line says which verify the gate chose and why), B14 on the card, the
     report's secrets equal to the oracle on every flagged file plus 2,000
-    sampled claimed files and its licenses to the host decision on the 400
+    sampled claimed files and its licenses to the host decision on the
     planted files; (2) the same with `--secret-backend tpu`: K1 or K3
     launched (which and how often printed), the report byte-identical to
     (1)'s; (3) a fresh process, `--secret-backend tpu --profile-dir D -f
@@ -2776,7 +2807,7 @@ def vuln_run(torch, gs, label: str, argv: list, calls: dict, seen: list, nbytes:
 def vuln_phase(np, torch, gs, items, work: str) -> dict:
     """The reference's default scan, `python -m trivy_tpu_torch fs <tree>
     --db-dir D` (`--scanners vuln,secret`), over phase `runner`'s
-    100,000-file tree (`work/tree`, removed by the caller) with a seeded
+    RUNNER_FILES-file tree (`work/tree`, removed by the caller) with a seeded
     deps/ subtree of ~400 manifests beside it (npm lockfiles v3 of
     200-1,800 packages, poetry.lock, requirements.txt, go.mod, Cargo.lock,
     gradle.lockfile: ~150,000 package entries), over a JSON DB of every
@@ -2963,7 +2994,7 @@ def vuln_phase(np, torch, gs, items, work: str) -> dict:
             {"fx": fx, "report": report})
 
 
-IMAGE_WHITEOUTS = 50  # L2 files with secrets that the last layer deletes (their secrets stay)
+IMAGE_WHITEOUTS = 12  # L2 files with secrets that the last layer deletes (their secrets stay)
 IMAGE_SMALL_FILES = 5_000  # files of the one-layer OCI image scanned with --secret-backend tpu
 IMAGE_ENV_KEY = "AKIA" + "SMOKEIMAGEQ7KEY2"  # the AWS key planted in the config's Env
 IMAGE_BASE_SECRET = b'deploy_token = "ghp_' + b"K" * 36 + b'"\n'  # in the base layer: skipped
@@ -3046,7 +3077,7 @@ def image_phase(np, torch, gs, items, planted: dict, vuln: dict, work: str) -> d
     items in memory, no second walk of the disk: L0 the Debian 12 root
     (1,500 dpkg packages, 5% planted) and a planted secret, the base (its
     history puts a `CMD` after it, so its secret is not scanned); L1 the
-    ~400 manifests of deps/; L2-L5 the 100,000 runner files in quarters;
+    ~400 manifests of deps/; L2-L5 the RUNNER_FILES runner files in quarters;
     L6 the C2 fixture's 99 MiB `opt/big/huge.c` and a github-pat; L7
     whiteouts of IMAGE_WHITEOUTS L2 files with secrets (their secrets stay)
     and of one deps manifest with planted vulnerabilities (its packages go)
@@ -4425,6 +4456,293 @@ def remote_phase(np, torch, gs, corpus, card: str) -> dict:
     return runs
 
 
+MISCONFIG_SAMPLED = 2_000  # claimed files without findings held to the oracle in phase misconfig
+IMAGE_APP_FILES = 200  # hit-dense files in the app layer of phase misconfig's image
+MISCONFIG_TYPES = ("dockerfile", "kubernetes", "terraform", "config-json", "config-toml")
+MISCONFIG_STAGES = RUNNER_STAGES[:4] + (
+    ("misconfig analyze", tuple(f"analyze.{t}" for t in MISCONFIG_TYPES)),
+    ("post-analyzers", ("artifact.post",)),
+    ("cache put+apply", ("cache.put", "cache.apply")), ("filter", ("filter",)),
+    ("write", ("write",)))
+
+
+def misconfig_run(torch, gs, label: str, argv: list, calls: dict, n_files: int,
+                  nbytes: int, card: str) -> dict:
+    """One in-process `python -m trivy_tpu_torch` command of phase
+    `misconfig`: kernel launch counts, the secret engines built and their
+    batches zeroed just before, read just after; prints the run's line with
+    its stage split (MISCONFIG_STAGES) from the host spans.  Returns the
+    run's record, its JSON report parsed."""
+    import contextlib
+    import io
+
+    from trivy_tpu_torch import __main__ as cli
+    from trivy_tpu_torch.obs import trace as obs_trace
+
+    obs_trace.enable(ring=1 << 17)
+    obs_trace.clear()
+    torch.cuda.synchronize()
+    for k in gs.LAUNCHES:
+        gs.LAUNCHES[k] = 0
+    for v in calls.values():
+        v.clear()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if rc != 0:
+        fail("misconfig", f"{label}: exit {rc}")
+    launches = {k: v for k, v in gs.LAUNCHES.items() if v}
+    total: dict = {}
+    for rec in obs_trace.snapshot():
+        total[rec.name] = total.get(rec.name, 0.0) + rec.dur
+    split = {stage: sum(total.get(n, 0.0) for n in names) for stage, names in MISCONFIG_STAGES}
+    split["engine build"] = total.get("secret.engine", 0.0)
+    split["claim"] -= split["engine build"]
+    split["scan"] = total.get("scan", 0.0)
+    split = {k: round(v, 4) for k, v in split.items()}
+    print(f"misconfig: {label} rc={rc} files={n_files} MB={nbytes / 1e6:.3f} seconds={dt:.4f} "
+          f"files_per_s={n_files / dt:.1f} MB_per_s={nbytes / 1e6 / dt:.3f} "
+          f"stages_s={json.dumps(split)} launches={json.dumps(launches)} "
+          f"engines_built={len(calls['engines'])} secret_batches={len(calls['secret'])} "
+          f"card={card}", flush=True)
+    return {"report": json.loads(out.getvalue()), "seconds": dt, "launches": launches,
+            "split": split, "engines": list(calls["engines"]), "secret": list(calls["secret"])}
+
+
+def misconfig_rows(report: dict, prefix: str = "") -> dict:
+    """{target: sorted (ID, Message)} of the report's failed checks, the
+    targets with `prefix` stripped."""
+    out = {}
+    for r in report.get("Results") or []:
+        fails = sorted((m["ID"], m["Message"]) for m in r.get("Misconfigurations", [])
+                       if m["Status"] == "FAIL")
+        target = r["Target"]
+        if r["Class"] == "config" and fails:
+            out[target[len(prefix):] if target.startswith(prefix) else target] = fails
+    return out
+
+
+def misconfig_oracle(files: dict, check_dir: str) -> dict:
+    """`misconfig_rows` of a direct pass: `IacScanner.scan` (with the custom
+    checks) over every file a config analyzer routes to it, by name, then
+    the helm and terraform-module post-analyzers over the files each
+    claims, whose results replace the per-file ones of the same path (the
+    applier's merge)."""
+    from trivy_tpu_torch.analyzer import config as config_analyzers
+    from trivy_tpu_torch.iac.engine import IacScanner, configure_shared_scanner
+    from trivy_tpu_torch.mapfs import MapFS
+
+    scanner = IacScanner(extra_check_dirs=[check_dir])
+    by_path = {}
+    for path, body in files.items():
+        name = path.rsplit("/", 1)[-1].lower()
+        if (path.endswith((".tf", ".tf.json", ".json", ".template", ".toml", ".yaml", ".yml"))
+                or name == "dockerfile" or name.startswith("dockerfile.")
+                or name.endswith(".dockerfile")):
+            mc = scanner.scan(path, body)
+            if mc is not None:
+                by_path[path] = mc
+    configure_shared_scanner([check_dir])  # the post-analyzers read the shared scanner
+    try:
+        for post in (config_analyzers.HelmPostAnalyzer(),
+                     config_analyzers.TerraformModulePostAnalyzer()):
+            fs = MapFS()
+            for path, body in files.items():
+                if post.required(path, len(body), 0o644):
+                    fs.write_file(path, body)
+            res = post.post_analyze(fs)
+            for mc in (res.misconfigs if res is not None else []):
+                by_path[mc.file_path] = mc
+    finally:
+        configure_shared_scanner([])
+    out = {}
+    for path, mc in by_path.items():
+        fails = sorted((f.check_id, f.message) for f in mc.failures)
+        if fails:
+            out[path] = fails
+    return out
+
+
+def misconfig_phase(np, torch, gs, corpus, card: str) -> dict:
+    """The misconfiguration scanner on the card (phase `misconfig`), counts
+    zeroed before each run and read after: (1) `fs --scanners
+    misconfig,secret --config-check D` over the first REMOTE_FILES
+    hit-dense files plus `iac_tree()`'s ~1,500 IaC files under `iac/`
+    (every planted failing check reported on its file and no passing
+    fixture reporting its check, the failures equal to
+    `misconfig_oracle`, the secrets to the oracle on every flagged file
+    plus MISCONFIG_SAMPLED claimed files, the fused K5 launched unless the
+    gate picked another verify, which the line names); (2) `config` over
+    the IaC subtree alone (no secret engine built, no launch, the fs run's
+    misconfigurations); (3) `image --input` of a 3-layer docker archive
+    whose config history trips Dockerfile checks, cold and warm over an fs
+    cache (the config blob carries `scan_config_misconfig`'s checks, the
+    warm run analyses no layer and launches nothing).  Returns {run:
+    launches} for the kernels line."""
+    import shutil
+    import tempfile
+
+    from trivy_tpu_torch.analyzer import imgconf
+    from trivy_tpu_torch.artifact import image as port_image
+    from trivy_tpu_torch.engine import hybrid
+    from trivy_tpu_torch.iac import fixtures
+    from trivy_tpu_torch.image import fixtures as imfx
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke-misconfig-")
+    calls = {"engines": [], "secret": [], "layers": []}
+    real_make, real_layer = hybrid.make_secret_engine, port_image.ImageArtifact._inspect_layer
+
+    def make(**kw):
+        engine = real_make(**kw)
+        scan = engine.scan_batch
+
+        def recorded(batch):
+            calls["secret"].append(batch)
+            return scan(batch)
+
+        engine.scan_batch = recorded
+        calls["engines"].append(engine)
+        return engine
+
+    def layer(self, *a, **kw):
+        calls["layers"].append(a[0] if a else None)
+        return real_layer(self, *a, **kw)
+
+    try:
+        t0 = time.perf_counter()
+        iac_files, planted = fixtures.iac_tree()
+        items = list(corpus[:REMOTE_FILES]) + [("iac/" + p, b) for p, b in iac_files.items()]
+        tree, checks = os.path.join(tmp, "tree"), os.path.join(tmp, "checks")
+        write_tree(tree, items)
+        os.makedirs(checks)
+        with open(os.path.join(checks, "telnet.rego"), "w") as f:
+            f.write(fixtures.TOML_CHECK)
+        nbytes = sum(len(b) for _, b in items)
+        kinds = {}
+        for path in iac_files:
+            kinds[path.split("/")[0]] = kinds.get(path.split("/")[0], 0) + 1
+        print(f"misconfig: tree files={len(items)} (hit-dense {REMOTE_FILES}, IaC "
+              f"{len(iac_files)}: {json.dumps(kinds)}) planted checks="
+              f"{sum(len(v) for v in planted.values())} MB={nbytes / 1e6:.3f} "
+              f"setup_seconds={time.perf_counter() - t0:.2f}", flush=True)
+        rules = os.path.join(tmp, "rules")
+        hybrid.make_secret_engine = make
+        port_image.ImageArtifact._inspect_layer = layer
+        runs = {}
+        # (1) fs --scanners misconfig,secret over the whole tree
+        fs_run = misconfig_run(
+            torch, gs, "fs --scanners misconfig,secret --config-check D -f json",
+            ["fs", "--scanners", "misconfig,secret", "--config-check", checks,
+             "--rules-cache-dir", rules, "-f", "json", tree], calls, len(items), nbytes, card)
+        runs["fs"] = fs_run["launches"]
+        report = fs_run["report"]
+        got = misconfig_rows(report)
+        fails = {(t, i) for t, rows in got.items() for i, _ in rows}
+        n_fail = n_pass = 0
+        for path, checks_planted in planted.items():
+            for check_id, failing in checks_planted:
+                if (("iac/" + path, check_id) in fails) != failing:
+                    fail("misconfig", f"iac/{path}: {check_id} "
+                         f"{'not reported' if failing else 'reported'}")
+                n_fail += failing
+                n_pass += not failing
+        t0 = time.perf_counter()
+        want = misconfig_oracle(dict(items), checks)
+        oracle_s = time.perf_counter() - t0
+        if got != want:
+            diff = sorted(set(got) ^ set(want)) or sorted(t for t in got if got[t] != want[t])
+            fail("misconfig", f"the report's misconfigurations differ from the direct pass "
+                 f"on {len(diff)} targets, e.g. {diff[:3]}")
+        print(f"misconfig: fs report checked: {n_fail} planted failing checks reported on "
+              f"their files, {n_pass} passing fixtures report none; {len(got)} targets' "
+              f"failures equal to a direct IacScanner pass plus the post-analyzers "
+              f"({oracle_s:.2f} s)", flush=True)
+        (engine,) = fs_run["engines"]
+        if fs_run["launches"].get("nfa_fused"):
+            print(f"misconfig: fs run verify={engine.verify}: fused K5 launched "
+                  f"{fs_run['launches']['nfa_fused']} times, K6 "
+                  f"{fs_run['launches'].get('nfa_padded', 0)}", flush=True)
+        else:
+            print(f"misconfig: fs run verify={engine.verify} "
+                  f"gate={json.dumps(getattr(engine, 'gate_decision', None), default=str)}: "
+                  "the gate did not pick fused, no fused K5", flush=True)
+            if engine.verify == "fused":
+                fail("misconfig", "the fs run verified fused but launched no fused K5")
+        secret_items = [it for batch in fs_run["secret"] for it in batch]
+        n_secret, n_flagged, n_sampled = secrets_check(np, "misconfig", report, secret_items,
+                                                       MISCONFIG_SAMPLED)
+        print(f"misconfig: fs secrets equal to the oracle on {n_flagged} flagged + "
+              f"{n_sampled} sampled of {len(secret_items)} claimed files", flush=True)
+
+        # (2) config over the IaC subtree alone: no engine, no launch
+        iac_bytes = sum(len(b) for b in iac_files.values())
+        cfg_run = misconfig_run(
+            torch, gs, "config --config-check D -f json (the IaC subtree)",
+            ["config", "--config-check", checks, "-f", "json", os.path.join(tree, "iac")],
+            calls, len(iac_files), iac_bytes, card)
+        runs["config"] = cfg_run["launches"]
+        if cfg_run["launches"] or cfg_run["engines"]:
+            fail("misconfig", f"config built {len(cfg_run['engines'])} secret engines and "
+                 f"launched {cfg_run['launches']}")
+        if misconfig_rows(cfg_run["report"]) != misconfig_rows(report, "iac/"):
+            fail("misconfig", "config's misconfigurations differ from the fs run's")
+        print("misconfig: config built no secret engine, launched no kernel, and its "
+              "misconfigurations equal the fs run's on the IaC subtree", flush=True)
+
+        # (3) image --input: the config history's Dockerfile checks, then warm
+        app = {f"srv/{p}": b for p, b in corpus[:IMAGE_APP_FILES]}
+        layers = [imfx.layer_tar({"etc/os-release": b'ID=alpine\nVERSION_ID="3.19.1"\n'}),
+                  imfx.layer_tar(app),
+                  imfx.layer_tar({"srv/Dockerfile": fixtures.DOCKER["docker_ds004"][1].encode()})]
+        config = {"architecture": "amd64", "os": "linux", "created": "2026-01-01T00:00:00Z",
+                  "config": {"Cmd": ["python3", "/srv/app.py"]},
+                  "rootfs": {"type": "layers",
+                             "diff_ids": [imfx.sha256_digest(x) for x in layers]},
+                  "history": fixtures.IMAGE_HISTORY}
+        archive = os.path.join(tmp, "history.tar")
+        imfx.write_docker_archive(archive, layers, config)
+        argv = ["image", "--scanners", "misconfig,secret", "--rules-cache-dir", rules,
+                "--cache-backend", "fs", "--cache-dir", os.path.join(tmp, "cache"), "-f",
+                "json", "--input", archive]
+        img_bytes = sum(len(x) for x in layers)
+        docs = {}
+        for label in ("image", "image_warm"):
+            calls["layers"].clear()
+            run = misconfig_run(torch, gs, f"{label} --scanners misconfig,secret "
+                                f"(3 layers)", argv, calls, len(app) + 2, img_bytes, card)
+            runs[label] = run["launches"]
+            docs[label] = run["report"]
+            print(f"misconfig: {label} layers analysed={len(calls['layers'])}", flush=True)
+            if label == "image_warm" and (calls["layers"] or run["launches"]):
+                fail("misconfig", f"the warm image run analysed {len(calls['layers'])} layers "
+                     f"and launched {run['launches']}")
+        if docs["image"] != docs["image_warm"]:
+            fail("misconfig", "the warm image report differs from the cold one")
+        history = misconfig_rows(docs["image"]).get("Dockerfile (image config)", [])
+        direct = sorted((f.check_id, f.message)
+                        for f in imgconf.scan_config_misconfig(config).failures)
+        if history != direct or len(history) < 3 or \
+                {i for i, _ in history} != set(fixtures.HISTORY_CHECKS):
+            fail("misconfig", f"the image config's Dockerfile checks {history} are not the "
+                 f"direct scan's {direct}")
+        if not any(r["Class"] == "secret" for r in docs["image"]["Results"]):
+            fail("misconfig", "the image's planted secrets were missed")
+        print(f"misconfig: image config blob carries {len(history)} Dockerfile checks "
+              f"({', '.join(i for i, _ in history)}), equal to scan_config_misconfig; "
+              "the warm run analysed no layer", flush=True)
+    finally:
+        hybrid.make_secret_engine = real_make
+        port_image.ImageArtifact._inspect_layer = real_layer
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"misconfig: phase seconds={time.perf_counter() - t_phase:.2f} card={card}",
+          flush=True)
+    return runs
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--registry-start"] and len(argv) == 2:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4539,6 +4857,7 @@ def main(argv: list[str]) -> int:
                hybrid)
     served = server_phase(np, torch, gs, bench_corpus, hybrid, corpus, serve, card)
     remote = remote_phase(np, torch, gs, hybrid["corpus"], card)
+    misconfigured = misconfig_phase(np, torch, gs, hybrid["corpus"], card)
     del corpus, main_corpus, hybrid
     t0 = time.perf_counter()
     items, planted = program_corpus(bench_corpus)
@@ -4549,6 +4868,9 @@ def main(argv: list[str]) -> int:
     import shutil
     import tempfile
 
+    # the runner-size phases run on the first RUNNER_FILES of the corpus
+    items = items[:RUNNER_FILES]
+    planted = {i: name for i, name in planted.items() if i < RUNNER_FILES}
     work = tempfile.mkdtemp(prefix="smoke-runner-")
     try:
         ran = runner_phase(np, torch, gs, items, planted, work)
@@ -4609,6 +4931,9 @@ def main(argv: list[str]) -> int:
             "server_launches": {run: n[kind] for run, n in served.items() if n.get(kind)},
             # launches on phase `remote`'s runs (counts zeroed before each)
             "remote_launches": {run: n[kind] for run, n in remote.items() if n.get(kind)},
+            # launches on phase `misconfig`'s in-process commands
+            "misconfig_launches": {run: n[kind] for run, n in misconfigured.items()
+                                   if n.get(kind)},
             # launches on phase `runner`'s in-process commands
             "runner_launches": {run: n[kind] for run, n in ran.items() if n.get(kind)},
             # launches on phase `vuln`'s in-process commands

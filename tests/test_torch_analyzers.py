@@ -6,8 +6,8 @@ CPU, against the reference modules they were copied from:
 * the claim pass: `SecretAnalyzer.required_batch` and `required` on a mixed
   path list (skip dirs, files and extensions, the secret config, allow
   paths, short files) and the group's claims for every analyzer the port
-  registers (all of the reference's but its misconfig analyzers), with
-  `--file-patterns`;
+  registers (all of the reference's, its misconfig analyzers included),
+  with `--file-patterns`;
 * `_byte_bounded`: the twin of the reference's
   `test_big_file_memory.py::test_big_entries_slice_alone`;
 * the license analyzer: its program engine kept one per device, its
@@ -47,11 +47,6 @@ from trivy_tpu_torch.license.classifier import FullTextClassifier
 from trivy_tpu_torch.result import filter as flt
 from trivy_tpu_torch.rules.model import build_ruleset
 from trivy_tpu_torch.walker import fs as walker
-
-# The reference's misconfig analyzers, which the port does not have (ROADMAP
-# A13d).
-MISCONFIG_TYPES = {"dockerfile", "config-json", "config-toml", "kubernetes", "terraform",
-                   "helm", "terraform-module"}
 
 PATHS = [
     ("src/app/config.env", 120), ("tiny.txt", 9), ("go.sum", 400), ("a/go.mod", 400),
@@ -162,12 +157,11 @@ def test_group_claims_equal_the_reference(patterns):
         want = [p for (p, _), v in zip(PATHS, verdicts)
                 if v or ref_group._file_pattern_match(atype, p)]
         assert paths == want, atype
-    assert set(got) == set(ref_types) - MISCONFIG_TYPES
+    assert set(got) == set(ref_types)
 
 
 def test_registry_holds_the_ported_analyzers():
-    """Every analyzer of the reference but its misconfig ones, in the
-    reference's order, which fixes the order of applications in a report.
+    """Every analyzer of the reference, in the reference's order, which fixes the order of applications in a report.
     A registry's order is the order its modules were first imported in, so
     both groups are built in a fresh interpreter."""
     import subprocess
@@ -189,9 +183,9 @@ def test_registry_holds_the_ported_analyzers():
                           env=dict(os.environ, PYTHONPATH=repo, JAX_PLATFORMS="cpu"))
     assert proc.returncode == 0, proc.stderr[-2000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    for i in (0, 1):
-        assert got["port"][i] == [t for t in got["ref"][i] if t not in MISCONFIG_TYPES]
+    assert got["port"] == got["ref"]
     assert "secret" not in got["port"][0] and "npm" in got["port"][1]
+    assert "terraform" in got["port"][0] and "helm" in got["port"][1]
     group = core.AnalyzerGroup(core.AnalyzerOptions(
         disabled_analyzers=["secret"], device="cpu"))
     assert group.analyzer_versions()["secret"] == 0
@@ -432,6 +426,8 @@ def test_filter_trivyignore_equals_the_reference(tmp_path, ignore):
 
 
 def test_filter_options_are_the_reference_without_the_rego_hook():
+    """The filter's options are the reference's; the `--ignore-policy` rego
+    hook, left out before the port had a rego engine, is among them now."""
     import dataclasses
 
     assert flt.SEVERITIES == ref_filter.SEVERITIES
@@ -439,7 +435,7 @@ def test_filter_options_are_the_reference_without_the_rego_hook():
            for f in dataclasses.fields(flt.FilterOptions)}
     want = {f.name: f.default_factory() if callable(f.default_factory) else f.default
             for f in dataclasses.fields(ref_filter.FilterOptions)}
-    assert got == {k: v for k, v in want.items() if k != "ignore_policy"}
+    assert got == want and "ignore_policy" in got
 
 
 VEX_DOCS = {

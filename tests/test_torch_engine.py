@@ -289,6 +289,30 @@ if protowire.available():
     pb = protowire.scan_response_to_pb({"Results": [{"Target": "t", "Class": "secret"}]})
     verified = verified and protowire.scan_response_from_pb(
         type(pb).FromString(pb.SerializeToString()))["Results"][0]["Target"] == "t"
+from trivy_tpu_torch import policy
+from trivy_tpu_torch.analyzer import config as config_analyzers, imgconf
+from trivy_tpu_torch.iac import adapters, fixtures as iac_fixtures, helm, rego
+from trivy_tpu_torch.misconf import dockerfile, kubernetes
+with open(os.path.join(sys.argv[1], "Dockerfile"), "w") as f:
+    f.write("FROM alpine:latest\nUSER root\n")
+ignore = sys.argv[1] + "-ignore.rego"
+with open(ignore, "w") as f:
+    f.write('package trivy\n\ndefault ignore := false\n\nignore {\n    input.ID == "DS001"\n}\n')
+misconf_ids = []
+for argv in (["config", sys.argv[1]], ["fs", "--scanners", "misconfig,secret", "--trace",
+                                       "--ignore-policy", ignore, sys.argv[1]]):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main([argv[0], "--format", "json", "--device", "cpu", "--rules-cache-dir", rules_dir,
+                  *argv[1:]])
+    misconf_ids.append({m["ID"] for r in json.loads(buf.getvalue())["Results"]
+                        for m in r.get("Misconfigurations", [])})
+verified = verified and {"DS001", "DS002"} <= misconf_ids[0] and "DS001" not in misconf_ids[1]
+history = imgconf.scan_config_misconfig({"history": iac_fixtures.IMAGE_HISTORY})
+verified = verified and {f.check_id for f in history.failures} == set(iac_fixtures.HISTORY_CHECKS)
+verified = verified and all(callable(f) for f in (
+    policy.ensure_checks_bundle, helm.render_chart, rego.RegoEngine, adapters.adapt_terraform,
+    config_analyzers.HelmPostAnalyzer, dockerfile.parse_dockerfile, kubernetes.scan_kubernetes))
 raised = []
 if not torch.cuda.is_available():
     for make in (GpuSecretEngine, hybrid.make_secret_engine):
@@ -346,7 +370,11 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     registry client and the OCI artifact puller imported) nor `sbom` over
     its `-f cyclonedx` output, which find the same advisory, nor the
     remote planes (`fleet`, `watch`, the `watch` command, `rpc.protowire`
-    with a protobuf round trip, `cache.redis`, `cache.s3`)."""
+    with a protobuf round trip, `cache.redis`, `cache.s3`), nor the
+    misconfiguration scanner (`iac/`, `misconf/`, `analyzer/config.py`,
+    `policy.py`, the image history's checks) behind `config` and `fs
+    --scanners misconfig,secret --trace --ignore-policy`, which find and
+    drop the planted Dockerfile's checks."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

@@ -38,8 +38,9 @@ from trivy_tpu_torch.analyzer import core
 from trivy_tpu_torch.handler import run_post_handlers
 from trivy_tpu_torch.walker import fs as walker
 
-# The reference's misconfig analyzers, which the port does not have (ROADMAP
-# A13d), and the two analyzers whose engines other test files hold.
+# The misconfig analyzers and the two analyzers whose engines other test
+# files hold (`test_torch_iac*.py`, `test_torch_misconfig_cli.py`,
+# `test_torch_analyzers.py`).
 LEFT_OUT = {"dockerfile", "config-json", "config-toml", "kubernetes", "terraform", "helm",
             "terraform-module", "secret", "license-file"}
 

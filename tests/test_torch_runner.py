@@ -20,7 +20,8 @@ Every report is compared as a whole JSON document, as
 `tests/test_torch_engine.py::test_cli_matches_jax_cli` does.  Then what
 only the port has: `--profile-dir` (a torch.profiler trace and the host
 spans), `--trace-out`'s stage spans, `--resident-chunks`, the flags and
-targets that exit 2 naming their ROADMAP item, the remote flags
+targets that exit 2 naming their ROADMAP item, the misconfiguration flags
+that no longer do, the remote flags
 (`--fleet-config`, `--cache-backend redis://…|s3://…`, `--server-wire
 protobuf`) against the reference CLI, and `--device cuda` by default.
 
@@ -388,21 +389,50 @@ def test_resident_chunks_zero_changes_resident_hits_not_findings(small):
 
 @pytest.mark.parametrize("argv, item", [
     (["--rekor-url", "http://rekor.invalid"], "A13d"),
-    (["--scanners", "secret,misconfig"], "A13d"),
-    (["--checks-bundle-repository", "example.invalid/checks"], "A13d"),
-    (["--ignore-policy", "p.rego"], "A13d"),
     (["--compliance", "docker-cis"], "A13d"),
-    (["--config-check", "checks"], "A13d"),
     (["--module-dir", "mods"], "A13d"),
     (["--sbom-sources", "rekor"], "A13d"),
-    (["--trace"], "A13d"),
-    (["--scanners", "misconfig"], "A13d"),
     (["--sbom-sources", "oci", "--sbom-sources", "rekor"], "A13d"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v).lstrip("-"))
 def test_not_ported_exits_2_naming_its_item(small, argv, item):
     rc, out, err = _run(cli.main, ["fs", "--device", "cpu", *argv, str(small)])
     assert rc == 2 and out == ""
     assert f"ROADMAP {item}" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--scanners", "secret,misconfig"], ["--checks-bundle-repository", "CHECKS"],
+    ["--ignore-policy", "POLICY"], ["--config-check", "checks"], ["--trace"],
+    ["--scanners", "misconfig"],
+], ids=lambda v: "_".join(v).lstrip("-"))
+def test_misconfig_flags_run_as_the_reference(small, tmp_path, argv):
+    """The misconfiguration scanner's flags, which exited 2 naming ROADMAP
+    A13d before it was ported, run and give the reference CLI's report
+    (`tests/test_torch_misconfig_cli.py` holds each to its own fixtures)."""
+    import gzip
+    import tarfile
+
+    from trivy_tpu_torch.image import fixtures as imfx
+    from trivy_tpu_torch.policy import BUNDLE_MEDIA_TYPE
+
+    policy = tmp_path / "p.rego"
+    policy.write_text('package trivy\n\ndefault ignore := false\n\n'
+                      'ignore {\n    input.RuleID == "github-pat"\n}\n')
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w"):
+        pass
+    layer = gzip.compress(buf.getvalue(), mtime=0)
+    srv = imfx.serve_registry({"org/checks": {
+        "manifests": {"1": imfx.artifact_manifest(BUNDLE_MEDIA_TYPE, layer)},
+        "blobs": {imfx.sha256_digest(layer): layer}}})
+    names = {"CHECKS": f"127.0.0.1:{srv.server_address[1]}/org/checks:1",
+             "POLICY": str(policy)}
+    argv = [names.get(a, a) for a in argv]
+    try:
+        same_json(["--insecure", "--cache-dir", str(tmp_path / "cache"), *argv, str(small)])
+    finally:
+        srv.shutdown()
+        srv.server_close()
 
 
 @pytest.fixture(scope="module")
@@ -490,8 +520,7 @@ def test_remote_flags_scan_like_the_reference(small, remote_planes, flag, monkey
     assert docs["port"] == docs["ref"] and docs["port"]["Results"]
 
 
-@pytest.mark.parametrize("argv", [["image", "--scanners", "misconfig"],
-                                  ["sbom", "--sbom-sources", "rekor"], ["vm"]],
+@pytest.mark.parametrize("argv", [["sbom", "--sbom-sources", "rekor"], ["vm"]],
                          ids=lambda argv: "_".join(argv).replace("--", ""))
 def test_targets_not_ported_exit_2(small, argv):
     rc, _, err = _run(cli.main, [argv[0], "--device", "cpu", *argv[1:], str(small)])

@@ -15,8 +15,13 @@ scans a docker archive, an OCI layout, or an image resolved through the
 docker, containerd, podman and registry sources (`--insecure`,
 `--username`, `--password`; `--sbom-sources oci` takes a referrer SBOM
 instead of walking the layers); `sbom PATH` scans a CycloneDX or SPDX
-document.  `--db-repository` and `--java-db-repository` pull the DBs over
-OCI before the scan.  The secret analyzer's engine is the one
+document.  `config <dir>` is `fs` with `--scanners misconfig`: the IaC
+analyzers (Dockerfile, Kubernetes, Terraform, CloudFormation, Helm, JSON
+and TOML) run the rego checks of `iac/checks/` and those of
+`--config-check` and `--checks-bundle-repository`; `--ignore-policy`
+filters findings through a rego `ignore` rule, and `--trace` attaches the
+checks' evaluation traces.  `--db-repository` and `--java-db-repository`
+pull the DBs over OCI before the scan.  The secret analyzer's engine is the one
 `engine/hybrid.py` `make_secret_engine` builds for `--secret-backend`
 (default `auto`: the hybrid engine), started from the compiled-rules
 registry (`--rules-cache-dir`, default `TRIVY_TPU_RULES_CACHE_DIR`, else
@@ -55,11 +60,7 @@ from trivy_tpu_torch.device import DEFAULT_DEVICE
 SECRET_BACKENDS = ("auto", "hybrid", "tpu", "cpu", "native", "server")
 # The reference's scan flags whose feature waits for a ROADMAP item: they
 # parse as the reference's and, set, make the scan exit 2 naming the item.
-NOT_PORTED_FLAGS = {
-    "ignore-policy": "A13d", "checks-bundle-repository": "A13d",
-    "config-check": "A13d", "compliance": "A13d", "module-dir": "A13d",
-    "rekor-url": "A13d", "trace": "A13d",
-}
+NOT_PORTED_FLAGS = {"compliance": "A13d.2", "module-dir": "A13d.3", "rekor-url": "A13d.3"}
 SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
 
 # Config-file layer (the viper config file, pkg/flag/*): values from
@@ -182,7 +183,7 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
     p.add_argument("target", nargs=target_nargs)
     p.add_argument(
         "--scanners", default=_env_default("scanners", default_scanners),
-        help="comma-separated: vuln,secret,license (misconfig: ROADMAP A13d)",
+        help="comma-separated: vuln,secret,misconfig,license",
     )
     p.add_argument("--severity", default=_env_default("severity", ",".join(SEVERITIES)),
                    help="comma-separated severities to report")
@@ -237,6 +238,8 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
     p.add_argument("--profile-dir", default=_env_default("profile-dir", ""),
                    help="write a torch.profiler trace of the scan (CUDA kernels "
                    "on a card) and the host spans to this directory")
+    p.add_argument("--trace", action="store_true", default=_bool_default("trace"),
+                   help="attach rego evaluation traces to misconfiguration findings")
     p.add_argument("--trace-out", default=_env_default("trace-out", ""),
                    help="write host span timeline (Chrome-trace JSON) to this path")
     p.add_argument("--explain", action="store_true", default=_bool_default("explain"),
@@ -268,6 +271,13 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
                    help="OpenVEX/CycloneDX/CSAF VEX document")
     p.add_argument("--include-non-failures", action="store_true",
                    default=_bool_default("include-non-failures"))
+    p.add_argument("--config-check", action="append", default=_list_default("config-check"),
+                   help="directory with custom .rego checks (repeatable)")
+    p.add_argument("--ignore-policy", default=_env_default("ignore-policy", ""),
+                   help="rego file whose 'ignore' rule filters findings")
+    p.add_argument("--checks-bundle-repository",
+                   default=_env_default("checks-bundle-repository", ""),
+                   help="OCI reference to pull extra .rego checks from")
     p.add_argument("--timeout", default=_env_default("timeout", "5m"),
                    help="scan timeout, e.g. 300s / 5m / 1h (default 5m)")
     p.add_argument("--config", default=os.environ.get("TRIVY_TPU_CONFIG", "trivy.yaml"),
@@ -279,7 +289,7 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
     p.add_argument("--java-db-repository", default=_env_default("java-db-repository", ""),
                    help="OCI reference to pull the Java index DB from")
     p.add_argument("--sbom-sources", action="append", default=_list_default("sbom-sources"),
-                   help="external SBOM sources: oci (rekor: ROADMAP A13d)")
+                   help="external SBOM sources: oci (rekor: ROADMAP A13d.3)")
     p.add_argument("--insecure", action="store_true", default=_bool_default("insecure"),
                    help="allow plain-http registry access (images and DB pulls)")
     p.add_argument("--username", default=_env_default("username", ""),
@@ -287,12 +297,7 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
     p.add_argument("--password", default=_env_default("password", ""),
                    help="private registry password (prefer the env var)")
     for flag in NOT_PORTED_FLAGS:
-        if flag == "config-check":
-            p.add_argument(f"--{flag}", action="append", default=_list_default(flag))
-        elif flag == "trace":
-            p.add_argument(f"--{flag}", action="store_true", default=_bool_default(flag))
-        else:
-            p.add_argument(f"--{flag}", default=_env_default(flag, ""))
+        p.add_argument(f"--{flag}", default=_env_default(flag, ""))
 
 
 def _options_from_args(args: argparse.Namespace):
@@ -328,9 +333,13 @@ def _options_from_args(args: argparse.Namespace):
         vex_path=args.vex,
         include_non_failures=args.include_non_failures,
         timeout=_parse_duration(args.timeout),
+        ignore_policy=args.ignore_policy,
+        checks_bundle_repository=args.checks_bundle_repository,
         profile_dir=args.profile_dir,
+        trace=args.trace,
         trace_out=args.trace_out,
         explain=args.explain,
+        config_check=list(args.config_check),
         device=args.device,
         template=args.template,
         sbom_sources=list(args.sbom_sources),
@@ -526,7 +535,9 @@ def build_parser() -> argparse.ArgumentParser:
         ("image", [], TARGET_IMAGE, "vuln,secret",
          "scan a container image: an archive, an OCI layout or a reference"),
         ("sbom", [], TARGET_SBOM, "vuln", "scan an SBOM (CycloneDX/SPDX JSON)"),
-        ("vm", [], TARGET_VM, "vuln,secret", "scan a VM disk image (ROADMAP A13d)"),
+        ("vm", [], TARGET_VM, "vuln,secret", "scan a VM disk image (ROADMAP A13d.2)"),
+        ("config", [], TARGET_FILESYSTEM, "misconfig",
+         "scan config files for misconfigurations"),
     ):
         p = sub.add_parser(name, aliases=aliases, help=text)
         # `image --input PATH` needs no positional target
@@ -618,6 +629,7 @@ def _run_scan(parser, args) -> int:
     from trivy_tpu_torch.cache.s3 import S3Error
     from trivy_tpu_torch.db.client import DBError
     from trivy_tpu_torch.deadline import ScanTimeoutError
+    from trivy_tpu_torch.iac.rego import RegoError
     from trivy_tpu_torch.image.registry import RegistryError
 
     if args.secret_backend == "server" and not (args.server or args.fleet_config):
@@ -629,17 +641,20 @@ def _run_scan(parser, args) -> int:
     except ValueError as e:  # e.g. a malformed --timeout duration
         print(f"trivy-tpu: {e}", file=sys.stderr)
         return 2
+    if args.command == "config":
+        options.scanners = ["misconfig"]  # as the reference's, whatever --scanners says
     try:
         for flag, item in NOT_PORTED_FLAGS.items():
             if getattr(args, flag.replace("-", "_")):
                 raise NotPortedError(f"--{flag} is not ported yet (ROADMAP {item})")
         return run(options, args.kind)
     except (CacheConfigError, OptionsError, NotPortedError, ScanTimeoutError,
-            DBError, RegistryError, RedisError, S3Error) as e:
+            DBError, RegistryError, RedisError, S3Error, RegoError) as e:
         # a cache spec, a malformed --file-patterns, a target, flag or
         # source that waits for a ROADMAP item, a timeout, a DB that
         # --skip-db-update refuses, an image or DB no source could serve,
-        # a remote cache tier that fails (cli.py:1224-1240);
+        # a remote cache tier that fails, an ignore policy that does not
+        # parse or has no `ignore` rule (cli.py:1224-1240);
         # anything else (an engine that fails) propagates
         print(f"trivy-tpu: {e}", file=sys.stderr)
         return 2

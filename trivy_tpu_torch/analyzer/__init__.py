@@ -1,6 +1,6 @@
 """Analyzer plugin layer (a copy of `trivy_tpu/analyzer/`: the group, the
-secret and license analyzers and the package analyzers; the misconfig
-`config` analyzers wait for ROADMAP A13d)."""
+secret and license analyzers, the misconfig `config` analyzers and the
+package analyzers)."""
 
 from trivy_tpu_torch.analyzer.core import (
     AnalysisInput,

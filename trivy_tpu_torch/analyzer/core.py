@@ -11,15 +11,16 @@ input instead of file-at-a-time calls.
 Copied from `trivy_tpu/analyzer/core.py`; the port imports nothing from the
 JAX package.  `AnalyzerOptions` and `SecretScannerOption` gain `device`
 (default "cuda"), where the analyzers' engines run.  Left out: the module
-manager's extension analyzers (ROADMAP A13d), the unused `parallel` and
-`cache_key_extra`, which only the rekor SBOM source sets (ROADMAP A13d;
+manager's extension analyzers (ROADMAP A13d.3), the unused `parallel` and
+`cache_key_extra`, which only the rekor SBOM source sets (ROADMAP A13d.3;
 the reference hashes it into the image keys, where "" adds nothing).
 `analyze_entries` keeps the reference's per-layer `disabled` seam (an
 image's base layers skip the secret analyzer).  The builtin
-registry holds every analyzer of the reference but its misconfig `config`
-analyzers (ROADMAP A13d): secret, license-file, dpkg-license, the OS and
-language package analyzers, binaries, embedded SBOMs, `executable`, the
-Red Hat build info and python-pkg.  Unlike the reference, a failing batch
+registry holds every analyzer of the reference: secret, license-file,
+dpkg-license, the misconfig `config` analyzers (dockerfile, kubernetes,
+terraform, config-json, config-toml and the helm and terraform-module
+post-analyzers), the OS and language package analyzers, binaries,
+embedded SBOMs, `executable`, the Red Hat build info and python-pkg.  Unlike the reference, a failing batch
 analyzer (the secret and license-file analyzers, whose engines run the
 card's kernels) fails the scan instead of logging a warning and dropping
 its files: a quiet clean report would hide the card.  Per-file analyzers
@@ -267,9 +268,9 @@ def registered_analyzers() -> list[Callable[[], Analyzer]]:
 def _ensure_builtin_registered() -> None:
     # Import modules whose import side-effect registers analyzers (mirrors the
     # reference's `_ "…/analyzer/all"` blank imports), in the reference's
-    # order, which fixes the order of applications in a report; the
-    # reference's `config` (misconfig, ROADMAP A13d) is left out.
+    # order, which fixes the order of applications in a report.
     from trivy_tpu_torch.analyzer import binary as _binary  # noqa: F401
+    from trivy_tpu_torch.analyzer import config as _config  # noqa: F401
     from trivy_tpu_torch.analyzer import java as _java  # noqa: F401
     from trivy_tpu_torch.analyzer import lang as _lang  # noqa: F401
     from trivy_tpu_torch.analyzer import lang_extra as _lang_extra  # noqa: F401

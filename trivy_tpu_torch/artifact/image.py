@@ -21,12 +21,12 @@ run; the image config's secret scan is one single-file batch through the
 secret analyzer's engine, on that device.  The keys (`_layer_key`,
 `_artifact_key`, the imgconf key in `inspect`) are the reference's, byte
 for byte: the reference also hashes `cache_key_extra`, which only its
-rekor SBOM source sets (ROADMAP A13d) and is "" otherwise.  The image config's misconfig half (the history rebuilt into a
-Dockerfile, ROADMAP A13d) keeps the reference's `"dockerfile" in enabled`
-gate, which the port's analyzer options never open.  The port adds host
-spans: `image.layer` (one layer's analysis), `layer.open` (its blob
-opened: a registry source downloads it there), `layer.walk` (its tar
-index) and `image.config`.
+rekor SBOM source sets (ROADMAP A13d.3) and is "" otherwise.  The image
+config blob also carries the misconfigurations of the history rebuilt
+into a Dockerfile when the `dockerfile` analyzer is enabled (`--scanners
+misconfig`).  The port adds host spans: `image.layer` (one layer's
+analysis), `layer.open` (its blob opened: a registry source downloads it
+there), `layer.walk` (its tar index) and `image.config`.
 """
 
 from __future__ import annotations
@@ -399,13 +399,15 @@ class ImageArtifact:
 
     def _config_analysis_blob(self, key: str) -> None:
         """Image-config analysis (imgconf analyzers): secrets in the config
-        JSON, stored as one extra blob so it merges through the applier and
-        survives the client/server split.  It only runs when the secret
-        analyzer is enabled; the blob is cache-gated like layer blobs
-        (always put, possibly empty, so missing_blobs stays accurate).  The
-        misconfig over the history-reconstructed Dockerfile waits for
-        ROADMAP A13d."""
-        from trivy_tpu_torch.analyzer.imgconf import scan_config_secrets
+        JSON and misconfig over the history-reconstructed Dockerfile, stored
+        as one extra blob so it merges through the applier and survives the
+        client/server split.  Each sub-analysis only runs when its analyzer
+        is enabled; the blob is cache-gated like layer blobs (always put,
+        possibly empty, so missing_blobs stays accurate)."""
+        from trivy_tpu_torch.analyzer.imgconf import (
+            scan_config_misconfig,
+            scan_config_secrets,
+        )
         from trivy_tpu_torch.obs import trace as obs_trace
 
         cache_stats.event("config_analysis")
@@ -419,11 +421,22 @@ class ImageArtifact:
                 res = scan_config_secrets(self.source.config, secret_analyzer.engine)
                 if res is not None:
                     secrets.append(res)
-        if "dockerfile" in enabled:
-            raise ValueError(
-                "the image config's misconfig analysis is not ported yet (ROADMAP A13d)"
+            mc = (
+                scan_config_misconfig(self.source.config)
+                if "dockerfile" in enabled
+                else None
             )
-        self.cache.put_blob(key, BlobInfo(secrets=secrets))
+        if mc is not None:
+            # Distinct path so a real /Dockerfile scanned in a layer is never
+            # overwritten by the lossy history reconstruction.
+            mc.file_path = "Dockerfile (image config)"
+        self.cache.put_blob(
+            key,
+            BlobInfo(
+                secrets=secrets,
+                misconfigurations=[mc] if mc is not None else [],
+            ),
+        )
 
     def clean(self, ref: ArtifactReference) -> None:
         pass  # layer blobs stay cached (content-addressed)

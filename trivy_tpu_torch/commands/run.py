@@ -14,7 +14,11 @@ adds host spans (`artifact.scan`, `filter`, `write`, and the analyzer's and
 artifact's) for the stage split of a run.  `Options` keeps the knobs the
 port honours; a target, scanner or source that waits for another ROADMAP
 item raises `NotPortedError` before the scan starts (`_check_ported`):
-misconfig, `--sbom-sources rekor` and the `vm` target (A13d).  Client
+the `vm` target (A13d.2) and `--sbom-sources rekor` (A13d.3).  With
+`misconfig` among the scanners the config analyzers run the process-global
+rego scanner (`iac/engine.py`), which every run configures anew with its
+`--config-check` directories, the `--checks-bundle-repository` bundle
+(pulled over OCI) and `--trace`.  Client
 mode speaks either Twirp wire (`--server-wire json|protobuf`), and
 `--fleet-config` routes the secret analyzer's batches across a fleet.  The flags of the reference that wait for an item are
 refused by the CLI (`__main__.NOT_PORTED_FLAGS`).  The `image` target
@@ -50,11 +54,10 @@ TARGET_REPOSITORY = "repo"
 TARGET_SBOM = "sbom"
 TARGET_VM = "vm"
 
-# Targets and scanners of the reference the port lacks, and the ROADMAP item
+# Targets and SBOM sources of the reference the port lacks, and the ROADMAP item
 # each waits for.
-NOT_PORTED_TARGETS = {TARGET_VM: "A13d"}
-NOT_PORTED_SCANNERS = {"misconfig": "A13d"}
-NOT_PORTED_SBOM_SOURCES = {"rekor": "A13d"}
+NOT_PORTED_TARGETS = {TARGET_VM: "A13d.2"}
+NOT_PORTED_SBOM_SOURCES = {"rekor": "A13d.3"}
 
 
 class CacheConfigError(ValueError):
@@ -119,9 +122,13 @@ class Options:
     vex_path: str = ""  # --vex document
     include_non_failures: bool = False
     timeout: float = 300.0  # --timeout seconds (reference default 5m)
+    ignore_policy: str = ""  # --ignore-policy rego file
+    checks_bundle_repository: str = ""  # OCI ref for the checks bundle
     profile_dir: str = ""  # --profile-dir (torch.profiler trace of the scan)
+    trace: bool = False  # --trace (rego traces on misconfig findings)
     trace_out: str = ""  # --trace-out (host span Chrome-trace JSON path)
     explain: bool = False  # --explain (server-side per-phase batch timings)
+    config_check: list[str] = field(default_factory=list)  # --config-check dirs
     device: str = DEFAULT_DEVICE  # where the analyzers' engines run
     # repo: what a remote URL's clone checks out
     branch: str = ""
@@ -130,19 +137,12 @@ class Options:
 
 
 def _check_ported(options: Options, target_kind: str) -> None:
-    """Raise NotPortedError naming the ROADMAP item for the first target,
-    scanner or SBOM source the port lacks; OptionsError for an unknown
-    format."""
+    """Raise NotPortedError naming the ROADMAP item for the first target or
+    SBOM source the port lacks; OptionsError for an unknown format."""
     if target_kind in NOT_PORTED_TARGETS:
         raise NotPortedError(
             f"{target_kind}: not ported yet (ROADMAP {NOT_PORTED_TARGETS[target_kind]})"
         )
-    for scanner in options.scanners:
-        if scanner in NOT_PORTED_SCANNERS:
-            raise NotPortedError(
-                f"--scanners {scanner} is not ported yet "
-                f"(ROADMAP {NOT_PORTED_SCANNERS[scanner]})"
-            )
     for source in options.sbom_sources:
         if source in NOT_PORTED_SBOM_SOURCES:
             raise NotPortedError(
@@ -204,23 +204,39 @@ def _analyzer_options(options: Options) -> AnalyzerOptions:
         disabled.append("secret")
     if "license" not in options.scanners:
         disabled.extend(["license-file", "dpkg-license"])
-    # The reference's misconfig analyzers (ROADMAP A13d): the port has none,
-    # but a disabled type keys the blob cache (`analyzer_versions`) as it
-    # does there.
-    disabled.extend(
-        [
-            "dockerfile",
-            "kubernetes",
-            "terraform",
-            "config-json",
-            "config-toml",
-            "helm",
-            "terraform-module",
-        ]
-    )
+    if "misconfig" not in options.scanners:
+        disabled.extend(
+            [
+                "dockerfile",
+                "kubernetes",
+                "terraform",
+                "config-json",
+                "config-toml",
+                "helm",
+                "terraform-module",
+            ]
+        )
     # Executable digesting only serves Rekor lookups (--sbom-sources rekor,
-    # ROADMAP A13d); disabled here, it stays out of the blob cache key.
+    # ROADMAP A13d.3); disabled here, it stays out of the blob cache key.
     disabled.append("executable")
+    from trivy_tpu_torch.iac.engine import configure_shared_scanner
+
+    extra_dirs = list(options.config_check)
+    if options.checks_bundle_repository:
+        # policy/policy.go InitBuiltinPolicies: pull the OCI-distributed
+        # .rego bundle and add it as a check source.
+        from trivy_tpu_torch.policy import ensure_checks_bundle
+
+        extra_dirs.append(
+            ensure_checks_bundle(
+                options.checks_bundle_repository,
+                cache_dir=options.cache_dir,
+                insecure=options.insecure_registry,
+            )
+        )
+    # Unconditional: also RESETS custom dirs and --trace left by a prior
+    # scan in this process (the scanner is process-global).
+    configure_shared_scanner(extra_dirs, trace=options.trace)
     return AnalyzerOptions(
         disabled_analyzers=disabled,
         secret_scanner_option=SecretScannerOption(
@@ -516,6 +532,7 @@ def _run_inner(options: Options, target_kind: str) -> int:
                     ignore_file=options.ignore_file,
                     vex_path=options.vex_path,
                     include_non_failures=options.include_non_failures,
+                    ignore_policy=options.ignore_policy,
                 ),
             )
         _dl.check()  # a timed-out worker must not write the report

@@ -5,8 +5,8 @@ and `.trivyignore` / `.trivyignore.yaml` suppression (filter.go:115-177).
 VEX and OPA ignore-policy hooks keep the same call shape and land later.
 
 Copied from `trivy_tpu/result/filter.py`; the port imports nothing from the
-JAX package.  The `--ignore-policy` hook evaluates rego (`iac/rego.py`),
-which waits for ROADMAP A13d, and is left out.
+JAX package.  The `--ignore-policy` hook evaluates rego through the port's
+copy of the interpreter (`iac/rego.py`).
 """
 
 from __future__ import annotations
@@ -85,6 +85,7 @@ class FilterOptions:
     ignore_file: str = ""
     include_non_failures: bool = False
     vex_path: str = ""
+    ignore_policy: str = ""  # --ignore-policy rego file (filter.go:242)
 
 
 def filter_report(report: Report, options: FilterOptions) -> Report:
@@ -95,9 +96,67 @@ def filter_report(report: Report, options: FilterOptions) -> Report:
         apply_vex(report, load_vex(options.vex_path))
     ignore = parse_ignore_file(options.ignore_file)
     allowed = set(options.severities)
+    policy = (
+        _load_ignore_policy(options.ignore_policy)
+        if options.ignore_policy
+        else None
+    )
     for result in report.results:
         _filter_result(result, allowed, ignore, options)
+        if policy is not None:
+            _apply_ignore_policy(result, policy)
     return report
+
+
+def _load_ignore_policy(path: str):
+    """--ignore-policy: a rego module whose boolean `ignore` rule decides
+    per finding (filter.go:242-343, query data.trivy.ignore)."""
+    from trivy_tpu_torch.iac.rego import RegoError, parse_module
+
+    try:
+        with open(path, encoding="utf-8") as f:
+            src = f.read()
+    except OSError as e:
+        raise RegoError(f"cannot read ignore policy {path!r}: {e}") from e
+    mod = parse_module(src, source_path=path)
+    if "ignore" not in mod.rules:
+        raise RegoError(f"ignore policy {path!r} defines no 'ignore' rule")
+    return mod
+
+
+def _policy_ignores(mod, finding_json: dict) -> bool:
+    from trivy_tpu_torch.iac.rego import _Evaluator, _Undefined
+
+    ev = _Evaluator(finding_json, mod.rules)
+    try:
+        return bool(ev.eval_complete_rule("ignore"))
+    except _Undefined:
+        # Undefined result => not ignored (filter.go evaluate: undefined
+        # handled as false).  Evaluator ERRORS (unknown builtin, step
+        # limit) propagate — a broken policy must not read as "nothing
+        # ignored" (the reference fails the run).
+        return False
+
+
+def _apply_ignore_policy(result: Result, mod) -> None:
+    result.vulnerabilities = [
+        v for v in result.vulnerabilities if not _policy_ignores(mod, v.to_json())
+    ]
+    result.misconfigurations = [
+        m
+        for m in result.misconfigurations
+        if not _policy_ignores(mod, m.to_json())
+    ]
+    result.secrets = [
+        s for s in result.secrets if not _policy_ignores(mod, s.to_json())
+    ]
+    result.licenses = [
+        l
+        for l in result.licenses
+        if not _policy_ignores(
+            mod, l.to_json() if hasattr(l, "to_json") else {}
+        )
+    ]
 
 
 def _filter_result(
