@@ -313,6 +313,53 @@ verified = verified and {f.check_id for f in history.failures} == set(iac_fixtur
 verified = verified and all(callable(f) for f in (
     policy.ensure_checks_bundle, helm.render_chart, rego.RegoEngine, adapters.adapt_terraform,
     config_analyzers.HelmPostAnalyzer, dockerfile.parse_dockerfile, kubernetes.scan_kubernetes))
+import os
+from trivy_tpu_torch.artifact import vm as vm_artifact
+from trivy_tpu_torch.cloud import aws, fixtures as cloud_fixtures
+from trivy_tpu_torch.compliance import report as compliance_report, spec as compliance_spec
+from trivy_tpu_torch.k8s import client as k8s_client, fixtures as k8s_fixtures, kbom
+from trivy_tpu_torch.k8s import scanner as k8s_scanner
+from trivy_tpu_torch.vm import disk, ebs, ext4, fixtures as vm_fixtures, lvm, vmdk, xfs
+verified = verified and all(callable(f) for f in (
+    vm_artifact.VMArtifact, aws.AwsScanner, compliance_report.build_compliance_report,
+    compliance_spec.load_spec, k8s_client.KubeClient, kbom.build_kbom, k8s_scanner.K8sScanner,
+    disk.list_partitions, ebs.EbsSnapshot, ext4.Ext4Reader, lvm.logical_volumes, vmdk.VmdkFile,
+    xfs.XfsReader))
+disk_path = sys.argv[1] + "-disk.img"
+with open(disk_path, "wb") as f:
+    f.write(vm_fixtures.wrap_gpt(vm_fixtures.build_xfs(
+        {"etc/app.env": b'token = "ghp_' + b"C" * 36 + b'"\n'})))
+os.environ.update(AWS_ACCESS_KEY_ID="AKIATEST", AWS_SECRET_ACCESS_KEY="test",
+                  AWS_REGION="us-east-1")
+aws_srv = cloud_fixtures.serve_account(cloud_fixtures.seeded_account(2))
+k8s_srv = k8s_fixtures.serve_cluster(k8s_fixtures.seeded_cluster(["nginx:1"], workloads=6, rbac=4))
+kubeconfig = k8s_fixtures.write_kubeconfig(sys.argv[1] + "-kubeconfig",
+                                           f"http://127.0.0.1:{k8s_srv.server_address[1]}")
+docs = []
+for argv in (["vm", "--format", "json", "--device", "cpu", "--rules-cache-dir", rules_dir,
+              "--scanners", "secret", disk_path],
+             ["config", "--format", "json", "--device", "cpu", "--compliance",
+              "docker-cis-1.6.0", sys.argv[1]],
+             ["aws", "--format", "json", "--endpoint",
+              f"http://127.0.0.1:{aws_srv.server_address[1]}"],
+             ["k8s", "--format", "json", "--kubeconfig", kubeconfig, "--scanners",
+              "misconfig,rbac", "--report", "all"],
+             ["k8s", "--format", "cyclonedx", "--kubeconfig", kubeconfig]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    docs.append(json.loads(out.getvalue()))
+aws_srv.shutdown()
+k8s_srv.shutdown()
+vm_doc, comp_doc, aws_doc, k8s_doc, kbom_doc = docs
+verified = verified and vm_doc["ArtifactType"] == "vm" and "github-pat" in {
+    s["RuleID"] for r in vm_doc["Results"] for s in r.get("Secrets", [])}
+verified = verified and {c["ID"]: c["Status"] for c in
+                         comp_doc["SummaryReport"]["SummaryControls"]}["4.1"] == "FAIL"
+verified = verified and "AVD-AWS-0092" in {m["ID"] for r in aws_doc["Results"]
+                                           for m in r["Failures"]}
+verified = verified and k8s_doc["Resources"] and k8s_doc["RBACAssessment"]
+verified = verified and kbom_doc["bomFormat"] == "CycloneDX"
 raised = []
 if not torch.cuda.is_available():
     for make in (GpuSecretEngine, hybrid.make_secret_engine):
@@ -374,7 +421,12 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     misconfiguration scanner (`iac/`, `misconf/`, `analyzer/config.py`,
     `policy.py`, the image history's checks) behind `config` and `fs
     --scanners misconfig,secret --trace --ignore-policy`, which find and
-    drop the planted Dockerfile's checks."""
+    drop the planted Dockerfile's checks, nor the other targets (`vm/`,
+    `artifact/vm.py`, `k8s/`, `cloud/`, `compliance/` and their fixtures)
+    behind `vm` over a GPT disk holding an XFS partition, `config
+    --compliance`, `aws` and `k8s` (scan and KBOM) against in-process
+    endpoints, which find the disk's secret, fail the Dockerfile's CIS
+    control, the account's public bucket and the cluster's RBAC."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

@@ -352,10 +352,19 @@ def test_warm_secret_cache_is_not_reused_for_misconfig(tree, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["config", "--compliance", "docker-cis"], "A13d.2"),
+    # ported since (A13d.2): no builtin spec is named `docker-cis`, so both
+    # CLIs refuse it the same way
+    (["config", "--compliance", "docker-cis"], None),
     (["config", "--module-dir", "mods"], "A13d.3"),
     (["config", "--rekor-url", "http://rekor.invalid"], "A13d.3"),
 ], ids=["compliance", "module-dir", "rekor-url"])
 def test_config_flags_not_ported_exit_2(tree, argv, item):
+    if item is None:
+        port = _run(cli.main, [argv[0], "--device", "cpu", *argv[1:], str(tree)])
+        ref = _run(ref_cli.main, [*argv, str(tree)])
+        assert port[0] == ref[0] == 2 and port[1] == ref[1] == ""
+        assert "unknown compliance spec 'docker-cis'" in port[2]
+        assert port[2].strip().splitlines()[-1] == ref[2].strip().splitlines()[-1]
+        return
     rc, out, err = _run(cli.main, [argv[0], "--device", "cpu", *argv[1:], str(tree)])
     assert rc == 2 and out == "" and f"ROADMAP {item}" in err

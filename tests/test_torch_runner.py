@@ -20,8 +20,8 @@ Every report is compared as a whole JSON document, as
 `tests/test_torch_engine.py::test_cli_matches_jax_cli` does.  Then what
 only the port has: `--profile-dir` (a torch.profiler trace and the host
 spans), `--trace-out`'s stage spans, `--resident-chunks`, the flags and
-targets that exit 2 naming their ROADMAP item, the misconfiguration flags
-that no longer do, the remote flags
+sources that exit 2 naming their ROADMAP item, the misconfiguration flags,
+`--compliance` and the `vm` target that no longer do, the remote flags
 (`--fleet-config`, `--cache-backend redis://…|s3://…`, `--server-wire
 protobuf`) against the reference CLI, and `--device cuda` by default.
 
@@ -389,12 +389,20 @@ def test_resident_chunks_zero_changes_resident_hits_not_findings(small):
 
 @pytest.mark.parametrize("argv, item", [
     (["--rekor-url", "http://rekor.invalid"], "A13d"),
-    (["--compliance", "docker-cis"], "A13d"),
+    # ported since (A13d.2): no builtin spec is named `docker-cis`, so both
+    # CLIs refuse it the same way
+    pytest.param(["--compliance", "docker-cis"], None, id="compliance_docker-cis-A13d"),
     (["--module-dir", "mods"], "A13d"),
     (["--sbom-sources", "rekor"], "A13d"),
     (["--sbom-sources", "oci", "--sbom-sources", "rekor"], "A13d"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v).lstrip("-"))
 def test_not_ported_exits_2_naming_its_item(small, argv, item):
+    if item is None:
+        (prc, pout, perr), (rrc, rout, rerr) = both([*argv, str(small)])
+        assert prc == rrc == 2 and pout == rout == ""
+        assert "unknown compliance spec 'docker-cis'" in perr
+        assert perr.strip().splitlines()[-1] == rerr.strip().splitlines()[-1]
+        return
     rc, out, err = _run(cli.main, ["fs", "--device", "cpu", *argv, str(small)])
     assert rc == 2 and out == ""
     assert f"ROADMAP {item}" in err
@@ -522,7 +530,21 @@ def test_remote_flags_scan_like_the_reference(small, remote_planes, flag, monkey
 
 @pytest.mark.parametrize("argv", [["sbom", "--sbom-sources", "rekor"], ["vm"]],
                          ids=lambda argv: "_".join(argv).replace("--", ""))
-def test_targets_not_ported_exit_2(small, argv):
+def test_targets_not_ported_exit_2(small, tmp_path, argv):
+    if argv == ["vm"]:
+        # ported since (A13d.2): a GPT disk whose ext4 partition holds the
+        # tree, scanned by both CLIs, reports equal
+        from trivy_tpu_torch.vm import fixtures as vmfx
+
+        if vmfx.mke2fs_path() is None:
+            pytest.skip("mke2fs unavailable")
+        disk = vmfx.build_ext4(str(small), str(tmp_path / "disk.img"), gpt=True)
+        got = same_json(["--scanners", "secret,license", "--secret-backend", "cpu", disk],
+                        kind="vm")
+        assert got["ArtifactType"] == "vm"
+        assert {r["Target"] for r in got["Results"] if r["Class"] == "secret"} >= {
+            "/src/config.env", "/app/main.py"}
+        return
     rc, _, err = _run(cli.main, [argv[0], "--device", "cpu", *argv[1:], str(small)])
     assert rc == 2 and "ROADMAP A13d" in err
 

@@ -30,9 +30,22 @@ registry (`--rules-cache-dir`, default `TRIVY_TPU_RULES_CACHE_DIR`, else
 `--server` alone is client mode (the blob goes to the server's cache, the
 server applies it).  `--mesh` (default `TRIVY_TPU_MESH`) is validated and
 seated in `TRIVY_TPU_MESH`, where every engine's `topology.get_mesh()`
-reads it, as the reference's is; a bad spec exits 2.  A target, scanner,
-flag or format that waits for a ROADMAP item exits 2 naming it
-(`commands/run.py` `NOT_PORTED`), as does the `vm` command.
+reads it, as the reference's is; a bad spec exits 2.  `vm <disk>` scans
+every ext and XFS filesystem of a raw disk image (MBR or GPT, LVM2 linear
+volumes), a VMDK, or an EBS snapshot (`ebs:snap-…`, `ami:ami-…`).
+`--compliance SPEC` (a builtin spec or `@path`) writes the spec's report
+instead of the plain one, `--report summary|all`.  A flag or SBOM source
+that waits for a ROADMAP item exits 2 naming it (`NOT_PORTED_FLAGS`,
+`commands/run.py` `NOT_PORTED_SBOM_SOURCES`).
+
+`python -m trivy_tpu_torch k8s [cluster|NAMESPACE] --kubeconfig F` scans a
+cluster's workloads (misconfigurations over each manifest, RBAC with
+`--scanners rbac`, and `vuln,secret` over every distinct workload image,
+whose engines run on `--device`), or writes its KBOM with `-f cyclonedx`;
+`python -m trivy_tpu_torch aws --service S` evaluates the checks over an
+AWS account's resources.  Both start from the builtin checks alone
+(`configure_shared_scanner([])`), whatever an earlier scan of the process
+configured.
 
 `python -m trivy_tpu_torch rules compile|ls|verify|push` maintains the
 registry (`commands/rules.py`; `push` installs a ruleset into a running
@@ -60,7 +73,7 @@ from trivy_tpu_torch.device import DEFAULT_DEVICE
 SECRET_BACKENDS = ("auto", "hybrid", "tpu", "cpu", "native", "server")
 # The reference's scan flags whose feature waits for a ROADMAP item: they
 # parse as the reference's and, set, make the scan exit 2 naming the item.
-NOT_PORTED_FLAGS = {"compliance": "A13d.2", "module-dir": "A13d.3", "rekor-url": "A13d.3"}
+NOT_PORTED_FLAGS = {"module-dir": "A13d.3", "rekor-url": "A13d.3"}
 SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
 
 # Config-file layer (the viper config file, pkg/flag/*): values from
@@ -296,6 +309,11 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
                    help="private registry username (TRIVY_TPU_USERNAME)")
     p.add_argument("--password", default=_env_default("password", ""),
                    help="private registry password (prefer the env var)")
+    p.add_argument("--compliance", default=_env_default("compliance", ""),
+                   help="compliance spec: builtin name or @/path/to/spec.yaml")
+    p.add_argument("--report", choices=["summary", "all"],
+                   default=_env_default("report", "summary"),
+                   help="compliance report granularity")
     for flag in NOT_PORTED_FLAGS:
         p.add_argument(f"--{flag}", default=_env_default(flag, ""))
 
@@ -340,6 +358,8 @@ def _options_from_args(args: argparse.Namespace):
         trace_out=args.trace_out,
         explain=args.explain,
         config_check=list(args.config_check),
+        compliance=args.compliance,
+        compliance_report=args.report,
         device=args.device,
         template=args.template,
         sbom_sources=list(args.sbom_sources),
@@ -464,6 +484,176 @@ def _watch_parser(sub) -> None:
     p.add_argument("--debug", action="store_true", default=_bool_default("debug"))
 
 
+def _aws_parser(sub) -> None:
+    """`aws`: the reference's flags (trivy_tpu/cli.py); host only."""
+    p = sub.add_parser("aws", help="scan an AWS account")
+    p.add_argument("--service", action="append", default=[],
+                   help="services to scan (s3, ec2; repeatable; default s3)")
+    p.add_argument("--region", default=_env_default("region", ""))
+    p.add_argument("--endpoint", default=_env_default("endpoint", ""),
+                   help="custom AWS endpoint (localstack etc.)")
+    p.add_argument("-f", "--format", default=_env_default("format", "table"))
+    p.add_argument("-o", "--output", default="")
+    p.add_argument("--exit-code", type=int, default=_env_num("exit-code", 0, int))
+
+
+def _k8s_parser(sub) -> None:
+    """`k8s`: the reference's flags (trivy_tpu/cli.py), plus `--device` for
+    the image scans' engines."""
+    p = sub.add_parser("k8s", help="scan a kubernetes cluster")
+    p.add_argument("k8s_target", nargs="?", default="cluster",
+                   help="'cluster' or a namespace name")
+    p.add_argument("--kubeconfig", default=_env_default("kubeconfig", ""))
+    p.add_argument("--context", default="")
+    p.add_argument("--scanners", default=_env_default("scanners", "misconfig"),
+                   help="comma-separated: misconfig,vuln,secret,rbac")
+    p.add_argument("--include-kinds", default=_env_default("include-kinds", ""),
+                   help="comma-separated kind names to enumerate (Pod, Deployment, "
+                   "Role, ClusterRoleBinding, ...); default: workloads, plus "
+                   "RBAC kinds when the rbac scanner is enabled")
+    p.add_argument("-f", "--format", default=_env_default("format", "table"))
+    p.add_argument("-o", "--output", default="")
+    p.add_argument("--report", choices=["summary", "all"], default="summary")
+    p.add_argument("--insecure", action="store_true", default=_bool_default("insecure"))
+    p.add_argument("--db-dir", default=_env_default("db-dir", ""))
+    p.add_argument("--exit-code", type=int, default=_env_num("exit-code", 0, int))
+    p.add_argument("--device", default=_env_default("device", DEFAULT_DEVICE),
+                   help="where the image scans' engines run: cuda (default) or cpu")
+
+
+def _aws_command(args) -> int:
+    import json
+
+    from trivy_tpu_torch.cloud import AwsError, AwsScanner
+    from trivy_tpu_torch.iac.engine import configure_shared_scanner
+
+    # the builtin checks alone, whatever an earlier scan in this process set
+    configure_shared_scanner([], trace=False)
+    try:
+        scanner = AwsScanner(
+            services=args.service or ["s3"],
+            endpoint=args.endpoint,
+            region=args.region,
+        )
+        misconfigs = scanner.scan()
+    except AwsError as e:
+        print(f"trivy-tpu: {e}", file=sys.stderr)
+        return 2
+    failures = [f for mc in misconfigs for f in mc.failures]
+    for err in scanner.errors:
+        print(f"trivy-tpu: aws: {err}", file=sys.stderr)
+    out = sys.stdout
+    close = False
+    if args.output:
+        try:
+            out = open(args.output, "w", encoding="utf-8")
+        except OSError as e:
+            print(f"trivy-tpu: cannot write {args.output}: {e}", file=sys.stderr)
+            return 2
+        close = True
+    try:
+        if args.format == "json":
+            json.dump(
+                {
+                    "ArtifactType": "aws_account",
+                    "Results": [mc.to_json() for mc in misconfigs],
+                },
+                out, indent=2,
+            )
+            out.write("\n")
+        else:
+            out.write("\nAWS account scan\n")
+            for f in failures:
+                out.write(f"{f.check_id:14} {f.severity:9} {f.message}\n")
+            if not failures:
+                out.write("no failed checks\n")
+    finally:
+        if close:
+            out.close()
+    if scanner.errors:
+        # Degraded enumeration must not read as a clean account.
+        return args.exit_code or 2
+    if args.exit_code and failures:
+        return args.exit_code
+    return 0
+
+
+def _k8s_command(args) -> int:
+    import json
+
+    from trivy_tpu_torch.iac.engine import configure_shared_scanner
+    from trivy_tpu_torch.k8s import (
+        K8sScanner,
+        KubeClient,
+        KubeConfigError,
+        load_kubeconfig,
+        write_k8s_report,
+    )
+    from trivy_tpu_torch.obs import trace as obs_trace
+
+    # the builtin checks alone, whatever an earlier scan in this process set
+    configure_shared_scanner([], trace=False)
+    try:
+        auth = load_kubeconfig(args.kubeconfig, args.context)
+        client = KubeClient(auth)
+        if args.format == "cyclonedx":
+            # KBOM mode (scanner.go:63-70): emit the cluster bill of
+            # materials instead of scan findings.
+            from trivy_tpu_torch.k8s.kbom import build_kbom
+
+            ns = "" if args.k8s_target == "cluster" else args.k8s_target
+            doc = build_kbom(client, cluster_name=auth.server, namespace=ns)
+            if args.output:
+                with open(args.output, "w", encoding="utf-8") as f:
+                    json.dump(doc, f, indent=2)
+                    f.write("\n")
+            else:
+                json.dump(doc, sys.stdout, indent=2)
+                print()
+            return 0
+        from trivy_tpu_torch.k8s.client import select_kinds
+
+        scanners = [s for s in args.scanners.split(",") if s]
+        unknown = set(scanners) - {"misconfig", "vuln", "secret", "rbac"}
+        if unknown:
+            # A typo'd scanner must not read as a clean cluster.
+            print(
+                f"trivy-tpu: unknown k8s scanners {sorted(unknown)} "
+                "(expected misconfig,vuln,secret,rbac)",
+                file=sys.stderr,
+            )
+            return 2
+        kinds = select_kinds(
+            [k for k in args.include_kinds.split(",") if k],
+            rbac="rbac" in scanners,
+            workloads=bool({"misconfig", "vuln", "secret"} & set(scanners)),
+        )
+        namespace = "" if args.k8s_target == "cluster" else args.k8s_target
+        with obs_trace.span("k8s.list"):
+            resources = client.list_workloads(namespace=namespace, kinds=kinds)
+    except KubeConfigError as e:
+        print(f"trivy-tpu: {e}", file=sys.stderr)
+        return 2
+    scanner = K8sScanner(
+        scanners=scanners,
+        insecure_registry=args.insecure,
+        db_dir=args.db_dir,
+        device=args.device,
+    )
+    report = scanner.scan(resources, cluster_name=auth.server)
+    full = args.report == "all"
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as f:
+            write_k8s_report(report, args.format, full, out=f)
+    else:
+        write_k8s_report(report, args.format, full)
+    if args.exit_code and any(r.counts() or r.error for r in report.resources):
+        # Findings AND per-resource scan errors both fail the run: an
+        # unreachable registry must not turn CI green.
+        return args.exit_code
+    return 0
+
+
 def _run_server(args) -> int:
     from trivy_tpu_torch.registry.store import resolve_rules_cache_dir
     from trivy_tpu_torch.rpc.server import serve
@@ -535,7 +725,7 @@ def build_parser() -> argparse.ArgumentParser:
         ("image", [], TARGET_IMAGE, "vuln,secret",
          "scan a container image: an archive, an OCI layout or a reference"),
         ("sbom", [], TARGET_SBOM, "vuln", "scan an SBOM (CycloneDX/SPDX JSON)"),
-        ("vm", [], TARGET_VM, "vuln,secret", "scan a VM disk image (ROADMAP A13d.2)"),
+        ("vm", [], TARGET_VM, "vuln,secret", "scan a VM disk image"),
         ("config", [], TARGET_FILESYSTEM, "misconfig",
          "scan config files for misconfigurations"),
     ):
@@ -551,6 +741,8 @@ def build_parser() -> argparse.ArgumentParser:
         p.set_defaults(kind=kind)
     _server_parser(sub)
     _watch_parser(sub)
+    _aws_parser(sub)
+    _k8s_parser(sub)
     rules = sub.add_parser("rules", help="manage the compiled-ruleset registry")
     rules_sub = rules.add_subparsers(dest="rules_command")
     for name, text in (("compile", "compile a secret-config into the cache"),
@@ -615,6 +807,10 @@ def main(argv: list[str] | None = None) -> int:
         from trivy_tpu_torch.commands.watch import run_watch
 
         return run_watch(args)
+    if args.command == "k8s":
+        return _k8s_command(args)
+    if args.command == "aws":
+        return _aws_command(args)
     return _run_scan(parser, args)
 
 
@@ -627,6 +823,7 @@ def _run_scan(parser, args) -> int:
     )
     from trivy_tpu_torch.cache.redis import RedisError
     from trivy_tpu_torch.cache.s3 import S3Error
+    from trivy_tpu_torch.compliance.spec import ComplianceError
     from trivy_tpu_torch.db.client import DBError
     from trivy_tpu_torch.deadline import ScanTimeoutError
     from trivy_tpu_torch.iac.rego import RegoError
@@ -638,6 +835,12 @@ def _run_scan(parser, args) -> int:
         parser.error("the following arguments are required: target (or --input)")
     try:
         options = _options_from_args(args)
+        if options.compliance_report not in ("summary", "all"):
+            # argparse checks choices only for values given on the command
+            # line, not for those from the environment or the config file
+            raise ValueError(
+                f"--report must be summary or all, got {options.compliance_report!r}"
+            )
     except ValueError as e:  # e.g. a malformed --timeout duration
         print(f"trivy-tpu: {e}", file=sys.stderr)
         return 2
@@ -649,12 +852,14 @@ def _run_scan(parser, args) -> int:
                 raise NotPortedError(f"--{flag} is not ported yet (ROADMAP {item})")
         return run(options, args.kind)
     except (CacheConfigError, OptionsError, NotPortedError, ScanTimeoutError,
-            DBError, RegistryError, RedisError, S3Error, RegoError) as e:
-        # a cache spec, a malformed --file-patterns, a target, flag or
-        # source that waits for a ROADMAP item, a timeout, a DB that
+            DBError, RegistryError, RedisError, S3Error, RegoError,
+            ComplianceError) as e:
+        # a cache spec, a malformed --file-patterns, a flag or source
+        # that waits for a ROADMAP item, a timeout, a DB that
         # --skip-db-update refuses, an image or DB no source could serve,
         # a remote cache tier that fails, an ignore policy that does not
-        # parse or has no `ignore` rule (cli.py:1224-1240);
+        # parse or has no `ignore` rule, a compliance spec that does not
+        # load (cli.py:1224-1240);
         # anything else (an engine that fails) propagates
         print(f"trivy-tpu: {e}", file=sys.stderr)
         return 2

@@ -1,6 +1,6 @@
 """Artifacts (a copy of `trivy_tpu/artifact/`): the local filesystem here,
-the git repository, the container image and the SBOM in their modules;
-vm waits for ROADMAP A13d.2."""
+the git repository, the container image, the SBOM and the VM disk in their
+modules."""
 
 from trivy_tpu_torch.artifact.local import LocalArtifact
 

@@ -12,9 +12,12 @@ scan (CPU ops of every thread and, on a card, CUDA kernels), exported as a
 Chrome trace into the directory with the host spans beside it.  The port
 adds host spans (`artifact.scan`, `filter`, `write`, and the analyzer's and
 artifact's) for the stage split of a run.  `Options` keeps the knobs the
-port honours; a target, scanner or source that waits for another ROADMAP
-item raises `NotPortedError` before the scan starts (`_check_ported`):
-the `vm` target (A13d.2) and `--sbom-sources rekor` (A13d.3).  With
+port honours; an SBOM source that waits for another ROADMAP item raises
+`NotPortedError` before the scan starts (`_check_ported`): `--sbom-sources
+rekor` (A13d.3).  The `vm` target walks every ext and XFS
+filesystem of a raw, LVM2, VMDK or EBS/AMI disk (`artifact/vm.py`).
+`--compliance` loads its spec before the scan and writes the spec's
+compliance report in place of the plain one (`--report summary|all`).  With
 `misconfig` among the scanners the config analyzers run the process-global
 rego scanner (`iac/engine.py`), which every run configures anew with its
 `--config-check` directories, the `--checks-bundle-repository` bundle
@@ -54,9 +57,8 @@ TARGET_REPOSITORY = "repo"
 TARGET_SBOM = "sbom"
 TARGET_VM = "vm"
 
-# Targets and SBOM sources of the reference the port lacks, and the ROADMAP item
-# each waits for.
-NOT_PORTED_TARGETS = {TARGET_VM: "A13d.2"}
+# SBOM sources of the reference the port lacks, and the ROADMAP item each
+# waits for.
 NOT_PORTED_SBOM_SOURCES = {"rekor": "A13d.3"}
 
 
@@ -69,7 +71,7 @@ class OptionsError(ValueError):
 
 
 class NotPortedError(ValueError):
-    """A target, scanner, flag or format the port does not have yet."""
+    """A flag or SBOM source the port does not have yet."""
 
 
 @dataclass
@@ -129,6 +131,8 @@ class Options:
     trace_out: str = ""  # --trace-out (host span Chrome-trace JSON path)
     explain: bool = False  # --explain (server-side per-phase batch timings)
     config_check: list[str] = field(default_factory=list)  # --config-check dirs
+    compliance: str = ""  # --compliance spec name or @path
+    compliance_report: str = "summary"  # --report summary|all
     device: str = DEFAULT_DEVICE  # where the analyzers' engines run
     # repo: what a remote URL's clone checks out
     branch: str = ""
@@ -137,12 +141,8 @@ class Options:
 
 
 def _check_ported(options: Options, target_kind: str) -> None:
-    """Raise NotPortedError naming the ROADMAP item for the first target or
-    SBOM source the port lacks; OptionsError for an unknown format."""
-    if target_kind in NOT_PORTED_TARGETS:
-        raise NotPortedError(
-            f"{target_kind}: not ported yet (ROADMAP {NOT_PORTED_TARGETS[target_kind]})"
-        )
+    """Raise NotPortedError naming the ROADMAP item for the first SBOM
+    source the port lacks; OptionsError for an unknown format."""
     for source in options.sbom_sources:
         if source in NOT_PORTED_SBOM_SOURCES:
             raise NotPortedError(
@@ -299,6 +299,14 @@ def _build_scanner(options: Options, target_kind: str, cache: ArtifactCache) -> 
         from trivy_tpu_torch.artifact.sbom import SbomArtifact
 
         artifact = SbomArtifact(options.target, cache)
+    elif target_kind == TARGET_VM:
+        from trivy_tpu_torch.artifact.vm import VMArtifact
+
+        artifact = VMArtifact(
+            options.target,
+            cache,
+            analyzer_options=_analyzer_options(options),
+        )
     elif target_kind == TARGET_REPOSITORY:
         from trivy_tpu_torch.artifact.repo import RepositoryArtifact
 
@@ -513,6 +521,9 @@ def _run_inner(options: Options, target_kind: str) -> int:
             file=sys.stderr,
         )
         return 2
+    if options.compliance:
+        # Validate the spec before the (possibly long) scan starts.
+        _compliance_spec(options)
     cache = None
     try:
         cache = init_cache(options)
@@ -536,6 +547,14 @@ def _run_inner(options: Options, target_kind: str) -> int:
                 ),
             )
         _dl.check()  # a timed-out worker must not write the report
+        if options.compliance:
+            from trivy_tpu_torch.compliance import build_compliance_report
+
+            creport = build_compliance_report(report, _compliance_spec(options))
+            with obs_trace.span("write"):
+                _write_compliance_out(creport, options)
+            failed = any(c.status == "FAIL" for c in creport.controls)
+            return options.exit_code if failed and options.exit_code else 0
         with obs_trace.span("write"):
             _write(report, options)
         return _exit_code(report, options)
@@ -564,3 +583,27 @@ def _exit_code(report: Report, options: Options) -> int:
         if not result.is_empty():
             return options.exit_code
     return 0
+
+
+_SPEC_CACHE: dict[str, object] = {}
+
+
+def _compliance_spec(options: Options):
+    from trivy_tpu_torch.compliance import load_spec
+
+    key = options.compliance
+    if key not in _SPEC_CACHE:
+        _SPEC_CACHE[key] = load_spec(key)
+    return _SPEC_CACHE[key]
+
+
+def _write_compliance_out(creport, options: Options) -> None:
+    from trivy_tpu_torch.compliance import write_compliance
+
+    full = options.compliance_report == "all"
+    fmt = "json" if options.format == "json" else "table"
+    if options.output:
+        with open(options.output, "w", encoding="utf-8") as f:
+            write_compliance(creport, fmt, full, out=f)
+    else:
+        write_compliance(creport, fmt, full, out=sys.stdout)
