@@ -349,6 +349,22 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             over 18 services of a seeded in-process account, every planted
             failure found (`cluster_phase`).  Each run of both phases
             prints its seconds, files/s, MB/s and stage split.
+22. extend  (after `cluster`) the rest of the CLI: `fs --module-dir` over
+            4,000 hit-dense files and `vuln`'s deps/ with a module that
+            attaches custom resources and one whose post_scan deletes one
+            rule's secrets and raises another's severity (the report equal
+            to the plain one transformed by the smoke itself, the secrets
+            to the oracle, fused K5 and K6 launched); `image` and `rootfs
+            --sbom-sources rekor` over attested executables against two
+            in-process fake Rekor logs (the attested packages and planted
+            vulnerabilities found, one lookup a digest, none on a warm
+            rerun, the layer keys distinct by log); `convert` to table,
+            sarif and cyclonedx equal to writing the report directly;
+            `version`; a shell plugin installed, run and reached by the
+            fall-through; `perf report|diff|gate` over a ledger in a
+            temporary directory (`extend_phase`).  The smoke runs under a
+            temporary HOME, so no module directory, plugin or cache of the
+            machine reaches a scan.
 
 A `stall:` line counts the hybrid and `auto` scans run with the STALL_S dump
 armed and those that passed it, phase `server`'s among them.
@@ -370,9 +386,10 @@ the result line `{"ok": true, "device": {...}}`.  Each kernel's entry also
 carries `server_launches`, its launches in phase `server`'s runs,
 `remote_launches` and `misconfig_launches`, its launches in phase
 `remote`'s and phase `misconfig`'s runs, and
-`runner_launches`, `vuln_launches`, `image_launches`, `vm_launches` and
-`cluster_launches`, its launches in phase `runner`'s, phase `vuln`'s, phase
-`image`'s, phase `vm`'s and phase `cluster`'s in-process commands.  Nothing
+`runner_launches`, `vuln_launches`, `image_launches`, `vm_launches`,
+`cluster_launches` and `extend_launches`, its launches in phase `runner`'s,
+phase `vuln`'s, phase `image`'s, phase `vm`'s, phase `cluster`'s and phase
+`extend`'s in-process commands.  Nothing
 here imports JAX or the JAX package.
 """
 
@@ -5415,6 +5432,387 @@ def cluster_phase(np, torch, gs, bench_corpus, vuln: dict, work: str) -> dict:
     return {label: runs[label]["launches"] for label in runs}
 
 
+EXTEND_FILES = 4_000  # hit-dense files of phase extend's module scans, beside deps/
+EXTEND_ATTESTED = 8  # attested executables in phase extend's image and rootfs
+EXTEND_APP_FILES = 500  # hit-dense files beside them
+EXTEND_DROP_RULE = "aws-access-key-id"  # the post-scan module deletes this rule's secrets
+EXTEND_RAISE_RULE = "slack-web-hook"  # and raises this rule's secrets to CRITICAL
+EXTEND_CUSTOM_MODULE = """NAME = "smoke-requirements"
+VERSION = 1
+
+
+def required(file_path, size):
+    return file_path.endswith("requirements.txt")
+
+
+def analyze(file_path, content):
+    return {"custom": {"path": file_path,
+                       "requirements": sum(1 for ln in content.splitlines() if ln.strip())}}
+"""
+EXTEND_POST_MODULE = f"""NAME = "smoke-post"
+VERSION = 1
+
+
+def post_scan(results, custom_resources):
+    import json, os
+    with open(os.environ["SMOKE_CUSTOM_OUT"], "w") as f:
+        json.dump(custom_resources, f)
+    for r in results:
+        if r.get("Secrets"):
+            r["Secrets"] = [s for s in r["Secrets"] if s["RuleID"] != {EXTEND_DROP_RULE!r}]
+            for s in r["Secrets"]:
+                if s["RuleID"] == {EXTEND_RAISE_RULE!r}:
+                    s["Severity"] = "CRITICAL"
+    return results
+"""
+EXTEND_PLUGIN = '#!/bin/sh\necho "smoke-plugin $*" > "$SMOKE_PLUGIN_OUT"\n'
+
+
+def extend_post_scan(doc: dict) -> dict:
+    """The post-scan module's change, applied to a plain report by the
+    smoke itself: `EXTEND_DROP_RULE`'s secrets deleted (a secret result left
+    with none stays, with no `Secrets` key, as the writer omits an empty
+    list), and `EXTEND_RAISE_RULE`'s raised to CRITICAL."""
+    import copy
+
+    doc = copy.deepcopy(doc)
+    for r in doc.get("Results") or []:
+        if r.get("Secrets"):
+            r["Secrets"] = [s for s in r["Secrets"] if s["RuleID"] != EXTEND_DROP_RULE]
+            for s in r["Secrets"]:
+                if s["RuleID"] == EXTEND_RAISE_RULE:
+                    s["Severity"] = "CRITICAL"
+            if not r["Secrets"]:
+                del r["Secrets"]
+    return doc
+
+
+def extend_cli(argv: list) -> tuple:
+    """One in-process command of phase `extend` outside the scans: (rc,
+    stdout)."""
+    import contextlib
+    import io
+
+    from trivy_tpu_torch import __main__ as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def extend_phase(np, torch, gs, hit_items, vuln: dict, work: str) -> dict:
+    """The rest of the CLI on the card, counts zeroed just before each scan
+    and read just after.  (1) `fs --module-dir M --scanners vuln,secret
+    --db-dir D -f json` over EXTEND_FILES hit-dense files plus phase
+    `vuln`'s deps/ manifests, M holding a module whose analyzer attaches
+    each requirements.txt's line count as a custom resource and one whose
+    post_scan deletes EXTEND_DROP_RULE's secrets and raises
+    EXTEND_RAISE_RULE's to CRITICAL: its report equals the same scan with
+    no module dir transformed by `extend_post_scan`, the custom resources
+    equal the manifests' counts, the plain run's secrets equal the oracle
+    and both runs launch the fused K5 (K6 where the gate sends lanes to
+    it).  (2) `image --sbom-sources rekor --rekor-url A` over a docker
+    archive whose layer holds EXTEND_ATTESTED executables (one copied
+    twice) beside EXTEND_APP_FILES hit-dense files on a Debian 12 base,
+    against two in-process fake Rekor logs A and B
+    (`attestation_fixtures.py`): every executable's Maven and Debian
+    packages and their planted vulnerabilities found, each digest looked up
+    once, the secrets equal to the oracle with the fused K5 launched; the
+    same command again on the warm fs cache looks nothing up and prints the
+    same bytes; the layer keys differ from a run without rekor and between
+    A and B; `rootfs` of the same files the same way.  (3) `convert` of (1)'s
+    plain JSON to table, sarif and cyclonedx, each equal to writing the
+    run's report directly; `version`; `plugin install`, `plugin run` and
+    the fall-through of a two-line shell plugin; `perf report|diff|gate`
+    over a ledger of this phase's runs in a temporary directory.  Returns
+    the scans' launches."""
+    import io
+    import shutil
+
+    from trivy_tpu_torch import attestation_fixtures as af
+    from trivy_tpu_torch import module as module_mod
+    from trivy_tpu_torch.commands import run as run_mod
+    from trivy_tpu_torch.db.vulndb import build_db
+    from trivy_tpu_torch.engine import hybrid
+    from trivy_tpu_torch.image.fixtures import layer_tar, sha256_digest, write_docker_archive
+    from trivy_tpu_torch.obs import perfledger
+    from trivy_tpu_torch.report.writer import write_report
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    home = os.environ.get("HOME", "")
+    if os.path.isdir(module_mod.DEFAULT_MODULE_DIR):
+        fail("extend", f"{module_mod.DEFAULT_MODULE_DIR} exists: scans without --module-dir "
+             "would load its modules")
+    fx = vuln["fx"]
+    base = os.path.join(work, "extend")
+    tree, mods, rules = (os.path.join(base, d) for d in ("tree", "modules", "rules"))
+    os.makedirs(mods)
+    write_tree(tree, list(hit_items) + list(fx["manifests"]))
+    for name, src in (("requirements.py", EXTEND_CUSTOM_MODULE), ("post.py", EXTEND_POST_MODULE)):
+        with open(os.path.join(mods, name), "w") as f:
+            f.write(src)
+    custom_out = os.path.join(base, "custom.json")
+    os.environ["SMOKE_CUSTOM_OUT"] = custom_out
+    n_files = len(hit_items) + len(fx["manifests"])
+    nbytes = sum(len(c) for _, c in hit_items) + sum(len(c) for _, c in fx["manifests"])
+
+    calls: dict = {"engines": [], "secret": []}
+    real_make = recording_engines(hybrid, calls)
+    captured = []
+    real_write = run_mod._write
+    run_mod._write = lambda report, options: (captured.append(report),
+                                              real_write(report, options))[1]
+    scan = ["fs", "--rules-cache-dir", rules, "--scanners", "vuln,secret", "--db-dir", fx["db"],
+            "-f", "json"]
+    runs: dict = {}
+    try:
+        runs["plain"] = target_run(torch, gs, "extend", "fs --scanners vuln,secret --db-dir D "
+                                   "(no module dir)", [*scan, tree], calls, n_files, nbytes)
+        report_obj = captured[-1]
+        runs["modules"] = target_run(torch, gs, "extend", "fs --module-dir M --scanners "
+                                     "vuln,secret --db-dir D", [*scan, "--module-dir", mods, tree],
+                                     calls, n_files, nbytes)
+    finally:
+        run_mod._write = real_write
+        hybrid.make_secret_engine = real_make
+    for label in ("plain", "modules"):
+        if runs[label]["rc"]:
+            fail("extend", f"{label} run exit code {runs[label]['rc']}, not 0")
+        fused_line("extend", label, runs[label])
+        if not (runs[label]["launches"].get("nfa_fused")
+                and runs[label]["launches"].get("nfa_padded")):
+            fail("extend", f"{label} run launched no fused K5 or no K6: "
+                 f"{runs[label]['launches']}")
+    plain = json.loads(runs["plain"]["out"])
+    got = json.loads(runs["modules"]["out"])
+    want = extend_post_scan(plain)
+    if got != want:
+        diff = [(g.get("Target"), w.get("Target")) for g, w in zip(got["Results"],
+                                                                   want["Results"]) if g != w]
+        fail("extend", f"the module run's report differs from the plain report with the "
+             f"post-scan change applied: {len(got['Results'])} results against "
+             f"{len(want['Results'])}, first differing {diff[:3]}, keys "
+             f"{sorted(set(got) ^ set(want))}")
+    dropped = sum(s["RuleID"] == EXTEND_DROP_RULE for r in plain["Results"]
+                  for s in r.get("Secrets", []))
+    raised = sum(s["RuleID"] == EXTEND_RAISE_RULE for r in got["Results"]
+                 for s in r.get("Secrets", []))
+    if not dropped or not raised:
+        fail("extend", f"the post-scan change touched nothing: {dropped} secrets of "
+             f"{EXTEND_DROP_RULE}, {raised} of {EXTEND_RAISE_RULE}")
+    with open(custom_out) as f:
+        custom = sorted(json.load(f), key=lambda c: c["custom"]["path"])
+    want_custom = sorted(({"custom": {"path": p, "requirements": sum(
+        1 for ln in c.splitlines() if ln.strip())}} for p, c in fx["manifests"]
+        if p.endswith("requirements.txt")), key=lambda c: c["custom"]["path"])
+    if custom != want_custom or not custom:
+        fail("extend", f"custom resources {len(custom)} differ from the manifests' "
+             f"{len(want_custom)}")
+    secret_items = [it for batch in runs["plain"]["secret"] for it in batch]
+    n_secret, n_flagged, n_sampled = secrets_check(np, "extend", plain, secret_items,
+                                                   n_sampled=500)
+    print(f"extend: module run's report equals the plain report with the post-scan change "
+          f"applied ({dropped} {EXTEND_DROP_RULE} secrets deleted, {raised} "
+          f"{EXTEND_RAISE_RULE} raised); custom resources={len(custom)} equal the manifests'; "
+          f"secret files={n_secret} equal to the oracle on {n_flagged} flagged + {n_sampled} "
+          f"sampled of {len(secret_items)} claimed", flush=True)
+
+    # -- (2) rekor: an image and a rootfs of attested executables ------------------------
+    t0 = time.perf_counter()
+    att = af.attested_set(EXTEND_ATTESTED)
+    copy_path = "opt/copies/tool00"
+    app = dict(att["files"])
+    app[copy_path] = att["files"]["usr/local/bin/tool00"]
+    app.update((f"app/{p}", c) for p, c in hit_items[:EXTEND_APP_FILES])
+    layers = [layer_tar(af.DEBIAN_ROOT), af.executable_layer(app)]
+    config = {"architecture": "amd64", "os": "linux", "created": "2026-01-01T00:00:00Z",
+              "config": {"Cmd": ["/usr/local/bin/tool00"]},
+              "rootfs": {"type": "layers", "diff_ids": [sha256_digest(x) for x in layers]},
+              "history": [{"created_by": "ADD base"}, {"created_by": "COPY tools app"}]}
+    archive = os.path.join(base, "attested.tar")
+    write_docker_archive(archive, layers, config, tags=("smoke/attested:1",))
+    att_db = os.path.join(base, "att-db")
+    build_db(att_db, att["db"])
+    root = os.path.join(base, "rootfs")
+    write_tree(root, list(af.DEBIAN_ROOT.items()) + list(app.items()))
+    for p, c in app.items():
+        if c.startswith(af.ELF_MAGIC):
+            os.chmod(os.path.join(root, p), 0o755)
+    logs = {"A": af.serve_rekor(att["attestations"]), "B": af.serve_rekor(att["attestations"])}
+    digests = sorted(att["attestations"])
+    a_files = len(app) + len(af.DEBIAN_ROOT)
+    a_bytes = sum(len(c) for c in app.values()) + sum(len(c) for c in af.DEBIAN_ROOT.values())
+    print(f"extend: attested image layers={len(layers)} files={a_files} "
+          f"executables={EXTEND_ATTESTED}+1 copy MB={a_bytes / 1e6:.3f} "
+          f"build_seconds={time.perf_counter() - t0:.2f}", flush=True)
+    cache = os.path.join(base, "image-cache")
+    image = ["image", "--rules-cache-dir", rules, "--scanners", "vuln,secret", "--db-dir",
+             att_db, "--cache-backend", "fs", "--cache-dir", cache, "-f", "json"]
+
+    def blob_keys() -> set:
+        return set(os.listdir(os.path.join(cache, "fanal", "blob")))
+
+    def rekor(log: str) -> list:
+        return ["--sbom-sources", "rekor", "--rekor-url", logs[log].url]
+
+    keys: dict = {}
+    real_make = recording_engines(hybrid, calls)
+    try:
+        runs["image_plain"] = target_run(torch, gs, "extend", "image --input attested.tar "
+                                         "(no rekor)", [*image, "--input", archive], calls,
+                                         a_files, a_bytes)
+        keys["none"] = blob_keys()
+        runs["image_A"] = target_run(torch, gs, "extend", "image --sbom-sources rekor "
+                                     "--rekor-url A (cold)", [*image, *rekor("A"), "--input",
+                                                              archive], calls, a_files, a_bytes)
+        keys["A"] = blob_keys() - keys["none"]
+        cold_lookups = dict(logs["A"].lookups)
+        runs["image_A_warm"] = target_run(torch, gs, "extend", "image --sbom-sources rekor "
+                                          "--rekor-url A (warm fs cache)",
+                                          [*image, *rekor("A"), "--input", archive], calls,
+                                          a_files, a_bytes)
+        warm_lookups = dict(logs["A"].lookups)
+        runs["image_B"] = target_run(torch, gs, "extend", "image --sbom-sources rekor "
+                                     "--rekor-url B", [*image, *rekor("B"), "--input", archive],
+                                     calls, a_files, a_bytes)
+        keys["B"] = blob_keys() - keys["none"] - keys["A"]
+        logs["A"].lookups.clear()
+        runs["rootfs_A"] = target_run(torch, gs, "extend", "rootfs --scanners vuln,secret "
+                                      "--sbom-sources rekor --rekor-url A",
+                                      ["rootfs", "--rules-cache-dir", rules, "--scanners",
+                                       "vuln,secret", "--db-dir", att_db, "-f", "json",
+                                       *rekor("A"), root], calls, a_files, a_bytes)
+        rootfs_lookups = dict(logs["A"].lookups)
+    finally:
+        hybrid.make_secret_engine = real_make
+        for srv in logs.values():
+            srv.shutdown()
+            srv.server_close()
+    bad = {k: r["rc"] for k, r in runs.items() if r["rc"]}
+    if bad:
+        fail("extend", f"exit codes {bad}, not 0")
+    once = {d: 1 for d in digests}
+    if cold_lookups != once or warm_lookups != once or rootfs_lookups != once:
+        fail("extend", f"Rekor lookups a digest: cold {sorted(set(cold_lookups.values()))}, "
+             f"after the warm rerun {sorted(set(warm_lookups.values()))}, rootfs "
+             f"{sorted(set(rootfs_lookups.values()))}; want 1 each, {len(digests)} digests")
+    if dict(logs["B"].lookups) != once:
+        fail("extend", "log B was not asked for each digest once")
+    n_blobs = len(layers) + 1  # the layers' blobs and the image config's
+    if not len(keys["A"]) == len(keys["B"]) == len(keys["none"]) == n_blobs:
+        fail("extend", f"blob keys: {len(keys['none'])} without rekor, {len(keys['A'])} new "
+             f"under A, {len(keys['B'])} new under B; want {n_blobs} each")
+    w = runs["image_A_warm"]
+    if w["out"] != runs["image_A"]["out"] or w["launches"] or w["secret"]:
+        fail("extend", f"the warm rerun launched {w['launches']}, scanned {len(w['secret'])} "
+             "batches or changed the report")
+    lang = set(att["lang"]) | {(copy_path, n, v, i) for p, n, v, i in att["lang"]
+                               if p == "usr/local/bin/tool00"}
+    for label, target in (("image_A", f"{archive} (debian 12.5)"),
+                          ("image_B", f"{archive} (debian 12.5)"),
+                          ("rootfs_A", f"{root} (debian 12.5)")):
+        doc = json.loads(runs[label]["out"])
+        got_lang = {(t.lstrip("/"), n, i, v) for t, n, i, v in vuln_rows(doc, ("lang-pkgs",))}
+        got_os = vuln_rows(doc, ("os-pkgs",))
+        want_os = {(target, n, v, i) for n, v, i in att["os"]}
+        # the copy's OS packages are reported again (one PackageInfo an occurrence)
+        if got_lang != lang or {r for r in got_os} != want_os:
+            fail("extend", f"{label}: attested vulnerabilities differ: language "
+                 f"{len(got_lang ^ lang)} off, OS {len(got_os ^ want_os)} off")
+        fused_line("extend", label, runs[label])
+        if not runs[label]["launches"].get("nfa_fused"):
+            fail("extend", f"{label}: no fused K5 launched: {runs[label]['launches']}")
+        secret_items = [it for batch in runs[label]["secret"] for it in batch]
+        secrets_check(np, "extend", {"Results": [  # findings without the image's layer
+            {"Target": t, "Class": "secret", "Secrets": f}
+            for t, f in image_secret_rows(doc).items()]}, secret_items, n_sampled=200)
+    if json.loads(runs["image_B"]["out"]) != json.loads(runs["image_A"]["out"]):
+        fail("extend", "the image's report under log B differs from log A's")
+    print(f"extend: rekor runs found {len(lang)} attested language and {len(att['os'])} OS "
+          f"vulnerabilities in the image and the rootfs; each of {len(digests)} digests looked "
+          f"up once a scan (cold), 0 times on the warm rerun (no launch, same bytes); blob "
+          f"keys (layers and config) {len(keys['none'])} without rekor, {n_blobs} new under "
+          f"A, {n_blobs} new under B; secrets equal to the oracle", flush=True)
+
+    # -- (3) convert, version, plugin, perf ----------------------------------------------
+    t0 = time.perf_counter()
+    saved = os.path.join(base, "plain.json")
+    with open(saved, "w") as f:
+        f.write(runs["plain"]["out"])
+    for fmt in ("table", "sarif", "cyclonedx"):
+        rc, out = extend_cli(["convert", saved, "-f", fmt])
+        direct = io.StringIO()
+        write_report(report_obj, fmt, direct)
+        if rc or out != direct.getvalue() or not out:
+            fail("extend", f"convert -f {fmt} (rc {rc}) differs from writing the report "
+                 "directly")
+    rc, out = extend_cli(["version"])
+    if rc or not out.startswith("trivy-tpu version "):
+        fail("extend", f"version: rc {rc}, {out!r}")
+    plugin_src = os.path.join(base, "plugin-src")
+    os.makedirs(plugin_src)
+    with open(os.path.join(plugin_src, "plugin.yaml"), "w") as f:
+        f.write('name: smoke-plugin\nversion: "0.0.1"\nusage: writes its arguments\n'
+                "platforms:\n  - bin: ./run.sh\n")
+    with open(os.path.join(plugin_src, "run.sh"), "w") as f:
+        f.write(EXTEND_PLUGIN)
+    os.chmod(os.path.join(plugin_src, "run.sh"), 0o755)
+    plugin_out = os.path.join(base, "plugin.out")
+    saved_env = {k: os.environ.get(k) for k in ("TRIVY_TPU_PLUGIN_DIR", "SMOKE_PLUGIN_OUT")}
+    os.environ.update(TRIVY_TPU_PLUGIN_DIR=os.path.join(base, "plugins"),
+                      SMOKE_PLUGIN_OUT=plugin_out)
+    try:
+        plugin_runs = []
+        for argv in (["plugin", "install", plugin_src], ["plugin", "run", "smoke-plugin", "a", "b"],
+                     ["smoke-plugin", "fall", "through"]):
+            rc, out = extend_cli(argv)
+            text = ""
+            if os.path.exists(plugin_out):
+                with open(plugin_out) as f:
+                    text = f.read()
+                os.unlink(plugin_out)
+            plugin_runs.append((rc, out.strip() or text.strip()))
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    want_plugin = [(0, "installed plugin smoke-plugin 0.0.1"), (0, "smoke-plugin a b"),
+                   (0, "smoke-plugin fall through")]
+    if plugin_runs != want_plugin:
+        fail("extend", f"plugin runs {plugin_runs}, want {want_plugin}")
+    ledger = os.path.join(base, "ledger.jsonl")
+    for label in ("plain", "modules"):
+        r = runs[label]
+        perfledger.append({"metric": "extend_fs_files_per_sec", "value": n_files / r["seconds"],
+                           "unit": "files/s", "detail": {"seconds": r["seconds"],
+                                                         "files": n_files}}, path=ledger)
+    good, bad_b = os.path.join(base, "good.json"), os.path.join(base, "bad.json")
+    value = n_files / runs["modules"]["seconds"]
+    for path, baseline in ((good, value), (bad_b, value * 10)):
+        with open(path, "w") as f:
+            json.dump({"schema": 1, "metrics": {"value": {"baseline": baseline,
+                                                          "tolerance": 0.05}}}, f)
+    perf = [extend_cli(argv) for argv in (
+        ["perf", "report", "--ledger", ledger], ["perf", "diff", "--ledger", ledger],
+        ["perf", "gate", "--ledger", ledger, "--baseline", good],
+        ["perf", "gate", "--ledger", ledger, "--baseline", bad_b])]
+    if ([rc for rc, _ in perf] != [0, 0, 0, 1] or perf[0][1].count("\n") != 3
+            or "detail.seconds" not in perf[1][1] or "perf gate: ok" not in perf[2][1]):
+        fail("extend", f"perf report|diff|gate exit codes {[rc for rc, _ in perf]}")
+    print(f"extend: convert -f table|sarif|cyclonedx equal to writing the report directly; "
+          f"version, plugin install|run|fall-through and perf report|diff|gate as expected "
+          f"(seconds={time.perf_counter() - t0:.2f})", flush=True)
+    os.environ.pop("SMOKE_CUSTOM_OUT", None)
+    shutil.rmtree(base, ignore_errors=True)
+    print(f"extend: phase seconds={time.perf_counter() - t_phase:.2f} HOME={home} card {card}",
+          flush=True)
+    return {label: runs[label]["launches"] for label in runs}
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--registry-start"] and len(argv) == 2:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5430,6 +5828,15 @@ def main(argv: list[str]) -> int:
         fail("setup", f"torch is missing: {exc}")
     if not torch.cuda.is_available():
         fail("setup", "torch.cuda.is_available() is False: this smoke needs a CUDA card")
+    import atexit
+    import shutil
+    import tempfile
+
+    # a HOME of its own: no ~/.trivy-tpu/modules, plugins or caches of the
+    # machine reach the scans (phase `extend` checks the module directory)
+    home = tempfile.mkdtemp(prefix="smoke-home-")
+    atexit.register(shutil.rmtree, home, True)
+    os.environ["HOME"] = home
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import numpy as np
@@ -5530,6 +5937,7 @@ def main(argv: list[str]) -> int:
     served = server_phase(np, torch, gs, bench_corpus, hybrid, corpus, serve, card)
     remote = remote_phase(np, torch, gs, hybrid["corpus"], card)
     misconfigured = misconfig_phase(np, torch, gs, hybrid["corpus"], card)
+    extend_items = hybrid["corpus"][:EXTEND_FILES]
     del corpus, main_corpus, hybrid
     t0 = time.perf_counter()
     items, planted = program_corpus(bench_corpus)
@@ -5537,9 +5945,6 @@ def main(argv: list[str]) -> int:
           f"license_files={len(planted)} setup_seconds={time.perf_counter() - t0:.2f}",
           flush=True)
     programs_phase(np, torch, gs, mk, items, planted)
-    import shutil
-    import tempfile
-
     # the runner-size phases run on the first RUNNER_FILES of the corpus
     items = items[:RUNNER_FILES]
     planted = {i: name for i, name in planted.items() if i < RUNNER_FILES}
@@ -5550,7 +5955,8 @@ def main(argv: list[str]) -> int:
         imaged = image_phase(np, torch, gs, items, planted, vuln_ctx, work)
         vmed = vm_phase(np, torch, gs, items, vuln_ctx, work)
         clustered = cluster_phase(np, torch, gs, bench_corpus, vuln_ctx, work)
-        del vuln_ctx
+        extended = extend_phase(np, torch, gs, extend_items, vuln_ctx, work)
+        del vuln_ctx, extend_items
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del items
@@ -5617,6 +6023,8 @@ def main(argv: list[str]) -> int:
             # launches on phase `vm`'s and phase `cluster`'s in-process commands
             "vm_launches": {run: n[kind] for run, n in vmed.items() if n.get(kind)},
             "cluster_launches": {run: n[kind] for run, n in clustered.items() if n.get(kind)},
+            # launches on phase `extend`'s in-process scans
+            "extend_launches": {run: n[kind] for run, n in extended.items() if n.get(kind)},
         }
         for kind in ("bitplane", "window", "rows", "lut", "mega", "mega_acc",
                      "mega_epilogue", "nfa_stream", "nfa_fused", "nfa_padded")

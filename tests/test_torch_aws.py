@@ -7,7 +7,9 @@ On the reference test's endpoint (`tests/test_aws.py` `_FakeAws`) and on
 kind, half planted failing): each of the 18 services' results of both
 packages, every planted failure found and no passing resource named by a
 planted check; the exit codes of a degraded enumeration and of an
-unsupported service; `-f json` and `-f table` byte-equal; and the
+unsupported service; `-f json` and `-f table` byte-equal, stderr too,
+with the log formatters' clock pinned (`torch_log_clock.py`: a log line
+carries the wall clock's second, which two runs may not share); and the
 process-global rego scanner reset (`aws` starts from the builtin checks).
 No kernel runs: the scan is host Python.
 
@@ -23,6 +25,7 @@ from http.server import ThreadingHTTPServer
 import pytest
 
 import test_aws as ref_aws
+from torch_log_clock import frozen_log_clock  # noqa: F401
 from trivy_tpu import cli as ref_cli
 from trivy_tpu.cloud import aws as ref_aws_mod
 from trivy_tpu_torch import __main__ as cli
@@ -136,7 +139,9 @@ def test_degraded_enumeration_exit_codes(account, monkeypatch):
     for extra, rc in (([], 2), (["--exit-code", "5"], 5)):
         (prc, pout, perr), (rrc, rout, rerr) = both(
             ["--service", "ec2", "--endpoint", account["endpoint"], "-f", "json", *extra])
-        assert prc == rrc == rc and pout == rout and perr == rerr
+        assert (prc, rrc) == (rc, rc), (prc, rrc, perr, rerr)
+        assert pout == rout
+        assert perr == rerr, f"port stderr:\n{perr}\nreference stderr:\n{rerr}"
         assert "DescribeVolumes" in perr and "AVD-AWS-0107" in pout
 
 

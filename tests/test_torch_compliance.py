@@ -33,6 +33,7 @@ from trivy_tpu_torch.compliance import build_compliance_report
 from trivy_tpu_torch.compliance import spec
 from trivy_tpu_torch.ftypes import Report, Result, ResultClass
 from trivy_tpu_torch.misconf.types import MisconfFinding
+from torch_log_clock import frozen_log_clock  # noqa: F401
 
 BUILTIN = sorted(f[:-5] for f in os.listdir(spec._BUILTIN_DIR) if f.endswith(".yaml"))
 CORP_SPEC = """spec:

@@ -360,6 +360,39 @@ verified = verified and "AVD-AWS-0092" in {m["ID"] for r in aws_doc["Results"]
                                            for m in r["Failures"]}
 verified = verified and k8s_doc["Resources"] and k8s_doc["RBACAssessment"]
 verified = verified and kbom_doc["bomFormat"] == "CycloneDX"
+from trivy_tpu_torch import attestation, attestation_fixtures, module, plugin
+from trivy_tpu_torch.commands import convert, perf
+from trivy_tpu_torch.obs import perfledger
+mod_dir = sys.argv[1] + "-modules"
+os.makedirs(mod_dir, exist_ok=True)
+with open(os.path.join(mod_dir, "m.py"), "w") as f:
+    f.write("NAME = 'm'\nVERSION = 1\ndef post_scan(results):\n    return results\n")
+os.environ["TRIVY_TPU_PLUGIN_DIR"] = sys.argv[1] + "-plugins"
+ledger = sys.argv[1] + "-ledger.jsonl"
+perfledger.append({"value": 1.0}, path=ledger)
+perfledger.append({"value": 2.0}, path=ledger)
+report_path = sys.argv[1] + "-report.json"
+with open(report_path, "w") as f:
+    json.dump(vm_doc, f)
+rekor = attestation_fixtures.serve_rekor({"0" * 64: attestation_fixtures.sbom_predicate(
+    ["pkg:maven/smoke.attested/lib0@1.0.0"])})
+detail = attestation.RekorClient(rekor.url).sbom_for_digest("0" * 64)
+outs = []
+for argv in (["version"], ["plugin", "list"], ["perf", "diff", "--ledger", ledger],
+             ["convert", report_path, "-f", "sarif"],
+             ["fs", "--format", "json", "--device", "cpu", "--rules-cache-dir", rules_dir,
+              "--scanners", "secret", "--module-dir", mod_dir, "--sbom-sources", "rekor",
+              "--rekor-url", rekor.url, sys.argv[1]]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        outs.append((cli.main(argv), out.getvalue()))
+rekor.shutdown()
+verified = verified and [rc for rc, _ in outs] == [0, 0, 0, 0, 0]
+verified = verified and "0.1.0" in outs[0][1] and "+100.00%" in outs[2][1]
+verified = verified and json.loads(outs[3][1])["runs"] and json.loads(outs[4][1])["Results"]
+verified = verified and len(module.ModuleManager(mod_dir).load()) == 1 and not plugin.list_plugins()
+verified = verified and detail.applications[0].packages[0].version == "1.0.0"
+verified = verified and callable(convert.run_convert) and callable(perf.run_perf)
 raised = []
 if not torch.cuda.is_available():
     for make in (GpuSecretEngine, hybrid.make_secret_engine):
@@ -426,7 +459,11 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     behind `vm` over a GPT disk holding an XFS partition, `config
     --compliance`, `aws` and `k8s` (scan and KBOM) against in-process
     endpoints, which find the disk's secret, fail the Dockerfile's CIS
-    control, the account's public bucket and the cluster's RBAC."""
+    control, the account's public bucket and the cluster's RBAC, nor the
+    rest of the CLI (`module`, `plugin`, `attestation` and its fixtures,
+    `commands.convert`, `commands.perf`, `obs.perfledger`) behind
+    `version`, `plugin list`, `perf diff`, `convert -f sarif` and `fs
+    --module-dir --sbom-sources rekor` against an in-process Rekor log."""
     _fixture_tree(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

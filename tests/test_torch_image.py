@@ -53,6 +53,7 @@ from trivy_tpu_torch.image.fixtures import (
     write_oci_layout,
 )
 from trivy_tpu_torch.license.classifier import FullTextClassifier
+from torch_log_clock import frozen_log_clock  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 5

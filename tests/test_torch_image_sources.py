@@ -264,10 +264,23 @@ def test_referrer_sbom_short_circuits_the_layer_walk(registry_addr, via_tag, tmp
     assert ref.artifact_type == "container_image" and calls == {"walk": 2, "engine": 1}
 
 
-def test_sbom_sources_rekor_exits_2_naming_its_item(registry_addr):
-    rc, out, err = _run(cli.main, ["image", "--device", "cpu", "--sbom-sources", "rekor",
-                                   "--insecure", f"{registry_addr}/test/app:1"])
-    assert rc == 2 and out == "" and "ROADMAP A13d" in err
+def test_sbom_sources_rekor_exits_2_naming_its_item(registry_addr, tmp_path):
+    """Ported since (ROADMAP A13d.3): `image --sbom-sources rekor` of a
+    registry image, against a fake Rekor log that attests nothing, gives
+    the reference CLI's report."""
+    from trivy_tpu_torch.attestation_fixtures import serve_rekor
+
+    srv = serve_rekor({})
+    try:
+        argv = ["--sbom-sources", "rekor", "--rekor-url", srv.url, "--insecure", "-f", "json",
+                "--cache-dir", str(tmp_path), f"{registry_addr}/test/app:1"]
+        prc, pout, perr = _run(cli.main, ["image", "--device", "cpu", *argv])
+        rrc, rout, rerr = _run(ref_cli.main, ["image", *argv])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert prc == rrc == 0, (perr[-2000:], rerr[-2000:])
+    assert pout == rout and json.loads(pout)["ArtifactType"] == "container_image"
 
 
 def test_image_ref_equals_the_reference_cli(seeded_registry, tmp_path):

@@ -39,6 +39,7 @@ from trivy_tpu_torch.iac.engine import configure_shared_scanner
 from trivy_tpu_torch.image import fixtures as imfx
 from trivy_tpu_torch.k8s import client, kbom
 from trivy_tpu_torch.k8s import fixtures as k8sfx
+from torch_log_clock import frozen_log_clock  # noqa: F401
 
 CUSTOM_CHECK = """# METADATA
 # title: Every workload

@@ -46,6 +46,7 @@ from trivy_tpu_torch.image.fixtures import (
     sha256_digest,
     write_docker_archive,
 )
+from torch_log_clock import frozen_log_clock  # noqa: F401
 
 UTC = dt.timezone.utc
 BUCKETS = {

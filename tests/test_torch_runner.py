@@ -19,9 +19,11 @@
 Every report is compared as a whole JSON document, as
 `tests/test_torch_engine.py::test_cli_matches_jax_cli` does.  Then what
 only the port has: `--profile-dir` (a torch.profiler trace and the host
-spans), `--trace-out`'s stage spans, `--resident-chunks`, the flags and
-sources that exit 2 naming their ROADMAP item, the misconfiguration flags,
-`--compliance` and the `vm` target that no longer do, the remote flags
+spans), `--trace-out`'s stage spans, `--resident-chunks`, the flags,
+sources and targets that once exited 2 naming their ROADMAP item
+(`--module-dir`, `--rekor-url`, `--sbom-sources rekor` against an
+in-process Rekor log, the misconfiguration flags, `--compliance`, `vm`),
+each now against the reference CLI, the remote flags
 (`--fleet-config`, `--cache-backend redis://…|s3://…`, `--server-wire
 protobuf`) against the reference CLI, and `--device cuda` by default.
 
@@ -387,25 +389,42 @@ def test_resident_chunks_zero_changes_resident_hits_not_findings(small):
     assert hits[None] >= 1 and hits[0] == 0
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--rekor-url", "http://rekor.invalid"], "A13d"),
-    # ported since (A13d.2): no builtin spec is named `docker-cis`, so both
-    # CLIs refuse it the same way
-    pytest.param(["--compliance", "docker-cis"], None, id="compliance_docker-cis-A13d"),
-    (["--module-dir", "mods"], "A13d"),
-    (["--sbom-sources", "rekor"], "A13d"),
-    (["--sbom-sources", "oci", "--sbom-sources", "rekor"], "A13d"),
-], ids=lambda v: v if isinstance(v, str) else "_".join(v).lstrip("-"))
-def test_not_ported_exits_2_naming_its_item(small, argv, item):
-    if item is None:
+@pytest.fixture(scope="module")
+def rekor_log():
+    """A fake Rekor log on 127.0.0.1 that attests nothing: a scan under
+    `--sbom-sources rekor` never reaches the default public log."""
+    from trivy_tpu_torch.attestation_fixtures import serve_rekor
+
+    srv = serve_rekor({})
+    yield srv
+    srv.shutdown()
+    srv.server_close()
+
+
+# Each flag exited 2 naming ROADMAP A13d before it was ported (`--compliance`
+# in A13d.2, the others in A13d.3); the ids keep the item's name.
+@pytest.mark.parametrize("argv", [
+    pytest.param(["--rekor-url", "http://rekor.invalid"], id="rekor-url_http://rekor.invalid-A13d"),
+    # no builtin spec is named `docker-cis`, so both CLIs refuse it the same way
+    pytest.param(["--compliance", "docker-cis"], id="compliance_docker-cis-A13d"),
+    pytest.param(["--module-dir", "mods"], id="module-dir_mods-A13d"),
+    pytest.param(["--sbom-sources", "rekor"], id="sbom-sources_rekor-A13d"),
+    pytest.param(["--sbom-sources", "oci", "--sbom-sources", "rekor"],
+                 id="sbom-sources_oci_--sbom-sources_rekor-A13d"),
+])
+def test_not_ported_exits_2_naming_its_item(small, rekor_log, argv):
+    if argv[0] == "--compliance":
         (prc, pout, perr), (rrc, rout, rerr) = both([*argv, str(small)])
         assert prc == rrc == 2 and pout == rout == ""
         assert "unknown compliance spec 'docker-cis'" in perr
         assert perr.strip().splitlines()[-1] == rerr.strip().splitlines()[-1]
         return
-    rc, out, err = _run(cli.main, ["fs", "--device", "cpu", *argv, str(small)])
-    assert rc == 2 and out == ""
-    assert f"ROADMAP {item}" in err
+    if "rekor" in argv:
+        argv = [*argv, "--rekor-url", rekor_log.url]
+    (prc, pout, perr), (rrc, rout, rerr) = both(["-f", "json", *argv, str(small)])
+    assert prc == rrc == 0, (perr[-2000:], rerr[-2000:])
+    assert pout == rout and perr == rerr and json.loads(pout)["Results"]
+    assert not rekor_log.lookups  # the tree holds no executable
 
 
 @pytest.mark.parametrize("argv", [
@@ -530,7 +549,7 @@ def test_remote_flags_scan_like_the_reference(small, remote_planes, flag, monkey
 
 @pytest.mark.parametrize("argv", [["sbom", "--sbom-sources", "rekor"], ["vm"]],
                          ids=lambda argv: "_".join(argv).replace("--", ""))
-def test_targets_not_ported_exit_2(small, tmp_path, argv):
+def test_targets_not_ported_exit_2(small, tmp_path, rekor_log, argv):
     if argv == ["vm"]:
         # ported since (A13d.2): a GPT disk whose ext4 partition holds the
         # tree, scanned by both CLIs, reports equal
@@ -545,8 +564,15 @@ def test_targets_not_ported_exit_2(small, tmp_path, argv):
         assert {r["Target"] for r in got["Results"] if r["Class"] == "secret"} >= {
             "/src/config.env", "/app/main.py"}
         return
-    rc, _, err = _run(cli.main, [argv[0], "--device", "cpu", *argv[1:], str(small)])
-    assert rc == 2 and "ROADMAP A13d" in err
+    # ported since (A13d.3): `sbom --sbom-sources rekor` of a CycloneDX
+    # document, both CLIs, reports equal
+    from trivy_tpu_torch.attestation_fixtures import sbom_predicate
+
+    doc = tmp_path / "bom.json"
+    doc.write_text(json.dumps(sbom_predicate(["pkg:pypi/requests@2.30.0",
+                                              "pkg:npm/lodash@4.17.20"])))
+    got = same_json([*argv[1:], "--rekor-url", rekor_log.url, str(doc)], kind="sbom")
+    assert got["ArtifactType"] == "cyclonedx"
 
 
 def test_bad_flag_values_exit_2_like_the_reference(small, tmp_path):

@@ -37,6 +37,7 @@ from trivy_tpu_torch import ftypes
 from trivy_tpu_torch.atypes import Package
 from trivy_tpu_torch.image.fixtures import write_docker_archive
 from trivy_tpu_torch.report.writer import FORMATS, write_report
+from torch_log_clock import frozen_log_clock  # noqa: F401
 
 TEMPLATE = ("{{ range .Results }}{{ .Target }}:{{ range .Vulnerabilities }} "
             "{{ .VulnerabilityID }}{{ end }}\n{{ end }}")

@@ -34,9 +34,10 @@ reads it, as the reference's is; a bad spec exits 2.  `vm <disk>` scans
 every ext and XFS filesystem of a raw disk image (MBR or GPT, LVM2 linear
 volumes), a VMDK, or an EBS snapshot (`ebs:snap-…`, `ami:ami-…`).
 `--compliance SPEC` (a builtin spec or `@path`) writes the spec's report
-instead of the plain one, `--report summary|all`.  A flag or SBOM source
-that waits for a ROADMAP item exits 2 naming it (`NOT_PORTED_FLAGS`,
-`commands/run.py` `NOT_PORTED_SBOM_SOURCES`).
+instead of the plain one, `--report summary|all`.  `--module-dir D` loads
+extension modules (`module.py`: per-file analyzers and post-scan hooks),
+and `--sbom-sources rekor [--rekor-url U]` resolves executables' packages
+from their SBOM attestations in a Rekor log (`attestation.py`).
 
 `python -m trivy_tpu_torch k8s [cluster|NAMESPACE] --kubeconfig F` scans a
 cluster's workloads (misconfigurations over each manifest, RBAC with
@@ -46,6 +47,14 @@ whose engines run on `--device`), or writes its KBOM with `-f cyclonedx`;
 AWS account's resources.  Both start from the builtin checks alone
 (`configure_shared_scanner([])`), whatever an earlier scan of the process
 configured.
+
+`python -m trivy_tpu_torch convert REPORT -f FMT` re-renders a saved JSON
+report (`commands/convert.py`); `perf report|diff|gate` reads the bench
+ledger (`commands/perf.py`, `obs/perfledger.py`); `version` and
+`--version` print the version; `plugin install|uninstall|list|info|run`
+manages subprocess plugins (`plugin.py`), and an unknown command runs the
+installed plugin of that name, as in the reference, even when the config
+file does not load.
 
 `python -m trivy_tpu_torch rules compile|ls|verify|push` maintains the
 registry (`commands/rules.py`; `push` installs a ruleset into a running
@@ -67,13 +76,11 @@ import argparse
 import os
 import sys
 
+from trivy_tpu_torch import __version__
 from trivy_tpu_torch.device import DEFAULT_DEVICE
 
 # The reference CLI's backends (trivy_tpu/cli.py).
 SECRET_BACKENDS = ("auto", "hybrid", "tpu", "cpu", "native", "server")
-# The reference's scan flags whose feature waits for a ROADMAP item: they
-# parse as the reference's and, set, make the scan exit 2 naming the item.
-NOT_PORTED_FLAGS = {"module-dir": "A13d.3", "rekor-url": "A13d.3"}
 SEVERITIES = ["UNKNOWN", "LOW", "MEDIUM", "HIGH", "CRITICAL"]
 
 # Config-file layer (the viper config file, pkg/flag/*): values from
@@ -191,8 +198,7 @@ def _parse_duration(s) -> float:
 def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
                     target_nargs: str | None = None) -> None:
     """The reference's scan flags (`trivy_tpu/cli.py` `_add_scan_flags`),
-    plus `--device`.  Flags whose feature waits for a ROADMAP item parse as
-    the reference's do and make the run exit 2 naming the item."""
+    plus `--device`."""
     p.add_argument("target", nargs=target_nargs)
     p.add_argument(
         "--scanners", default=_env_default("scanners", default_scanners),
@@ -301,8 +307,13 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
                    help="OCI reference to pull the vulnerability DB from")
     p.add_argument("--java-db-repository", default=_env_default("java-db-repository", ""),
                    help="OCI reference to pull the Java index DB from")
+    p.add_argument("--module-dir", default=_env_default("module-dir", ""),
+                   help="directory of extension modules (custom analyzers/hooks)")
     p.add_argument("--sbom-sources", action="append", default=_list_default("sbom-sources"),
-                   help="external SBOM sources: oci (rekor: ROADMAP A13d.3)")
+                   help="external SBOM sources: oci, rekor (rekor enables "
+                   "executable digesting)")
+    p.add_argument("--rekor-url", default=_env_default("rekor-url", ""),
+                   help="Rekor transparency-log URL for attestation lookups")
     p.add_argument("--insecure", action="store_true", default=_bool_default("insecure"),
                    help="allow plain-http registry access (images and DB pulls)")
     p.add_argument("--username", default=_env_default("username", ""),
@@ -314,8 +325,6 @@ def _add_scan_flags(p: argparse.ArgumentParser, default_scanners: str,
     p.add_argument("--report", choices=["summary", "all"],
                    default=_env_default("report", "summary"),
                    help="compliance report granularity")
-    for flag in NOT_PORTED_FLAGS:
-        p.add_argument(f"--{flag}", default=_env_default(flag, ""))
 
 
 def _options_from_args(args: argparse.Namespace):
@@ -362,7 +371,9 @@ def _options_from_args(args: argparse.Namespace):
         compliance_report=args.report,
         device=args.device,
         template=args.template,
+        module_dir=args.module_dir,
         sbom_sources=list(args.sbom_sources),
+        rekor_url=args.rekor_url,
         insecure_registry=args.insecure,
         username=args.username,
         password=args.password,
@@ -654,6 +665,86 @@ def _k8s_command(args) -> int:
     return 0
 
 
+def _plugin_command(args) -> int:
+    from trivy_tpu_torch import plugin as plugin_mod
+
+    try:
+        if args.plugin_command == "install":
+            p = plugin_mod.install(args.src)
+            print(f"installed plugin {p.name} {p.version}")
+        elif args.plugin_command == "uninstall":
+            plugin_mod.uninstall(args.name)
+            print(f"uninstalled plugin {args.name}")
+        elif args.plugin_command == "list":
+            for p in plugin_mod.list_plugins():
+                print(f"{p.name}\t{p.version}\t{p.usage or p.description}")
+        elif args.plugin_command == "info":
+            p = plugin_mod.find(args.name)
+            if p is None:
+                print(f"trivy-tpu: plugin {args.name!r} not installed", file=sys.stderr)
+                return 2
+            print(f"name: {p.name}\nversion: {p.version}\n"
+                  f"usage: {p.usage}\ndescription: {p.description}")
+        elif args.plugin_command == "run":
+            p = plugin_mod.find(args.name)
+            if p is None:
+                print(f"trivy-tpu: plugin {args.name!r} not installed", file=sys.stderr)
+                return 2
+            return p.run(list(args.plugin_args))
+        else:
+            print("trivy-tpu: plugin {install|uninstall|list|info|run}", file=sys.stderr)
+            return 2
+        return 0
+    except plugin_mod.PluginError as e:
+        print(f"trivy-tpu: {e}", file=sys.stderr)
+        return 2
+
+
+def _utility_parsers(sub) -> None:
+    """`convert`, `perf`, `version` and `plugin`: the reference's parsers
+    (trivy_tpu/cli.py); host only."""
+    p = sub.add_parser("convert", help="convert a saved JSON report")
+    p.add_argument("report")
+    p.add_argument("-f", "--format", default="table")
+    p.add_argument("-o", "--output", default="")
+    p.add_argument("--severity", default=",".join(SEVERITIES))
+    p.add_argument("--template", default="")
+
+    p = sub.add_parser("perf", help="bench-ledger reports and regression gating")
+    perf_sub = p.add_subparsers(dest="perf_command")
+    ledger_help = "bench ledger JSONL (default BENCH_LEDGER_FILE or BENCH_LEDGER.jsonl)"
+    cmd = perf_sub.add_parser("report", help="render the recent bench-ledger trajectory")
+    cmd.add_argument("--ledger", default=_env_default("ledger", ""), help=ledger_help)
+    cmd.add_argument("--limit", type=int, default=_env_num("limit", 10, int),
+                     help="most-recent runs to include")
+    cmd = perf_sub.add_parser("diff", help="per-metric deltas between two ledger runs")
+    cmd.add_argument("--ledger", default=_env_default("ledger", ""))
+    cmd.add_argument("--base", type=int, default=_env_num("base", -2, int),
+                     help="base run index (negative = from the end; default -2)")
+    cmd.add_argument("--head", type=int, default=_env_num("head", -1, int),
+                     help="head run index (negative = from the end; default -1, "
+                     "the latest run)")
+    cmd = perf_sub.add_parser(
+        "gate", help="exit non-zero when the latest run regresses past the "
+        "baseline's per-metric tolerance")
+    cmd.add_argument("--ledger", default=_env_default("ledger", ""))
+    cmd.add_argument("--baseline", default=_env_default("baseline", ""),
+                     help="baseline JSON with per-metric tolerances")
+
+    sub.add_parser("version", help="print version")
+
+    p = sub.add_parser("plugin", help="manage plugins")
+    plugin_sub = p.add_subparsers(dest="plugin_command")
+    plugin_sub.add_parser("install", help="install a plugin").add_argument(
+        "src", help="directory, .tar.gz, or URL")
+    plugin_sub.add_parser("uninstall", help="remove a plugin").add_argument("name")
+    plugin_sub.add_parser("list", help="list installed plugins")
+    plugin_sub.add_parser("info", help="show plugin information").add_argument("name")
+    cmd = plugin_sub.add_parser("run", help="run a plugin")
+    cmd.add_argument("name")
+    cmd.add_argument("plugin_args", nargs=argparse.REMAINDER)
+
+
 def _run_server(args) -> int:
     from trivy_tpu_torch.registry.store import resolve_rules_cache_dir
     from trivy_tpu_torch.rpc.server import serve
@@ -715,7 +806,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
 
     parser = argparse.ArgumentParser(prog="trivy_tpu_torch")
-    sub = parser.add_subparsers(dest="command", required=True)
+    parser.add_argument("--version", action="version", version=__version__)
+    sub = parser.add_subparsers(dest="command")
     # --scanners defaults to the reference's (trivy_tpu/cli.py build_parser)
     for name, aliases, kind, scanners, text in (
         ("fs", [], TARGET_FILESYSTEM, "vuln,secret", "scan a local filesystem"),
@@ -743,6 +835,7 @@ def build_parser() -> argparse.ArgumentParser:
     _watch_parser(sub)
     _aws_parser(sub)
     _k8s_parser(sub)
+    _utility_parsers(sub)
     rules = sub.add_parser("rules", help="manage the compiled-ruleset registry")
     rules_sub = rules.add_subparsers(dest="rules_command")
     for name, text in (("compile", "compile a secret-config into the cache"),
@@ -769,16 +862,38 @@ def build_parser() -> argparse.ArgumentParser:
             cmd.add_argument("--warmup", action="store_true",
                              help="also build or load every kernel library a device "
                              "engine launches and, on a card, launch its sieve once a bucket")
+    # for the plugin fall-through (aliases included), so the known-command
+    # set cannot drift from the subparser registry
+    parser.subcommands = frozenset(sub.choices)
     return parser
 
 
 def main(argv: list[str] | None = None) -> int:
     raw = list(argv) if argv is not None else sys.argv[1:]
+    config_err: ConfigFileError | None = None
+    parser = None
     try:
         _load_config_file(raw)  # must precede build_parser (flag defaults)
         parser = build_parser()
     except ConfigFileError as e:
-        print(f"trivy-tpu: {e}", file=sys.stderr)
+        # deferred: a broken config file must not block plugin dispatch
+        # (plugins do not read trivy.yaml); builtin commands still fail
+        config_err = e
+    if raw and not raw[0].startswith("-"):
+        # an unknown top-level command falls through to an installed plugin
+        # (app.go loadPluginCommands): `trivy-tpu <plugin> args...`
+        known = parser.subcommands if parser is not None else frozenset()
+        if raw[0] not in known:
+            from trivy_tpu_torch.plugin import PluginError, find
+
+            try:
+                plugin = find(raw[0])
+            except PluginError:
+                plugin = None
+            if plugin is not None:
+                return plugin.run(raw[1:])
+    if config_err is not None:
+        print(f"trivy-tpu: {config_err}", file=sys.stderr)
         return 2
     args = parser.parse_args(raw)
     from trivy_tpu_torch.log import setup as setup_logging
@@ -786,6 +901,9 @@ def main(argv: list[str] | None = None) -> int:
     setup_logging(debug=getattr(args, "debug", False), quiet=getattr(args, "quiet", False),
                   no_color=getattr(args, "no_color", False),
                   log_format=getattr(args, "log_format", "console"))
+    if args.command in (None, "version"):
+        print(f"trivy-tpu version {__version__}")
+        return 0
     if getattr(args, "mesh", ""):
         # validated here, so a typo'd spec is a usage error, not a mid-scan
         # ValueError; seated where every engine's get_mesh() reads it
@@ -811,13 +929,23 @@ def main(argv: list[str] | None = None) -> int:
         return _k8s_command(args)
     if args.command == "aws":
         return _aws_command(args)
+    if args.command == "plugin":
+        return _plugin_command(args)
+    if args.command == "convert":
+        from trivy_tpu_torch.commands.convert import run_convert
+
+        return run_convert(args.report, args.format, args.output, args.severity,
+                           args.template)
+    if args.command == "perf":
+        from trivy_tpu_torch.commands.perf import run_perf
+
+        return run_perf(args)
     return _run_scan(parser, args)
 
 
 def _run_scan(parser, args) -> int:
     from trivy_tpu_torch.commands.run import (
         CacheConfigError,
-        NotPortedError,
         OptionsError,
         run,
     )
@@ -847,20 +975,16 @@ def _run_scan(parser, args) -> int:
     if args.command == "config":
         options.scanners = ["misconfig"]  # as the reference's, whatever --scanners says
     try:
-        for flag, item in NOT_PORTED_FLAGS.items():
-            if getattr(args, flag.replace("-", "_")):
-                raise NotPortedError(f"--{flag} is not ported yet (ROADMAP {item})")
         return run(options, args.kind)
-    except (CacheConfigError, OptionsError, NotPortedError, ScanTimeoutError,
+    except (CacheConfigError, OptionsError, ScanTimeoutError,
             DBError, RegistryError, RedisError, S3Error, RegoError,
             ComplianceError) as e:
-        # a cache spec, a malformed --file-patterns, a flag or source
-        # that waits for a ROADMAP item, a timeout, a DB that
-        # --skip-db-update refuses, an image or DB no source could serve,
-        # a remote cache tier that fails, an ignore policy that does not
-        # parse or has no `ignore` rule, a compliance spec that does not
-        # load (cli.py:1224-1240);
-        # anything else (an engine that fails) propagates
+        # a cache spec, a malformed --file-patterns or --format, a timeout,
+        # a DB that --skip-db-update refuses, an image or DB no source could
+        # serve, a remote cache tier that fails, an ignore policy that does
+        # not parse or has no `ignore` rule, a compliance spec that does not
+        # load (cli.py:1224-1240); anything else (an engine that fails)
+        # propagates
         print(f"trivy-tpu: {e}", file=sys.stderr)
         return 2
 

@@ -10,10 +10,10 @@ input instead of file-at-a-time calls.
 
 Copied from `trivy_tpu/analyzer/core.py`; the port imports nothing from the
 JAX package.  `AnalyzerOptions` and `SecretScannerOption` gain `device`
-(default "cuda"), where the analyzers' engines run.  Left out: the module
-manager's extension analyzers (ROADMAP A13d.3), the unused `parallel` and
-`cache_key_extra`, which only the rekor SBOM source sets (ROADMAP A13d.3;
-the reference hashes it into the image keys, where "" adds nothing).
+(default "cuda"), where the analyzers' engines run.  Left out: the unused
+`parallel`.  `extra_analyzers` holds the extension modules' analyzers of
+one scan (`module.py`), appended after the builtin ones; `cache_key_extra`
+is what the rekor SBOM source hashes into the image's and the VM's keys.
 `analyze_entries` keeps the reference's per-layer `disabled` seam (an
 image's base layers skip the secret analyzer).  The builtin
 registry holds every analyzer of the reference: secret, license-file,
@@ -61,7 +61,15 @@ class AnalyzerOptions:
     disabled_analyzers: list[str] = field(default_factory=list)
     secret_scanner_option: "SecretScannerOption" = None  # type: ignore[assignment]
     file_patterns: dict[str, list[re.Pattern[str]]] = field(default_factory=dict)
+    # Per-scan extension analyzers (module manager), scoped to this group
+    # rather than the process-global registry.
+    extra_analyzers: list = field(default_factory=list)
     sbom_sources: list = field(default_factory=list)  # --sbom-sources
+    # Artifact options that change blob contents without changing analyzer
+    # versions (e.g. the Rekor URL attestations resolve against) — hashed
+    # into diff-id-keyed blob cache keys the way the reference hashes
+    # artifact.Option (artifact.go calcCacheKey).
+    cache_key_extra: str = ""
     # Where the analyzers' engines run ("cuda" raises without a card).
     device: str = DEFAULT_DEVICE
 
@@ -296,6 +304,11 @@ class AnalyzerGroup:
                 continue
             a.init(self.options)
             self.analyzers.append(a)
+        for extra in self.options.extra_analyzers:
+            if extra.type() in self.options.disabled_analyzers:
+                continue
+            extra.init(self.options)
+            self.analyzers.append(extra)
         self.post_analyzers: list[PostAnalyzer] = []
         for factory in _POST_REGISTRY:
             p = factory()

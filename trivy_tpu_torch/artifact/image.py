@@ -20,8 +20,9 @@ whose `device` (default "cuda") is where the secret and license engines
 run; the image config's secret scan is one single-file batch through the
 secret analyzer's engine, on that device.  The keys (`_layer_key`,
 `_artifact_key`, the imgconf key in `inspect`) are the reference's, byte
-for byte: the reference also hashes `cache_key_extra`, which only its
-rekor SBOM source sets (ROADMAP A13d.3) and is "" otherwise.  The image
+for byte, `cache_key_extra` included: the rekor SBOM source sets it to
+`rekor=<url>`, so blobs resolved against one transparency log are never
+reused under another, and it is "" otherwise.  The image
 config blob also carries the misconfigurations of the history rebuilt
 into a Dockerfile when the `dockerfile` analyzer is enabled (`--scanners
 misconfig`).  The port adds host spans: `image.layer` (one layer's
@@ -231,6 +232,7 @@ class ImageArtifact:
         h = hashlib.sha256()
         h.update(diff_id.encode())
         h.update(json.dumps(self.group.analyzer_versions(), sort_keys=True).encode())
+        h.update(self.group.options.cache_key_extra.encode())
         # Per-layer disabled analyzers change the blob's contents, so they
         # are part of the key (image.go calcCacheKey includes them).
         h.update(json.dumps(sorted(disabled)).encode())
@@ -242,6 +244,7 @@ class ImageArtifact:
         h = hashlib.sha256()
         h.update(self.source.config_digest.encode())
         h.update(json.dumps(self.group.analyzer_versions(), sort_keys=True).encode())
+        h.update(self.group.options.cache_key_extra.encode())
         return "sha256:" + h.hexdigest()
 
     def _try_remote_sbom(self) -> ArtifactReference | None:

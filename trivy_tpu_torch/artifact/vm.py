@@ -6,10 +6,9 @@ partition offset + analyzer versions (the content-addressed cache
 contract).
 
 Copied from `trivy_tpu/artifact/vm.py`;
-the port imports nothing from the JAX package.  The port's
-`AnalyzerOptions` has no `cache_key_extra` (only the rekor SBOM source sets
-it, ROADMAP A13d.3), so the partition keys hash the reference's value
-without rekor, "", and equal the reference's.  The port adds host spans
+the port imports nothing from the JAX package.  The partition keys hash
+`AnalyzerOptions.cache_key_extra` (`rekor=<url>` under the rekor SBOM
+source, else "") as the reference's do, and equal them.  The port adds host spans
 `vm.open`, `vm.partition`, `artifact.post` and `cache.put` beside the
 analyzer group's (the partition's file walk is `analyzer.walk`).  The secret analyzer's engine
 runs on `AnalyzerOptions.device`; a disk with no readable filesystem logs
@@ -87,6 +86,7 @@ class VMArtifact:
         # cached empty results from older walkers must not stick.
         versions = (
             json.dumps(self.group.analyzer_versions(), sort_keys=True)
+            + self.group.options.cache_key_extra
             + "|vm-walker:4"  # v4: VMDK + EBS/AMI sources
         )
         with obs_trace.span("vm.open"):

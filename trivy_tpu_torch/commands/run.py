@@ -12,10 +12,16 @@ scan (CPU ops of every thread and, on a card, CUDA kernels), exported as a
 Chrome trace into the directory with the host spans beside it.  The port
 adds host spans (`artifact.scan`, `filter`, `write`, and the analyzer's and
 artifact's) for the stage split of a run.  `Options` keeps the knobs the
-port honours; an SBOM source that waits for another ROADMAP item raises
-`NotPortedError` before the scan starts (`_check_ported`): `--sbom-sources
-rekor` (A13d.3).  The `vm` target walks every ext and XFS
-filesystem of a raw, LVM2, VMDK or EBS/AMI disk (`artifact/vm.py`).
+port honours.  `--module-dir` (else `~/.trivy-tpu/modules` when it exists)
+loads extension modules (`module.py`): their analyzers join this scan's
+analyzer group (`AnalyzerOptions.extra_analyzers`) and their `post_scan`
+exports the post-scan hook chain, unregistered when the scan ends.
+`--sbom-sources rekor` enables the `executable` analyzer, keys the blobs
+with `rekor=<--rekor-url>` (`AnalyzerOptions.cache_key_extra`) and
+registers the Rekor post-handler around the scan (`attestation.py`): an
+executable's packages come from its SBOM attestation.  The `vm` target
+walks every ext and XFS filesystem of a raw, LVM2, VMDK or EBS/AMI disk
+(`artifact/vm.py`).
 `--compliance` loads its spec before the scan and writes the spec's
 compliance report in place of the plain one (`--report summary|all`).  With
 `misconfig` among the scanners the config analyzers run the process-global
@@ -23,9 +29,8 @@ rego scanner (`iac/engine.py`), which every run configures anew with its
 `--config-check` directories, the `--checks-bundle-repository` bundle
 (pulled over OCI) and `--trace`.  Client
 mode speaks either Twirp wire (`--server-wire json|protobuf`), and
-`--fleet-config` routes the secret analyzer's batches across a fleet.  The flags of the reference that wait for an item are
-refused by the CLI (`__main__.NOT_PORTED_FLAGS`).  The `image` target
-resolves an archive path, an OCI layout or a reference through the
+`--fleet-config` routes the secret analyzer's batches across a fleet.  The
+`image` target resolves an archive path, an OCI layout or a reference through the
 daemon -> containerd -> podman -> registry chain (`image.resolve_image`,
 under the host span `image.pull`); the `sbom` target decodes a CycloneDX
 or SPDX document.  The vulnerability scanner reads a local DB (`--db-dir`,
@@ -57,10 +62,6 @@ TARGET_REPOSITORY = "repo"
 TARGET_SBOM = "sbom"
 TARGET_VM = "vm"
 
-# SBOM sources of the reference the port lacks, and the ROADMAP item each
-# waits for.
-NOT_PORTED_SBOM_SOURCES = {"rekor": "A13d.3"}
-
 
 class CacheConfigError(ValueError):
     pass
@@ -68,10 +69,6 @@ class CacheConfigError(ValueError):
 
 class OptionsError(ValueError):
     """Malformed flag value (the reference's xerrors out of flag parse)."""
-
-
-class NotPortedError(ValueError):
-    """A flag or SBOM source the port does not have yet."""
 
 
 @dataclass
@@ -115,7 +112,9 @@ class Options:
     list_all_packages: bool = False
     skip_db_update: bool = False
     template: str = ""  # --template for --format template
-    sbom_sources: list[str] = field(default_factory=list)  # --sbom-sources (oci)
+    module_dir: str = ""  # --module-dir extension modules
+    sbom_sources: list[str] = field(default_factory=list)  # --sbom-sources
+    rekor_url: str = ""  # --rekor-url (unpackaged SBOM lookups)
     insecure_registry: bool = False  # plain-http registry pulls
     username: str = ""  # private-registry basic/bearer credentials
     password: str = ""
@@ -138,17 +137,12 @@ class Options:
     branch: str = ""
     tag: str = ""
     commit: str = ""
+    # The scan's extension modules, set by `_run_inner` when it loads them.
+    _module_manager: object = field(default=None, repr=False, compare=False)
 
 
-def _check_ported(options: Options, target_kind: str) -> None:
-    """Raise NotPortedError naming the ROADMAP item for the first SBOM
-    source the port lacks; OptionsError for an unknown format."""
-    for source in options.sbom_sources:
-        if source in NOT_PORTED_SBOM_SOURCES:
-            raise NotPortedError(
-                f"--sbom-sources {source} is not ported yet "
-                f"(ROADMAP {NOT_PORTED_SBOM_SOURCES[source]})"
-            )
+def _check_format(options: Options) -> None:
+    """OptionsError for an unknown format, before the scan starts."""
     try:
         check_format(options.format)
     except ValueError as e:
@@ -216,9 +210,12 @@ def _analyzer_options(options: Options) -> AnalyzerOptions:
                 "terraform-module",
             ]
         )
-    # Executable digesting only serves Rekor lookups (--sbom-sources rekor,
-    # ROADMAP A13d.3); disabled here, it stays out of the blob cache key.
-    disabled.append("executable")
+    if "rekor" not in options.sbom_sources:
+        # Executable digesting costs a full-content hash per binary and only
+        # serves Rekor lookups; disabling it here (not just gating required)
+        # keeps it out of the blob cache key so toggling --sbom-sources
+        # invalidates cached blobs correctly.
+        disabled.append("executable")
     from trivy_tpu_torch.iac.engine import configure_shared_scanner
 
     extra_dirs = list(options.config_check)
@@ -237,6 +234,17 @@ def _analyzer_options(options: Options) -> AnalyzerOptions:
     # Unconditional: also RESETS custom dirs and --trace left by a prior
     # scan in this process (the scanner is process-global).
     configure_shared_scanner(extra_dirs, trace=options.trace)
+    extra = []
+    if options._module_manager is not None:
+        extra = options._module_manager.analyzers()
+    cache_key_extra = ""
+    if "rekor" in options.sbom_sources:
+        from trivy_tpu_torch.attestation import DEFAULT_REKOR_URL
+
+        # Attestation-resolved packages land in diff-id-keyed blobs, so the
+        # log they came from must key the cache: switching --rekor-url must
+        # not reuse blobs resolved against another transparency log.
+        cache_key_extra = f"rekor={options.rekor_url or DEFAULT_REKOR_URL}"
     return AnalyzerOptions(
         disabled_analyzers=disabled,
         secret_scanner_option=SecretScannerOption(
@@ -254,7 +262,9 @@ def _analyzer_options(options: Options) -> AnalyzerOptions:
             device=options.device,
         ),
         file_patterns=_parse_file_patterns(options.file_patterns),
+        extra_analyzers=extra,
         sbom_sources=list(options.sbom_sources),
+        cache_key_extra=cache_key_extra,
         device=options.device,
     )
 
@@ -392,7 +402,7 @@ def run(options: Options, target_kind: str) -> int:
     timeout instead of running on (and writing reports) in the background."""
     from trivy_tpu_torch.obs import trace as obs_trace
 
-    _check_ported(options, target_kind)
+    _check_format(options)
     if options.trace_out or options.profile_dir:
         obs_trace.enable()
     if obs_trace.enabled():
@@ -524,8 +534,35 @@ def _run_inner(options: Options, target_kind: str) -> int:
     if options.compliance:
         # Validate the spec before the (possibly long) scan starts.
         _compliance_spec(options)
+    manager = None
     cache = None
+    rekor_handler = None
     try:
+        if "rekor" in options.sbom_sources:
+            from trivy_tpu_torch.attestation import (
+                DEFAULT_REKOR_URL,
+                rekor_unpackaged_handler,
+            )
+            from trivy_tpu_torch.handler import register_post_handler
+
+            rekor_handler = rekor_unpackaged_handler(
+                options.rekor_url or DEFAULT_REKOR_URL
+            )
+            register_post_handler(rekor_handler)
+        from trivy_tpu_torch.module import DEFAULT_MODULE_DIR
+
+        module_dir = options.module_dir or (
+            DEFAULT_MODULE_DIR if os.path.isdir(DEFAULT_MODULE_DIR) else ""
+        )
+        if module_dir:
+            # module.NewManager (run.go:116-143 lifecycle seat): load
+            # extension modules and wire their analyzer/post-scan exports.
+            from trivy_tpu_torch.module import ModuleManager
+
+            manager = ModuleManager(module_dir)
+            manager.load()
+            manager.register()
+            options._module_manager = manager
         cache = init_cache(options)
         scanner = _build_scanner(options, target_kind, cache)
         with obs_trace.span("artifact.scan"):
@@ -559,6 +596,12 @@ def _run_inner(options: Options, target_kind: str) -> int:
             _write(report, options)
         return _exit_code(report, options)
     finally:
+        if rekor_handler is not None:
+            from trivy_tpu_torch.handler import unregister_post_handler
+
+            unregister_post_handler(rekor_handler)
+        if manager is not None:
+            manager.unregister()
         if cache is not None:
             cache.close()
 
