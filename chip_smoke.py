@@ -51,7 +51,7 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             no K3 (or K1) launch, the same findings;
 7. spans    one serve batch scanned with tracing on: the total seconds of
             each engine span (chunk.encode, chunk.h2d, sieve.megakernel,
-            chunk.fetch, verify, confirm) and each fenced device phase, and
+            chunk.fetch, verify, confirm) and each device phase (CUDA events), and
             the same batch scanned untraced under `torch.profiler`: the
             device's busy time (kernels, copies and fills, each counted
             once) against the wall time, and its largest activities;
@@ -1194,7 +1194,7 @@ def serve_phase(np, torch, gs, corpus) -> dict:
 
 def spans_phase(torch, corpus) -> None:
     """One serve batch scanned with tracing on: the total seconds of each
-    engine span and each fenced device phase; then the same batch scanned
+    engine span and each device phase (CUDA events); then the same batch scanned
     untraced under `torch.profiler`: the device's busy time (kernels,
     copies and fills, summed) against the scan's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -2409,8 +2409,9 @@ def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
     planted files; (2) the same with `--secret-backend tpu`: K1 or K3
     launched (which and how often printed), the report byte-identical to
     (1)'s; (3) a fresh process, `--secret-backend tpu --profile-dir D -f
-    table`: exit 0, its torch.profiler trace names a hand kernel, the host
-    spans beside it, the table's targets those of (2), its wall seconds and
+    table`: exit 0, its torch.profiler trace names a hand kernel and holds
+    the host spans on its clock (every hand kernel inside the `scan` span),
+    the table's targets those of (2), its wall seconds and
     peak RSS; (4) `--exit-code 1` on the warm-up tree (51 files, cut from
     the whole tree to keep the smoke's length with phase `image` added):
     exit 1.  Then the direct engine calls on
@@ -2559,18 +2560,29 @@ def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
         [sys.executable, "-m", "trivy_tpu_torch", *base, "--secret-backend", "tpu",
          "--profile-dir", prof, "-f", "table", tree], work, "table", "runner")
     names = sorted(os.listdir(prof))
-    traces = [n for n in names if n.startswith("torch-trace-")]
-    hosts = [n for n in names if n.startswith("host_trace.")]
-    if len(traces) != 1 or len(hosts) != 1:
-        fail("runner", f"the profile dir holds {names}, not one trace and its host spans")
-    with open(os.path.join(prof, traces[0])) as f:
-        kernels = [e.get("name", "") for e in json.load(f).get("traceEvents", [])
-                   if e.get("cat") == "kernel"]
+    if len(names) != 1 or not names[0].startswith("torch-trace-"):
+        fail("runner", f"the profile dir holds {names}, not one trace")
+    with open(os.path.join(prof, names[0])) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    kernels = [e.get("name", "") for e in kernel_events]
     ours = {k: sum(k in n for n in kernels) for k in KERNEL_NAMES}
     ours = {k: v for k, v in ours.items() if v}
     if not ours:
         fail("runner", f"the fresh process's trace names no hand kernel "
              f"({len(kernels)} kernel events)")
+    # the host spans joined the trace on its clock: the root `scan` span
+    # holds every hand kernel the device ran
+    host = [e for e in events if e.get("cat") == "host_span"]
+    scans = [e for e in host if e["name"] == "scan"]
+    if len(scans) != 1:
+        fail("runner", f"the trace holds {len(scans)} `scan` spans of {len(host)} host spans")
+    lo, hi = scans[0]["ts"], scans[0]["ts"] + scans[0]["dur"]
+    hand = [e for e in kernel_events if any(k in e.get("name", "") for k in KERNEL_NAMES)]
+    outside = [e["name"] for e in hand if e["ts"] < lo or e["ts"] + e.get("dur", 0) > hi]
+    if outside:
+        fail("runner", f"{len(outside)} of {len(hand)} hand kernels lie outside the `scan` "
+             f"span on the trace's clock: {outside[:3]}")
     shown = set(re.findall(r"^(.+) \((?:secrets|license-file)\)\n=+$", text, re.M))
     want = {r["Target"] for r in report.get("Results", [])}
     if shown != want:
@@ -2580,7 +2592,8 @@ def runner_phase(np, torch, gs, items, planted: dict, work: str) -> dict:
           f"files_per_s={len(items) / wall:.1f} peak_resident_MiB={rss:.1f} (sampled every "
           f"10 ms) "
           f"trace kernel events={len(kernels)} named={json.dumps(ours)} "
-          f"host spans={hosts[0]} table targets={len(shown)} (= the JSON report's)",
+          f"host spans in the trace={len(host)} (the {len(hand)} hand kernels inside "
+          f"`scan`) table targets={len(shown)} (= the JSON report's)",
           flush=True)
 
     # the direct engine calls on the same items

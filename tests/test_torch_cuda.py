@@ -26,7 +26,7 @@ row, a run of rows with more files than a block lists, and a batch of
 padding rows.  Also the engine's staging and residency on the card (the
 pinned ring and side stream, row-store entries kept intact, a pipelined
 scan and its resident rescan) and its observability seams (the
-`device_phase` fence, the memwatch CUDA sampler).  And the executable
+`device_phase` event pair, the memwatch CUDA sampler).  And the executable
 cache (`registry/aotcache.py`): libraries loaded from a warm cache in a
 fresh process run K1 and K5 equal to their plain versions with no build, a
 tampered cached library is rebuilt and never loaded, and `aot_warmup`
@@ -469,10 +469,16 @@ def test_row_store_entry_survives_later_staging(card):
 
 
 def test_device_phase_fences_a_cuda_tensor(card):
+    """A traced section over a CUDA tensor never waits on the device: done()
+    returns the host's enqueue, and the section's event pair resolves at a
+    drain after the device ran it, to at least the device's time."""
     trace.enable()
     try:
         out = torch.zeros(1, device=card)
+        torch.cuda._sleep(1000)  # a kernel's first launch loads it, and waits
+        out.add_(1)
         torch.cuda.synchronize()
+        metrics.drain_device_phases()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ph = metrics.device_phase("sieve-step")
         start.record()
@@ -480,10 +486,11 @@ def test_device_phase_fences_a_cuda_tensor(card):
         out.add_(1)
         end.record()
         dt = ph.done(out)
+        assert dt < 0.01 and metrics.drain_device_phases() == []  # still running
         end.synchronize()
-        assert dt * 1e3 >= 0.99 * start.elapsed_time(end) > 10
-        assert (k := metrics.drain_device_phases()[-1])[0] == "sieve-step"
-        assert k[1].startswith("cuda")
+        [(kernel, device, seconds)] = metrics.drain_device_phases()
+        assert kernel == "sieve-step" and device.startswith("cuda")
+        assert seconds * 1e3 >= 0.99 * start.elapsed_time(end) > 10
     finally:
         trace.disable()
         trace.clear()

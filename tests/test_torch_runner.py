@@ -337,22 +337,32 @@ def test_repo_equals_the_reference_cli(small, tmp_path, kind):
 
 
 def test_profile_dir_writes_a_trace_and_the_host_spans(small, tmp_path):
+    """One file: the profiler's events and the run's host spans, on the
+    profiler's clock, every span inside the window its clock marks open
+    and close (to within the marks' 50 us)."""
+    from trivy_tpu_torch.obs import trace as obs_trace
+
     prof = tmp_path / "prof"
+    obs_trace.clear()
     rc, out, _ = _run(cli.main, ["fs", "--device", "cpu", "-f", "json", "--scanners",
                                  "secret,license", "--profile-dir", str(prof), str(small)])
     assert rc == 0 and json.loads(out)["Results"]
     names = sorted(os.listdir(prof))
-    traces = [n for n in names if n.startswith("torch-trace-")]
-    hosts = [n for n in names if n.startswith("host_trace.")]
-    assert len(traces) == 1 and len(hosts) == 1, names
-    with open(prof / traces[0]) as f:
+    assert len(names) == 1 and names[0].startswith("torch-trace-"), names
+    with open(prof / names[0]) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("ph") == "X" for e in events)
-    with open(prof / hosts[0]) as f:
-        spans = {e["name"] for e in json.load(f)["traceEvents"]}
+    spans = [e for e in events if e.get("cat") == "host_span"]
+    assert any(e.get("ph") == "X" and e.get("cat") != "host_span"
+               and e.get("name") != obs_trace.CLOCK_MARK for e in events)
     assert {"scan", "artifact.scan", "analyzer.walk", "analyzer.claim", "analyzer.read",
             "analyze.secret", "analyze.license-file", "cache.put", "cache.apply", "filter",
-            "write"} <= spans
+            "write"} <= {e["name"] for e in spans}
+    marks = sorted((e for e in events if e.get("name") == obs_trace.CLOCK_MARK),
+                   key=lambda e: e["ts"])
+    assert len(marks) == 2 * obs_trace.CLOCK_MARKS
+    lo, hi = marks[0]["ts"], marks[-1]["ts"] + marks[-1]["dur"]
+    for e in spans:
+        assert lo - 50 <= e["ts"] and e["ts"] + e["dur"] <= hi + 50, e["name"]
 
 
 def test_trace_out_spans_split_the_run(small, tmp_path):

@@ -198,6 +198,36 @@ def test_profile_window_writes_a_trace_on_the_cpu(servers):
     assert trace["traceEvents"]
 
 
+def test_profile_window_merges_the_host_spans(servers):
+    """With tracing on, the stop writes the window's host spans into the
+    profiler's trace, on its clock, and `HostTrace` names that file."""
+    from trivy_tpu_torch.obs import trace as obs_trace
+
+    addrs, _, profile_dir = servers
+    client = RpcClient(addrs["port"])
+    obs_trace.clear()
+    obs_trace.enable()
+    try:
+        client.call("/admin/profile/start", {})
+        client.scan_secrets(seeded_tickets(3, n_tickets=1, per=2)[0])
+        out = client.call("/admin/profile/stop", {})
+    finally:
+        obs_trace.disable()
+        obs_trace.clear()
+    assert out["HostTrace"] == out["DeviceTrace"]
+    assert os.path.dirname(out["DeviceTrace"]) == profile_dir
+    with open(out["DeviceTrace"]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "host_span"]
+    assert {"rpc.scan_secrets", "batch"} <= {e["name"] for e in spans}
+    marks = sorted((e for e in events if e.get("name") == obs_trace.CLOCK_MARK),
+                   key=lambda e: e["ts"])
+    lo, hi = marks[0]["ts"], marks[-1]["ts"] + marks[-1]["dur"]
+    for e in spans:  # the start and stop calls straddle the window's edges
+        if not e["name"].startswith("rpc.profile_"):
+            assert lo - 50 <= e["ts"] and e["ts"] + e["dur"] <= hi + 50, e["name"]
+
+
 def test_remote_options_build_a_server(servers, tmp_path):
     """The options that once raised build a server: a fleet member with a
     watch plane (over a result cache), and a protobuf client's calls

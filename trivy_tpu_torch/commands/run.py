@@ -395,7 +395,7 @@ def run(options: Options, target_kind: str) -> int:
     """artifact.Run (run.go:394): scan → filter → report → exit code,
     bounded by --timeout (run.go:395-402 context deadline).
     With --profile-dir, the whole scan runs inside a torch.profiler window
-    (`_run_profiled`) and the host spans land beside its trace.
+    (`_run_profiled`) and the host spans join its trace, on its clock.
 
     The worker also arms a cooperative deadline (trivy_tpu_torch/deadline.py)
     that the analyzer dispatch checks, so the scan aborts shortly after the
@@ -405,17 +405,9 @@ def run(options: Options, target_kind: str) -> int:
     _check_format(options)
     if options.trace_out or options.profile_dir:
         obs_trace.enable()
-    if obs_trace.enabled():
-        with obs_trace.span("scan", target_kind=target_kind):
-            rc = _run_profiled(options, target_kind)
-        if options.trace_out:
-            obs_trace.dump(options.trace_out)
-        if options.profile_dir:
-            # Host spans land beside the device profile so Perfetto can
-            # load both into one timeline.
-            obs_trace.dump_into_profile_dir(options.profile_dir)
-    else:
-        rc = _run_profiled(options, target_kind)
+    rc = _run_profiled(options, target_kind)
+    if options.trace_out:
+        obs_trace.dump(options.trace_out)
     _print_explains(options)
     return rc
 
@@ -441,8 +433,10 @@ def _print_explains(options: Options) -> None:
 
 
 def _run_profiled(options: Options, target_kind: str) -> int:
+    from trivy_tpu_torch.obs import trace as obs_trace
+
     if not options.profile_dir:
-        return _run_with_timeout(options, target_kind)
+        return _run_scan(options, target_kind)
     # Profiling must never break the scan — and a scan error must never
     # read as a profiler error.  Start and stop (with the export) are
     # guarded SEPARATELY: either failing degrades to an unprofiled result
@@ -452,6 +446,7 @@ def _run_profiled(options: Options, target_kind: str) -> int:
 
     log = logging.getLogger(__name__)
     prof = None
+    marks = []
     try:
         import torch
 
@@ -466,22 +461,35 @@ def _run_profiled(options: Options, target_kind: str) -> int:
             ),
         )
         prof.start()
+        marks.append(obs_trace.clock_mark())
     except Exception as e:
         log.warning("profiler start failed (%s); running unprofiled", e)
         prof = None
     try:
-        return _run_with_timeout(options, target_kind)
+        return _run_scan(options, target_kind)
     finally:
         if prof is not None:
             try:
+                marks.append(obs_trace.clock_mark())
                 prof.stop()
                 os.makedirs(options.profile_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(
+                path = os.path.join(
                     options.profile_dir,
                     f"torch-trace-{os.getpid()}-{time.time_ns()}.json",
-                ))
+                )
+                prof.export_chrome_trace(path)
+                # the host spans join the device trace, on its clock
+                obs_trace.merge_into_profile(path, marks)
             except Exception as e:
                 log.warning("profiler stop failed: %s", e)
+
+
+def _run_scan(options: Options, target_kind: str) -> int:
+    """The scan under its root span (a no-op unless tracing is on)."""
+    from trivy_tpu_torch.obs import trace as obs_trace
+
+    with obs_trace.span("scan", target_kind=target_kind):
+        return _run_with_timeout(options, target_kind)
 
 
 def _run_with_timeout(options: Options, target_kind: str) -> int:

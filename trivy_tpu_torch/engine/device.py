@@ -190,6 +190,13 @@ class SieveStats:
     encode_s: float = 0.0
     d2h_bytes_raw: int = 0
     d2h_bytes: int = 0
+    # The default engine's (engine/hybrid.py, engine/nfa_device.py), summed
+    # over every call: the scanning thread blocked on the host pre-sieve,
+    # and the device verify's lane assembly and dispatch (the
+    # `sieve.wait`, `verify.assemble` and `verify.dispatch` spans' time).
+    sieve_wait_s: float = 0.0
+    verify_assemble_s: float = 0.0
+    verify_dispatch_s: float = 0.0
 
     def phases(self) -> dict:
         out = {

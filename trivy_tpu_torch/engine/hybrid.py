@@ -43,8 +43,10 @@ prices as "fused" at one device.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import ctypes
+import functools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -203,6 +205,18 @@ def _link_is_wide(h2d_ratio: float = 1.0, d2h_ratio: float = 1.0,
     return gate_terms(h2d_ratio, d2h_ratio, device=device)["wide"]
 
 
+@contextlib.contextmanager
+def _build_part(times: dict[str, float], part: str):
+    """Time one part of an engine's construction into `times[part]` (always:
+    a few clock reads a construction), under an `engine.<part>` span."""
+    t0 = time.perf_counter()
+    try:
+        with obs_trace.span(f"engine.{part}"):
+            yield
+    finally:
+        times[part] = times.get(part, 0.0) + time.perf_counter() - t0
+
+
 def normalize_grams(
     masks: np.ndarray, vals: np.ndarray
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -246,7 +260,12 @@ class GpuHybridSecretEngine:
     first lane is `device`, or a list of devices; default
     `topology.engine_mesh`'s) is the device verify's (module docstring).
     `resident_chunks` is the resident-chunk capacity of the program engine
-    it composes (the reference hands it to its device-engine base)."""
+    it composes (the reference hands it to its device-engine base).
+
+    `build_times` holds the seconds of each part of the construction and of
+    `warmup()` (`device`, `rules`, `oracle`, `link_probe`, `dfa`, `nfa`,
+    `native`, `scan_tables`, `warmup`; `make_secret_engine` adds its own
+    `rules`), each part also an `engine.<part>` span."""
 
     def __init__(
         self,
@@ -267,30 +286,35 @@ class GpuHybridSecretEngine:
     ):
         if verify not in VERIFY_MODES:
             raise ValueError(f"unknown verify mode: {verify!r}")
-        self.device = resolve_device(device)
-        # One mesh for the whole device path: the verifier joins it.
-        self.mesh = mesh_topology.engine_mesh(self.device, mesh)
-        self.ruleset = ruleset if ruleset is not None else build_ruleset(config)
-        self.oracle = OracleScanner(self.ruleset)
+        self.build_times: dict[str, float] = {}
+        part = functools.partial(_build_part, self.build_times)
+        with part("device"):  # a process's first CUDA call starts CUDA here
+            self.device = resolve_device(device)
+            # One mesh for the whole device path: the verifier joins it.
+            self.mesh = mesh_topology.engine_mesh(self.device, mesh)
         self.aot_cache_dir = aot_cache_dir
         self._ruleset_digest: str | None = None
-        if isinstance(compiled, CompiledArtifact):
-            # warm start: the artifact was digest-matched to this ruleset
-            self.pset, self.gset = compiled.pset, compiled.gset
-            self._ruleset_digest = compiled.digest
-            if rule_stack is None:
-                rule_stack = compiled.vstack
-            compiled = CompiledRules.from_artifact(compiled)
-        else:
-            self.pset = build_probe_set(self.ruleset.rules)
-            self.gset = build_gram_set(self.pset)
-        if compiled is None:
-            compiled = CompiledRules.from_sets(self.pset, self.gset)
-        elif isinstance(compiled, dict):
-            compiled = CompiledRules.from_numpy(compiled)
-        if not (np.array_equal(compiled.masks, self.gset.masks)
-                and np.array_equal(compiled.vals, self.gset.vals)):
-            raise ValueError("compiled rules do not belong to this ruleset")
+        with part("rules"):
+            self.ruleset = ruleset if ruleset is not None else build_ruleset(config)
+            if isinstance(compiled, CompiledArtifact):
+                # warm start: the artifact was digest-matched to this ruleset
+                self.pset, self.gset = compiled.pset, compiled.gset
+                self._ruleset_digest = compiled.digest
+                if rule_stack is None:
+                    rule_stack = compiled.vstack
+                compiled = CompiledRules.from_artifact(compiled)
+            else:
+                self.pset = build_probe_set(self.ruleset.rules)
+                self.gset = build_gram_set(self.pset)
+            if compiled is None:
+                compiled = CompiledRules.from_sets(self.pset, self.gset)
+            elif isinstance(compiled, dict):
+                compiled = CompiledRules.from_numpy(compiled)
+            if not (np.array_equal(compiled.masks, self.gset.masks)
+                    and np.array_equal(compiled.vals, self.gset.vals)):
+                raise ValueError("compiled rules do not belong to this ruleset")
+        with part("oracle"):
+            self.oracle = OracleScanner(self.ruleset)
         self.compiled = compiled
         self.chunk_bytes = chunk_bytes
         self.stats = SieveStats()
@@ -298,32 +322,38 @@ class GpuHybridSecretEngine:
             pipeline_depth if pipeline_depth is not None else default_depth()
         )
         self.dedupe = dedupe
-        self.verify, self.gate_decision = self._resolve_verify(verify)
+        with part("link_probe"):
+            self.verify, self.gate_decision = self._resolve_verify(verify)
         self._nfa_verifier: GpuNfaVerifier | None = None
         self._dfa_verifier: DfaVerifier | None = None
         if self.verify in ("dfa", "device", "fused"):
-            # One trim-bound array: host and device verifiers must clip
-            # walk windows alike for refutation to stay sound.
-            bounds = compute_prefix_bounds(self.ruleset.rules, self._trimmable_rules())
+            with part("dfa"):
+                # One trim-bound array: host and device verifiers must clip
+                # walk windows alike for refutation to stay sound.
+                bounds = compute_prefix_bounds(self.ruleset.rules, self._trimmable_rules())
+                # In device modes the DFA still verifies the lanes the device
+                # does not take (no 64-position automaton, oversize windows).
+                self._dfa_verifier = DfaVerifier(self.ruleset.rules, prefix_bounds=bounds)
             if self.verify in ("device", "fused"):
-                self._nfa_verifier = GpuNfaVerifier(
-                    self.ruleset.rules, prefix_bounds=bounds,
-                    fused=self.verify == "fused", rule_stack=rule_stack,
-                    device=self.device, mesh=self.mesh or [self.device],
-                )
-            # In device modes the DFA still verifies the lanes the device
-            # does not take (no 64-position automaton, oversize windows).
-            self._dfa_verifier = DfaVerifier(self.ruleset.rules, prefix_bounds=bounds)
-        load_native(aot_cache_dir)  # raises with g++'s output when it does not build
-        (self._norm_masks, self._norm_vals, self._norm_perm,
-         self._norm_strip) = normalize_grams(self.gset.masks, self.gset.vals)
-        self.probe_confirm = probe_confirm
-        # Rules that are candidates with zero gram hits (all their gating
-        # probes are gram-less), resolved once on an all-zero row.
-        zero = np.zeros((1, self.gset.num_grams), dtype=bool)
-        base = self.compiled.candidate_matrix_bool(self.gset.probe_hits_bool(zero))[0]
-        self._base_cand = np.flatnonzero(base)
-        self._build_scan_tables()
+                with part("nfa"):
+                    self._nfa_verifier = GpuNfaVerifier(
+                        self.ruleset.rules, prefix_bounds=bounds,
+                        fused=self.verify == "fused", rule_stack=rule_stack,
+                        device=self.device, mesh=self.mesh or [self.device],
+                        stats=self.stats,
+                    )
+        with part("native"):
+            load_native(aot_cache_dir)  # raises with g++'s output when it does not build
+        with part("scan_tables"):
+            (self._norm_masks, self._norm_vals, self._norm_perm,
+             self._norm_strip) = normalize_grams(self.gset.masks, self.gset.vals)
+            self.probe_confirm = probe_confirm
+            # Rules that are candidates with zero gram hits (all their gating
+            # probes are gram-less), resolved once on an all-zero row.
+            zero = np.zeros((1, self.gset.num_grams), dtype=bool)
+            base = self.compiled.candidate_matrix_bool(self.gset.probe_hits_bool(zero))[0]
+            self._base_cand = np.flatnonzero(base)
+            self._build_scan_tables()
         self.program_table = program_table
         self._programs: GpuSecretEngine | None = None
         if program_table is not None:
@@ -479,11 +509,12 @@ class GpuHybridSecretEngine:
     def warmup(self) -> None:
         """Build the native library and the device verifier's resident
         tensors (and, on a card, load its kernels) ahead of timed scans."""
-        load_native(self.aot_cache_dir)
-        if self._nfa_verifier is not None:
-            self._nfa_verifier.warmup(self.aot_cache_dir)
-        if self._programs is not None:
-            self._programs.warmup()
+        with _build_part(self.build_times, "warmup"):
+            load_native(self.aot_cache_dir)
+            if self._nfa_verifier is not None:
+                self._nfa_verifier.warmup(self.aot_cache_dir)
+            if self._programs is not None:
+                self._programs.warmup()
 
     # ------------------------------------------------------------------
 
@@ -557,21 +588,25 @@ class GpuHybridSecretEngine:
             return self._programs.scan_batch(items)
         if not items:
             return []
-        self.stats.files += len(items)
-        self.stats.bytes += sum(len(c) for _, c in items)
         gd = self.gate_decision
-        if obs_trace.enabled():
-            # the gate's verdict on this batch's span tree
-            with obs_trace.span("hybrid.gate", backend=gd["backend"],
-                                reason=gd["reason"], margin=gd.get("margin")):
-                pass
+        # the root of the batch's span tree, with the gate's verdict
+        with obs_trace.span("hybrid.scan", files=len(items), backend=gd["backend"],
+                            reason=gd["reason"], margin=gd.get("margin")) as root:
+            nbytes = sum(len(c) for _, c in items)
+            root.set(bytes=nbytes)
+            self.stats.files += len(items)
+            self.stats.bytes += nbytes
+            return self._scan_batch(items)
 
+    def _scan_batch(self, items: list[tuple[str, bytes]]) -> list[Secret]:
         results: list[Secret | None] = [None] * len(items)
         spans = self._chunks(items)
         t0 = time.perf_counter()
-        allowed_pos = np.flatnonzero(np.fromiter(
-            (self.ruleset.allow_path(p) for p, _ in items), dtype=bool, count=len(items)
-        ))
+        with obs_trace.span("hybrid.allow", files=len(items)):
+            allowed_pos = np.flatnonzero(np.fromiter(
+                (self.ruleset.allow_path(p) for p, _ in items), dtype=bool,
+                count=len(items)
+            ))
         self.stats.confirm_s += time.perf_counter() - t0
         self.stats.pipeline_depth = self.pipeline_depth
         # Up to pipeline_depth sieve chunks in flight on the pool while this
@@ -584,7 +619,10 @@ class GpuHybridSecretEngine:
 
         def _finish(span, fut):
             deadline.check()
-            pairs, dev, ptr_arr, lens, (pack_dt, sieve_dt) = fut.result()
+            t0 = time.perf_counter()
+            with obs_trace.span("sieve.wait"):
+                pairs, dev, ptr_arr, lens, (pack_dt, sieve_dt) = fut.result()
+            self.stats.sieve_wait_s += time.perf_counter() - t0
             self.stats.pack_s += pack_dt
             self.stats.sieve_s += sieve_dt
             self._finish_chunk(items, span[0], span[1], (pairs, dev, ptr_arr, lens),
@@ -743,7 +781,8 @@ class GpuHybridSecretEngine:
         contents = [items[int(g)][1] for g in ufiles]
         if self.dedupe and len(contents) > 1:
             td = time.perf_counter()
-            dd = dedupe_blobs(contents)
+            with obs_trace.span("verify.dedupe", files=len(contents)):
+                dd = dedupe_blobs(contents)
             if dd.any_duplicates():
                 self.stats.dedupe_saved_bytes += dd.saved_bytes
                 contents = [contents[int(i)] for i in dd.unique_index]
@@ -809,18 +848,24 @@ def make_secret_engine(
             raise ValueError(
                 "the oracle backend has no device pass to demux programs from")
         return OracleScanner(ruleset=ruleset, config=config)
-    if rules_cache_dir is not None and "compiled" not in kw:
-        from trivy_tpu_torch.registry.store import get_or_compile
+    times: dict[str, float] = {}
+    with obs_trace.span("engine.build", backend=backend):
+        if rules_cache_dir is not None and "compiled" not in kw:
+            from trivy_tpu_torch.registry.store import get_or_compile
 
-        if ruleset is None:
-            ruleset = build_ruleset(config)
-        kw["compiled"], _ = get_or_compile(ruleset, cache_dir=rules_cache_dir)
-    if backend in ("device", "native"):
-        if backend == "native":
-            kw["sieve"] = "native"
-        return GpuSecretEngine(ruleset=ruleset, config=config, device=device, mesh=mesh,
-                               **kw)
-    if backend not in ("auto", "hybrid"):
-        raise ValueError(f"unknown secret-engine backend: {backend!r}")
-    return GpuHybridSecretEngine(ruleset=ruleset, config=config, device=device, mesh=mesh,
-                                 **kw)
+            with _build_part(times, "rules"):
+                if ruleset is None:
+                    ruleset = build_ruleset(config)
+                kw["compiled"], _ = get_or_compile(ruleset, cache_dir=rules_cache_dir)
+        if backend in ("device", "native"):
+            if backend == "native":
+                kw["sieve"] = "native"
+            return GpuSecretEngine(ruleset=ruleset, config=config, device=device,
+                                   mesh=mesh, **kw)
+        if backend not in ("auto", "hybrid"):
+            raise ValueError(f"unknown secret-engine backend: {backend!r}")
+        engine = GpuHybridSecretEngine(ruleset=ruleset, config=config, device=device,
+                                       mesh=mesh, **kw)
+    for part, seconds in times.items():
+        engine.build_times[part] = engine.build_times.get(part, 0.0) + seconds
+    return engine

@@ -60,6 +60,7 @@ import torch
 from trivy_tpu_torch import faults
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from trivy_tpu_torch.engine import link as link_mod
+from trivy_tpu_torch.engine.device import SieveStats
 from trivy_tpu_torch.engine.pipeline import default_depth
 from trivy_tpu_torch.engine.redfa import compile_search_nfa64, compute_prefix_bounds
 from trivy_tpu_torch.mesh import plan as mesh_plan
@@ -113,12 +114,16 @@ class GpuNfaVerifier:
     """Keep-mask for candidate lanes on a CUDA card (or the CPU, through
     the kernels' plain versions, when `device="cpu"`).  `mesh` (a `Mesh`
     whose first lane is `device`, or a list of devices) splits each
-    dispatch's groups over its lanes (module docstring)."""
+    dispatch's groups over its lanes (module docstring).  `stats` (the
+    engine's `SieveStats`, else a fresh one) sums the lane assembly and
+    dispatch seconds of every call."""
 
     def __init__(self, rules, trimmable=None, prefix_bounds=None, fused=False,
                  rule_stack=None, sieve_kernel_id="",
-                 device: str | torch.device = DEFAULT_DEVICE, mesh=None):
+                 device: str | torch.device = DEFAULT_DEVICE, mesh=None,
+                 stats: SieveStats | None = None):
         self.device = resolve_device(device)
+        self.stats = stats if stats is not None else SieveStats()
         self.mesh = mesh_topology.engine_mesh(self.device, mesh, auto=False)
         self.num_rules = len(rules)
         # Mutable: scan_batch_device_legacy flips it off for one retry.
@@ -322,8 +327,16 @@ class GpuNfaVerifier:
         }
         compact_fetch = link_mod.d2h_compaction_enabled()
         # assemble_s is timed directly: the clock pauses while a flush
-        # (dispatch + bounded fetch) runs and resumes after it.
+        # (dispatch + bounded fetch) runs and resumes after it; each
+        # stretch is a `verify.assemble` span on the same clock.
         asm_mark = time.perf_counter()
+
+        def _assembled() -> None:
+            """Close the assembly stretch open since `asm_mark`."""
+            dt = time.perf_counter() - asm_mark
+            st["assemble_s"] += dt
+            self.stats.verify_assemble_s += dt
+            obs_trace.add_span("verify.assemble", asm_mark, dt)
         overflow: list[int] = []  # lanes for the padded path
 
         # distinct rules on the stream, most-claimed first; rules beyond the
@@ -412,7 +425,7 @@ class GpuNfaVerifier:
             chunks, fetching the oldest results once `depth` are in flight;
             fused mode attaches each chunk's lane table."""
             nonlocal asm_mark
-            st["assemble_s"] += time.perf_counter() - asm_mark
+            _assembled()
             td = time.perf_counter()
             with obs_trace.span("verify.dispatch", tier=tier, rows=row_hi - row_lo):
                 if stack is None:
@@ -453,8 +466,7 @@ class GpuNfaVerifier:
                         )
                         faults.fire("nfa.dispatch")
                         shards = self._shards("stream_bytes", rows_arr)
-                        parts = []
-                        ph = obs_metrics.device_phase("verify.fused")
+                        indexed = []  # (lanes' positions, rows, LaneIndex) a shard
                         r0 = 0
                         for rows_dev in shards:
                             dev = rows_dev.device
@@ -470,26 +482,32 @@ class GpuNfaVerifier:
                                                np.int32)
                                 sub[:, :k] = table[:, sel]
                                 sub[0, :k] -= r0
-                            lanes = LaneIndex.build(sub, len(rows_dev), lo_blocks,
-                                                    stacks[dev].width, dev)
-                            parts.append((sel, nfa_stream_verdict(rows_dev, stacks[dev], lanes,
-                                                                  assoc=assoc)))
+                            indexed.append((sel, rows_dev, LaneIndex.build(
+                                sub, len(rows_dev), lo_blocks, stacks[dev].width, dev)))
                             r0 += len(rows_dev)
+                        # the phase holds the launches alone, the uploads before it
+                        ph = obs_metrics.device_phase("verify.fused")
+                        parts = [(sel, nfa_stream_verdict(rows_dev, stacks[rows_dev.device],
+                                                          lanes, assoc=assoc))
+                                 for sel, rows_dev, lanes in indexed]
                         ph.done([out for _, out in parts])
                         # what the legacy flag-map fetch would have moved
                         raw_b = -(-stack.rb // 8) * lo_blocks * gcap * LANES_PER_GROUP
                         in_flight.append(("fused", lane_ids, parts, raw_b))
                     else:
                         faults.fire("nfa.dispatch")
+                        shards = self._shards("stream_bytes", rows_arr)
                         ph = obs_metrics.device_phase("verify-stream")
                         outs = [nfa_stream(rows_dev, stacks[rows_dev.device])
-                                for rows_dev in self._shards("stream_bytes", rows_arr)]
+                                for rows_dev in shards]
                         ph.done(outs)
                         in_flight.append(("stream", tier, lo, hi, outs))
                     st["dispatches"] += 1
                     while len(in_flight) > depth:
                         _fetch_one()
-            st["dispatch_s"] += time.perf_counter() - td
+            dt = time.perf_counter() - td
+            st["dispatch_s"] += dt
+            self.stats.verify_dispatch_s += dt
             asm_mark = time.perf_counter()
 
         # flat per-lane placement (legacy mode): lane id, tier, row, slot,
@@ -549,7 +567,7 @@ class GpuNfaVerifier:
                 flushed[tier] += flush_rows
         st["rows"] = [len(b) for b in rows_buf]
         st["overflow_lanes"] = len(overflow)
-        st["assemble_s"] += time.perf_counter() - asm_mark
+        _assembled()
         asm_mark = time.perf_counter()
 
         if not any(rows_buf) and not overflow:
@@ -593,11 +611,18 @@ class GpuNfaVerifier:
 
     def _verify_padded(self, contents, pairs, start, stop, lane_idx, keep) -> None:
         """Bucket-padded dispatch for jumbo windows, NUL-bearing spans and
-        overflow rules: lanes sort by (window bucket, rule), pack as class
-        ids into [G, LANES_PER_GROUP] groups per length bucket, one K6
-        launch per (bucket, group chunk); launches queue first, verdicts
-        are fetched after."""
+        overflow rules (`_verify_padded_impl`), under a `verify.padded`
+        span."""
         t0 = time.perf_counter()
+        with obs_trace.span("verify.padded", lanes=len(lane_idx)):
+            self._verify_padded_impl(contents, pairs, start, stop, lane_idx, keep)
+        self._padded_s += time.perf_counter() - t0
+
+    def _verify_padded_impl(self, contents, pairs, start, stop, lane_idx, keep) -> None:
+        """Lanes sort by (window bucket, rule), pack as class ids into
+        [G, LANES_PER_GROUP] groups per length bucket, one K6 launch per
+        (bucket, group chunk); launches queue first, verdicts are fetched
+        after."""
         wlen = stop - start
         bucket = np.searchsorted(np.array(LEN_BUCKETS), wlen, side="left")
         order = lane_idx[np.lexsort((pairs[lane_idx, 1], bucket[lane_idx]))]
@@ -645,7 +670,6 @@ class GpuNfaVerifier:
             matched = np.concatenate([o.cpu().numpy() for o in outs])
             for g, lane_arr in enumerate(chunk):
                 keep[lane_arr] = matched[g, : len(lane_arr)]
-        self._padded_s += time.perf_counter() - t0
 
 
 def build_rule_stack(verifier: GpuNfaVerifier) -> dict[str, np.ndarray]:

@@ -55,8 +55,7 @@ raising).
 Disabled is the only fast path that matters: with no spec configured the
 module-level :data:`_PLANE` is a shared no-op (the memwatch NOOP_HANDLE
 pattern — one attribute load + one trivial method call per seam
-crossing, zero allocation), so the BENCH_OBS <2% disabled-overhead gate
-is untouched.
+crossing, zero allocation).
 """
 
 from __future__ import annotations

@@ -34,8 +34,8 @@ registry, while exposition is per-server.  Servers bridge the two with
                                                  admission watermarks act on
 
 Tracking is off by default and costs one predicate + a shared no-op
-handle when off — the same pattern as ``device_phase`` — so the BENCH_OBS
-<2% disabled-path overhead gate holds with memwatch compiled in.  Servers
+handle when off — the same pattern as ``device_phase`` — so the scan path
+pays one predicate a call site with memwatch compiled in.  Servers
 call ``enable()``; ``TRIVY_TPU_MEMWATCH=1`` forces it on for ad-hoc runs.
 
 Copied from `trivy_tpu/obs/memwatch.py`, with the JAX sampler replaced by

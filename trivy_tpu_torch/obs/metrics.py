@@ -19,9 +19,10 @@ shouldn't trigger (the scheduler's hook reads the non-building
 `RulesetManager.active`, exactly like the render path it replaces).
 
 Copied from `trivy_tpu/obs/metrics.py`, with `device_phase` ported to
-torch: `.done(*tensors)` fences a CUDA tensor on a `torch.cuda.Event`
-recorded on the current stream (a torch tensor has no
-`block_until_ready`), and labels the section with the tensor's device.
+torch: a section over CUDA tensors is timed by a pair of `torch.cuda.Event`s
+on the current stream and resolved when the samples are drained, so
+tracing never waits on the device; a section over CPU tensors keeps the
+host clock.
 """
 
 from __future__ import annotations
@@ -378,29 +379,24 @@ class Registry:
 
 
 # ---------------------------------------------------------------------------
-# Device-phase attribution: per-kernel fenced timings from the engines
+# Device-phase attribution: per-kernel device timings from the engines
 # ---------------------------------------------------------------------------
 #
 # The engines' coarse wall timings (dispatch_s / fetch_map_s) lump every
 # kernel behind one async dispatch boundary; these helpers split them into
-# honest per-kernel sections.  `device_phase(kernel)` opens a span nested
-# under the ambient chunk span and, at `.done(*arrays)`, blocks on the
-# section's output tensors before reading the clock — the fence is what makes
-# an async dispatch's timing attributable to ITS kernel rather than to
-# whoever synchronizes next.  Fences run ONLY when tracing is enabled: the
-# disabled path returns a shared no-op handle and costs one predicate (the
-# BENCH_OBS <2% overhead contract), and the pipelined engine's overlap is
-# never serialized outside an observation window.
+# per-kernel sections.  `device_phase(kernel)` opens a `kernel.<name>` span
+# nested under the ambient chunk span, which covers the host's enqueue, and
+# on a card records a timing event on the current stream; `.done(*tensors)`
+# records the closing event and queues the pair.  Nothing waits on the
+# device: a pair resolves to seconds when the samples are drained, once
+# both events have completed, so a traced pass keeps the dispatch overlap
+# of an untraced one.  A section over CPU tensors (or none) is timed on
+# the host clock.  Only when tracing is enabled: the disabled path returns a
+# shared no-op handle and costs one predicate.
 #
 # Samples queue process-globally (engines don't own a registry); a server's
 # collect hook drains them into its per-server
 # `trivy_tpu_device_phase_seconds{kernel}` histogram at scrape time.
-
-# The per-kernel section names the engines report (bounded label set).
-DEVICE_PHASE_KERNELS = (
-    "encode", "unpack", "sieve-step", "compact", "verify-stream",
-    "lane.derive", "sieve.megakernel",
-)
 
 # Kernel sections are sub-millisecond to a few seconds (relay dispatch):
 # 50us .. 2.5s, roughly log-spaced.
@@ -410,33 +406,48 @@ DEVICE_PHASE_BUCKETS = (
 )
 
 _DEVICE_PHASE_LOCK = lockcheck.make_lock("obs.metrics.device_phase")
-_DEVICE_PHASE_PENDING: list[tuple[str, str, float]] = []  # owner: _DEVICE_PHASE_LOCK
+# (kernel, device, seconds or a (start, end) event pair not yet resolved)
+_DEVICE_PHASE_PENDING: list[tuple[str, str, object]] = []  # owner: _DEVICE_PHASE_LOCK
 # Tracing on with nothing scraping (CLI scans) must not grow unbounded:
-# beyond the cap the oldest samples drop — the scrape path is best-effort
-# by design, the span tree keeps the full record.
+# beyond the cap the oldest samples and pairs drop — the scrape path is
+# best-effort by design, the span tree keeps the full record.
 _DEVICE_PHASE_MAX_PENDING = 4096
 
 
-def record_device_phase(kernel: str, seconds: float, device: str = "") -> None:
-    """Queue one per-kernel fenced timing for the next scrape drain.
-
-    `device` is the bounded device label ("cuda:0", "cpu", "" when
-    unknown) — bounded by construction: values come only from the devices
-    of the section's output tensors.  Positional callers land in the ""
-    series."""
+def _queue_device_phase(entry: tuple[str, str, object]) -> None:
     with _DEVICE_PHASE_LOCK:
-        _DEVICE_PHASE_PENDING.append((kernel, device, seconds))
+        _DEVICE_PHASE_PENDING.append(entry)
         overflow = len(_DEVICE_PHASE_PENDING) - _DEVICE_PHASE_MAX_PENDING
         if overflow > 0:
             del _DEVICE_PHASE_PENDING[:overflow]
 
 
+def record_device_phase(kernel: str, seconds: float, device: str = "") -> None:
+    """Queue one per-kernel timing for the next scrape drain.
+
+    `device` is the bounded device label ("cuda:0", "cpu", "" when
+    unknown) — bounded by construction: values come only from the devices
+    of the section's output tensors.  Positional callers land in the ""
+    series."""
+    _queue_device_phase((kernel, device, seconds))
+
+
 def drain_device_phases() -> list[tuple[str, str, float]]:
-    """Take every pending (kernel, device, seconds) sample (collect-hook
-    seat)."""
+    """Take every resolved (kernel, device, seconds) sample, in the order
+    the sections closed (collect-hook seat).  An event pair whose events
+    have completed resolves to their elapsed time; one still on the device
+    stays queued for a later drain."""
+    out: list[tuple[str, str, float]] = []
     with _DEVICE_PHASE_LOCK:
-        out = list(_DEVICE_PHASE_PENDING)
-        _DEVICE_PHASE_PENDING.clear()
+        waiting = []
+        for kernel, device, value in _DEVICE_PHASE_PENDING:
+            if not isinstance(value, tuple):
+                out.append((kernel, device, value))
+            elif value[0].query() and value[1].query():
+                out.append((kernel, device, value[0].elapsed_time(value[1]) / 1e3))
+            else:
+                waiting.append((kernel, device, value))
+        _DEVICE_PHASE_PENDING[:] = waiting
     return out
 
 
@@ -450,41 +461,35 @@ class _NoopPhase:
 _NOOP_PHASE = _NoopPhase()
 
 
-def _phase_device_label(tensors) -> str:
-    """Device label for a fenced section, from its first output tensor:
-    "cuda:0", "cpu", ... (bounded: one series per device)."""
-    for t in tensors:
-        dev = getattr(t, "device", None)
-        if dev is not None:
-            return str(dev)
-    return ""
+def _cuda_event(index: int):
+    """A timing event recorded on the current stream of CUDA device
+    `index`; never waited on."""
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(index))
+    return ev
 
 
-def _fence(tensors) -> None:
-    """Wait until the device has produced every CUDA tensor in `tensors`:
-    one `torch.cuda.Event` recorded on each device's current stream (the
-    stream the engine's kernels launch on), synchronized before the clock
-    is read.  CPU tensors are ready when the call returns."""
-    seen = set()
-    for t in tensors:
-        dev = getattr(t, "device", None)
-        if getattr(dev, "type", None) != "cuda" or dev in seen:
-            continue
-        seen.add(dev)
-        import torch
+def _cuda_index() -> int | None:
+    """The current CUDA device's index, or None before CUDA has started
+    (a section then keeps the host clock)."""
+    import torch
 
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(dev))
-        ev.synchronize()
+    return torch.cuda.current_device() if torch.cuda.is_initialized() else None
 
 
 class _DevicePhase:
-    __slots__ = ("kernel", "_t0", "_span")
+    __slots__ = ("kernel", "_t0", "_span", "_start")
 
     def __init__(self, kernel: str):
         from trivy_tpu_torch.obs import trace as obs_trace
 
         self.kernel = kernel
+        # The events bracket the span, so the span holds the enqueue alone
+        # and the instrument's own calls fall to the enclosing span.
+        index = _cuda_index()
+        self._start = None if index is None else (index, _cuda_event(index))
         # Deliberate handle pattern: begin/done brackets an async dispatch
         # across statements, which `with` cannot.  If done() is skipped by
         # an unwinding exception the span misses its ring append but the
@@ -497,16 +502,24 @@ class _DevicePhase:
         self._t0 = time.perf_counter()
 
     def done(self, *tensors) -> float:
+        """Close the section over its output tensors; returns the host
+        seconds since it opened (the enqueue, on a card)."""
+        dt = time.perf_counter() - self._t0
+        self._span.__exit__(None, None, None)
         flat: list = []
         for a in tensors:
             if isinstance(a, (tuple, list)):
                 flat.extend(a)
             else:
                 flat.append(a)
-        _fence(flat)
-        dt = time.perf_counter() - self._t0
-        record_device_phase(self.kernel, dt, device=_phase_device_label(flat))
-        self._span.__exit__(None, None, None)
+        device = next((t.device for t in flat if getattr(t, "device", None) is not None),
+                      None)
+        if (getattr(device, "type", None) == "cuda" and self._start is not None
+                and self._start[0] == device.index):
+            pair = (self._start[1], _cuda_event(device.index))
+            _queue_device_phase((self.kernel, str(device), pair))
+        else:
+            record_device_phase(self.kernel, dt, device="" if device is None else str(device))
         return dt
 
 
@@ -517,10 +530,10 @@ def device_phase(kernel: str):
 
         ph = obs_metrics.device_phase("sieve-step")
         out = step(dev_rows)          # async launch
-        ph.done(out)                  # fence + record + close span
+        ph.done(out)                  # closing event + sample + close span
 
-    `.done(*tensors)` waits on the current stream of each CUDA tensor's
-    device (host-side sections pass none and just read the clock)."""
+    `.done(*tensors)` labels the sample with the first tensor's device;
+    host-side sections pass none and read the host clock."""
     from trivy_tpu_torch.obs import trace as obs_trace
 
     if not obs_trace.enabled():

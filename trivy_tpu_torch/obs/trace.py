@@ -14,14 +14,17 @@ Granularity discipline: spans mark per-request / per-batch / per-chunk work,
 never per-file or per-row — the collector is a deque append under a lock, but
 nothing is free at row rates.  When tracing is disabled (the default),
 `span()` returns a shared no-op context manager after one predicate, so
-instrumented hot paths stay within noise (bench.py BENCH_OBS pins this at
-<2% on the smoke corpus).
+instrumented hot paths pay one call per span site.
 
 Export is the Chrome trace-event format (`"X"` complete events, microsecond
-timestamps), which chrome://tracing and ui.perfetto.dev load directly; spans
-record `time.perf_counter()` and export anchors them to the wall clock via a
-process-start epoch so they align with the JAX profiler's device timeline
-when both land in one --profile-dir.
+timestamps), which chrome://tracing and ui.perfetto.dev load directly.  Spans
+record `time.perf_counter()`.  `to_chrome` anchors them to the wall clock
+through a process-start epoch (a file of host spans alone).  Under a
+`torch.profiler` window, `clock_mark()` at the window's start and end opens
+`record_function` marks at recorded perf_counter readings, and
+`merge_into_profile` writes the spans into the profiler's exported trace on
+that trace's own clock, fitted through the marks, so one file shows host
+stages against the device's operations.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import contextvars
 import json
 import os
+import statistics
 import threading
 import time
 import uuid
@@ -42,6 +46,10 @@ from trivy_tpu_torch import lockcheck
 _EPOCH_S = time.time() - time.perf_counter()
 
 DEFAULT_RING = 8192
+
+# The profiler annotation that pins the perf_counter clock to a trace's.
+CLOCK_MARK = "trivy_tpu.clock"
+CLOCK_MARKS = 5  # record_function marks a clock_mark() opens
 
 _lock = lockcheck.make_lock("obs.trace.ring")
 _ring: deque = deque(maxlen=DEFAULT_RING)  # owner: _lock
@@ -176,15 +184,21 @@ def add_span(
     name: str,
     start: float,
     dur: float,
-    trace_id: str = "",
+    trace_id: str | None = None,
     parent_id: int = 0,
     **attrs,
 ) -> None:
     """Record an interval measured after the fact (queue wait: the
     scheduler only learns a ticket's wait at dispatch).  `start` is in
-    perf_counter seconds (derive past instants as perf_counter() - age)."""
+    perf_counter seconds (derive past instants as perf_counter() - age).
+    Without a `trace_id` the span is a child of the innermost open span on
+    this thread (a stretch timed inside it), else of `parent_id` in that
+    trace ("" mints a fresh one)."""
     if not _enabled:
         return
+    if trace_id is None:
+        cur = _ctx.get()
+        trace_id, parent_id = cur if cur else ("", 0)
     with _lock:
         _ring.append(
             SpanRecord(
@@ -237,6 +251,14 @@ def to_chrome(spans: list[SpanRecord] | None = None) -> dict:
             "args": {"name": "trivy-tpu host"},
         }
     ]
+    events.extend(_span_events(spans, pid, 1e6, _EPOCH_S * 1e6))
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def _span_events(spans: list[SpanRecord], pid: int, scale: float,
+                 offset: float) -> list[dict]:
+    """One "X" event a span, at `start * scale + offset` microseconds."""
+    events = []
     for s in spans:
         args = {
             "trace_id": s.trace_id,
@@ -247,15 +269,16 @@ def to_chrome(spans: list[SpanRecord] | None = None) -> dict:
         events.append(
             {
                 "name": s.name,
+                "cat": "host_span",
                 "ph": "X",
-                "ts": (_EPOCH_S + s.start) * 1e6,
-                "dur": s.dur * 1e6,
+                "ts": s.start * scale + offset,
+                "dur": s.dur * scale,
                 "pid": pid,
                 "tid": s.tid,
                 "args": args,
             }
         )
-    return {"traceEvents": events, "displayTimeUnit": "ms"}
+    return events
 
 
 def dump(path: str, spans: list[SpanRecord] | None = None) -> str:
@@ -269,15 +292,73 @@ def dump(path: str, spans: list[SpanRecord] | None = None) -> str:
     return path
 
 
-def dump_into_profile_dir(profile_dir: str) -> str | None:
-    """Host spans into a JAX --profile-dir so Perfetto shows host stages
-    against the device timeline; no-op (None) when tracing is off or the
-    ring is empty."""
+def clock_mark() -> list[tuple[float, float, float, float]]:
+    """Open CLOCK_MARKS `record_function(CLOCK_MARK)` annotations back to
+    back inside a running `torch.profiler` window, each between perf_counter
+    readings: (before open, after open, before close, after close).  Call it
+    at a window's start and at its end; `merge_into_profile` fits the clock
+    through both."""
+    from torch.profiler import record_function
+
+    out = []
+    for _ in range(CLOCK_MARKS):
+        mark = record_function(CLOCK_MARK)
+        a = time.perf_counter()
+        mark.__enter__()
+        b = time.perf_counter()
+        c = time.perf_counter()
+        mark.__exit__(None, None, None)
+        out.append((a, b, c, time.perf_counter()))
+    return out
+
+
+def profile_clock(events: list[dict], marks) -> tuple[float, float]:
+    """(scale, offset) with trace µs = perf_counter s * scale + offset,
+    fitted through the trace's CLOCK_MARK events and `marks`, the results
+    of the `clock_mark()` calls that opened them, in order.  Each mark's
+    open and close pin the two clocks at the middle of their readings; each
+    call's pins give a median, and the line through the first and last
+    call's medians follows any difference in rate.  Marks under a second
+    apart keep the rate at 1e6 (their scatter would outweigh a drift)."""
+    found = sorted((e for e in events if e.get("name") == CLOCK_MARK
+                    and e.get("ph") == "X"), key=lambda e: e["ts"])
+    if not marks or len(found) != sum(len(m) for m in marks):
+        raise ValueError(f"the trace holds {len(found)} clock marks for "
+                         f"{sum(len(m) for m in marks)} taken")
+    it = iter(found)
+    centres = []  # (perf_counter s, trace us - perf_counter us), a call
+    for call in marks:
+        pins = []
+        for (a, b, c, d), e in zip(call, it):
+            pins.append(((a + b) / 2, e["ts"]))
+            pins.append(((c + d) / 2, e["ts"] + e.get("dur", 0.0)))
+        centres.append((statistics.median(p for p, _ in pins),
+                        statistics.median(t - p * 1e6 for p, t in pins)))
+    (p0, o0), (p1, o1) = centres[0], centres[-1]
+    if p1 - p0 < 1.0:
+        return 1e6, statistics.median(o for _, o in centres)
+    scale = 1e6 + (o1 - o0) / (p1 - p0)
+    return scale, o0 + p0 * 1e6 - p0 * scale
+
+
+def merge_into_profile(trace_path: str, marks,
+                       spans: list[SpanRecord] | None = None) -> str | None:
+    """Write the host spans into the Chrome trace `torch.profiler` exported
+    at `trace_path`, on that trace's clock (`profile_clock` through
+    `marks`, the results of `clock_mark()` at the window's start and end).
+    Returns the path, or None (the file untouched) when tracing is off or
+    there is no span."""
     if not _enabled:
         return None
-    spans = snapshot()
+    if spans is None:
+        spans = snapshot()
     if not spans:
         return None
-    return dump(
-        os.path.join(profile_dir, f"host_trace.{os.getpid()}.json"), spans
-    )
+    with open(trace_path, encoding="utf-8") as f:
+        doc = json.load(f)
+    events = doc.setdefault("traceEvents", [])
+    scale, offset = profile_clock(events, marks)
+    events.extend(_span_events(spans, os.getpid(), scale, offset))
+    with open(trace_path, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+    return trace_path

@@ -382,6 +382,7 @@ class ScanServer:
         self._profile_lock = lockcheck.make_lock("rpc.server.profile")
         self._profiler = None  # owner: _profile_lock
         self._profile_path = ""  # owner: _profile_lock
+        self._profile_marks: list = []  # owner: _profile_lock
 
     def _engine_kw(self) -> dict:
         kw: dict = {"device": self.device, "mesh": self.mesh}
@@ -655,24 +656,27 @@ class ScanServer:
             prof.start()
             self._profiler = prof
             self._profile_path = path
+            self._profile_marks = [obs_trace.clock_mark()]
         return {"Profiling": True, "ProfileDir": path}
 
     def profile_stop(self, req: dict) -> dict:
         """POST /admin/profile/stop: close the profiler window, export its
-        Chrome trace into the window's directory, and drop the host span
-        ring beside it, so Perfetto shows host stages against the device
-        timeline."""
+        Chrome trace into the window's directory, and write the host span
+        ring into that trace on its clock (`HostTrace` names the file when
+        spans were written), so Perfetto shows host stages against the
+        device timeline."""
         with self._profile_lock:
             if self._profiler is None:
                 raise ValueError("profiler not active")
             prof, self._profiler = self._profiler, None
+            marks = self._profile_marks + [obs_trace.clock_mark()]
             prof.stop()
             trace_path = os.path.join(
                 self._profile_path,
                 f"torch-trace-{os.getpid()}-{time.time_ns()}.json",
             )
             prof.export_chrome_trace(trace_path)
-            host = obs_trace.dump_into_profile_dir(self._profile_path)
+            host = obs_trace.merge_into_profile(trace_path, marks)
         return {
             "Profiling": False,
             "ProfileDir": self._profile_path,
@@ -1056,7 +1060,7 @@ _ROUTES = {
     "/twirp/trivy.cache.v1.Cache/MissingBlobs": "missing_blobs",
     "/twirp/trivy.cache.v1.Cache/DeleteBlobs": "delete_blobs",
     # Admin plane (token-authed like every POST): stage a ruleset swap,
-    # install a pushed ruleset, open/close a live JAX profiler window.
+    # install a pushed ruleset, open/close a live torch.profiler window.
     "/admin/ruleset/reload": "reload_ruleset",
     "/admin/ruleset/push": "push_ruleset",
     "/admin/profile/start": "profile_start",
