@@ -4,7 +4,8 @@
 * a traced fused scan opens its spans where the work happens, every one of
   them inside the `hybrid.scan` root, and the counters `SieveStats`
   `sieve_wait_s`, `verify_assemble_s` and `verify_dispatch_s` equal the
-  time of their spans, summed over every verify call;
+  time of their spans, summed over every verify call, and
+  `verify_assemble_lanes` the lanes the assembly placed in stream rows;
 * `build_times`, the parts of the engine's construction and `warmup()`,
   cover the host clock around them;
 * `merge_into_profile` writes the spans into a `torch.profiler` trace on
@@ -119,6 +120,18 @@ def test_verify_counters_sum_over_calls_and_match_their_spans(fused, tracing):
         assert total > 0 and got == pytest.approx(total, rel=0.01), name
     waits = sum(s.dur for s in spans if s.name == "sieve.wait")
     assert engine.stats.sieve_wait_s >= waits > 0
+
+
+def test_verify_assemble_lanes_sum_placed_lanes_over_calls(fused):
+    engine, _ = fused
+    before = engine.stats.verify_assemble_lanes
+    calls = []
+    for seed in (8, 9):
+        engine.scan_batch(_items(seed))
+        calls.append(dict(engine._nfa_verifier.stream_stats))
+    placed = sum(c["lanes"] - c["overflow_lanes"] for c in calls)
+    assert engine.stats.verify_assemble_lanes - before == placed
+    assert placed > 0 and all(c["overflow_lanes"] > 0 for c in calls)  # the NUL span's
 
 
 def test_counters_fill_with_tracing_off(fused):

@@ -193,10 +193,12 @@ class SieveStats:
     # The default engine's (engine/hybrid.py, engine/nfa_device.py), summed
     # over every call: the scanning thread blocked on the host pre-sieve,
     # and the device verify's lane assembly and dispatch (the
-    # `sieve.wait`, `verify.assemble` and `verify.dispatch` spans' time).
+    # `sieve.wait`, `verify.assemble` and `verify.dispatch` spans' time),
+    # and the lanes the assembly placed in stream rows.
     sieve_wait_s: float = 0.0
     verify_assemble_s: float = 0.0
     verify_dispatch_s: float = 0.0
+    verify_assemble_lanes: int = 0
 
     def phases(self) -> dict:
         out = {

@@ -16,9 +16,11 @@ reference's, unchanged in meaning:
   (`STREAM_TIERS` 512 / 4,096 / 16,384, one 0x00 separator between spans),
   and every distinct candidate rule (the 32 most claimed, `RULE_STACK_
   BUCKETS`) runs over the same rows in one dispatch of K5
-  (`ops.nfa_verify.nfa_stream`), a full max-group block of rows at a time
-  during assembly, with at most `default_depth()` fetches outstanding.  The
-  legacy mode fetches the flag map (compacted, `link.fetch_stream_packed`)
+  (`ops.nfa_verify.nfa_stream`), a full max-group block of rows at a time,
+  with at most `default_depth()` fetches outstanding.  The native library
+  assembles the rows and the lane placement in one call (`assemble_spans`)
+  before the first dispatch.  The legacy mode fetches the flag map
+  (compacted, `link.fetch_stream_packed`)
   and maps it to lanes on the host; the **fused** mode ships a per-tier
   lane table (and its index, `LaneIndex`) with the rows, resolves verdicts
   in the same launch (`nfa_stream_verdict`: K5 keeps the lanes of each
@@ -30,9 +32,10 @@ reference's, unchanged in meaning:
 
 The verdict is block-granular (a flag anywhere in a 32-byte block that
 overlaps the lane's window keeps it): an over-approximation that the exact
-confirm settles.  Rows and lane tables are fresh host arrays per dispatch,
-copied with a synchronous H2D copy, so no host buffer is reused while a DMA
-reads it.
+confirm settles.  Rows (slices of the call's own tier arrays, the last
+chunk of a range a padded copy) and lane tables are host arrays nothing
+writes after assembly, copied with a synchronous H2D copy, so no host buffer
+is reused while a DMA reads it.
 
 **Mesh** (`mesh=`, the reference's group-axis sharding, `mesh/plan.py`
 "stream_bytes", "padded_classes", "vstack_rules"): the group axis of every
@@ -49,6 +52,7 @@ global lane order, byte-identical to the unmeshed one.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 import time
@@ -65,6 +69,7 @@ from trivy_tpu_torch.engine.pipeline import default_depth
 from trivy_tpu_torch.engine.redfa import compile_search_nfa64, compute_prefix_bounds
 from trivy_tpu_torch.mesh import plan as mesh_plan
 from trivy_tpu_torch.mesh import topology as mesh_topology
+from trivy_tpu_torch.native import load_native
 from trivy_tpu_torch.obs import memwatch
 from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import trace as obs_trace
@@ -99,6 +104,73 @@ def fused_scan_mode() -> str:
     """TRIVY_TPU_FUSED_SCAN: auto (default) | assoc | seq."""
     mode = os.environ.get("TRIVY_TPU_FUSED_SCAN", "auto").strip().lower()
     return mode if mode in ("auto", "assoc", "seq") else "auto"
+
+
+@dataclasses.dataclass
+class SpanRows:
+    """One verify call's stream rows and lane placement (`assemble_spans`);
+    the per-lane arrays follow the order the lanes were given in."""
+
+    rows: list[np.ndarray]  # a tier's rows, [n_rows, length] uint8
+    tier: np.ndarray        # int32 [N]: the lane's tier, -1 when not placed
+    row: np.ndarray         # int64 [N]: its row in the tier
+    b0: np.ndarray          # int32 [N]: the first 32-byte block of its window
+    b1: np.ndarray          # int32 [N]: one past the last
+    overflow: np.ndarray    # int64: positions of the lanes for the padded path
+    span_bytes: int
+
+
+def assemble_spans(contents, files, slots, start, stop) -> SpanRows:
+    """Stream rows and lane placement for lanes given in file order (a
+    file's lanes consecutive): `files`, `slots` (the rule's stack slot, -1
+    for a rule beyond the stack), walk windows `start`/`stop`; `contents[f]`
+    is file f's bytes.  The native library's `span_place` places every lane
+    and sizes each tier's rows, `span_copy` copies the spans into one
+    zeroed array a tier (native/span_assemble.cpp: tiers, first-fit rows,
+    separators, overflow)."""
+    files = np.ascontiguousarray(files, dtype=np.int64)
+    slots = np.ascontiguousarray(slots, dtype=np.int32)
+    start = np.ascontiguousarray(start, dtype=np.int64)
+    stop = np.ascontiguousarray(stop, dtype=np.int64)
+    n = len(files)
+    if not len(slots) == len(start) == len(stop) == n:
+        raise ValueError("assemble_spans: lane columns of unequal length")
+    if n and (files.min() < 0 or files.max() >= len(contents) or start.min() < 0
+              or (stop < start).any()):
+        raise ValueError("assemble_spans: a lane's file or window is out of range")
+    lib = load_native()
+    ptrs = (ctypes.c_char_p * len(contents))(*contents)
+    lens = np.fromiter(map(len, contents), dtype=np.int64, count=len(contents))
+    tier_len = np.asarray(STREAM_TIERS, dtype=np.int64)
+    tier = np.empty(n, np.int32)
+    row = np.zeros(n, np.int64)
+    b0 = np.zeros(n, np.int32)
+    b1 = np.zeros(n, np.int32)
+    overflow = np.empty(n, np.int64)
+    sp_file, sp_src, sp_len, sp_dst = (np.empty(n, np.int64) for _ in range(4))
+    sp_tier = np.empty(n, np.int32)
+    n_rows = np.empty(len(STREAM_TIERS), np.int64)
+    counts = np.empty(3, np.int64)
+    lib.span_place(
+        ctypes.cast(ptrs, ctypes.c_void_p), lens.ctypes.data,
+        files.ctypes.data, slots.ctypes.data, start.ctypes.data, stop.ctypes.data, n,
+        tier_len.ctypes.data, len(STREAM_TIERS), STREAM_BLOCK,
+        tier.ctypes.data, row.ctypes.data, b0.ctypes.data, b1.ctypes.data,
+        overflow.ctypes.data,
+        sp_file.ctypes.data, sp_src.ctypes.data, sp_len.ctypes.data,
+        sp_tier.ctypes.data, sp_dst.ctypes.data,
+        n_rows.ctypes.data, counts.ctypes.data,
+    )
+    rows = [np.zeros((int(k), ln), dtype=np.uint8) for k, ln in zip(n_rows, STREAM_TIERS)]
+    bases = np.array([r.ctypes.data for r in rows], dtype=np.uintp)
+    lib.span_copy(
+        ctypes.cast(ptrs, ctypes.c_void_p),
+        sp_file.ctypes.data, sp_src.ctypes.data, sp_len.ctypes.data,
+        sp_tier.ctypes.data, sp_dst.ctypes.data, int(counts[1]),
+        bases.ctypes.data,
+    )
+    return SpanRows(rows=rows, tier=tier, row=row, b0=b0, b1=b1,
+                    overflow=overflow[: counts[0]], span_bytes=int(counts[2]))
 
 
 def _bits(word: int, m: int) -> np.ndarray:
@@ -326,18 +398,7 @@ class GpuNfaVerifier:
             "scan_mode": scan_mode,
         }
         compact_fetch = link_mod.d2h_compaction_enabled()
-        # assemble_s is timed directly: the clock pauses while a flush
-        # (dispatch + bounded fetch) runs and resumes after it; each
-        # stretch is a `verify.assemble` span on the same clock.
-        asm_mark = time.perf_counter()
-
-        def _assembled() -> None:
-            """Close the assembly stretch open since `asm_mark`."""
-            dt = time.perf_counter() - asm_mark
-            st["assemble_s"] += dt
-            self.stats.verify_assemble_s += dt
-            obs_trace.add_span("verify.assemble", asm_mark, dt)
-        overflow: list[int] = []  # lanes for the padded path
+        t_asm = time.perf_counter()
 
         # distinct rules on the stream, most-claimed first; rules beyond the
         # largest stack go to the padded path
@@ -346,12 +407,36 @@ class GpuNfaVerifier:
             keep_rules = rvals[np.argsort(-rcounts)[: RULE_STACK_BUCKETS[-1]]]
         else:
             keep_rules = rvals
-        rule_slot = {int(r): i for i, r in enumerate(np.sort(keep_rules))}
-        st["rules"] = len(rule_slot)
+        slot_rules = np.sort(keep_rules)  # stack slot i runs rule slot_rules[i]
+        st["rules"] = len(slot_rules)
+        slot_of = np.full(int(rvals[-1]) + 1, -1, dtype=np.int32)
+        slot_of[slot_rules] = np.arange(len(slot_rules), dtype=np.int32)
 
         order = s_idx[np.argsort(pairs[s_idx, 0], kind="stable")]
-        rows_buf: list[list[np.ndarray]] = [[] for _ in tiers]
-        flushed = [0] * len(tiers)
+        slots = slot_of[pairs[order, 1]]
+        asm = assemble_spans(contents, pairs[order, 0], slots, start[order], stop[order])
+        overflow = order[asm.overflow]  # lanes for the padded path
+        # per tier, its placed lanes' columns (lane id, row, slot, b0, b1) in
+        # file order, so rows ascend
+        by_tier = []
+        for tier in range(len(tiers)):
+            m = asm.tier == tier
+            by_tier.append((order[m], asm.row[m], slots[m], asm.b0[m], asm.b1[m]))
+        st["span_bytes"] = asm.span_bytes
+        st["rows"] = [len(r) for r in asm.rows]
+        st["overflow_lanes"] = len(overflow)
+        dt = time.perf_counter() - t_asm
+        st["assemble_s"] = dt
+        self.stats.verify_assemble_s += dt
+        self.stats.verify_assemble_lanes += st["lanes"] - len(overflow)
+        obs_trace.add_span("verify.assemble", t_asm, dt)
+
+        def _chunk_lanes(tier, row_lo, row_hi):
+            """The columns of `tier`'s lanes in rows [row_lo, row_hi)."""
+            cols = by_tier[tier]
+            p, q = np.searchsorted(cols[1], (row_lo, row_hi))
+            return [c[p:q] for c in cols]
+
         flush_rows = STREAM_GROUP_BUCKETS[-1] * LANES_PER_GROUP
         # a meshed dispatch keeps at least 8 groups (rounded up to the lanes)
         group_buckets = GROUP_BUCKETS if self.mesh is not None else STREAM_GROUP_BUCKETS
@@ -363,14 +448,14 @@ class GpuNfaVerifier:
 
         def _build_stack():
             nonlocal stack
-            rb = next((b for b in RULE_STACK_BUCKETS if len(rule_slot) <= b),
+            rb = next((b for b in RULE_STACK_BUCKETS if len(slot_rules) <= b),
                       RULE_STACK_BUCKETS[-1])
             fol = np.zeros((rb, 64, 64), np.float32)
             acc = np.zeros((rb, 256, 64), np.float32)
             fst = np.zeros((rb, 64), np.float32)
             lst = np.zeros((rb, 64), np.float32)
-            for r, slot in rule_slot.items():
-                fol[slot], acc[slot], fst[slot], lst[slot] = self._rule_byte_tensors(r)
+            for slot, r in enumerate(slot_rules):
+                fol[slot], acc[slot], fst[slot], lst[slot] = self._rule_byte_tensors(int(r))
             stack = NfaStack.build(fol, acc, fst, lst, self.device)
             for dev in dict.fromkeys(lanes_dev):
                 stacks[dev] = stack if dev == self.device else dataclasses.replace(
@@ -424,8 +509,6 @@ class GpuNfaVerifier:
             """Dispatch rows [row_lo, row_hi) of `tier` in group-bucket
             chunks, fetching the oldest results once `depth` are in flight;
             fused mode attaches each chunk's lane table."""
-            nonlocal asm_mark
-            _assembled()
             td = time.perf_counter()
             with obs_trace.span("verify.dispatch", tier=tier, rows=row_hi - row_lo):
                 if stack is None:
@@ -439,27 +522,21 @@ class GpuNfaVerifier:
                     lo = gi
                     hi = min(lo + gcap * LANES_PER_GROUP, row_hi)
                     gi = hi
-                    rows_arr = np.zeros((gcap * LANES_PER_GROUP, length), dtype=np.uint8)
-                    rows_arr[: hi - lo] = rows_buf[tier][lo:hi]
+                    rows_arr = asm.rows[tier][lo:hi]
+                    if hi - lo < gcap * LANES_PER_GROUP:  # the range's last chunk
+                        rows_arr = np.zeros((gcap * LANES_PER_GROUP, length), dtype=np.uint8)
+                        rows_arr[: hi - lo] = asm.rows[tier][lo:hi]
                     if fused:
-                        # this chunk's lanes: rows append in order, so a
-                        # monotone cursor per tier suffices
-                        fb = fl_buf[tier]
-                        p = fl_ptr[tier]
-                        q = p
-                        while q < len(fb[1]) and fb[1][q] < hi:
-                            q += 1
-                        fl_ptr[tier] = q
-                        if q == p:
+                        lane_ids, rows_l, slots_l, b0_l, b1_l = _chunk_lanes(tier, lo, hi)
+                        n_l = len(lane_ids)
+                        if n_l == 0:
                             continue  # rows carried no lanes
-                        n_l = q - p
                         npad = max(8, 1 << (n_l - 1).bit_length())
                         table = np.zeros((4, npad), np.int32)
-                        table[0, :n_l] = np.asarray(fb[1][p:q], np.int32) - lo
-                        table[1, :n_l] = fb[2][p:q]
-                        table[2, :n_l] = fb[3][p:q]
-                        table[3, :n_l] = fb[4][p:q]
-                        lane_ids = np.asarray(fb[0][p:q], np.int64)
+                        table[0, :n_l] = rows_l - lo
+                        table[1, :n_l] = slots_l
+                        table[2, :n_l] = b0_l
+                        table[3, :n_l] = b1_l
                         est = lo_blocks * gcap * LANES_PER_GROUP * 64 * 64 * 4
                         assoc = scan_mode == "assoc" or (
                             scan_mode == "auto" and est <= FUSED_ASSOC_BUDGET_BYTES
@@ -508,97 +585,31 @@ class GpuNfaVerifier:
             dt = time.perf_counter() - td
             st["dispatch_s"] += dt
             self.stats.verify_dispatch_s += dt
-            asm_mark = time.perf_counter()
 
-        # flat per-lane placement (legacy mode): lane id, tier, row, slot,
-        # first/last 32-block of its window; fused mode keeps per-tier lane
-        # tables (lane, row, slot, b0, b1), consumed chunk by chunk
-        lv: tuple[list, ...] = ([], [], [], [], [], [])
-        fl_buf: list[tuple[list, list, list, list, list]] = [
-            ([], [], [], [], []) for _ in tiers
-        ]
-        fl_ptr = [0] * len(tiers)
-        open_row = [(-1, ln + 1) for ln in tiers]
-        pos = 0
-        while pos < len(order):
-            end = pos
-            f0 = pairs[order[pos], 0]
-            while end < len(order) and pairs[order[end], 0] == f0:
-                end += 1
-            lanes_f = [int(li) for li in order[pos:end] if int(pairs[li, 1]) in rule_slot]
-            overflow.extend(int(li) for li in order[pos:end]
-                            if int(pairs[li, 1]) not in rule_slot)
-            pos = end
-            if not lanes_f:
-                continue
-            content = np.frombuffer(contents[int(pairs[lanes_f[0], 0])], dtype=np.uint8)
-            s = int(min(start[li] for li in lanes_f))
-            e = int(max(stop[li] for li in lanes_f))
-            span = content[s:e]
-            tier = next((t for t, ln in enumerate(tiers) if len(span) <= ln), -1)
-            if tier < 0 or (span == 0).any():
-                # oversize, or holds the dead separator byte: padded path
-                overflow.extend(lanes_f)
-                continue
-            length = tiers[tier]
-            cur, cpos = open_row[tier]
-            if cur < 0 or cpos + len(span) > length:
-                rows_buf[tier].append(np.zeros(length, np.uint8))
-                cur, cpos = len(rows_buf[tier]) - 1, 0
-            rows_buf[tier][cur][cpos : cpos + len(span)] = span
-            for li in lanes_f:
-                rs0 = cpos + int(start[li]) - s
-                rs1 = cpos + int(stop[li]) - s
-                cols = (cur, rule_slot[int(pairs[li, 1])], rs0 // STREAM_BLOCK,
-                        -(-rs1 // STREAM_BLOCK))
-                if fused:
-                    for col, v in zip(fl_buf[tier], (li, *cols)):
-                        col.append(v)
-                else:
-                    for col, v in zip(lv, (li, tier, *cols)):
-                        col.append(v)
-            # one 0x00 separator byte between spans
-            open_row[tier] = (cur, cpos + len(span) + 1)
-            st["span_bytes"] += len(span)
-            # rows before `cur` are closed: dispatch each full max-group
-            # block of them now, while assembly goes on
-            if cur - flushed[tier] >= flush_rows:
-                _flush_range(tier, flushed[tier], flushed[tier] + flush_rows)
-                flushed[tier] += flush_rows
-        st["rows"] = [len(b) for b in rows_buf]
-        st["overflow_lanes"] = len(overflow)
-        _assembled()
-        asm_mark = time.perf_counter()
-
-        if not any(rows_buf) and not overflow:
+        if not any(st["rows"]) and not len(overflow):
             return
-        if not any(rows_buf):
-            self._verify_padded(contents, pairs, start, stop,
-                                np.asarray(overflow, dtype=np.int64), keep)
+        if not any(st["rows"]):
+            self._verify_padded(contents, pairs, start, stop, overflow, keep)
             return
-        for tier in range(len(tiers)):
-            if flushed[tier] < len(rows_buf[tier]):
-                _flush_range(tier, flushed[tier], len(rows_buf[tier]))
+        # each tier's rows in blocks of the largest group bucket, then the rest
+        for tier, n_rows in enumerate(st["rows"]):
+            for lo in range(0, n_rows, flush_rows):
+                _flush_range(tier, lo, min(lo + flush_rows, n_rows))
 
         # overflow lanes run on the padded path while the stream dispatches
         # above are still in flight
-        if overflow:
-            self._verify_padded(contents, pairs, start, stop,
-                                np.asarray(overflow, dtype=np.int64), keep)
+        if len(overflow):
+            self._verify_padded(contents, pairs, start, stop, overflow, keep)
         while in_flight:
             _fetch_one()
 
         t0 = time.perf_counter()
-        la_lane, la_tier, la_row, la_slot, la_b0, la_b1 = (
-            np.asarray(c, dtype=np.int64) for c in lv
-        )
         for tier, row_lo, row_hi, packed in fetched:
             # packed: [ceil(R/8), rows, Lo] uint8
-            m = (la_tier == tier) & (la_row >= row_lo) & (la_row < row_hi)
-            if not m.any():
+            mlane, mrow, mslot, mb0, mb1 = _chunk_lanes(tier, row_lo, row_hi)
+            if not len(mlane):
                 continue
-            rows_rel = la_row[m] - row_lo
-            mslot, mlane, mb0, mb1 = la_slot[m], la_lane[m], la_b0[m], la_b1[m]
+            rows_rel = mrow - row_lo
             cs = np.zeros((packed.shape[1], packed.shape[2] + 1), dtype=np.uint16)
             for slot in np.unique(mslot):
                 sm = mslot == slot

@@ -2,8 +2,8 @@
 hybrid engine's host pre-sieve.
 
 A port of `trivy_tpu/native/loader.py` reduced to what the engines run:
-`dfa_verify.cpp`, `gram_scan.cpp` and `lane_index.cpp` (this directory)
-build with `g++` into
+`dfa_verify.cpp`, `gram_scan.cpp`, `lane_index.cpp` and `span_assemble.cpp`
+(this directory) build with `g++` into
 one shared library through the executable cache (`registry/aotcache.py`:
 `TRIVY_TPU_AOT_CACHE`, else `trivy_tpu_torch/_build/`, listed in
 `.gitignore`).  Its file name carries a digest of the sources and the
@@ -13,8 +13,9 @@ flags, so an edited source never loads a stale build; its manifest pins
 directory) beside the library's sha256, and it loads through ctypes only
 when all of that matches.  Bound:
 `dfa_verify_pairs`, `dfa_verify_pairs_files`, `gram_sieve_scan_files`, the
-row sieve `gram_sieve` (`gram_sieve_native`) and the fused K5's lane index
-`lane_index` (`ops/nfa_verify.LaneIndex.build`).
+row sieve `gram_sieve` (`gram_sieve_native`), the fused K5's lane index
+`lane_index` (`ops/nfa_verify.LaneIndex.build`) and the device verify's span
+assembly `span_place`/`span_copy` (`engine/nfa_device.assemble_spans`).
 
 Unlike the reference, a failed build raises with the compiler's output
 instead of returning None: the reference's None makes its engine skip the
@@ -39,7 +40,7 @@ from trivy_tpu_torch import lockcheck
 from trivy_tpu_torch.registry import aotcache
 
 NATIVE_DIR = Path(__file__).resolve().parent
-SOURCES = ("dfa_verify.cpp", "gram_scan.cpp", "lane_index.cpp")
+SOURCES = ("dfa_verify.cpp", "gram_scan.cpp", "lane_index.cpp", "span_assemble.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _lock = lockcheck.make_lock("native.loader")
@@ -179,6 +180,26 @@ def load_native(cache_dir: str | os.PathLike | None = None) -> ctypes.CDLL:
             ctypes.c_void_p,                                   # out
         ]
         lib.lane_index.restype = ctypes.c_int64
+        lib.span_place.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,                  # file ptrs, lens
+            ctypes.c_void_p, ctypes.c_void_p,                  # lane file, slot
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # lane start, stop, n
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,   # tiers, n_tiers, block
+            ctypes.c_void_p, ctypes.c_void_p,                  # out tier, row
+            ctypes.c_void_p, ctypes.c_void_p,                  # out b0, b1
+            ctypes.c_void_p,                                   # out overflow
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out span file, src, len
+            ctypes.c_void_p, ctypes.c_void_p,                  # out span tier, dst
+            ctypes.c_void_p, ctypes.c_void_p,                  # out rows, counts
+        ]
+        lib.span_place.restype = None
+        lib.span_copy.argtypes = [
+            ctypes.c_void_p,                                   # file ptrs
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # span file, src, len
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # span tier, dst, n
+            ctypes.c_void_p,                                   # tier row arrays
+        ]
+        lib.span_copy.restype = None
         _lib = lib
     return _lib
 
