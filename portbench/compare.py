@@ -1,5 +1,7 @@
 """The comparison that decides `correct`: every answer of the window against
-the plain reference (`portbench/reference/secret_scan.py`).
+the plain reference the configuration names (its `reference` key: the
+module `portbench/reference/<reference>.py`, with `answers(config, items,
+control)`; `secret_scan` by default).
 
 The reference scans the whole tree once, after the window, in worker
 processes started with `spawn` that import only the reference and the
@@ -17,7 +19,7 @@ import os
 import sys
 from concurrent.futures import ProcessPoolExecutor
 
-from portbench.reference.secret_scan import SecretScanner, canonical
+from portbench import loader
 
 # Top-level module names the reference's workers must not hold.
 PROGRAM_MODULES = ("trivy_tpu_torch", "trivy_tpu", "jax", "jaxlib", "flax")
@@ -39,76 +41,56 @@ def loaded(names, modules=None) -> list[str]:
     return sorted(m for m in list(modules) if m.split(".", 1)[0] in names)
 
 
-def _reference_slice(traffic: dict, seed: int, lo: int, hi: int, digest: str,
-                     control: bool) -> list[tuple]:
-    from portbench.corpus import make_tree
+def reference_module(config: dict):
+    """The configuration's reference, `portbench/reference/<reference>.py`."""
+    return loader.load("reference", config.get("reference", "secret_scan"))
 
-    items = make_tree(traffic, seed, stop=hi)[lo:hi]
-    if slice_digest(items) != digest:
-        raise RuntimeError(f"the reference's files {lo}:{hi} differ from the program's")
-    scanner = SecretScanner(secret_group_spans=not control)
-    out = [scanner.scan(path, content) for path, content in items]
+
+def reference_slice(config: dict, items, control: bool = False) -> list[tuple]:
+    """The reference's canonical answers of `items` (the control's, with
+    `control`), in a process that must hold nothing of the program."""
+    out = reference_module(config).answers(config, items, control)
     held = loaded(PROGRAM_MODULES)
     if held:
         raise RuntimeError(f"the reference process loaded {held}")
     return out
 
 
+def _tree_slice(config: dict, traffic: dict, seed: int, lo: int, hi: int,
+                digest: str) -> list[tuple]:
+    from portbench.corpus import make_tree
+
+    items = make_tree(traffic, seed, stop=hi)[lo:hi]
+    if slice_digest(items) != digest:
+        raise RuntimeError(f"the reference's files {lo}:{hi} differ from the program's")
+    return reference_slice(config, items)
+
+
 def workers() -> int:
     return len(os.sched_getaffinity(0))
 
 
-def reference_answers(traffic: dict, seed: int, tree, n_workers: int | None = None,
-                      control: bool = False) -> list[tuple]:
-    """The reference's canonical answer for every file of `tree` (the
-    control's, with `control`), computed over `n_workers` spawned processes,
-    each joined before this returns."""
+def reference_answers(config: dict, traffic: dict, seed: int, tree,
+                      n_workers: int | None = None) -> list[tuple]:
+    """The reference's canonical answer for every file of `tree`, computed
+    over `n_workers` spawned processes, each joined before this returns."""
     n = len(tree)
     k = max(1, min(n_workers or workers(), n))
     bounds = [n * j // k for j in range(k + 1)]
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=k, mp_context=ctx) as pool:
-        futs = [pool.submit(_reference_slice, traffic, seed, lo, hi,
-                            slice_digest(tree[lo:hi]), control)
+        futs = [pool.submit(_tree_slice, config, traffic, seed, lo, hi,
+                            slice_digest(tree[lo:hi]))
                 for lo, hi in zip(bounds, bounds[1:]) if hi > lo]
         parts = [f.result() for f in futs]
     return [answer for part in parts for answer in part]
 
 
-def program_answer(secret) -> tuple:
-    """A `Secret` result of the program in the reference's canonical form;
-    `("unordered", path)` when its findings break Go's order (RuleID, then
-    the raw match line), `("garbled", path)` when a finding's match text is
-    not its raw match line decoded."""
-    findings = secret.findings
-    if not findings:
-        return ()
-    keys = [(f.rule_id, f.match_bytes) for f in findings]
-    if keys != sorted(keys):
-        return ("unordered", secret.file_path)
-    rows = []
-    for f in findings:
-        if f.match != f.match_bytes.decode("utf-8", errors="replace"):
-            return ("garbled", secret.file_path)
-        code = tuple((ln.number, ln.content, ln.highlighted, ln.is_cause, ln.first_cause,
-                      ln.last_cause) for ln in f.code.lines)
-        rows.append((f.rule_id, f.category, f.severity, f.title, f.start_line,
-                     f.end_line, f.match_bytes, code))
-    return canonical(secret.file_path, rows)
-
-
-def keep(idxs, results) -> tuple:
-    """What the comparison needs of one batch's answers: the file indices,
-    the number of answers and those that carry findings (an answer without
-    findings compares as `()`, whatever object it is), so the window does
-    not hold every empty result for the collector to walk."""
-    return idxs, len(results), {j: r for j, r in enumerate(results) if r.findings}
-
-
-def compare(expected: list[tuple], batches) -> dict:
+def compare(expected: list[tuple], batches, answer) -> dict:
     """Every answer of the window against the reference's.  `batches` holds
-    `keep`'s record of each batch the window sent.  Returns the counts and up
-    to three mismatches to print."""
+    the entry's `keep` record of each batch the window sent, `answer` turns
+    one kept answer into the canonical form.  Returns the counts and up to
+    three mismatches to print."""
     compared = mismatched = missing = 0
     examples: list[dict] = []
     for idxs, n_answers, found in batches:
@@ -117,7 +99,7 @@ def compare(expected: list[tuple], batches) -> dict:
             continue
         for pos, i in enumerate(idxs):
             compared += 1
-            got = program_answer(found[pos]) if pos in found else ()
+            got = answer(found[pos]) if pos in found else ()
             if got != expected[i]:
                 mismatched += 1
                 if len(examples) < 3:

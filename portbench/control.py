@@ -4,14 +4,15 @@ own size, through the path that decides `correct` in every run.
 
     python3 portbench/control.py --workload <cell> --seconds <s> --seeds <n> [<n> ...]
 
-The broken guarantee is `secret_group`: where a rule names a secret group,
-the control reports the whole match's span, as a verifier that knows only
-where a match ends would.  For each seed it makes one run of the cell
-(`harness.run`) with the engine's answers replaced by the control's, so the
-control's answers go through the window, `compare.keep`, the comparison's
-order and text checks and the limits, and prints that run's result line;
-the control has to come out not correct on every seed.  The benchmark's
-own runs never run it.
+The control is the configuration's reference module with `control` set
+(`answers(config, items, control=True)`); for `secret-default` the broken
+guarantee is `secret_group`: where a rule names a secret group, the control
+reports the whole match's span, as a verifier that knows only where a match
+ends would.  For each seed it makes one run of the cell (`harness.run`)
+with the control's answers in the engine's place, so they go through the
+window, the batch records and the comparison with its limits, and prints
+that run's result line; the control has to come out not correct on every
+seed.  The benchmark's own runs never run it.
 """
 
 import argparse
@@ -23,52 +24,43 @@ import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
-from types import SimpleNamespace
 
 BENCH = Path(__file__).resolve().parent
 
 
-def _control_findings(items) -> list[list[tuple]]:
-    from portbench.reference.secret_scan import SecretScanner
-
-    scanner = SecretScanner(secret_group_spans=False)
-    return [scanner.findings(path, content) for path, content in items]
-
-
-def _secret(path: str, rows: list[tuple]) -> SimpleNamespace:
-    """The control's findings of one file in the shape of the program's
-    `Secret`, in Go's order (RuleID, then the raw match line)."""
-    findings = []
-    for rule_id, category, severity, title, start, end, match, code in sorted(
-            rows, key=lambda f: (f[0], f[6], f)):
-        lines = [SimpleNamespace(number=n, content=c, highlighted=h, is_cause=a,
-                                 first_cause=b, last_cause=z) for n, c, h, a, b, z in code]
-        findings.append(SimpleNamespace(
-            rule_id=rule_id, category=category, severity=severity, title=title,
-            start_line=start, end_line=end, match_bytes=match,
-            match=match.decode("utf-8", errors="replace"),
-            code=SimpleNamespace(lines=lines)))
-    return SimpleNamespace(file_path=path, findings=findings)
-
-
-class ControlEngine:
-    """An engine whose every answer is the control's, computed over
+class ControlEntry:
+    """An entry whose engine is the control: every answer is the
+    reference's control answer, canonical already, computed over
     `n_workers` spawned processes that load nothing of the program."""
 
     def __init__(self, n_workers: int | None = None):
         from portbench import compare
 
         self.n_workers = n_workers or compare.workers()
+        self.config: dict = {}
 
-    def scan_batch(self, items):
+    def build(self, config: dict, device: str, rules_cache_dir):
+        self.config = config
+        return self
+
+    def scan(self, engine, items):
+        from portbench import compare
+
         k = max(1, min(self.n_workers, len(items)))
         bounds = [len(items) * j // k for j in range(k + 1)]
         ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(max_workers=k, mp_context=ctx) as pool:
-            parts = list(pool.map(_control_findings,
-                                  [items[lo:hi] for lo, hi in zip(bounds, bounds[1:])]))
-        rows = [r for part in parts for r in part]
-        return [_secret(path, r) for (path, _), r in zip(items, rows)]
+            futs = [pool.submit(compare.reference_slice, self.config, items[lo:hi], True)
+                    for lo, hi in zip(bounds, bounds[1:])]
+            return [a for f in futs for a in f.result()]
+
+    @staticmethod
+    def keep(idxs, answers) -> tuple:
+        return idxs, len(answers), {j: a for j, a in enumerate(answers) if a}
+
+    @staticmethod
+    def answer(one) -> tuple:
+        return one
 
 
 def control_run(workload: str, seed: int, seconds: float, n_workers: int | None = None,
@@ -80,7 +72,7 @@ def control_run(workload: str, seed: int, seconds: float, n_workers: int | None 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = harness.run(workload, seed, seconds, False, t0=time.perf_counter(),
-                         wrap_engine=lambda engine: ControlEngine(n_workers), **run_kwargs)
+                         program=ControlEntry(n_workers), **run_kwargs)
     if rc != 0:
         raise RuntimeError(f"the control's run exited {rc}")
     return json.loads(out.getvalue().strip().splitlines()[-1])

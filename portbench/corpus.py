@@ -8,21 +8,34 @@ names a `shape` and its parameters, and `make_tree` builds the tree.
 Every seed gets the same multiset of file sizes (and, for the config shape,
 of near-miss counts), drawn from the file's `sizes_seed` and put in another
 order by the run's seed; the text in each file, and which file gets which
-size, follow the run's seed.  So two seeds do the same amount of work on
-different bytes.
+size, follow the run's seed.  The kernel shape's token pool, which each file
+is a slice of, comes from the file's `pool_seed`.  So two seeds do the same
+amount of work on different bytes.
 
 Shapes:
   kernel  a C source tree, a planted secret every `planted_every` files
   config  a hit-dense config/infra tree: near-miss credential lines in every
           file, a planted secret every `planted_every` files
+  <name>  any other shape is the module `portbench/shapes/<name>.py`, whose
+          `make(traffic, seed, stop)` builds the tree as `make_tree` does;
+          it too may depend on nothing but the traffic file and the seed,
+          since the reference's workers rebuild the tree from those
 
-A planted secret is one builtin rule's true positive, the rules in turn
+A planted secret is a true positive of one rule of the traffic file's
+`planted_rules` (the rules file `portbench/reference/<planted_rules>.json`,
+in the reference's JSON form; `builtin_rules` by default), the rules in turn
 (`planted_secret`).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
+
+from portbench import loader
+
+PLANTED_RULES = "builtin_rules"
 
 # --- token pools -----------------------------------------------------------
 
@@ -140,10 +153,11 @@ def _rand_chars(rng, alphabet: np.ndarray, n: int) -> bytes:
 
 _UPPER_DIGIT = np.frombuffer(b"ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789", np.uint8)
 
-# One true-positive shape per rule of the builtin ruleset: a line drawn from
-# the rule's own regex (`portbench/reference/builtin_rules.json`, read in
-# Go's syntax through the reference's translation), kept only where the
-# reference finds that rule in it.  Planted secrets cycle through the rules
+# One true-positive shape per rule of a rules file (the builtin ruleset,
+# `portbench/reference/builtin_rules.json`, unless the traffic file names
+# another in that folder): a line drawn from the rule's own regex, read in
+# Go's syntax through the reference's translation, kept only where the
+# reference over that file finds that rule in it.  Planted secrets cycle through the rules
 # in the file's order, so a tree with as many planted files as rules holds
 # every rule's shape.
 
@@ -151,23 +165,30 @@ _PRINTABLE = [chr(c) for c in range(0x20, 0x7F)]
 _ALNUM = set("ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789")
 _OPEN_REPEAT = 48  # extra draws past the minimum of an unbounded repeat
 _ATTEMPTS = 64
-_RULES = None
+_RULES: dict[Path, list] = {}
 
 
-def _rules():
-    """[(rule id, parsed regex, keywords, the reference's scanner)], built once."""
-    global _RULES
-    if _RULES is None:
+def planted_rules(traffic: dict) -> Path:
+    """The rules file whose rules `traffic`'s planted secrets are drawn from."""
+    return loader.rules_file(traffic.get("planted_rules", PLANTED_RULES))
+
+
+def _rules(rules_file: Path):
+    """[(rule id, parsed regex, keywords, the reference's scanner)] of
+    `rules_file`, built once a path (the path as given: a lookup makes no
+    system call, which costs on a sandboxed host, once a planted file)."""
+    rules_file = Path(rules_file)
+    if rules_file not in _RULES:
         import json
         from re import _parser
 
-        from portbench.reference.secret_scan import RULES_FILE, SecretScanner, go_regex
+        from portbench.reference.secret_scan import SecretScanner, go_regex
 
-        doc = json.loads(RULES_FILE.read_text())
-        scanner = SecretScanner()
-        _RULES = [(r["id"], _parser.parse(go_regex(r["regex"])), r.get("keywords") or [],
-                   scanner) for r in doc["rules"]]
-    return _RULES
+        doc = json.loads(rules_file.read_text())
+        scanner = SecretScanner(doc)
+        _RULES[rules_file] = [(r["id"], _parser.parse(go_regex(r["regex"])),
+                               r.get("keywords") or [], scanner) for r in doc["rules"]]
+    return _RULES[rules_file]
 
 
 def _class_members(items) -> list[str]:
@@ -248,11 +269,13 @@ def _draw(rng, seq) -> str:
     return "".join(out)
 
 
-def planted_secret(rng: np.random.Generator, kind: int) -> bytes:
-    """One planted secret line for rule `kind` (mod the number of rules): a
-    draw from the rule's regex, after one of its keywords where the draw
-    holds none, that the reference finds as that rule on its own line."""
-    rules = _rules()
+def planted_secret(rng: np.random.Generator, kind: int,
+                   rules_file: Path = loader.rules_file(PLANTED_RULES)) -> bytes:
+    """One planted secret line for rule `kind` (mod the number of rules of
+    `rules_file`): a draw from the rule's regex, after one of its keywords
+    where the draw holds none, that the reference finds as that rule on its
+    own line."""
+    rules = _rules(rules_file)
     rule_id, parsed, keywords, scanner = rules[kind % len(rules)]
     for _ in range(_ATTEMPTS):
         text = _draw(rng, parsed)
@@ -313,9 +336,15 @@ def _draws(traffic: dict, seed: int, columns: int = 1) -> np.ndarray:
 
 def _kernel(traffic: dict, seed: int, stop: int) -> list[tuple[str, bytes]]:
     rng = np.random.default_rng(int(seed))
-    pool = _build_pool(rng, "c", int(traffic["pool_bytes"]))
+    # The token pool holds the text's incidental keyword hits (an identifier
+    # like `totalTail` holds alibaba's `LTAI`), which set the verify's work:
+    # drawn from `pool_seed`, every seed slices the same pool in other places
+    # and does the same work.
+    pool = _build_pool(np.random.default_rng(int(traffic["pool_seed"])), "c",
+                       int(traffic["pool_bytes"]))
     sizes = _draws(traffic, seed)[:, 0]
     every, offset = int(traffic["planted_every"]), int(traffic["planted_offset"])
+    rules_file = planted_rules(traffic)
     out = []
     planted = 0
     for i in range(stop):
@@ -324,7 +353,7 @@ def _kernel(traffic: dict, seed: int, stop: int) -> list[tuple[str, bytes]]:
         body = b"// SPDX-License-Identifier: GPL-2.0\n" + _slice_pool(pool, rng, int(sizes[i]))
         if every and i % every == offset:
             cut = body.rfind(b"\n", 0, len(body) // 2) + 1
-            body = body[:cut] + planted_secret(rng, planted) + body[cut:]
+            body = body[:cut] + planted_secret(rng, planted, rules_file) + body[cut:]
             planted += 1
         out.append((path, body))
     return out
@@ -336,6 +365,7 @@ def _config(traffic: dict, seed: int, stop: int) -> list[tuple[str, bytes]]:
     draws = _draws(traffic, seed, columns=2)
     exts = traffic["extensions"]
     every, offset = int(traffic["planted_every"]), int(traffic["planted_offset"])
+    rules_file = planted_rules(traffic)
     out = []
     planted = 0
     misses = 0
@@ -347,7 +377,7 @@ def _config(traffic: dict, seed: int, stop: int) -> list[tuple[str, bytes]]:
             lines.append(_near_miss(rng, misses))
             misses += 1
         if every and i % every == offset:
-            lines.append(planted_secret(rng, planted))
+            lines.append(planted_secret(rng, planted, rules_file))
             planted += 1
         cut = body.rfind(b"\n", 0, len(body) // 2) + 1
         out.append((path, body[:cut] + b"".join(lines) + body[cut:]))
@@ -357,8 +387,16 @@ def _config(traffic: dict, seed: int, stop: int) -> list[tuple[str, bytes]]:
 SHAPES = {"kernel": _kernel, "config": _config}
 
 
+def shape(name: str):
+    """The function that makes trees of shape `name`: one of `SHAPES`, else the `make` of
+    `portbench/shapes/<name>.py`."""
+    if name in SHAPES:
+        return SHAPES[name]
+    return loader.load("shapes", name).make
+
+
 def make_tree(traffic: dict, seed: int, stop: int | None = None) -> list[tuple[str, bytes]]:
     """The tree of `traffic` for `seed`: [(path, content)] in tree order;
     `stop` builds only the first `stop` files (the same bytes)."""
     n = int(traffic["n_files"])
-    return SHAPES[traffic["shape"]](traffic, seed, n if stop is None else min(stop, n))
+    return shape(traffic["shape"])(traffic, seed, n if stop is None else min(stop, n))

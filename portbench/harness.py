@@ -5,14 +5,18 @@ mix; both are files found by name, `portbench/configs/<config>.json` and
 `portbench/traffic/<traffic>.json`, and each metric the cell reports is a
 reader found by name, `portbench/metrics/<metric>.py`, with a `read(run)`
 that returns the number or None (nothing to read) and, where it needs the
-engine's per-batch state, an `on_batch(run, engine)`.  A new cell, traffic
-mix or metric is new files and a new manifest entry; this file stays.
+engine's per-batch state, an `on_batch(run, engine)`.  The configuration
+names in turn the entry that builds and drives the program
+(`portbench/entries/<entry>.py`, `secret` by default) and its plain
+reference (`compare.py`); the traffic file names its tree's shape
+(`corpus.py`).  A new cell, configuration, traffic mix or metric is new
+files and a new manifest entry; this file stays.
 
 One run:
 
 1. set-up (counted in `setup_s` from the process's start): the card check,
    the tree from the traffic file and `--seed`, the engine from the
-   configuration (`make_secret_engine`, then `warmup()`), and the first
+   configuration (its entry's `build`, warm-up included), and the first
    batch of the tree through the engine, the largest the window sends, so
    the engine's buffers and pools reach their size before the clock starts
    (the engines' kernels are built ahead, and their row buckets differ only
@@ -27,9 +31,9 @@ One run:
 3. with `--trace 1`, the window's first pass runs under `torch.profiler`
    with the program's host spans on (`portbench/devtrace.py`), and the
    per-layer readers count from the batches after it;
-4. `correct`: every answer of the window against the plain reference
-   (`portbench/compare.py`), once the window has closed, the peak memory has
-   been read and the engine freed;
+4. `correct`: every answer of the window against the configuration's plain
+   reference (`portbench/compare.py`), once the window has closed, the peak
+   memory has been read and the engine freed;
 5. the result: the numbers compared, beside their limits, as the last lines
    of standard error; the JSON line as the last line of standard output.
 """
@@ -38,7 +42,6 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import json
 import os
 import subprocess
@@ -48,7 +51,7 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
-from portbench import compare
+from portbench import compare, loader
 from portbench.corpus import make_tree
 
 BENCH = Path(__file__).resolve().parent
@@ -81,13 +84,12 @@ def load_cell(workload: str, root: Path = ROOT, bench: Path = BENCH) -> SimpleNa
 
 def reader(name: str, bench: Path = BENCH):
     """The reader module of metric `name`, `portbench/metrics/<name>.py`."""
-    path = bench / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}", path)
-    if spec is None or not path.exists():
-        raise SystemExit(f"metric {name!r} has no reader at {path}")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return loader.load("metrics", name, bench)
+
+
+def entry(config: dict, bench: Path = BENCH):
+    """The entry module of a configuration, `portbench/entries/<entry>.py`."""
+    return loader.load("entries", config.get("entry", "secret"), bench)
 
 
 def byte_bounded(sizes, max_bytes: int, big_bytes: int) -> list[list[int]]:
@@ -156,11 +158,12 @@ def _log(text: str) -> None:
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool, *, t0: float,
-        device: str = "cuda", traffic_overrides: dict | None = None, wrap_engine=None,
+        device: str = "cuda", traffic_overrides: dict | None = None, program=None,
         reference_workers: int | None = None) -> int:
     """One run of `workload`; returns the exit code.  `device`, the traffic
-    overrides, `wrap_engine` and `reference_workers` are for the CPU tests and
-    the control, which drive everything but the card."""
+    overrides, `program` (an entry in the place of the configuration's) and
+    `reference_workers` are for the CPU tests and the control, which drive
+    everything but the card."""
     cell = load_cell(workload)
     traffic = {**cell.traffic, **(traffic_overrides or {})}
     if int(traffic.get("clients", 1)) != 1:
@@ -182,7 +185,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t0: float,
         raise SystemExit("TRIVY_TPU_SYNC_TIMING adds synchronisations: no timed run sets it")
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
 
-    from trivy_tpu_torch.engine.hybrid import make_secret_engine
+    ent = program or entry(cell.config)
     from trivy_tpu_torch.obs import trace as obs_trace
 
     t = time.perf_counter()
@@ -191,15 +194,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t0: float,
     tree_s = time.perf_counter() - t
 
     t = time.perf_counter()
-    engine = make_secret_engine(device=device, rules_cache_dir=str(RULES_CACHE),
-                                **cell.config["engine"])
-    engine.warmup()
+    engine = ent.build(cell.config, device, RULES_CACHE)
     build_s = time.perf_counter() - t
-    if wrap_engine is not None:
-        engine = wrap_engine(engine)
 
     t = time.perf_counter()
-    engine.scan_batch([tree[i] for i in pass_batches(sizes, traffic, 0)[0]])
+    ent.scan(engine, [tree[i] for i in pass_batches(sizes, traffic, 0)[0]])
     sync()
     warm_s = time.perf_counter() - t
 
@@ -211,13 +210,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t0: float,
         card=kind, n_files=len(tree), build_s=build_s, state={}, devtrace=None,
         gate=getattr(engine, "gate_decision", None))
 
-    batches: list[tuple] = []  # compare.keep's record of each batch
+    batches: list[tuple] = []  # the entry's `keep` record of each batch
     window0 = time.perf_counter()
     run_.setup_s = window0 - t0
     p = 1
     if trace:
-        run_.devtrace = _profiled_pass(engine, tree, sizes, traffic, p, batches, device,
-                                       obs_trace, torch)
+        run_.devtrace = _profiled_pass(ent, engine, tree, sizes, traffic, p, batches,
+                                       device, obs_trace, torch)
         p += 1
     counted0 = len(batches)
     stats0, launches0 = _stats(engine), _launches()
@@ -227,9 +226,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t0: float,
     while not done:
         for idx in pass_batches(sizes, traffic, p):
             t = time.perf_counter()
-            res = engine.scan_batch([tree[i] for i in idx])
+            res = ent.scan(engine, [tree[i] for i in idx])
             batch_s.append(time.perf_counter() - t)
-            batches.append(compare.keep(idx, res))
+            batches.append(ent.keep(idx, res))
             del res
             for hook in hooks:
                 hook(run_, engine)
@@ -273,8 +272,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t0: float,
         torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    expected = compare.reference_answers(traffic, seed, tree, reference_workers)
-    verdict = compare.compare(expected, batches)
+    expected = compare.reference_answers(cell.config, traffic, seed, tree, reference_workers)
+    verdict = compare.compare(expected, batches, ent.answer)
     _log(f"reference: seconds={time.perf_counter() - t} compared={verdict['compared']} "
          f"examples={json.dumps(verdict['examples'])}")
     numbers = {"mismatched_files": verdict["mismatched"], "missing_files": verdict["missing"]}
@@ -303,12 +302,12 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t0: float,
     return 0
 
 
-def _profiled_pass(engine, tree, sizes, traffic, p, batches, device, obs_trace, torch):
+def _profiled_pass(ent, engine, tree, sizes, traffic, p, batches, device, obs_trace, torch):
     """Pass `p` under `torch.profiler`, host spans on: its batches join the
     window's; returns `devtrace.reduce_trace`'s reading (None on the CPU)."""
     if device != "cuda":
         for idx in pass_batches(sizes, traffic, p):
-            batches.append(compare.keep(idx, engine.scan_batch([tree[i] for i in idx])))
+            batches.append(ent.keep(idx, ent.scan(engine, [tree[i] for i in idx])))
         return None
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -328,8 +327,8 @@ def _profiled_pass(engine, tree, sizes, traffic, p, batches, device, obs_trace, 
             for idx in pass_batches(sizes, traffic, p):
                 starts.append(time.perf_counter())
                 with record_function(devtrace.ANNOTATION):
-                    res = engine.scan_batch([tree[i] for i in idx])
-                batches.append(compare.keep(idx, res))
+                    res = ent.scan(engine, [tree[i] for i in idx])
+                batches.append(ent.keep(idx, res))
             ev1.record()
             torch.cuda.synchronize()
     finally:

@@ -1,20 +1,10 @@
 """Seconds the default engine's device verify spends assembling its lanes
-(`GpuNfaVerifier.stream_stats["assemble_s"]`, a new record each verify
-call) per scan; 0 when the gate put the verify on the host, where no lane
-is assembled."""
+(`engine/nfa_device.py` `assemble_spans`, the `verify.assemble` spans) per
+scan: `SieveStats.verify_assemble_s`, summed over every verify call; 0 when
+the gate put the verify on the host, where no lane is assembled."""
 
-from portbench.metrics._stage import HYBRID
-
-
-def on_batch(run, engine):
-    verifier = getattr(engine, "_nfa_verifier", None)
-    st = getattr(verifier, "stream_stats", None) or {}
-    if st and st is not run.state.get("assemble_last"):
-        run.state["assemble_last"] = st
-        run.state["assemble_s"] = run.state.get("assemble_s", 0.0) + st.get("assemble_s", 0.0)
+from portbench.metrics._stage import HYBRID, per_scan
 
 
 def read(run):
-    if run.config["engine"]["backend"] not in HYBRID or run.scans <= 0:
-        return None
-    return run.state.get("assemble_s", 0.0) / run.scans
+    return per_scan(run, "verify_assemble_s", backends=HYBRID)

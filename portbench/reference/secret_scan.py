@@ -12,8 +12,15 @@ inputs from the benchmark's generator.
 
 A scan returns the file's findings in a canonical form (`canonical`):
 `()` when there is none, else `(path, findings)` with each finding as the
-tuple a user sees in Trivy's report.  `portbench/compare.py` reduces the
-program's `Secret` results to the same form.
+tuple a user sees in Trivy's report.  The secret entry
+(`portbench/entries/secret.py`) reduces the program's `Secret` results to
+the same form.
+
+As the reference a configuration names (its `reference` key, `secret_scan`),
+the module gives `answers(config, items, control)`: the canonical answer of
+each file under the builtin rules.  A configuration with other rules brings
+a reference module of its own, which may build a `SecretScanner` over its
+rules document.
 
 Divergences from Go, none reachable on the benchmark's ASCII traffic: Python
 folds case and matches `.` byte by byte, where Go folds Unicode and steps over
@@ -172,11 +179,11 @@ class Rule:
 
 
 class SecretScanner:
-    """`scanner.go` `Scanner` over the rules file: the rules, the global
-    allow rules and the global exclude block."""
+    """`scanner.go` `Scanner` over a rules file, or its parsed document: the
+    rules, the global allow rules and the global exclude block."""
 
-    def __init__(self, rules_file: Path = RULES_FILE, secret_group_spans: bool = True):
-        doc = json.loads(Path(rules_file).read_text())
+    def __init__(self, rules: Path | dict = RULES_FILE, secret_group_spans: bool = True):
+        doc = rules if isinstance(rules, dict) else json.loads(Path(rules).read_text())
         self.rules = [Rule(r) for r in doc["rules"]]
         self.allow_rules = [AllowRule(a) for a in doc.get("allow-rules") or []]
         self.exclude = [_compile(r) for r in (doc.get("exclude-block") or {}).get("regexes") or []]
@@ -234,6 +241,14 @@ class SecretScanner:
             return []
         final = bytes(censored)
         return [_finding(rule, start, end, final) for rule, start, end in matched]
+
+
+def answers(config: dict, items, control: bool = False) -> list[tuple]:
+    """The canonical answer of each `(path, content)` of `items` under the
+    builtin rules; with `control`, the control's (whole-match spans where a
+    rule names a secret group)."""
+    scanner = SecretScanner(secret_group_spans=not control)
+    return [scanner.scan(path, content) for path, content in items]
 
 
 def canonical(path: str, findings: list[tuple]) -> tuple:

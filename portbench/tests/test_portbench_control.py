@@ -6,6 +6,7 @@ underneath in each way a secret scan can be."""
 
 import json
 import time
+from types import SimpleNamespace
 
 import pytest
 
@@ -17,7 +18,7 @@ from trivy_tpu_torch.ftypes import Secret
 @pytest.mark.parametrize("cell,n_files", [("default.config-tree", 300)])
 def test_control_comes_out_not_correct(cell, n_files):
     """The control's answers, in the engine's place, through the window,
-    `compare.keep` and the comparison that decides `correct`."""
+    the batch records and the comparison that decides `correct`."""
     for seed in (1, 2_147_483_659, 3_000_000_021):
         result = control_run(cell, seed, 0.5, n_workers=2, device="cpu",
                              traffic_overrides={"n_files": n_files}, reference_workers=2)
@@ -74,9 +75,16 @@ class Altered:
         return res
 
 
-def drive(capsys, wrap=None) -> dict:
-    rc = harness.run("default.config-tree", 2_147_483_659, 1.0, False, t0=time.perf_counter(),
-                     device="cpu", traffic_overrides={"n_files": 300}, wrap_engine=wrap,
+def drive(capsys, fault=None) -> dict:
+    """A run of the config tree on the CPU, its engine wrapped in `fault`, if any."""
+    cell = "default.config-tree"
+    program = None
+    if fault is not None:
+        ent = harness.entry(harness.load_cell(cell).config)
+        program = SimpleNamespace(build=lambda *args: fault(ent.build(*args)), scan=ent.scan,
+                                  keep=ent.keep, answer=ent.answer)
+    rc = harness.run(cell, 2_147_483_659, 1.0, False, t0=time.perf_counter(),
+                     device="cpu", traffic_overrides={"n_files": 300}, program=program,
                      reference_workers=2)
     assert rc == 0
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -13,8 +13,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from portbench import compare
 from portbench.corpus import _near_miss, make_tree, planted_secret
+from portbench.entries.secret import answer as program_answer
 from portbench.reference.secret_scan import RULES_FILE, SecretScanner, go_regex
 from trivy_tpu_torch.engine.oracle import OracleScanner
 
@@ -23,8 +23,8 @@ BENCH = Path(__file__).resolve().parents[1]
 
 # A C source tree of the generator's `kernel` shape, which no cell uses yet.
 KERNEL_SHAPE = {"shape": "kernel", "n_files": 80000, "size_median": 3000, "size_sigma": 1.0,
-                "size_min": 64, "size_max": 262144, "sizes_seed": 7, "pool_bytes": 8388608,
-                "planted_every": 900, "planted_offset": 1}
+                "size_min": 64, "size_max": 262144, "sizes_seed": 7, "pool_seed": 7,
+                "pool_bytes": 8388608, "planted_every": 900, "planted_offset": 1}
 
 
 def traffic(name: str) -> dict:
@@ -41,11 +41,12 @@ def scanners():
 @pytest.mark.parametrize("name,n,seed", [
     ("config-tree", 300, 2_147_483_659),
     ("kernel-shape", 400, 5),
+    ("kernel-shape", 400, 3_200_000_016),
 ])
 def test_reference_equals_the_oracle_on_tree_slices(scanners, name, n, seed):
     ref, oracle = scanners
     tree = make_tree(traffic(name), seed, stop=n)
-    want = [compare.program_answer(oracle.scan(p, c)) for p, c in tree]
+    want = [program_answer(oracle.scan(p, c)) for p, c in tree]
     got = [ref.scan(p, c) for p, c in tree]
     assert got == want
     assert any(got), "the slice holds a planted secret"
@@ -60,7 +61,7 @@ def test_reference_equals_the_oracle_on_planted_shapes(scanners):
             body = (b"x = 1\nname = value\n" + planted_secret(rng, kind)
                     + _near_miss(rng, kind) + b"tail line\n")
             for path in ("deploy/a.env", "src/test_a.py", "docs/readme.md"):
-                want = compare.program_answer(oracle.scan(path, body))
+                want = program_answer(oracle.scan(path, body))
                 assert ref.scan(path, body) == want, (rule["id"], path, body)
             found = ref.scan("deploy/a.env", body)
             assert found and rule["id"] in {f[0] for f in found[1]}, rule["id"]
@@ -85,7 +86,7 @@ def test_reference_equals_the_oracle_on_censoring_and_order(scanners):
             + b"AWS_ACCESS_KEY_ID=AKIA" + b"C" * 16 + b"\n"
             + b"k = EXAMPLE AKIA" + b"D" * 16 + b" more\n" + b"x" * 150
             + b' token ghp_' + b"E" * 36 + b"\n")
-    want = compare.program_answer(oracle.scan("cfg/app.yaml", body))
+    want = program_answer(oracle.scan("cfg/app.yaml", body))
     assert ref.scan("cfg/app.yaml", body) == want
     assert len(want[1]) >= 4
 
