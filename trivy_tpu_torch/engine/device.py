@@ -146,6 +146,9 @@ DEFAULT_MAX_BATCH_TILES = 4096
 
 GRAM_OVERLAP = 3  # gram window (4) - 1
 
+# The `SieveStats` counter of each stock program's resolve in `scan_programs`.
+RESOLVE_COUNTERS = {"secret": "secret_resolve_s", "license": "license_resolve_s"}
+
 
 def _sync_timing() -> bool:
     """TRIVY_TPU_SYNC_TIMING set: the forced-sync H2D/exec decomposition."""
@@ -199,6 +202,21 @@ class SieveStats:
     verify_assemble_s: float = 0.0
     verify_dispatch_s: float = 0.0
     verify_assemble_lanes: int = 0
+    # The multi-program pass (`scan_programs`), summed over every call: the
+    # merged sieve (dedupe, pack, sieve, candidates), the claim-killer over
+    # the verify columns, each stock program's resolve and, inside the
+    # license resolve, its fingerprints and B14 with its copies (the
+    # `programs.*` and `license.*` spans' time); the license candidates, the
+    # rows B14 was given and its calls.
+    program_sieve_s: float = 0.0
+    program_verify_s: float = 0.0
+    secret_resolve_s: float = 0.0
+    license_resolve_s: float = 0.0
+    license_fingerprint_s: float = 0.0
+    license_classify_s: float = 0.0
+    license_candidate_files: int = 0
+    license_classify_rows: int = 0
+    license_classify_calls: int = 0
 
     def phases(self) -> dict:
         out = {
@@ -1113,7 +1131,12 @@ class GpuSecretEngine:
         candidates), applies the claim-killer only to the columns of
         programs with `verify=True`, then hands each program its slice of
         the candidate matrix.  `only` restricts which programs resolve; the
-        pass is one either way."""
+        pass is one either way.
+
+        Spans: `programs.scan` (the root) holds `programs.sieve`,
+        `programs.verify` and one `programs.resolve` a program (its id in
+        `program`); each adds its seconds to its `SieveStats` counter
+        (`program_sieve_s`, `program_verify_s`, `RESOLVE_COUNTERS`)."""
         table = self.program_table
         if table is None:
             raise RuntimeError(
@@ -1123,39 +1146,52 @@ class GpuSecretEngine:
                   if only is None or p.program_id in only]
         if not items:
             return {p.program_id: [] for p, _ in wanted}
-        self._count_batch(items)
-        scan_items, dd = self._dedupe(items)
-        cand = self._candidates([c for _, c in scan_items])
-        vmask = table.verify_column_mask(cand.shape[1])
-        if vmask.any():
-            # The claim-killer refutes (file, rule) pairs by exact DFA match:
-            # sound only for the columns whose program opted in.  The
-            # opt-out columns go in zeroed and keep their raw candidacy.
-            verified = self._verify_candidates(scan_items, cand & vmask[None, :])
-            cand = np.where(vmask[None, :], verified, cand)
-        if dd is not None:
-            cand = cand[dd.inverse]
-
-        out: dict[str, list] = {}
-        for prog, sl in wanted:
-            pslice = cand[:, sl]
+        with obs_trace.span("programs.scan", files=len(items),
+                            bytes=sum(len(c) for _, c in items)):
             t0 = time.perf_counter()
-            verdicts = prog.resolve(self, items, pslice, sl.start)
-            resolve_s = time.perf_counter() - t0
-            if len(verdicts) != len(items):
-                raise RuntimeError(
-                    f"program {prog.program_id!r} returned {len(verdicts)} "
-                    f"verdicts for {len(items)} items")
-            st = self.program_stats.setdefault(prog.program_id, {
-                "files": 0, "candidate_files": 0, "candidate_pairs": 0,
-                "verdicts": 0, "resolve_s": 0.0,
-            })
-            st["files"] += len(items)
-            st["candidate_files"] += int(pslice.any(axis=1).sum())
-            st["candidate_pairs"] += int(pslice.sum())
-            st["verdicts"] += prog.verdict_count(verdicts)
-            st["resolve_s"] = round(st["resolve_s"] + resolve_s, 6)
-            out[prog.program_id] = verdicts
+            with obs_trace.span("programs.sieve", files=len(items)):
+                self._count_batch(items)
+                scan_items, dd = self._dedupe(items)
+                cand = self._candidates([c for _, c in scan_items])
+            t1 = time.perf_counter()
+            self.stats.program_sieve_s += t1 - t0
+            vmask = table.verify_column_mask(cand.shape[1])
+            if vmask.any():
+                # The claim-killer refutes (file, rule) pairs by exact DFA
+                # match: sound only for the columns whose program opted in.
+                # The opt-out columns go in zeroed and keep their raw
+                # candidacy.
+                with obs_trace.span("programs.verify", files=len(scan_items)):
+                    verified = self._verify_candidates(scan_items, cand & vmask[None, :])
+                    cand = np.where(vmask[None, :], verified, cand)
+                self.stats.program_verify_s += time.perf_counter() - t1
+            if dd is not None:
+                cand = cand[dd.inverse]
+
+            out: dict[str, list] = {}
+            for prog, sl in wanted:
+                pslice = cand[:, sl]
+                t0 = time.perf_counter()
+                with obs_trace.span("programs.resolve", program=prog.program_id):
+                    verdicts = prog.resolve(self, items, pslice, sl.start)
+                resolve_s = time.perf_counter() - t0
+                counter = RESOLVE_COUNTERS.get(prog.program_id)
+                if counter is not None:
+                    setattr(self.stats, counter, getattr(self.stats, counter) + resolve_s)
+                if len(verdicts) != len(items):
+                    raise RuntimeError(
+                        f"program {prog.program_id!r} returned {len(verdicts)} "
+                        f"verdicts for {len(items)} items")
+                st = self.program_stats.setdefault(prog.program_id, {
+                    "files": 0, "candidate_files": 0, "candidate_pairs": 0,
+                    "verdicts": 0, "resolve_s": 0.0,
+                })
+                st["files"] += len(items)
+                st["candidate_files"] += int(pslice.any(axis=1).sum())
+                st["candidate_pairs"] += int(pslice.sum())
+                st["verdicts"] += prog.verdict_count(verdicts)
+                st["resolve_s"] = round(st["resolve_s"] + resolve_s, 6)
+                out[prog.program_id] = verdicts
         return out
 
     def programs_snapshot(self) -> dict:

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import re
+import time
 import zlib
 from dataclasses import dataclass
 
@@ -30,6 +31,8 @@ import numpy as np
 import torch
 
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import trace as obs_trace
 
 DIM = 4096  # histogram buckets; collisions are noise the L2 dot tolerates
 DEFAULT_CONFIDENCE = 0.9  # reference classifier's default threshold
@@ -235,15 +238,31 @@ class FullTextClassifier:
         self,
         texts: list[str],
         confidence: float = DEFAULT_CONFIDENCE,
+        stats=None,
     ) -> list[Match | None]:
         """All candidate files at once: [F, DIM] x [DIM, L] -> best
-        cosine per file, the product on the classifier's device."""
+        cosine per file, the product on the classifier's device.  Spans
+        `license.fingerprint` (the host's normalisation and histograms) and
+        `license.classify` (B14 with its copies); `stats` (a `SieveStats`)
+        adds their seconds to `license_fingerprint_s` and
+        `license_classify_s`, F to `license_classify_rows` and one to
+        `license_classify_calls`."""
         if not texts:
             return []
-        fps = np.stack(
-            [_fingerprint(normalize_tokens(t)) for t in texts]
-        )  # [F, DIM]
-        return self.matches(self._matmul(fps), confidence)
+        t0 = time.perf_counter()
+        with obs_trace.span("license.fingerprint", texts=len(texts)):
+            fps = np.stack(
+                [_fingerprint(normalize_tokens(t)) for t in texts]
+            )  # [F, DIM]
+        t1 = time.perf_counter()
+        with obs_trace.span("license.classify", rows=len(texts)):
+            sims = self._matmul(fps)
+        if stats is not None:
+            stats.license_fingerprint_s += t1 - t0
+            stats.license_classify_s += time.perf_counter() - t1
+            stats.license_classify_rows += len(texts)
+            stats.license_classify_calls += 1
+        return self.matches(sims, confidence)
 
     def matches(
         self, sims: np.ndarray, confidence: float = DEFAULT_CONFIDENCE
@@ -267,7 +286,9 @@ class FullTextClassifier:
         prev = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
+            ph = obs_metrics.device_phase("license.classify")
             sims = torch.matmul(a, self._matrix_dev.T)
+            ph.done(sims)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = prev
         return sims.cpu().numpy()

@@ -29,46 +29,38 @@ from trivy_tpu_torch.device import DEFAULT_DEVICE
 from trivy_tpu_torch.license.classifier import shared_classifier
 from trivy_tpu_torch.license.phrases import classify_text
 from trivy_tpu_torch.ltypes import LicenseFinding
+from trivy_tpu_torch.obs import trace as obs_trace
 
 
 def decide_findings(
-    texts: list[str], device: str | torch.device = DEFAULT_DEVICE
+    texts: list[str], device: str | torch.device = DEFAULT_DEVICE, stats=None
 ) -> list[list[LicenseFinding]]:
     """Per-text license findings ([] = no license), one classifier batch on
-    `device`."""
+    `device` (`stats`: `FullTextClassifier.classify_batch`'s), then the
+    phrase tier and the tree under the `license.decide` span."""
     if not texts:
         return []
     clf = shared_classifier(device)
-    matches = clf.classify_batch(texts)
-    out: list[list[LicenseFinding]] = []
-    for text, match in zip(texts, matches):
-        if match is not None and match.confidence >= 0.99:
-            # Essentially-exact corpus match: the phrase sieve can
-            # add nothing (a verbatim corpus text merely MENTIONING
-            # another license must not be vetoed) — skip its pass.
-            findings = [
-                LicenseFinding.of(match.license, confidence=match.confidence)
-            ]
-        else:
-            phrase = classify_text(text)
-            if match is None:
-                findings = phrase
-            # Corpus-blind veto: licenses absent from the full-text
-            # corpus score high against near-identical relatives
-            # (AGPL-3.0 vs GPL-3.0 is ~0.98 cosine).  When the phrase
-            # sieve names a license the corpus cannot represent, its
-            # more specific answer wins.
-            elif (
-                phrase
-                and phrase[0].name != match.license
-                and phrase[0].name not in clf.names
-            ):
-                findings = phrase
-            else:
-                findings = [
-                    LicenseFinding.of(
-                        match.license, confidence=match.confidence
-                    )
-                ]
-        out.append(findings)
-    return out
+    matches = clf.classify_batch(texts, stats=stats)
+    with obs_trace.span("license.decide", texts=len(texts)):
+        return [_decide(clf, text, match) for text, match in zip(texts, matches)]
+
+
+def _decide(clf, text: str, match) -> list[LicenseFinding]:
+    """One text's findings from its best corpus match (None below the
+    threshold)."""
+    if match is not None and match.confidence >= 0.99:
+        # Essentially-exact corpus match: the phrase sieve can add nothing
+        # (a verbatim corpus text merely MENTIONING another license must
+        # not be vetoed) — skip its pass.
+        return [LicenseFinding.of(match.license, confidence=match.confidence)]
+    phrase = classify_text(text)
+    if match is None:
+        return phrase
+    # Corpus-blind veto: licenses absent from the full-text corpus score
+    # high against near-identical relatives (AGPL-3.0 vs GPL-3.0 is ~0.98
+    # cosine).  When the phrase sieve names a license the corpus cannot
+    # represent, its more specific answer wins.
+    if phrase and phrase[0].name != match.license and phrase[0].name not in clf.names:
+        return phrase
+    return [LicenseFinding.of(match.license, confidence=match.confidence)]

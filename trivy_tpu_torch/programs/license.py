@@ -121,6 +121,7 @@ class LicenseScanProgram(ScanProgram):
         the exact host decision tree; everything else is verdict-free."""
         out: list[list[LicenseFinding]] = [[] for _ in items]
         cand_files = np.flatnonzero(cand.any(axis=1))
+        engine.stats.license_candidate_files += len(cand_files)
         if len(cand_files) == 0:
             return out
         texts = [
@@ -128,7 +129,8 @@ class LicenseScanProgram(ScanProgram):
             for fi in cand_files
         ]
         for fi, findings in zip(
-            cand_files, decide_findings(texts, device=engine.device)
+            cand_files,
+            decide_findings(texts, device=engine.device, stats=engine.stats),
         ):
             out[int(fi)] = findings
         return out
