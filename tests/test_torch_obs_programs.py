@@ -10,12 +10,16 @@
   and `license.decide`, each once;
 * the `SieveStats` counters (`program_sieve_s`, `program_verify_s`,
   `secret_resolve_s`, `license_resolve_s`, `license_fingerprint_s`,
-  `license_classify_s`, `license_candidate_files`, `license_classify_rows`,
+  `license_classify_s`, `license_candidate_files`,
+  `license_fingerprint_bytes`, `license_classify_rows`,
   `license_classify_calls`) sum over two calls, fill with tracing off, and
   each timed one holds its span's time;
 * `license_candidate_files` equals the program table's
   `program_stats["license"]["candidate_files"]`, and `license_classify_rows`
-  the rows the similarity product was given.
+  the rows the similarity product was given;
+* `license_fingerprint_bytes` equals the UTF-8 bytes of the candidate texts
+  the classifier was given, and the `license.fingerprint` span carries them
+  as `bytes`.
 
 Tolerance: span names, nesting and counts exact; a counter against its
 spans: the counter's clock holds the span's, by at most 1 ms a call.
@@ -34,8 +38,8 @@ TIMED = {"program_sieve_s": "programs.sieve", "program_verify_s": "programs.veri
          "license_fingerprint_s": "license.fingerprint",
          "license_classify_s": "license.classify"}
 COUNTERS = tuple(TIMED) + ("secret_resolve_s", "license_resolve_s",
-                           "license_candidate_files", "license_classify_rows",
-                           "license_classify_calls")
+                           "license_candidate_files", "license_fingerprint_bytes",
+                           "license_classify_rows", "license_classify_calls")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -167,11 +171,32 @@ def test_license_counts_match_the_table_and_the_product(engine, rows):
     assert obs_trace.snapshot() == []
 
 
+def test_fingerprint_bytes_are_the_candidates_utf8_bytes(engine, tracing, monkeypatch):
+    seen: list[list[str]] = []
+    real = classifier.FullTextClassifier.classify_batch
+
+    def recorded(self, texts, *args, **kwargs):
+        seen.append(list(texts))
+        return real(self, texts, *args, **kwargs)
+
+    monkeypatch.setattr(classifier.FullTextClassifier, "classify_batch", recorded)
+    before = _counters(engine)
+    engine.scan_programs(_items(8))
+    after = _counters(engine)
+    [texts] = seen
+    want = sum(len(t.encode("utf-8", "surrogatepass")) for t in texts)
+    assert len(texts) == after["license_candidate_files"] - before["license_candidate_files"]
+    assert after["license_fingerprint_bytes"] - before["license_fingerprint_bytes"] == want > 0
+    [span] = [s for s in obs_trace.snapshot() if s.name == "license.fingerprint"]
+    assert span.attrs == {"texts": len(texts), "bytes": want}
+
+
 def test_a_call_without_license_candidates_counts_no_product(engine, rows):
     before = _counters(engine)
     out = engine.scan_programs([("src/a.c", b"int main(void) { return 0; }\n")])
     after = _counters(engine)
     assert out["license"] == [[]] and rows == []
     assert after["license_candidate_files"] == before["license_candidate_files"]
+    assert after["license_fingerprint_bytes"] == before["license_fingerprint_bytes"]
     assert after["license_classify_calls"] == before["license_classify_calls"]
     assert after["program_sieve_s"] > before["program_sieve_s"]

@@ -18,10 +18,11 @@ Backend selection (TRIVY_TPU_LICENSE_BACKEND):
 
 The device backend runs the anchor-token gram sieve over every claimed
 file and classifies only sieve candidates — on real scans virtually no
-claimed file is a license text, so the ~3-20ms/text host fingerprint is
-paid for the handful of true candidates instead of every COPYING-shaped
-path.  Verdicts are byte-identical to the host path (the program's
-necessary-condition contract; see programs/license.py).
+claimed file is a license text, so the host's per-text work (the
+fingerprint, the phrase tier and the tree) is paid for the handful of true
+candidates instead of every COPYING-shaped path.  Verdicts are
+byte-identical to the host path (the program's necessary-condition
+contract; see programs/license.py).
 
 Copied from `trivy_tpu/analyzer/license.py`; the port imports nothing from
 the JAX package.  Both backends run on the analyzer's `device`

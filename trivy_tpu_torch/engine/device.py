@@ -205,9 +205,9 @@ class SieveStats:
     # The multi-program pass (`scan_programs`), summed over every call: the
     # merged sieve (dedupe, pack, sieve, candidates), the claim-killer over
     # the verify columns, each stock program's resolve and, inside the
-    # license resolve, its fingerprints and B14 with its copies (the
+    # license resolve, its native fingerprints and B14 with its copies (the
     # `programs.*` and `license.*` spans' time); the license candidates, the
-    # rows B14 was given and its calls.
+    # UTF-8 bytes fingerprinted, the rows B14 was given and its calls.
     program_sieve_s: float = 0.0
     program_verify_s: float = 0.0
     secret_resolve_s: float = 0.0
@@ -215,6 +215,7 @@ class SieveStats:
     license_fingerprint_s: float = 0.0
     license_classify_s: float = 0.0
     license_candidate_files: int = 0
+    license_fingerprint_bytes: int = 0
     license_classify_rows: int = 0
     license_classify_calls: int = 0
 

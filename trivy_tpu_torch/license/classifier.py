@@ -13,6 +13,11 @@ off for the call, because scores are rounded to 4 places and held to the
 goes to the classifier's device once; there is no quiet numpy fallback on
 a CUDA device.
 
+A batch's histograms come from one call of the native library
+(`fingerprints`: native/license_fingerprint.cpp), bit-equal to
+`_fingerprint(normalize_tokens(text))`, which stays as their plain twin and
+builds the corpus matrix.
+
 Corpus sources, in override order: embedded short templates, the packaged
 canonical corpus (trivy_tpu_torch/license/corpus/*.txt, the same 24 SPDX
 texts as the reference's, byte for byte), then whatever the host's
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from trivy_tpu_torch.native import load_native
 from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import trace as obs_trace
 
@@ -170,6 +176,23 @@ def _fingerprint(tokens: list[str]) -> np.ndarray:
     return vec
 
 
+def fingerprints(texts: list[str]) -> tuple[np.ndarray, int]:
+    """[F, DIM] float32, row f `_fingerprint(normalize_tokens(texts[f]))`
+    bit for bit (the norm may round an ulp apart where a row's squared
+    counts sum past 2^24), from one call of the native library's
+    `license_fingerprint`; and the UTF-8 bytes it read.  A text is encoded
+    with "surrogatepass", so any `str` reaches it.  Raises when the library
+    does not build."""
+    blobs = [t.encode("utf-8", "surrogatepass") for t in texts]
+    offsets = np.zeros(len(blobs) + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, blobs), dtype=np.int64, count=len(blobs)),
+              out=offsets[1:])
+    rows = np.empty((len(blobs), DIM), dtype=np.float32)
+    load_native().license_fingerprint(b"".join(blobs), offsets.ctypes.data,
+                                      len(blobs), rows.ctypes.data)
+    return rows, int(offsets[-1])
+
+
 @dataclass
 class Match:
     license: str
@@ -242,23 +265,24 @@ class FullTextClassifier:
     ) -> list[Match | None]:
         """All candidate files at once: [F, DIM] x [DIM, L] -> best
         cosine per file, the product on the classifier's device.  Spans
-        `license.fingerprint` (the host's normalisation and histograms) and
-        `license.classify` (B14 with its copies); `stats` (a `SieveStats`)
-        adds their seconds to `license_fingerprint_s` and
-        `license_classify_s`, F to `license_classify_rows` and one to
+        `license.fingerprint` (the native histograms, `fingerprints`; its
+        `bytes` the UTF-8 bytes read) and `license.classify` (B14 with its
+        copies); `stats` (a `SieveStats`) adds their seconds to
+        `license_fingerprint_s` and `license_classify_s`, the bytes to
+        `license_fingerprint_bytes`, F to `license_classify_rows` and one to
         `license_classify_calls`."""
         if not texts:
             return []
         t0 = time.perf_counter()
-        with obs_trace.span("license.fingerprint", texts=len(texts)):
-            fps = np.stack(
-                [_fingerprint(normalize_tokens(t)) for t in texts]
-            )  # [F, DIM]
+        with obs_trace.span("license.fingerprint", texts=len(texts)) as sp:
+            fps, nbytes = fingerprints(texts)  # [F, DIM]
+            sp.set(bytes=nbytes)
         t1 = time.perf_counter()
         with obs_trace.span("license.classify", rows=len(texts)):
             sims = self._matmul(fps)
         if stats is not None:
             stats.license_fingerprint_s += t1 - t0
+            stats.license_fingerprint_bytes += nbytes
             stats.license_classify_s += time.perf_counter() - t1
             stats.license_classify_rows += len(texts)
             stats.license_classify_calls += 1

@@ -1,9 +1,10 @@
-"""Native library build + ctypes bindings: the DFA claim-killer and the
-hybrid engine's host pre-sieve.
+"""Native library build + ctypes bindings: the DFA claim-killer, the
+hybrid engine's host pre-sieve, the device verify's span assembly and the
+license classifier's fingerprints.
 
 A port of `trivy_tpu/native/loader.py` reduced to what the engines run:
-`dfa_verify.cpp`, `gram_scan.cpp`, `lane_index.cpp` and `span_assemble.cpp`
-(this directory) build with `g++` into
+`dfa_verify.cpp`, `gram_scan.cpp`, `lane_index.cpp`, `span_assemble.cpp`
+and `license_fingerprint.cpp` (this directory) build with `g++` into
 one shared library through the executable cache (`registry/aotcache.py`:
 `TRIVY_TPU_AOT_CACHE`, else `trivy_tpu_torch/_build/`, listed in
 `.gitignore`).  Its file name carries a digest of the sources and the
@@ -14,8 +15,10 @@ directory) beside the library's sha256, and it loads through ctypes only
 when all of that matches.  Bound:
 `dfa_verify_pairs`, `dfa_verify_pairs_files`, `gram_sieve_scan_files`, the
 row sieve `gram_sieve` (`gram_sieve_native`), the fused K5's lane index
-`lane_index` (`ops/nfa_verify.LaneIndex.build`) and the device verify's span
-assembly `span_place`/`span_copy` (`engine/nfa_device.assemble_spans`).
+`lane_index` (`ops/nfa_verify.LaneIndex.build`), the device verify's span
+assembly `span_place`/`span_copy` (`engine/nfa_device.assemble_spans`) and
+the license fingerprints `license_fingerprint`, with `license_crc32`, its
+hash (`license/classifier.fingerprints`).
 
 Unlike the reference, a failed build raises with the compiler's output
 instead of returning None: the reference's None makes its engine skip the
@@ -40,7 +43,8 @@ from trivy_tpu_torch import lockcheck
 from trivy_tpu_torch.registry import aotcache
 
 NATIVE_DIR = Path(__file__).resolve().parent
-SOURCES = ("dfa_verify.cpp", "gram_scan.cpp", "lane_index.cpp", "span_assemble.cpp")
+SOURCES = ("dfa_verify.cpp", "gram_scan.cpp", "lane_index.cpp", "span_assemble.cpp",
+           "license_fingerprint.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _lock = lockcheck.make_lock("native.loader")
@@ -200,6 +204,13 @@ def load_native(cache_dir: str | os.PathLike | None = None) -> ctypes.CDLL:
             ctypes.c_void_p,                                   # tier row arrays
         ]
         lib.span_copy.restype = None
+        lib.license_fingerprint.argtypes = [
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64,  # texts, offsets, F
+            ctypes.c_void_p,                                   # out [F, DIM]
+        ]
+        lib.license_fingerprint.restype = None
+        lib.license_crc32.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+        lib.license_crc32.restype = ctypes.c_uint32
         _lib = lib
     return _lib
 

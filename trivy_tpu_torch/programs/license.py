@@ -2,9 +2,10 @@
 
 A copy of `trivy_tpu/programs/license.py`, whose resolve classifies on the
 engine's device.  The host classifier (license/classifier.py +
-license/phrases.py) spends milliseconds of Python fingerprinting per text,
-yet virtually no file in a real scan is a license text.  This program
-turns that asymmetry into sieve shape: a tiny ruleset of **anchor
+license/phrases.py) spends host time on every text it is given (the
+fingerprint, the phrase tier and the tree), yet virtually no file in a
+real scan is a license text.  This program turns that asymmetry into
+sieve shape: a tiny ruleset of **anchor
 tokens** (one distinctive single word per phrase entry plus the
 generic license vocabulary, license/phrases.py) rides the SAME gram
 sieve pass as the secret rules, and only files with an anchor hit reach
