@@ -121,8 +121,8 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             staged over the merged 104-rule secret + license axis; all
             100,000 would spend ~70 s in its license resolve) and as 10
             batches of 2,000 (K3,
-            mask_bytes 13), the default program engine (the hybrid's native
-            program path, no kernel of ours) and a secret-only
+            mask_bytes 13), the default program engine (the native one,
+            `GpuSecretEngine(sieve="native")`, no kernel of ours) and a secret-only
             `make_secret_engine()` scan, counts zeroed before each and read
             after (K1 and K3 must move; the license classifier's product,
             B14, must run on the card).  Secret verdicts byte-identical
@@ -169,7 +169,7 @@ prints no result.  Phases, one line each (any failure exits non-zero):
             launches must be 4x its unmeshed count.  Each run prints seconds,
             files/s, phases, launches, per-lane occupancy (real rows) and
             efficiency; the default engine on the split prints its gate
-            (profile, devices: one card prices as "fused" at 1 device); a
+            (`auto` on a card: fused, the link not measured); a
             last `mesh:` line has the launches summed and the phase's seconds.
 
 14. server (after `mesh`) the serving path (`trivy_tpu_torch/rpc/server.py`,
@@ -1918,10 +1918,9 @@ def mesh_phase(np, torch, gs, main_corpus, main_doc: str, main_k1: int, corpus,
 
     auto = make_secret_engine(device=DEVICE, mesh=split)
     print(f"mesh: make_secret_engine(mesh=) gate {gate_line(auto.gate_decision)} "
-          f"devices={auto.gate_decision.get('devices')} verify_devices={auto.verify_devices()} "
           f"verify={auto.verify}", flush=True)
-    if auto.verify_devices() != 1 or auto.gate_decision.get("profile") == "mesh":
-        fail("mesh", "a split of one card must price as one device")
+    if auto.verify != "fused" or "link" in auto.gate_decision:
+        fail("mesh", "auto on a card must verify fused without measuring the link")
     hd = hybrid["corpus"]
     for verify, kinds in (("fused", ("nfa_fused", "nfa_padded")),
                           ("device", ("nfa_stream", "nfa_padded"))):
@@ -2032,7 +2031,7 @@ def programs_phase(np, torch, gs, mk, items, planted: dict) -> None:
     first PROGRAM_DEVICE_FILES files in one batch, then 10 batches of 2,000
     files through the same engine (K3,
     mask_bytes 13); the default program engine (`make_program_engine()`:
-    the hybrid's native program path, no sieve kernel); a secret-only
+    `GpuSecretEngine(sieve="native")`, no sieve kernel); a secret-only
     `make_secret_engine()` scan.  Each run zeroes the counts just before and
     reads them just after: K1 and K3 must move in theirs, and the license
     classifier's product (B14) must run on the card.  The secret verdicts
@@ -2049,7 +2048,8 @@ def programs_phase(np, torch, gs, mk, items, planted: dict) -> None:
     beside its bound, and the host time of the fingerprinting."""
     import copy
 
-    from trivy_tpu_torch.engine.hybrid import GpuHybridSecretEngine, make_secret_engine
+    from trivy_tpu_torch.engine.device import GpuSecretEngine
+    from trivy_tpu_torch.engine.hybrid import make_secret_engine
     from trivy_tpu_torch.license import classifier as lc
     from trivy_tpu_torch.license.decide import decide_findings
     from trivy_tpu_torch.programs import (
@@ -2111,7 +2111,7 @@ def programs_phase(np, torch, gs, mk, items, planted: dict) -> None:
         if program_docs(res_b) != program_docs({k: v[:n] for k, v in res_dev.items()}):
             fail("programs", "the batches' verdicts differ from the one-batch run's")
         auto = make_program_engine(table, device=DEVICE)
-        if not isinstance(auto, GpuHybridSecretEngine):
+        if not isinstance(auto, GpuSecretEngine) or auto.sieve != "native":
             fail("programs", f"make_program_engine() built {type(auto).__name__}")
         auto.warmup()
         res_auto, launches, calls = program_run(
@@ -2120,7 +2120,7 @@ def programs_phase(np, torch, gs, mk, items, planted: dict) -> None:
             fail("programs", f"default run: launches {launches}, B14 calls {calls}: "
                  "expected no kernel of ours and the product on the card")
         b14_launches["default"] = calls["calls"]
-        cands = candidates[id(auto._programs)]
+        cands = candidates[id(auto)]
     finally:
         lic.resolve = real_resolve
         lc.FullTextClassifier._matmul = real_matmul

@@ -12,17 +12,18 @@
   reference engine (fused) serves all three modes through its rungs: dfa
   against its host rung, device and fused against its fused scan, whose
   findings and device lanes equal its legacy stream's by the reference's
-  own contract (tests/test_fused_verify.py); both `TRIVY_TPU_FUSED_SCAN`
-  modes against the reference's fused scan in the same mode; the 34 golden
-  cases are in `tests/test_torch_hybrid_goldens.py`;
+  own contract (tests/test_fused_verify.py); the port's one fused scan
+  against the reference's in both its `TRIVY_TPU_FUSED_SCAN` modes; the 34
+  golden cases are in `tests/test_torch_hybrid_goldens.py`;
 * `scan_batch_host` / `scan_batch_device_legacy` and the verifier state
   they restore;
-* the gate: `gate_terms` under `TRIVY_TPU_LINK=wide|relay` equals the
-  reference's terms, `auto` on the CPU resolves to dfa / no-device, an
-  unknown mode raises; the megakernel's measured gate in
+* the gate: `engine/link.py` `gate_terms` under `TRIVY_TPU_LINK=wide|relay`
+  equals the reference's terms, `auto` on the CPU resolves to dfa /
+  no-device, an unknown mode raises; the megakernel's measured gate in
   `GpuSecretEngine.warmup`;
-* `make_secret_engine`'s backends, aliases and the cases that raise, and
-  the CLI's `--secret-backend`.
+* `make_secret_engine`'s backends, aliases and the cases that raise (a
+  program table builds the native engine under auto and hybrid), and the
+  CLI's `--secret-backend`.
 
 Tolerance: exact.
 """
@@ -45,7 +46,6 @@ from trivy_tpu.engine.oracle import OracleScanner as RefOracle
 from trivy_tpu.registry.store import findings_fingerprint as ref_fingerprint
 from trivy_tpu_torch import __main__ as cli
 from trivy_tpu_torch.compiled import ARRAY_NAMES
-from trivy_tpu_torch.engine import hybrid
 from trivy_tpu_torch.engine import link as link_mod
 from trivy_tpu_torch.engine.device import GpuSecretEngine
 from trivy_tpu_torch.engine.hybrid import GpuHybridSecretEngine, make_secret_engine
@@ -162,12 +162,14 @@ def test_findings_equal_reference_and_oracle(monkeypatch, name, mode):
 
 @pytest.mark.parametrize("scan_mode", ["assoc", "seq"])
 def test_fused_scan_modes_equal_reference(monkeypatch, scan_mode):
+    """The reference's fused scan in either block walk (its
+    `TRIVY_TPU_FUSED_SCAN`) equals the port's."""
     monkeypatch.setenv("TRIVY_TPU_FUSED_SCAN", scan_mode)
     port, ref = _port("fused"), _reference()
     corpus = list(_corpus("fuzz"))
     assert findings_fingerprint(port, corpus) == ref_fingerprint(ref, corpus)
     st = port._nfa_verifier.stream_stats
-    assert st["scan_mode"] == scan_mode and st["overflow_lanes"] > 0
+    assert st["backend"] == "fused" and st["overflow_lanes"] > 0
 
 
 def test_reference_arrays_carry_into_the_hybrid(monkeypatch):
@@ -199,7 +201,6 @@ def _flat(results):
 
 
 def test_degraded_rungs_restore_the_verifier(monkeypatch):
-    monkeypatch.setenv("TRIVY_TPU_FUSED_SCAN", "seq")
     port = _port("fused")
     corpus = list(_corpus("fuzz"))
     want = _flat(port.scan_batch(corpus))
@@ -234,11 +235,10 @@ def test_degraded_rungs_restore_the_verifier(monkeypatch):
 ], ids=["stream", "stream-compact", "fused", "mesh", "mega-slow", "mega-fast"])
 def test_gate_terms_equal_reference(monkeypatch, link, kw):
     monkeypatch.setenv("TRIVY_TPU_LINK", link)
-    assert hybrid.gate_terms(**kw) == ref_hybrid.gate_terms(**kw)
-    assert hybrid.probe_link() == ref_hybrid.probe_link()
-    assert (hybrid._link_is_wide(**{k: v for k, v in kw.items() if k.endswith("ratio")})
-            == ref_hybrid._link_is_wide(**{k: v for k, v in kw.items()
-                                           if k.endswith("ratio")}))
+    assert link_mod.gate_terms(**kw) == ref_hybrid.gate_terms(**kw)
+    assert link_mod.probe_link() == ref_hybrid.probe_link()
+    ratios = {k: v for k, v in kw.items() if k.endswith("ratio")}
+    assert link_mod.gate_terms(**ratios)["wide"] == ref_hybrid._link_is_wide(**ratios)
 
 
 def test_auto_on_cpu_resolves_to_dfa_and_unknown_mode_raises(monkeypatch):
@@ -315,12 +315,17 @@ def test_make_secret_engine_backends(tmp_path):
     assert isinstance(warm, GpuHybridSecretEngine) and warm.verify == "dfa"
     assert warm.ruleset_digest == ruleset_digest(auto.ruleset)
     assert (tmp_path / warm.ruleset_digest / "manifest.json").exists()
-    # a program table (A9) builds a program engine over its merged ruleset
+    # the hybrid keeps no resident rows: `resident_chunks` is not handed to it
+    assert isinstance(make_secret_engine(device="cpu", resident_chunks=3),
+                      GpuHybridSecretEngine)
+    # a program table (A9) builds a program engine over its merged ruleset,
+    # the native one under auto and hybrid, as the reference hybrid's demux
     table = build_program_table(default_programs())
-    for backend, cls in (("auto", GpuHybridSecretEngine), ("native", GpuSecretEngine)):
+    for backend in ("auto", "hybrid", "native"):
         eng = make_secret_engine(ruleset=table.merged_ruleset(), backend=backend,
                                  device="cpu", program_table=table)
-        assert isinstance(eng, cls) and eng.program_table is table
+        assert isinstance(eng, GpuSecretEngine) and eng.sieve == "native"
+        assert eng.program_table is table
     with pytest.raises(ValueError):
         make_secret_engine(backend="warp", device="cpu")
 

@@ -50,8 +50,7 @@ def _golden(case, got) -> None:
 
 
 @pytest.mark.parametrize("config", CONFIGS)
-def test_hybrid_matches_goldens_reference_and_oracle(monkeypatch, config):
-    monkeypatch.setenv("TRIVY_TPU_FUSED_SCAN", "seq")
+def test_hybrid_matches_goldens_reference_and_oracle(config):
     cases = [c for c in CASES if c["config"] == config]
     items = _items(cases)
     path = os.path.join(PAR, "configs", config)

@@ -478,40 +478,41 @@ def test_meshed_sieves_take_staged_shards_and_replicate_constants(compiled):
 def test_gate_prices_mesh_profile_as_reference(monkeypatch):
     monkeypatch.setenv("TRIVY_TPU_LINK", "wide")
     for profile, devices in (("fused", 1), ("mesh", 8), ("mesh", 1)):
-        got = hybrid.gate_terms(d2h_ratio=link.FUSED_MASK_D2H_RATIO, profile=profile,
+        got = link.gate_terms(d2h_ratio=link.FUSED_MASK_D2H_RATIO, profile=profile,
                                 devices=devices, device="cpu")
         want = ref_hybrid.gate_terms(d2h_ratio=ref_link.FUSED_MASK_D2H_RATIO,
                                      profile=profile, devices=devices)
         for k in ("profile", "devices", "eff_mb_per_sec", "rtt_threshold_s", "wide",
                   "margin", "link_mb_per_sec", "link_rtt_s"):
             assert got[k] == pytest.approx(want[k]), (profile, devices, k)
-    fused = hybrid.gate_terms(profile="fused", devices=1, device="cpu")
-    meshy = hybrid.gate_terms(profile="mesh", devices=8, device="cpu")
+    fused = link.gate_terms(profile="fused", devices=1, device="cpu")
+    meshy = link.gate_terms(profile="mesh", devices=8, device="cpu")
     assert meshy["eff_mb_per_sec"] == pytest.approx(fused["eff_mb_per_sec"] * 8)
     assert meshy["rtt_threshold_s"] == fused["rtt_threshold_s"]
 
 
-@pytest.mark.parametrize("lanes,want_profile,want_devices", [
-    ([torch.device("cuda", 0)] * 4, "fused", 1),
-    ([torch.device("cuda", i) for i in range(4)], "mesh", 4),
-    (None, "fused", 1),
-])
-def test_gate_counts_distinct_devices_of_the_mesh(monkeypatch, lanes, want_profile,
-                                                  want_devices):
-    """`auto` on a card prices the mesh profile at the DISTINCT devices of the
-    engine's mesh: a 4-lane split of one card is one link and prices as
-    fused at 1 device.  (A stand-in engine on a CUDA device: the pricing
-    reads only the device type, the mesh and TRIVY_TPU_LINK.)"""
-    monkeypatch.setenv("TRIVY_TPU_LINK", "wide")
+@pytest.mark.parametrize("lanes", [
+    [torch.device("cuda", 0)] * 4,
+    [torch.device("cuda", i) for i in range(4)],
+    None,
+], ids=["split-card", "four-cards", "no-mesh"])
+def test_auto_on_a_card_resolves_to_fused_without_a_link_probe(monkeypatch, lanes):
+    """`auto` on a card takes the fused verify whatever the engine's mesh (a
+    4-lane split of one card, four cards, none) and never measures the link:
+    the gate log's record names the device and carries no link terms.  (A
+    stand-in engine on a CUDA device: the choice reads only its device.)"""
+    def no_probe(*a, **k):
+        raise AssertionError("the verify gate measured the link")
+
+    monkeypatch.setattr(link, "probe_link", no_probe)
     mesh = None
     if lanes is not None:
         mesh = types.SimpleNamespace(distinct_devices=lambda: list(dict.fromkeys(lanes)))
     stub = types.SimpleNamespace(device=torch.device("cuda", 0), mesh=mesh)
-    stub.verify_devices = lambda: hybrid.GpuHybridSecretEngine.verify_devices(stub)
     verify, rec = hybrid.GpuHybridSecretEngine._resolve_verify(stub, "auto")
-    assert verify == "fused" and rec["profile"] == want_profile
-    assert rec["devices"] == want_devices
-    assert rec["reason"] == ("mesh-wide" if want_profile == "mesh" else "link-wide")
+    assert verify == "fused"
+    assert (rec["requested"], rec["backend"], rec["reason"]) == ("auto", "fused", "cuda")
+    assert rec["margin"] is None and not {"link", "thresholds", "profile"} & set(rec)
 
 
 # -- the CLI ------------------------------------------------------------------------

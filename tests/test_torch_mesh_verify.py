@@ -1,9 +1,8 @@
 """The device NFA verify over a CPU mesh: `GpuNfaVerifier(mesh=)` splits each
 dispatch's groups over the lanes, K5 (both modes) or K6 once a lane on its
 slice, and must give the unmeshed keep-mask lane for lane, in stream, fused
-(the sequential scan's plain version; the split hands `assoc` through
-unchanged, and on a card both modes launch K5) and padded modes, on hit-dense lanes that reach every
-lane of an 8-lane split; and the hybrid engine's device verify over its
+(the sequential scan's plain version) and padded modes, on hit-dense lanes
+that reach every lane of an 8-lane split; and the hybrid engine's device verify over its
 mesh, findings equal to the oracle on `tests/test_mesh.py`'s corpus.
 
 Tolerance: exact (keep-masks and findings fingerprints).
@@ -48,10 +47,9 @@ def _fresh_topology(monkeypatch):
 @pytest.mark.parametrize("verify", ["fused", "device"])
 def test_hybrid_device_verify_over_the_mesh(verify):
     """The hybrid's device verify splits over the engine's mesh and keeps
-    its findings; a CPU mesh is one device to the gate."""
+    its findings."""
     corpus = list(_corpus(120))
     engine = GpuHybridSecretEngine(device="cpu", verify=verify, mesh=_mesh(8))
-    assert engine.verify_devices() == 1
     assert _fingerprint(engine.scan_batch(corpus)) == _oracle(120)
     assert engine.stats.device_pairs > 0
 
@@ -107,8 +105,6 @@ def _dense_lanes(n_files: int = 700, seed: int = 5):
 @functools.lru_cache(maxsize=None)
 def _want(mode: str):
     """The unmeshed keep-mask of `_dense_lanes` in `mode`."""
-    import os
-
     ver = _unmeshed_verifier()
     contents, pairs, lens = _dense_lanes()
     if mode == "padded":
@@ -117,16 +113,10 @@ def _want(mode: str):
         ver._verify_padded(contents, pairs, start, stop, np.arange(len(pairs)), keep)
         return keep
     ver.fused = mode != "stream"
-    prev = os.environ.get("TRIVY_TPU_FUSED_SCAN")
-    os.environ["TRIVY_TPU_FUSED_SCAN"] = mode.split("-")[-1]
     try:
         return ver.verify_lanes(contents, pairs, lens)
     finally:
         ver.fused = False
-        if prev is None:
-            os.environ.pop("TRIVY_TPU_FUSED_SCAN")
-        else:
-            os.environ["TRIVY_TPU_FUSED_SCAN"] = prev
 
 
 @pytest.mark.parametrize("mode", ["stream", "fused-seq", "padded"])
@@ -139,7 +129,6 @@ def test_nfa_group_split_keeps_the_unmeshed_mask(monkeypatch, n, mode):
     contents, pairs, lens = _dense_lanes()
     want = _want(mode)
     assert want.any() and not want.all()
-    monkeypatch.setenv("TRIVY_TPU_FUSED_SCAN", mode.split("-")[-1])
     ver = GpuNfaVerifier(_rules(), device="cpu", mesh=_mesh(n), fused=mode.startswith("fused"))
     seen = []
     for name in ("nfa_stream", "nfa_stream_verdict", "nfa_padded"):
@@ -171,7 +160,7 @@ def test_nfa_group_split_keeps_the_unmeshed_mask(monkeypatch, n, mode):
 
 
 def test_gate_keeps_cpu_on_dfa_with_a_mesh():
-    """On the CPU `auto` takes the DFA with or without a mesh (the gate
-    prices only a card's link)."""
+    """On the CPU `auto` takes the DFA with or without a mesh (it takes the
+    fused verify only on a card)."""
     engine = hybrid.GpuHybridSecretEngine(device="cpu", mesh=_mesh(4))
     assert engine.verify == "dfa" and engine.gate_decision["reason"] == "no-device"

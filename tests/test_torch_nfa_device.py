@@ -8,13 +8,13 @@ against the JAX package's `NfaVerifier` (`trivy_tpu/engine/nfa_device.py`):
 * seeding with `rule_stack=` from the reference's `build_rule_stack`, and a
   stack of the wrong rule count ignored;
 * `device_eligible`;
-* `verify_lanes` with fused off and on (both scan modes), over lanes that
+* `verify_lanes` with fused off and on (against both of the reference's
+  fused scan modes), over lanes that
   reach all three stream tiers, spans holding a NUL byte, jumbo windows on
   the padded path and more than 32 candidate rules (overflow), with the
   fetch accounting of `stream_stats`;
-* `stream_stats` keys (the reference's, plus `scan_mode` and the padded
-  path's seconds `padded_s`) and a directly timed, non-negative
-  `assemble_s`.
+* `stream_stats` keys (the reference's, plus the padded path's seconds
+  `padded_s`) and a directly timed, non-negative `assemble_s`.
 
 Tolerance: exact (arrays and keep-masks).
 """
@@ -183,11 +183,10 @@ def _reference_every_tier():
 
 
 @pytest.mark.parametrize("port_mode", ["stream", "fused-auto"])
-def test_verify_lanes_every_tier_equals_reference(monkeypatch, port_mode):
+def test_verify_lanes_every_tier_equals_reference(port_mode):
     """All three tiers, a NUL span, a jumbo window and 40 candidate rules;
     the reference runs its legacy stream (its fused verdicts equal it by
     its own contract, tests/test_fused_verify.py)."""
-    monkeypatch.setenv("TRIVY_TPU_FUSED_SCAN", "auto")
     port, ref = _verifiers()
     contents, pairs, lens = _lanes(42, 40)
     assert port.device_eligible(pairs, lens).all()
@@ -222,13 +221,12 @@ def test_verify_lanes_fused_equals_reference_fused(monkeypatch, scan_mode,
     np.testing.assert_array_equal(got, want)
     assert want.any() and not want.all()
     _check_stats(port, ref)
-    assert port.stream_stats["scan_mode"] == scan_mode
+    assert port.stream_stats["backend"] == "fused"
     assert port.stream_stats["overflow_lanes"] > 0
     assert (port.stream_stats["rules"] == 32) == (rules_per_small > 32)
 
 
-def test_stream_stats_keys_and_assemble_time(monkeypatch):
-    monkeypatch.setenv("TRIVY_TPU_FUSED_SCAN", "seq")
+def test_stream_stats_keys_and_assemble_time():
     port, _ref = _verifiers()
     contents, pairs, lens = _lanes(5, 4, 4096)
     ref_keys = _reference_every_tier()[2]
@@ -236,13 +234,12 @@ def test_stream_stats_keys_and_assemble_time(monkeypatch):
         port.fused = fused
         port.verify_lanes(contents, pairs, lens)
         st = port.stream_stats
-        assert set(st) - ref_keys == {"scan_mode", "padded_s"}
+        assert set(st) - ref_keys == {"padded_s"}
         assert ref_keys <= set(st)
         for k in ("assemble_s", "dispatch_s", "fetch_map_s", "h2d_overlap_s", "padded_s"):
             assert st[k] >= 0.0, k
         assert st["padded_s"] > 0.0  # the NUL span's lanes took the padded path
         assert st["backend"] == ("fused" if fused else "stream")
-        assert st["scan_mode"] == "seq"
     port.fused = False
 
 
@@ -263,7 +260,6 @@ def test_seams_spans_phases_and_ledger(monkeypatch):
     from trivy_tpu_torch import faults
     from trivy_tpu_torch.obs import memwatch, metrics, trace
 
-    monkeypatch.setenv("TRIVY_TPU_FUSED_SCAN", "seq")
     port_rules, _ = _rulesets(None)
     port = GpuNfaVerifier(port_rules.rules, device="cpu")
     contents, pairs, lens = _lanes(3, 3, 512)

@@ -26,7 +26,8 @@ import torch
 from test_torch_engine import TILE, fingerprint, oracle_fingerprint
 from trivy_tpu.engine.device import TpuSecretEngine
 from trivy_tpu_torch import faults
-from trivy_tpu_torch.engine.device import GpuSecretEngine, SieveStats
+from trivy_tpu_torch.engine.device import GpuSecretEngine
+from trivy_tpu_torch.engine.stats import SieveStats
 from trivy_tpu_torch.engine.pipeline import (
     ChunkPipeline,
     ResidentChunkCache,

@@ -40,9 +40,9 @@ from trivy_tpu.license import phrases as ref_phrases
 from trivy_tpu.license.decide import decide_findings as ref_decide
 from trivy_tpu.registry import store as rstore
 from trivy_tpu_torch import programs
-from trivy_tpu_torch.compiled import ARRAY_NAMES
+from trivy_tpu_torch.compiled import ARRAY_NAMES, CompiledRules
 from trivy_tpu_torch.engine.device import GpuSecretEngine
-from trivy_tpu_torch.engine.hybrid import GpuHybridSecretEngine, make_secret_engine
+from trivy_tpu_torch.engine.hybrid import make_secret_engine
 from trivy_tpu_torch.license import phrases
 from trivy_tpu_torch.programs import (
     LicenseScanProgram,
@@ -159,14 +159,14 @@ def test_demux_matches_reference(case, table, items, ref_runs, secret_only, host
     else:
         # the same row sieve over the same rows: the same candidates
         assert _counters(eng.program_stats) == _counters(ref_stats)
-        want = GpuHybridSecretEngine if backend == "hybrid" else GpuSecretEngine
-        assert isinstance(eng, want)
+        assert isinstance(eng, GpuSecretEngine) and eng.sieve == "native"
     assert eng.programs_snapshot()["programs"][1]["verdicts"] == sum(1 for fs in lic if fs)
 
 
 def test_only_scan_batch_and_snapshot(table, items, secret_only, host_license):
     eng = make_program_engine(table, device="cpu")
-    assert isinstance(eng, GpuHybridSecretEngine) and eng.program_table is table
+    assert isinstance(eng, GpuSecretEngine) and eng.sieve == "native"
+    assert eng.program_table is table
     lic_only = eng.scan_programs(items, only=("license",))
     assert list(lic_only) == ["license"]
     assert license_doc(lic_only["license"]) == host_license
@@ -182,10 +182,45 @@ def test_only_scan_batch_and_snapshot(table, items, secret_only, host_license):
     assert eng.stats.files == 2 * len(items) and eng.stats.verify_s > 0
     assert snap["digest"] == ref_programs.build_program_table(
         ref_programs.default_programs()).digest()
-    plain = make_secret_engine(device="cpu")
+    # the hybrid has no program pass (the server reads its table by
+    # `getattr`); the native engine without a table has one that refuses
+    hybrid = make_secret_engine(device="cpu")
+    assert getattr(hybrid, "program_table", None) is None
+    assert not hasattr(hybrid, "scan_programs")
+    plain = make_secret_engine(backend="native", device="cpu")
     assert plain.programs_snapshot() == {"enabled": False}
     with pytest.raises(RuntimeError, match="program_table"):
         plain.scan_programs(items[:2])
+
+
+def test_program_engine_builds_no_verifier_and_probes_no_link(table, monkeypatch):
+    """The default program engine is the native one: no device verifier is
+    built, the claim-killer's DFA only at `warmup()`, and the link is never
+    measured."""
+    from trivy_tpu_torch.engine import link, nfa_device, redfa
+
+    built = {"nfa": 0, "dfa": 0}
+
+    def counting(key, real):
+        def init(self, *a, **k):
+            built[key] += 1
+            real(self, *a, **k)
+
+        return init
+
+    def no_probe(*a, **k):
+        raise AssertionError("the program engine measured the link")
+
+    monkeypatch.setattr(nfa_device.GpuNfaVerifier, "__init__",
+                        counting("nfa", nfa_device.GpuNfaVerifier.__init__))
+    monkeypatch.setattr(redfa.DfaVerifier, "__init__",
+                        counting("dfa", redfa.DfaVerifier.__init__))
+    monkeypatch.setattr(link, "probe_link", no_probe)
+    eng = make_program_engine(table, device="cpu")
+    assert isinstance(eng, GpuSecretEngine) and eng.sieve == "native"
+    assert built == {"nfa": 0, "dfa": 0}
+    eng.warmup()
+    assert built == {"nfa": 0, "dfa": 1}
 
 
 def test_table_rejections():
@@ -239,7 +274,8 @@ def test_factory_arguments_that_raise(table, tmp_path):
     # rules_cache_dir (ported): the merged table and each member program
     # compile into the registry, keyed by program id
     eng = make_program_engine(table, device="cpu", rules_cache_dir=str(tmp_path))
-    assert isinstance(eng, GpuHybridSecretEngine) and eng.program_table is table
+    assert isinstance(eng, GpuSecretEngine) and eng.sieve == "native"
+    assert eng.program_table is table
     assert eng.ruleset_digest == ruleset_digest(table.merged_ruleset())
     for pid, rs in ((table.table_id, table.merged_ruleset()),
                     *((p.program_id, p.ruleset()) for p in table.programs)):
@@ -254,5 +290,10 @@ def test_factory_arguments_that_raise(table, tmp_path):
             make_program_engine(table, backend=backend, device="cpu")
     with pytest.raises(ValueError, match="oracle"):
         make_secret_engine(backend="oracle", program_table=table)
+    # compiled rules of another ruleset (the secret program's alone) are
+    # refused on the program path, as the hybrid refuses them
+    with pytest.raises(ValueError, match="ruleset"):
+        make_program_engine(table, device="cpu",
+                            compiled=CompiledRules.build(table.programs[0].ruleset()))
     eng = make_program_engine(table, backend="tpu", device="cpu", tile_len=TILE)
     assert isinstance(eng, GpuSecretEngine) and eng.program_table is table

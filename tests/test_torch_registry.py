@@ -52,7 +52,8 @@ from trivy_tpu_torch.engine import hybrid as hybrid_mod
 from trivy_tpu_torch.engine import nfa as nfa_mod
 from trivy_tpu_torch.engine import nfa_device as nfa_device_mod
 from trivy_tpu_torch.engine import probes as probes_mod
-from trivy_tpu_torch.engine.hybrid import GpuHybridSecretEngine, make_secret_engine
+from trivy_tpu_torch.engine.device import GpuSecretEngine
+from trivy_tpu_torch.engine.hybrid import make_secret_engine
 from trivy_tpu_torch.engine.oracle import OracleScanner
 from trivy_tpu_torch.ftypes import VERIFY_CORPUS, findings_fingerprint
 from trivy_tpu_torch.license import phrases
@@ -240,7 +241,7 @@ def test_program_engine_warm_start_makes_no_compile(compile_calls, tmp_path):
     assert after_cold["compile_rules"] == 3  # the merged table and its two programs
     warm = programs.make_program_engine(device="cpu", rules_cache_dir=cache)
     assert compile_calls == after_cold, "the warm start compiled something"
-    assert isinstance(warm, GpuHybridSecretEngine)
+    assert isinstance(warm, GpuSecretEngine) and warm.sieve == "native"
     got, want = warm.scan_programs(items), cold.scan_programs(items)
     assert [[f.name for f in fs] for fs in got["license"]] == [
         [f.name for f in fs] for fs in want["license"]]

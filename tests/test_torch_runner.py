@@ -618,13 +618,11 @@ def test_fs_runs_on_the_card_by_default(small):
 
 @pytest.mark.parametrize("chunks", [0, 5])
 def test_hybrid_hands_resident_chunks_to_its_program_engine(chunks):
-    """`GpuHybridSecretEngine(resident_chunks=)` reaches the `sieve="native"`
-    engine it composes for programs, as the reference's hybrid hands it to
-    its device-engine base."""
-    from trivy_tpu_torch.engine.hybrid import GpuHybridSecretEngine
-    from trivy_tpu_torch.programs import LicenseScanProgram, build_program_table
+    """`resident_chunks` reaches the `sieve="native"` engine that the default
+    backend builds for programs, as the reference's hybrid hands it to its
+    device-engine base."""
+    from trivy_tpu_torch.programs import LicenseScanProgram, make_program_engine
 
-    table = build_program_table([LicenseScanProgram()])
-    eng = GpuHybridSecretEngine(ruleset=table.merged_ruleset(), device="cpu",
-                                program_table=table, resident_chunks=chunks)
-    assert eng._programs._resident.capacity == eng._programs._row_store.capacity == chunks
+    eng = make_program_engine([LicenseScanProgram()], device="cpu", resident_chunks=chunks)
+    assert eng.sieve == "native"
+    assert eng._resident.capacity == eng._row_store.capacity == chunks

@@ -91,15 +91,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     traffic = json.loads(TRAFFIC.read_text())
     engine = make_program_engine(device=args.device)
-    dev = engine._programs
-    (_secret, _), (_license, sl) = dev.program_table.slices()
+    (_secret, _), (_license, sl) = engine.program_table.slices()
     ref = license_scan.LicenseClassifier()
     for seed in args.seeds:
         tree = make_tree(traffic, seed, stop=args.files)
         cand = np.zeros(len(tree), dtype=bool)
         for lo in range(0, len(tree), 20000):
             part = tree[lo:lo + 20000]
-            cand[lo:lo + len(part)] = dev._candidates([c for _, c in part])[:, sl].any(axis=1)
+            cand[lo:lo + len(part)] = engine._candidates([c for _, c in part])[:, sl].any(axis=1)
         texts = [tree[i][1].decode("utf-8", errors="replace") for i in np.flatnonzero(cand)]
         cos = ref.cosines(texts)
         want = [[license_scan.finding(*v) for v in ref.decide(t, row)]

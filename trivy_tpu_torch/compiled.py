@@ -103,6 +103,21 @@ class CompiledRules:
         return cls.from_sets(art.pset, art.gset)
 
     @classmethod
+    def of(cls, compiled, pset: ProbeSet, gset: GramSet) -> "CompiledRules":
+        """`compiled` (None, a `CompiledRules` or the reference's arrays) as
+        the `CompiledRules` of the ruleset `pset` and `gset` were compiled
+        from; arrays whose grams are not `gset`'s belong to another ruleset
+        and are refused."""
+        if compiled is None:
+            return cls.from_sets(pset, gset)
+        if isinstance(compiled, dict):
+            compiled = cls.from_numpy(compiled)
+        if not (np.array_equal(compiled.masks, gset.masks)
+                and np.array_equal(compiled.vals, gset.vals)):
+            raise ValueError("compiled rules do not belong to this ruleset")
+        return compiled
+
+    @classmethod
     def from_sets(cls, pset: ProbeSet, gset: GramSet) -> "CompiledRules":
         """From a compiled probe set and its gram set (the hybrid engine
         keeps both for its host pre-sieve tables)."""

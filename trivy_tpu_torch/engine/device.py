@@ -82,7 +82,6 @@ import ctypes
 import hashlib
 import os
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -105,6 +104,7 @@ from trivy_tpu_torch.engine.pipeline import (
 )
 from trivy_tpu_torch.engine.probes import build_probe_set
 from trivy_tpu_torch.engine.redfa import DfaVerifier
+from trivy_tpu_torch.engine.stats import SieveStats
 from trivy_tpu_torch.ftypes import Secret
 from trivy_tpu_torch.mesh import topology as mesh_topology
 from trivy_tpu_torch.mesh.plan import Sharded
@@ -155,108 +155,6 @@ def _sync_timing() -> bool:
     return bool(os.environ.get("TRIVY_TPU_SYNC_TIMING"))
 
 
-@dataclass
-class SieveStats:
-    files: int = 0
-    bytes: int = 0
-    tiles: int = 0
-    candidate_pairs: int = 0
-    device_pairs: int = 0  # candidate lanes verified on the device NFA (hybrid)
-    confirmed_findings: int = 0
-    # Wall-clock per phase (seconds), accumulated across scan_batch calls:
-    # host pack, sieve (encode, H2D and kernel launches), candidate derive
-    # and fetch, the claim-killer's C walk, exact confirm.
-    pack_s: float = 0.0
-    sieve_s: float = 0.0
-    candidate_s: float = 0.0
-    verify_s: float = 0.0
-    confirm_s: float = 0.0
-    device_dispatches: int = 0
-    # Filled only under TRIVY_TPU_SYNC_TIMING=1: the H2D copy (ended by a
-    # synchronize) apart from the sieve and its fetch.
-    h2d_s: float = 0.0
-    exec_s: float = 0.0
-    # Chunk-pipeline accounting (engine/pipeline.py): finish-stage wall
-    # that ran while later chunks were staged or executing, content-digest
-    # dedupe savings and seconds (a part of pack_s here, of verify_s in
-    # the hybrid's device pass), resident row-store hits, and the depth
-    # the run used.
-    h2d_overlap_s: float = 0.0
-    dedupe_saved_bytes: int = 0
-    dedupe_s: float = 0.0
-    resident_hits: int = 0
-    pipeline_depth: int = 0
-    # Link accounting: padded chunk bytes before and after the codec, the
-    # host encode time, and the full vs actually fetched D2H bytes.
-    bytes_on_link_raw: int = 0
-    bytes_on_link_coded: int = 0
-    encode_s: float = 0.0
-    d2h_bytes_raw: int = 0
-    d2h_bytes: int = 0
-    # The default engine's (engine/hybrid.py, engine/nfa_device.py), summed
-    # over every call: the scanning thread blocked on the host pre-sieve,
-    # and the device verify's lane assembly and dispatch (the
-    # `sieve.wait`, `verify.assemble` and `verify.dispatch` spans' time),
-    # and the lanes the assembly placed in stream rows.
-    sieve_wait_s: float = 0.0
-    verify_assemble_s: float = 0.0
-    verify_dispatch_s: float = 0.0
-    verify_assemble_lanes: int = 0
-    # The multi-program pass (`scan_programs`), summed over every call: the
-    # merged sieve (dedupe, pack, sieve, candidates), the claim-killer over
-    # the verify columns, each stock program's resolve and, inside the
-    # license resolve, its native fingerprints and B14 with its copies (the
-    # `programs.*` and `license.*` spans' time); the license candidates, the
-    # UTF-8 bytes fingerprinted, the rows B14 was given and its calls.
-    program_sieve_s: float = 0.0
-    program_verify_s: float = 0.0
-    secret_resolve_s: float = 0.0
-    license_resolve_s: float = 0.0
-    license_fingerprint_s: float = 0.0
-    license_classify_s: float = 0.0
-    license_candidate_files: int = 0
-    license_fingerprint_bytes: int = 0
-    license_classify_rows: int = 0
-    license_classify_calls: int = 0
-
-    def phases(self) -> dict:
-        out = {
-            "pack_s": round(self.pack_s, 4),
-            "sieve_s": round(self.sieve_s, 4),
-            "candidate_s": round(self.candidate_s, 4),
-            "confirm_s": round(self.confirm_s, 4),
-        }
-        if self.verify_s:
-            out["verify_s"] = round(self.verify_s, 4)
-        if self.h2d_s or self.exec_s:
-            out["h2d_s"] = round(self.h2d_s, 4)
-            out["exec_s"] = round(self.exec_s, 4)
-        if self.pipeline_depth:
-            out["pipeline_depth"] = self.pipeline_depth
-            out["h2d_overlap_s"] = round(self.h2d_overlap_s, 4)
-        if self.dedupe_saved_bytes:
-            out["dedupe_saved_bytes"] = self.dedupe_saved_bytes
-        if self.dedupe_s:
-            out["dedupe_s"] = round(self.dedupe_s, 4)
-        if self.resident_hits:
-            out["resident_hits"] = self.resident_hits
-        if self.bytes_on_link_raw:
-            out["bytes_on_link_raw"] = self.bytes_on_link_raw
-            out["bytes_on_link_coded"] = self.bytes_on_link_coded
-            out["codec_ratio"] = round(
-                self.bytes_on_link_coded / self.bytes_on_link_raw, 4
-            )
-        if self.encode_s:
-            out["encode_s"] = round(self.encode_s, 4)
-        if self.d2h_bytes_raw:
-            out["d2h_bytes_raw"] = self.d2h_bytes_raw
-            out["d2h_bytes"] = self.d2h_bytes
-            out["d2h_ratio"] = round(self.d2h_bytes / self.d2h_bytes_raw, 4)
-        return out
-
-
-
-
 class GpuSecretEngine:
     """Drop-in engine with the oracle's Scan semantics, on a CUDA card (or
     on the CPU when `device="cpu"`, through the kernels' plain versions).
@@ -266,7 +164,8 @@ class GpuSecretEngine:
     registry `CompiledArtifact` (a warm start: the probe set, gram set, link
     alphabet and digest come from it, and nothing is compiled), a
     `CompiledRules` or the dict of arrays that `CompiledRules.from_numpy`
-    reads; it must be compiled from `ruleset`.  `aot_cache_dir` is the
+    reads; it must be compiled from `ruleset` (arrays of another ruleset
+    are refused).  `aot_cache_dir` is the
     executable cache `warmup()` and `registry.store.aot_warmup` load the
     kernel libraries from (default `TRIVY_TPU_AOT_CACHE`, else
     `trivy_tpu_torch/_build/`).
@@ -277,7 +176,7 @@ class GpuSecretEngine:
     reference's is on only on its accelerator.  It needs `tile_len` a power
     of two >= 256 and some gram.  In auto mode (neither given), `warmup()`
     then prices the reference's megakernel gate (`_price_mega_gate`,
-    engine/hybrid.py `gate_terms` profile "mega") and keeps the megakernel
+    engine/link.py `gate_terms` profile "mega") and keeps the megakernel
     only when it clears the bar.
 
     `max_batch_tiles` caps the row buckets (default 4,096; 32,768 for
@@ -338,11 +237,9 @@ class GpuSecretEngine:
             pset, alphabet = compiled.pset, compiled.alphabet
             self._ruleset_digest = compiled.digest
             compiled = CompiledRules.from_artifact(compiled)
-        elif compiled is None:
+        else:
             pset = build_probe_set(self.ruleset.rules)
-            compiled = CompiledRules.from_sets(pset, build_gram_set(pset))
-        elif isinstance(compiled, dict):
-            compiled = CompiledRules.from_numpy(compiled)
+            compiled = CompiledRules.of(compiled, pset, build_gram_set(pset))
         self.compiled = compiled
         self.sieve = sieve
         self.kernel = "pallas" if kernel == "auto" else kernel
@@ -586,16 +483,14 @@ class GpuSecretEngine:
         when the fused link model at one card clears the bar and the
         measured exec rate clears `MEGA_GATE_EXEC_MB_S`; the decision goes
         to the gate log."""
-        from trivy_tpu_torch.engine.hybrid import gate_terms, record_gate
-
-        terms = gate_terms(
+        terms = link_mod.gate_terms(
             h2d_ratio=self._link.ratio if self._link is not None else 1.0,
             d2h_ratio=link_mod.FUSED_MASK_D2H_RATIO,
             profile="mega", devices=mesh_topology.distinct_device_count(self.mesh),
             exec_mb_s=exec_mb_s, device=self.device,
         )
         self._mega_on = bool(terms["wide"])
-        rec = record_gate("auto", "fused", "mega-wide" if self._mega_on else "mega-narrow",
+        rec = link_mod.record_gate("auto", "fused", "mega-wide" if self._mega_on else "mega-narrow",
                           terms)
         self.mega_gate = {**rec, "exec_mb_per_sec": exec_mb_s}
 

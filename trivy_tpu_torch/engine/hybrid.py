@@ -15,9 +15,8 @@ scarce resource, so the sieve runs where the bytes already live:
      (`engine/nfa_device.py` `GpuNfaVerifier`, kernels K5/K5v/K6) for the
      device-eligible lanes of the whole batch, in one pass after the chunk
      pipeline.  `verify` picks: "dfa", "device" (legacy flag-map stream),
-     "fused" (verdicts on the device, one keep bit a lane), "none", or
-     "auto", which prices the link (`gate_terms`) on a CUDA device and takes
-     "dfa" on the CPU.
+     "fused" (verdicts on the device, one keep bit a lane), or "auto", which
+     takes "fused" on a CUDA device and "dfa" on the CPU.
   3. HOST: the oracle confirms the surviving (file, rule) sets byte-exactly,
      so findings equal the reference's by construction.
 
@@ -26,19 +25,13 @@ the sieve kernels K1-K4.  Unlike the reference, it raises where the
 reference falls back quietly: a device verifier that cannot be built under
 `auto`, and a native library that does not build.
 
-With a `program_table` the engine scans as the reference's does, whose
-hybrid inherits the all-device engine's program demux with the native
-sieve: the C++ row sieve over `pack_dense` rows, the host derive, the host
-DFA claim-killer on the opted-in columns, the programs' resolves.  The
-chunked pre-sieve and the device NFA verify never run then.  The port
-composes: the demux is a `GpuSecretEngine(sieve="native")` over the merged
-ruleset that shares this engine's stats.
+A program table never reaches this engine: `make_secret_engine` builds
+the multi-program engine as `GpuSecretEngine(sieve="native")`, the
+reference hybrid's program path (the native row sieve, the host derive, the
+host DFA claim-killer on the opted-in columns, the programs' resolves).
 
 With a mesh (`mesh=`, else `topology.engine_mesh`'s) the device verify splits
-each dispatch's groups over the lanes (`GpuNfaVerifier(mesh=)`), and the
-gate prices the reference's "mesh" profile at the mesh's count of DISTINCT
-devices: lanes that split one card share its one link, so such a split
-prices as "fused" at one device.
+each dispatch's groups over the lanes (`GpuNfaVerifier(mesh=)`).
 """
 
 from __future__ import annotations
@@ -47,24 +40,23 @@ import contextlib
 import contextvars
 import ctypes
 import functools
-import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from trivy_tpu_torch import deadline, lockcheck
+from trivy_tpu_torch import deadline
 from trivy_tpu_torch.compiled import CompiledRules
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from trivy_tpu_torch.engine import link as link_mod
-from trivy_tpu_torch.engine.device import GpuSecretEngine, SieveStats
+from trivy_tpu_torch.engine.device import GpuSecretEngine
 from trivy_tpu_torch.engine.grams import build_gram_set, fold_members
 from trivy_tpu_torch.engine.nfa_device import GpuNfaVerifier
 from trivy_tpu_torch.engine.oracle import OracleScanner
 from trivy_tpu_torch.engine.pipeline import ChunkPipeline, default_depth
 from trivy_tpu_torch.engine.probes import build_probe_set
 from trivy_tpu_torch.engine.redfa import DfaVerifier, compute_prefix_bounds
+from trivy_tpu_torch.engine.stats import SieveStats
 from trivy_tpu_torch.ftypes import Secret
 from trivy_tpu_torch.mesh import topology as mesh_topology
 from trivy_tpu_torch.native import load_native
@@ -80,129 +72,7 @@ _EMPTY_SECRET = Secret()
 DEFAULT_CHUNK_BYTES = 32 << 20
 GAP = 4  # zero bytes between files: no 4-byte window spans two files
 
-VERIFY_MODES = ("auto", "dfa", "none", "device", "fused")
-
-# Process-wide link measurements, one per TRIVY_TPU_LINK value (and device
-# for a real probe), so engines built again never re-measure the link.
-_LINK_PROBE_LOCK = lockcheck.make_lock("engine.hybrid.link_probe")
-_LINK_PROBE: dict[str, tuple[float, float]] = {}  # owner: _LINK_PROBE_LOCK
-
-
-def probe_link(device: str | torch.device = DEFAULT_DEVICE, size: int = 8 << 20,
-               attempts: int = 3) -> tuple[float, float]:
-    """(MB/s, round-trip s) of the host-to-`device` link, measured once per
-    process as the best of `attempts` copies of `size` incompressible bytes
-    to the device and back of one byte, less the best round trip of an
-    8-byte copy.  TRIVY_TPU_LINK=wide|relay overrides with the reference's
-    figures (tests, known deployments).  A failed probe raises."""
-    override = os.environ.get("TRIVY_TPU_LINK", "")
-    if override in ("wide", "relay"):
-        key = override
-    else:
-        device = resolve_device(device)
-        key = f"{override}@{device}"
-    with _LINK_PROBE_LOCK:
-        cached = _LINK_PROBE.get(key)
-        if cached is not None:
-            return cached
-        if override == "wide":
-            result = (10_000.0, 1e-4)
-        elif override == "relay":
-            result = (50.0, 0.1)
-        else:
-            buf = torch.from_numpy(
-                np.random.default_rng(0).integers(0, 256, size=size, dtype=np.uint8)
-            )
-            buf[:8].to(device)[:1].cpu()  # wake the path
-            best_dt = best_rtt = float("inf")
-            for _ in range(attempts):
-                t0 = time.perf_counter()
-                buf.to(device)[:1].cpu()
-                best_dt = min(best_dt, time.perf_counter() - t0)
-                t0 = time.perf_counter()
-                buf[:8].to(device)[:1].cpu()
-                best_rtt = min(best_rtt, time.perf_counter() - t0)
-            result = (size / max(best_dt - best_rtt, 1e-6) / 1e6, best_rtt)
-        _LINK_PROBE[key] = result
-        return result
-
-
-# The reference's gate constants, unchanged (priced on its TPU links):
-# effective post-codec rate and dispatch RTT the link must clear before
-# verify goes to the device; the fused path's looser RTT bar (O(1)
-# dispatches a batch); the megakernel's measured exec-rate floor.
-GATE_EFF_MB_S = 1000.0
-GATE_RTT_S = 0.01
-FUSED_GATE_RTT_S = 0.25
-MEGA_GATE_EXEC_MB_S = 500.0
-
-
-def gate_terms(
-    h2d_ratio: float = 1.0, d2h_ratio: float = 1.0,
-    profile: str = "stream", devices: int = 1,
-    exec_mb_s: float | None = None,
-    device: str | torch.device = DEFAULT_DEVICE,
-) -> dict:
-    """Measure the link (`probe_link`) and price it against the device
-    bar; returns every term of the decision (the gate log's record body).
-
-    `profile`: "stream" (every verify byte crosses the link, d2h at the
-    compaction ratio), "fused" (rows stay resident: zero re-upload and the
-    FUSED_GATE_RTT_S bar), "mesh" (the fused model at `devices` cards) or
-    "mega" (the fused model at `devices` cards plus the measured
-    `exec_mb_s` against MEGA_GATE_EXEC_MB_S).  `margin` is the signed
-    distance from the flip point, the worst term as a fraction of its
-    threshold; positive = cleared."""
-    mb_s, rtt = probe_link(device)
-    devices = max(int(devices), 1)
-    fused_model = profile in ("fused", "mesh", "mega")
-    reupload = link_mod.FUSED_REUPLOAD_RATIO if fused_model else 1.0
-    rtt_bar = FUSED_GATE_RTT_S if fused_model else GATE_RTT_S
-    eff = link_mod.effective_link_rate(mb_s, h2d_ratio, d2h_ratio, reupload_ratio=reupload)
-    if profile in ("mesh", "mega"):
-        eff *= devices
-    wide = eff >= GATE_EFF_MB_S and rtt < rtt_bar
-    margin = min(eff / GATE_EFF_MB_S - 1.0, 1.0 - rtt / rtt_bar)
-    out = {
-        "profile": profile,
-        "devices": devices,
-        "link_mb_per_sec": mb_s,
-        "link_rtt_s": rtt,
-        "h2d_ratio": h2d_ratio,
-        "d2h_ratio": d2h_ratio,
-        "eff_mb_per_sec": eff,
-        "eff_threshold_mb_per_sec": GATE_EFF_MB_S,
-        "rtt_threshold_s": rtt_bar,
-        "codec": link_mod.codec_mode(),
-        "wide": wide,
-        "margin": margin,
-    }
-    if profile == "mega" and exec_mb_s is not None:
-        out["exec_mb_per_sec"] = exec_mb_s
-        out["exec_threshold_mb_per_sec"] = MEGA_GATE_EXEC_MB_S
-        out["wide"] = wide and exec_mb_s >= MEGA_GATE_EXEC_MB_S
-        out["margin"] = min(margin, exec_mb_s / MEGA_GATE_EXEC_MB_S - 1.0)
-    return out
-
-
-def record_gate(requested: str, backend: str, reason: str, terms: dict) -> dict:
-    """Record a priced decision in the gate log with every link term."""
-    return gatelog.record(
-        requested=requested, backend=backend, reason=reason,
-        profile=terms["profile"], devices=terms["devices"],
-        link_mb_per_sec=terms["link_mb_per_sec"], link_rtt_s=terms["link_rtt_s"],
-        h2d_ratio=terms["h2d_ratio"], d2h_ratio=terms["d2h_ratio"],
-        eff_mb_per_sec=terms["eff_mb_per_sec"],
-        eff_threshold_mb_per_sec=terms["eff_threshold_mb_per_sec"],
-        rtt_threshold_s=terms["rtt_threshold_s"],
-        codec=terms["codec"], margin=terms["margin"],
-    )
-
-
-def _link_is_wide(h2d_ratio: float = 1.0, d2h_ratio: float = 1.0,
-                  device: str | torch.device = DEFAULT_DEVICE) -> bool:
-    """Whether the link clears the legacy stream's device-verify bar."""
-    return gate_terms(h2d_ratio, d2h_ratio, device=device)["wide"]
+VERIFY_MODES = ("auto", "dfa", "device", "fused")
 
 
 @contextlib.contextmanager
@@ -254,35 +124,27 @@ class GpuHybridSecretEngine:
     arrays to seed the verifier (default: the artifact's).  `aot_cache_dir`
     is the executable cache the native library and the verify kernels load
     from (default `TRIVY_TPU_AOT_CACHE`, else `trivy_tpu_torch/_build/`).
-    `program_table` (whose merged ruleset is `ruleset`) makes it
-    multi-program: `scan_programs`, `programs_snapshot`, and `scan_batch`
-    through the secret program (module docstring).  `mesh` (a `Mesh` whose
-    first lane is `device`, or a list of devices; default
-    `topology.engine_mesh`'s) is the device verify's (module docstring).
-    `resident_chunks` is the resident-chunk capacity of the program engine
-    it composes (the reference hands it to its device-engine base).
+    `mesh` (a `Mesh` whose first lane is `device`, or a list of devices;
+    default `topology.engine_mesh`'s) is the device verify's (module
+    docstring).
 
     `build_times` holds the seconds of each part of the construction and of
-    `warmup()` (`device`, `rules`, `oracle`, `link_probe`, `dfa`, `nfa`,
-    `native`, `scan_tables`, `warmup`; `make_secret_engine` adds its own
-    `rules`), each part also an `engine.<part>` span."""
+    `warmup()` (`device`, `rules`, `oracle`, `dfa`, `nfa`, `native`,
+    `scan_tables`, `warmup`; `make_secret_engine` adds its own `rules`),
+    each part also an `engine.<part>` span."""
 
     def __init__(
         self,
         ruleset: RuleSet | None = None,
         config: SecretConfig | None = None,
-        chunk_bytes: int = DEFAULT_CHUNK_BYTES,
         verify: str = "auto",
-        probe_confirm: bool = True,
         pipeline_depth: int | None = None,
         dedupe: bool = True,
         compiled: CompiledArtifact | CompiledRules | dict | None = None,
         rule_stack: dict | None = None,
         device: str | torch.device = DEFAULT_DEVICE,
-        program_table=None,
         aot_cache_dir: str | None = None,
         mesh=None,
-        resident_chunks: int | None = None,
     ):
         if verify not in VERIFY_MODES:
             raise ValueError(f"unknown verify mode: {verify!r}")
@@ -306,24 +168,16 @@ class GpuHybridSecretEngine:
             else:
                 self.pset = build_probe_set(self.ruleset.rules)
                 self.gset = build_gram_set(self.pset)
-            if compiled is None:
-                compiled = CompiledRules.from_sets(self.pset, self.gset)
-            elif isinstance(compiled, dict):
-                compiled = CompiledRules.from_numpy(compiled)
-            if not (np.array_equal(compiled.masks, self.gset.masks)
-                    and np.array_equal(compiled.vals, self.gset.vals)):
-                raise ValueError("compiled rules do not belong to this ruleset")
+                compiled = CompiledRules.of(compiled, self.pset, self.gset)
         with part("oracle"):
             self.oracle = OracleScanner(self.ruleset)
         self.compiled = compiled
-        self.chunk_bytes = chunk_bytes
         self.stats = SieveStats()
         self.pipeline_depth = (
             pipeline_depth if pipeline_depth is not None else default_depth()
         )
         self.dedupe = dedupe
-        with part("link_probe"):
-            self.verify, self.gate_decision = self._resolve_verify(verify)
+        self.verify, self.gate_decision = self._resolve_verify(verify)
         self._nfa_verifier: GpuNfaVerifier | None = None
         self._dfa_verifier: DfaVerifier | None = None
         if self.verify in ("dfa", "device", "fused"):
@@ -347,24 +201,12 @@ class GpuHybridSecretEngine:
         with part("scan_tables"):
             (self._norm_masks, self._norm_vals, self._norm_perm,
              self._norm_strip) = normalize_grams(self.gset.masks, self.gset.vals)
-            self.probe_confirm = probe_confirm
             # Rules that are candidates with zero gram hits (all their gating
             # probes are gram-less), resolved once on an all-zero row.
             zero = np.zeros((1, self.gset.num_grams), dtype=bool)
             base = self.compiled.candidate_matrix_bool(self.gset.probe_hits_bool(zero))[0]
             self._base_cand = np.flatnonzero(base)
             self._build_scan_tables()
-        self.program_table = program_table
-        self._programs: GpuSecretEngine | None = None
-        if program_table is not None:
-            self._programs = GpuSecretEngine(
-                ruleset=self.ruleset, compiled=compiled, device=self.device,
-                sieve="native", pipeline_depth=self.pipeline_depth, dedupe=dedupe,
-                resident_chunks=resident_chunks,
-                program_table=program_table, aot_cache_dir=aot_cache_dir,
-                mesh=self.mesh or [self.device],
-            )
-            self._programs.stats = self.stats
 
     @property
     def ruleset_digest(self) -> str:
@@ -376,58 +218,19 @@ class GpuHybridSecretEngine:
             self._ruleset_digest = ruleset_digest(self.ruleset)
         return self._ruleset_digest
 
-    @property
-    def program_stats(self) -> dict:
-        return self._programs.program_stats if self._programs is not None else {}
-
-    def scan_programs(self, items: list[tuple[str, bytes]],
-                      only: tuple[str, ...] | None = None) -> dict[str, list]:
-        """One native-sieve pass, per-program verdicts
-        (`GpuSecretEngine.scan_programs`)."""
-        if self._programs is None:
-            raise RuntimeError(
-                "scan_programs needs an engine built with a program_table "
-                "(programs.make_program_engine)")
-        return self._programs.scan_programs(items, only)
-
-    def programs_snapshot(self) -> dict:
-        if self._programs is None:
-            return {"enabled": False}
-        return self._programs.programs_snapshot()
-
-    def verify_devices(self) -> int:
-        """The device count the gate prices: the mesh's distinct devices,
-        else `capacity_hint()`."""
-        if self.mesh is not None:
-            return mesh_topology.distinct_device_count(self.mesh)
-        return mesh_topology.capacity_hint()
-
     def _resolve_verify(self, verify: str) -> tuple[str, dict]:
-        """(verify mode, gate log record).  `auto` on a CUDA device prices
-        the "mesh" profile at `verify_devices()` when that is more than one
-        device, else the fused profile, then the legacy stream, then falls
-        to the host DFA; on the CPU it takes the DFA (reason `no-device`)."""
+        """(verify mode, gate log record).  `auto` takes the fused device
+        verify on a CUDA device (reason `cuda`) and the host DFA on the CPU
+        (reason `no-device`).  The link is not measured: the reference's
+        fused cost model (`engine/link.py` `gate_terms`) clears any link
+        faster than 3.34 MB/s with a round trip under 0.25 s, so its price
+        cannot change the choice."""
         if verify != "auto":
             return verify, gatelog.record(requested=verify, backend=verify, reason="forced")
         if self.device.type != "cuda":
             return "dfa", gatelog.record(requested="auto", backend="dfa",
                                          reason="no-device")
-        n_dev = self.verify_devices()
-        terms = gate_terms(d2h_ratio=link_mod.FUSED_MASK_D2H_RATIO,
-                           profile="mesh" if n_dev > 1 else "fused", devices=n_dev,
-                           device=self.device)
-        if terms["wide"]:
-            verify = "fused"
-        else:
-            d2h_ratio = (link_mod.STREAM_D2H_RATIO
-                         if link_mod.d2h_compaction_enabled() else 1.0)
-            terms = gate_terms(d2h_ratio=d2h_ratio, device=self.device)
-            verify = "device" if terms["wide"] else "dfa"
-        if terms["wide"] and terms["profile"] == "mesh":
-            reason = "mesh-wide"
-        else:
-            reason = "link-wide" if terms["wide"] else "link-narrow"
-        return verify, record_gate("auto", verify, reason, terms)
+        return "fused", gatelog.record(requested="auto", backend="fused", reason="cuda")
 
     def _build_scan_tables(self) -> None:
         """Flat CSR tables for the fused C scan (gram_sieve_scan_files)."""
@@ -466,8 +269,6 @@ class GpuHybridSecretEngine:
         self._gram_cls_len = np.zeros(g, dtype=np.int32)
         self._gram_align = np.zeros(g, dtype=np.int32)
         self._cls_blob = np.zeros(0, dtype=np.uint8)
-        if not self.probe_confirm:
-            return
         p_count = len(self.pset.probes)
         cls_off = np.zeros(p_count, dtype=np.int32)
         cls_len = np.zeros(p_count, dtype=np.int32)
@@ -513,8 +314,6 @@ class GpuHybridSecretEngine:
             load_native(self.aot_cache_dir)
             if self._nfa_verifier is not None:
                 self._nfa_verifier.warmup(self.aot_cache_dir)
-            if self._programs is not None:
-                self._programs.warmup()
 
     # ------------------------------------------------------------------
 
@@ -550,7 +349,7 @@ class GpuHybridSecretEngine:
                 self._gate_ptr.ctypes.data, self._gate_probes.ctypes.data,
                 self._rule_conj_ptr.ctypes.data, self._conj_ptr.ctypes.data,
                 self._conj_probes.ctypes.data, len(self.pset.plans),
-                self._cls_blob.ctypes.data if self.probe_confirm else None,
+                self._cls_blob.ctypes.data,
                 self._gram_cls_start.ctypes.data,
                 self._gram_cls_len.ctypes.data,
                 self._gram_align.ctypes.data,
@@ -570,12 +369,12 @@ class GpuHybridSecretEngine:
         return pairs, dev, ptr_arr, lens, (pack_dt, sieve_dt)
 
     def _chunks(self, items: list[tuple[str, bytes]]) -> list[tuple[int, int]]:
-        """Contiguous item ranges of ~chunk_bytes each."""
+        """Contiguous item ranges of ~DEFAULT_CHUNK_BYTES each."""
         out: list[tuple[int, int]] = []
         start, size = 0, 0
         for i, (_p, c) in enumerate(items):
             size += len(c) + GAP
-            if size >= self.chunk_bytes and i + 1 > start:
+            if size >= DEFAULT_CHUNK_BYTES and i + 1 > start:
                 out.append((start, i + 1))
                 start, size = i + 1, 0
         if start < len(items):
@@ -584,8 +383,6 @@ class GpuHybridSecretEngine:
 
     def scan_batch(self, items: list[tuple[str, bytes]]) -> list[Secret]:
         """Scan (path, content) blobs; returns per-file Secret results."""
-        if self._programs is not None:
-            return self._programs.scan_batch(items)
         if not items:
             return []
         gd = self.gate_decision
@@ -830,8 +627,11 @@ def make_secret_engine(
       oracle  the pure-Python reference engine
     Aliases: tpu = device, cpu = oracle.  A `program_table` kwarg makes the
     engine multi-program (`ruleset` must be its merged ruleset: use
-    `programs.make_program_engine`); the oracle has no sieve to demux and
-    refuses it.
+    `programs.make_program_engine`): under auto and hybrid that engine is
+    native's, the program path of the reference's hybrid; the oracle has no
+    sieve to demux and refuses it.  `resident_chunks` (in `kw`) reaches the
+    engines that keep resident rows, device and native; the hybrid keeps
+    none.
 
     `rules_cache_dir` routes construction through the compiled-artifact
     registry (`registry/store.py`): a valid cached artifact supplies the
@@ -857,13 +657,16 @@ def make_secret_engine(
                 if ruleset is None:
                     ruleset = build_ruleset(config)
                 kw["compiled"], _ = get_or_compile(ruleset, cache_dir=rules_cache_dir)
+        if backend not in ("auto", "hybrid", "device", "native"):
+            raise ValueError(f"unknown secret-engine backend: {backend!r}")
+        if backend != "device" and kw.get("program_table") is not None:
+            backend = "native"
         if backend in ("device", "native"):
             if backend == "native":
                 kw["sieve"] = "native"
             return GpuSecretEngine(ruleset=ruleset, config=config, device=device,
                                    mesh=mesh, **kw)
-        if backend not in ("auto", "hybrid"):
-            raise ValueError(f"unknown secret-engine backend: {backend!r}")
+        kw.pop("resident_chunks", None)
         engine = GpuHybridSecretEngine(ruleset=ruleset, config=config, device=device,
                                        mesh=mesh, **kw)
     for part, seconds in times.items():

@@ -41,13 +41,6 @@ _SPACE = [0x09, 0x0A, 0x0C, 0x0D, 0x20]  # RE2 \s (translator expands it, but be
 _PY_SPACE = [0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x20]  # Python bytes \s
 
 
-def bs_from(*byte_vals: int) -> int:
-    m = 0
-    for b in byte_vals:
-        m |= 1 << b
-    return m
-
-
 def bs_from_iter(it) -> int:
     m = 0
     for b in it:

@@ -21,9 +21,11 @@ mask (the megakernel's, or the fused verify's keep bits), and
 are plain tensor code, as the reference's are XLA programs and not Pallas
 kernels.
 
-**Link economics**: `effective_link_rate` and the ratios it is priced with,
-the cost model of the hybrid engine's verify gate and the megakernel gate
-(`engine/hybrid.py` `gate_terms`), copied with the reference's constants.
+**Link economics**: `probe_link` measures the link once a process,
+`gate_terms` prices it with `effective_link_rate` and the ratios, and
+`record_gate` writes the priced decision to the gate log: the cost model of
+the all-device engine's megakernel gate (`engine/device.py`
+`_price_mega_gate`), copied with the reference's constants.
 
 `TRIVY_TPU_LINK_CODEC` (off | auto | 4 | 6, default auto) selects the mode,
 the same variable the JAX package reads.
@@ -32,17 +34,20 @@ the same variable the JAX package reads.
 from __future__ import annotations
 
 import hashlib
-
 import math
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from trivy_tpu_torch import lockcheck
+from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from trivy_tpu_torch.engine.grams import fold_byte
 from trivy_tpu_torch.engine.probes import _FREQ
 from trivy_tpu_torch.mesh.plan import Sharded
+from trivy_tpu_torch.obs import gatelog
 
 # D2H compaction thresholds: tiny results fit one fetch anyway, and dense
 # results (bitmap says > this fraction of rows hit) pay for the extra
@@ -50,8 +55,7 @@ from trivy_tpu_torch.mesh.plan import Sharded
 MIN_COMPACT_ROWS = 64
 COMPACT_MAX_FRAC = 0.25
 
-# Effective-rate model for the hybrid verify gate (engine/hybrid.py), the
-# reference's constants: D2H_SHARE is d2h bytes as a fraction of h2d bytes
+# Effective-rate model of `gate_terms`, the reference's constants: D2H_SHARE is d2h bytes as a fraction of h2d bytes
 # on the device verify stream, STREAM_D2H_RATIO the post-compaction d2h
 # fraction on sparse-hit corpora, FUSED_MASK_D2H_RATIO the fused path's one
 # keep bit per lane against the flag map, and FUSED_REUPLOAD_RATIO the
@@ -397,3 +401,120 @@ def effective_link_rate(
     fully resident, fully compacted path finite."""
     denom = reupload_ratio * h2d_ratio + D2H_SHARE * d2h_ratio
     return mb_s * (1.0 + D2H_SHARE) / max(denom, 1e-9)
+
+
+# Process-wide link measurements, one per TRIVY_TPU_LINK value (and device
+# for a real probe), so engines built again never re-measure the link.
+_LINK_PROBE_LOCK = lockcheck.make_lock("engine.link.probe")
+_LINK_PROBE: dict[str, tuple[float, float]] = {}  # owner: _LINK_PROBE_LOCK
+
+
+def probe_link(device: str | torch.device = DEFAULT_DEVICE, size: int = 8 << 20,
+               attempts: int = 3) -> tuple[float, float]:
+    """(MB/s, round-trip s) of the host-to-`device` link, measured once per
+    process as the best of `attempts` copies of `size` incompressible bytes
+    to the device and back of one byte, less the best round trip of an
+    8-byte copy.  TRIVY_TPU_LINK=wide|relay overrides with the reference's
+    figures (tests, known deployments).  A failed probe raises."""
+    override = os.environ.get("TRIVY_TPU_LINK", "")
+    if override in ("wide", "relay"):
+        key = override
+    else:
+        device = resolve_device(device)
+        key = f"{override}@{device}"
+    with _LINK_PROBE_LOCK:
+        cached = _LINK_PROBE.get(key)
+        if cached is not None:
+            return cached
+        if override == "wide":
+            result = (10_000.0, 1e-4)
+        elif override == "relay":
+            result = (50.0, 0.1)
+        else:
+            buf = torch.from_numpy(
+                np.random.default_rng(0).integers(0, 256, size=size, dtype=np.uint8)
+            )
+            buf[:8].to(device)[:1].cpu()  # wake the path
+            best_dt = best_rtt = float("inf")
+            for _ in range(attempts):
+                t0 = time.perf_counter()
+                buf.to(device)[:1].cpu()
+                best_dt = min(best_dt, time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                buf[:8].to(device)[:1].cpu()
+                best_rtt = min(best_rtt, time.perf_counter() - t0)
+            result = (size / max(best_dt - best_rtt, 1e-6) / 1e6, best_rtt)
+        _LINK_PROBE[key] = result
+        return result
+
+
+# The reference's gate constants, unchanged (priced on its TPU links):
+# effective post-codec rate and dispatch RTT the link must clear before
+# verify goes to the device; the fused path's looser RTT bar (O(1)
+# dispatches a batch); the megakernel's measured exec-rate floor.
+GATE_EFF_MB_S = 1000.0
+GATE_RTT_S = 0.01
+FUSED_GATE_RTT_S = 0.25
+MEGA_GATE_EXEC_MB_S = 500.0
+
+
+def gate_terms(
+    h2d_ratio: float = 1.0, d2h_ratio: float = 1.0,
+    profile: str = "stream", devices: int = 1,
+    exec_mb_s: float | None = None,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> dict:
+    """Measure the link (`probe_link`) and price it against the device
+    bar; returns every term of the decision (the gate log's record body).
+
+    `profile`: "stream" (every verify byte crosses the link, d2h at the
+    compaction ratio), "fused" (rows stay resident: zero re-upload and the
+    FUSED_GATE_RTT_S bar), "mesh" (the fused model at `devices` cards) or
+    "mega" (the fused model at `devices` cards plus the measured
+    `exec_mb_s` against MEGA_GATE_EXEC_MB_S).  `margin` is the signed
+    distance from the flip point, the worst term as a fraction of its
+    threshold; positive = cleared."""
+    mb_s, rtt = probe_link(device)
+    devices = max(int(devices), 1)
+    fused_model = profile in ("fused", "mesh", "mega")
+    reupload = FUSED_REUPLOAD_RATIO if fused_model else 1.0
+    rtt_bar = FUSED_GATE_RTT_S if fused_model else GATE_RTT_S
+    eff = effective_link_rate(mb_s, h2d_ratio, d2h_ratio, reupload_ratio=reupload)
+    if profile in ("mesh", "mega"):
+        eff *= devices
+    wide = eff >= GATE_EFF_MB_S and rtt < rtt_bar
+    margin = min(eff / GATE_EFF_MB_S - 1.0, 1.0 - rtt / rtt_bar)
+    out = {
+        "profile": profile,
+        "devices": devices,
+        "link_mb_per_sec": mb_s,
+        "link_rtt_s": rtt,
+        "h2d_ratio": h2d_ratio,
+        "d2h_ratio": d2h_ratio,
+        "eff_mb_per_sec": eff,
+        "eff_threshold_mb_per_sec": GATE_EFF_MB_S,
+        "rtt_threshold_s": rtt_bar,
+        "codec": codec_mode(),
+        "wide": wide,
+        "margin": margin,
+    }
+    if profile == "mega" and exec_mb_s is not None:
+        out["exec_mb_per_sec"] = exec_mb_s
+        out["exec_threshold_mb_per_sec"] = MEGA_GATE_EXEC_MB_S
+        out["wide"] = wide and exec_mb_s >= MEGA_GATE_EXEC_MB_S
+        out["margin"] = min(margin, exec_mb_s / MEGA_GATE_EXEC_MB_S - 1.0)
+    return out
+
+
+def record_gate(requested: str, backend: str, reason: str, terms: dict) -> dict:
+    """Record a priced decision in the gate log with every link term."""
+    return gatelog.record(
+        requested=requested, backend=backend, reason=reason,
+        profile=terms["profile"], devices=terms["devices"],
+        link_mb_per_sec=terms["link_mb_per_sec"], link_rtt_s=terms["link_rtt_s"],
+        h2d_ratio=terms["h2d_ratio"], d2h_ratio=terms["d2h_ratio"],
+        eff_mb_per_sec=terms["eff_mb_per_sec"],
+        eff_threshold_mb_per_sec=terms["eff_threshold_mb_per_sec"],
+        rtt_threshold_s=terms["rtt_threshold_s"],
+        codec=terms["codec"], margin=terms["margin"],
+    )

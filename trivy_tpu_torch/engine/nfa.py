@@ -55,19 +55,6 @@ class UnionNFA:
     pos_rule: np.ndarray  # [m] int32
     rule_ids: list[str]
 
-    def follow_dense(self) -> np.ndarray:
-        """[m, m] float32 follow matrix for the MXU formulation."""
-        m = self.num_positions
-        out = np.zeros((m, m), dtype=np.float32)
-        for p in range(m):
-            for w in range(self.num_words):
-                word = int(self.follow[p, w])
-                while word:
-                    low = word & -word
-                    out[p, w * 32 + low.bit_length() - 1] = 1.0
-                    word ^= low
-        return out
-
 
 class _Builder:
     def __init__(self, max_rep: int = MAX_REP_EXPAND) -> None:

@@ -54,7 +54,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import os
 import time
 from collections import deque
 
@@ -64,9 +63,9 @@ import torch
 from trivy_tpu_torch import faults
 from trivy_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from trivy_tpu_torch.engine import link as link_mod
-from trivy_tpu_torch.engine.device import SieveStats
 from trivy_tpu_torch.engine.pipeline import default_depth
 from trivy_tpu_torch.engine.redfa import compile_search_nfa64, compute_prefix_bounds
+from trivy_tpu_torch.engine.stats import SieveStats
 from trivy_tpu_torch.mesh import plan as mesh_plan
 from trivy_tpu_torch.mesh import topology as mesh_topology
 from trivy_tpu_torch.native import load_native
@@ -92,18 +91,6 @@ _NO_TRIM = np.iinfo(np.int32).max
 STREAM_TIERS = (512, 4096, 16384)  # row lengths; spans take the smallest fit
 RULE_STACK_BUCKETS = (4, 8, 16, 32)  # per-dispatch rule counts
 STREAM_GROUP_BUCKETS = (1, 2, 4) + GROUP_BUCKETS
-
-# Fused mode's block walk: "assoc" (per-block affine summaries combined by
-# an associative scan) or "seq"; "auto" takes assoc when the dispatch's
-# summaries fit this budget.  On the card both launch K5 (the mode is
-# recorded); on the CPU each runs its own plain version.
-FUSED_ASSOC_BUDGET_BYTES = 64 << 20
-
-
-def fused_scan_mode() -> str:
-    """TRIVY_TPU_FUSED_SCAN: auto (default) | assoc | seq."""
-    mode = os.environ.get("TRIVY_TPU_FUSED_SCAN", "auto").strip().lower()
-    return mode if mode in ("auto", "assoc", "seq") else "auto"
 
 
 @dataclasses.dataclass
@@ -385,7 +372,6 @@ class GpuNfaVerifier:
         depth = default_depth()
         tiers = STREAM_TIERS
         fused = bool(self.fused)
-        scan_mode = fused_scan_mode() if fused else "seq"
         st = self.stream_stats = {
             "lanes": int(len(s_idx)), "span_bytes": 0,
             "rows": [0] * len(tiers),
@@ -395,7 +381,6 @@ class GpuNfaVerifier:
             "fetch_bytes_raw": 0, "fetch_bytes": 0,
             "backend": "fused" if fused else "stream",
             "sieve_kernel": self.sieve_kernel_id,
-            "scan_mode": scan_mode,
         }
         compact_fetch = link_mod.d2h_compaction_enabled()
         t_asm = time.perf_counter()
@@ -537,10 +522,6 @@ class GpuNfaVerifier:
                         table[1, :n_l] = slots_l
                         table[2, :n_l] = b0_l
                         table[3, :n_l] = b1_l
-                        est = lo_blocks * gcap * LANES_PER_GROUP * 64 * 64 * 4
-                        assoc = scan_mode == "assoc" or (
-                            scan_mode == "auto" and est <= FUSED_ASSOC_BUDGET_BYTES
-                        )
                         faults.fire("nfa.dispatch")
                         shards = self._shards("stream_bytes", rows_arr)
                         indexed = []  # (lanes' positions, rows, LaneIndex) a shard
@@ -565,7 +546,7 @@ class GpuNfaVerifier:
                         # the phase holds the launches alone, the uploads before it
                         ph = obs_metrics.device_phase("verify.fused")
                         parts = [(sel, nfa_stream_verdict(rows_dev, stacks[rows_dev.device],
-                                                          lanes, assoc=assoc))
+                                                          lanes))
                                  for sel, rows_dev, lanes in indexed]
                         ph.done([out for _, out in parts])
                         # what the legacy flag-map fetch would have moved

@@ -5,12 +5,14 @@ JAX package).  In the port, `engine/hybrid.py` records the verify gate and
 `engine/device.py` the megakernel gate here; the server consumers named
 below come with the port's server.
 
-Every hybrid-gate resolution (engine/hybrid.py) records a structured
-decision here — the measured link terms (`probe_link`), the post-codec
-effective rate the cost model priced (`effective_link_rate`), the
-thresholds it was held against, the chosen backend and the margin by
-which it won — so "why did auto resolve to dfa" is answerable from a
-running process instead of re-derived by hand from bench output.
+Every hybrid-gate resolution (engine/hybrid.py) records its decision
+here: the requested and chosen backend and the reason.  The megakernel
+gate (engine/device.py) prices the link and records the measured link
+terms (`engine/link.py` `probe_link`), the post-codec effective rate the
+cost model priced (`effective_link_rate`), the thresholds it was held
+against and the margin by which it won, so "why did the megakernel stay
+off" is answerable from a running process instead of re-derived by hand
+from bench output.
 
 The log is process-global on purpose: engines are constructed from CLI
 scans, server scheduler lanes, and reload threads alike, and the
@@ -24,21 +26,19 @@ per-registry.  Consumers:
 - the flight recorder embeds `records()` in breach captures, so an
   incident shows the gate state that routed it.
 
-Reasons are a bounded enum (metric-label safe): `link-wide`,
-`link-narrow`, `mesh-wide` (the multi-device mesh profile cleared the
-bar — the record carries `profile`/`devices` so the aggregate-rate
-pricing is auditable), `no-device`, `forced`, `fallback`, `breaker` (a
-runtime circuit-breaker transition re-routing batches — see
-engine/breaker.py and the serve scheduler's failure domains).
+Reasons are a bounded enum (metric-label safe): `cuda` (`auto` on a CUDA
+device, which verifies fused unpriced), `no-device`, `forced`,
+`mega-wide` and `mega-narrow` (the megakernel gate's priced verdict — the
+record carries `profile`/`devices`), `fallback`, `breaker` (a runtime
+circuit-breaker transition re-routing batches — see engine/breaker.py and
+the serve scheduler's failure domains).
 
 Backends are likewise bounded: `dfa`, `device` (legacy flag-map
 stream), `fused` (device-resident verify — lane verdicts resolve
 on-device and only a packed keep-mask crosses the link; see
-engine/nfa_device.py), `none`, `auto`.  A `fused` record whose terms
-carry `profile: "fused"` was priced against the fused cost model
-(zero re-upload, FUSED_GATE_RTT_S bar — engine/hybrid.py gate_terms);
-the serve scheduler's degraded ladder steps fused -> legacy-device ->
-host-DFA, each rung visible here and in `/debug/gate`.
+engine/nfa_device.py), `auto`.  The serve scheduler's degraded ladder
+steps fused -> legacy-device -> host-DFA, each rung visible here and in
+`/debug/gate`.
 """
 
 from __future__ import annotations

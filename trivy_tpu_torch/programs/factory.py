@@ -39,8 +39,10 @@ def make_program_engine(
     `programs` is a list of ScanPrograms (or a prebuilt ProgramTable);
     None = `default_programs(config)`.  `backend` accepts the
     make_secret_engine engine backends (auto/device/native/hybrid; alias
-    tpu = device): the oracle backend has no sieve and therefore no
-    program demux.  `compiled` (in `kw`) takes the merged table's
+    tpu = device): device builds `GpuSecretEngine` over the device sieve,
+    the others `GpuSecretEngine(sieve="native")`, the reference hybrid's
+    program path; the oracle backend has no sieve and therefore no program
+    demux.  `compiled` (in `kw`) takes the merged table's
     `CompiledArtifact`, `CompiledRules` or the reference's arrays.
     `rules_cache_dir` routes every compile through the registry's
     program-id-keyed warm path: the merged table under

@@ -394,9 +394,9 @@ class ScanServer:
 
     def _build_engine(self):
         """Default engine factory: built lazily ON the engine-owner thread
-        at first dispatch (a GpuHybridSecretEngine probes the device link
-        at construction — server startup and cache-only traffic must not
-        pay it), and again on a staging thread at each hot reload.  Reads
+        at first dispatch (a GpuHybridSecretEngine starts CUDA and builds
+        its verify tables at construction — server startup and cache-only
+        traffic must not pay it), and again on a staging thread at each hot reload.  Reads
         self.secret_config dynamically so an admin reload that moved the
         config path sticks for later SIGHUPs.  A build on the card that
         fails raises: no host engine stands in for it."""
